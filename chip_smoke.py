@@ -18,12 +18,25 @@ Phases, each printing its own lines; any failure exits non-zero:
   5. the main path: the 60 s stereo 44.1 kHz 128 kbps clip of bench.py,
      one run with K1's launch count reset before and read after, then 3
      timed runs; the stream must sit on the frame grid and its first
-     10 s must decode within 1 dB of the CPU path's 10 s encode.
+     10 s must decode within 1 dB of the CPU path's 10 s encode;
+  6. MPEG-2 LSF: the three 0.5 s mono cases of tests/test_lsf.py, then a
+     60 s stereo 24 kHz 64 kbps clip (K1 launches counted), interior
+     frames on the grid, first 10 s within 1 dB of the CPU path;
+  7. streaming: the bench clip in 1 s pieces through StreamEncoder at
+     window 1024 (K1 launches counted, timed) must equal the one-shot
+     encode at chunk 1024 byte for byte, and so must a run checkpointed
+     at 30 s, pickled and resumed in a fresh encoder;
+  8. Layers I/II: the six fixtures of tests/test_layer12_fast.py and its
+     CRC case, then a 60 s stereo 44.1 kHz Layer II 192 kbps clip (frame
+     grid, timed, first 10 s within 0.5 dB of the CPU path);
+  9. the command line: python -m mp3tpu_torch on a 10 s WAV and on raw
+     PCM piped to stdin must write the library's bytes.
 Its last lines are a JSON object describing the kernels and then
 {"ok": true, "device": {...}}.  It imports nothing of JAX.
 """
 import json
 import os
+import pickle
 import statistics
 import subprocess
 import sys
@@ -116,6 +129,19 @@ def phase_kernel(k1, torch):
             print("  (no profiler device time: the JSON reports call times)",
                   flush=True)
         results[G] = (err, k_dev, p_dev)
+    # MPEG-2 LSF (22.05 kHz): its long-block sfb table moves the region
+    # addresses
+    from mp3tpu.tables import mpeg
+    args = kernel_args(*random_batch(22050, 4096), "cuda", mpeg.MPEG2_LSF)
+    got = k1.hist_c1(*args)
+    torch.cuda.synchronize()
+    want = k1.hist_c1_plain(*args)
+    for name, a, b in zip(("bits_tab", "mx", "c1_b0raw", "c1_signs"),
+                          got, want):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            fail(f"K1 != plain on the LSF batch in {name}")
+    print("K1 hist_c1 G=4096 MPEG-2 LSF 22.05 kHz tables: equal to plain",
+          flush=True)
     return results
 
 
@@ -172,11 +198,282 @@ def phase_quality(np, encode, EncoderConfig, decode_mp3, snr_db, read_wav):
           f"({worst[1]} ch{worst[2]}: {worst[3]:.2f} dB)", flush=True)
 
 
-def first_seconds_snr(np, out, pcm, fsize, seconds, decode_mp3, snr_db):
-    nf = -(-int(seconds * 44100) // 1152)
+def first_seconds_snr(np, out, pcm, fsize, seconds, decode_mp3, snr_db,
+                      rate=44100, spf=1152):
+    nf = -(-int(seconds * rate) // spf)
     dec, _ = decode_mp3(out[:nf * fsize])
-    return [float(snr_db(pcm[:nf * 1152, c].astype(np.float64), dec[:, c]))
+    return [float(snr_db(pcm[:nf * spf, c].astype(np.float64), dec[:, c]))
             for c in range(pcm.shape[1])]
+
+
+def lsf_grid(out, rate, kbps):
+    """tests/test_lsf.py's check: MPEG-2 version bit, every interior frame
+    on the CBR grid (an LSF stream's tail is cut mid-frame at flush)."""
+    fsize = 72000 * kbps // rate
+    if out[0] != 0xFF or (out[1] & 0xF0) != 0xF0:
+        fail(f"LSF {rate} Hz: no sync word at byte 0")
+    if (out[1] >> 3) & 1:
+        fail(f"LSF {rate} Hz: version bit is not MPEG-2")
+    nfull = (len(out) - 1) // fsize
+    if nfull < 5:
+        fail(f"LSF {rate} Hz: only {nfull} whole frames")
+    for k in range(nfull - 1):
+        if out[k * fsize] != 0xFF or (out[k * fsize + 1] & 0xF0) != 0xF0:
+            fail(f"LSF {rate} Hz: frame {k} off the grid")
+    return fsize
+
+
+def phase_lsf(ctx):
+    """Phase 6: MPEG-2 LSF on the card; returns K1's launches on the 60 s
+    clip."""
+    np, torch, k1 = ctx["np"], ctx["torch"], ctx["k1"]
+    EncoderConfig, mpeg = ctx["EncoderConfig"], ctx["mpeg"]
+    encode, decode_mp3, snr_db = (ctx["encode"], ctx["decode_mp3"],
+                                  ctx["snr_db"])
+    for rate, kbps in ((22050, 64), (24000, 64), (16000, 48)):
+        t = np.arange(int(0.5 * rate)) / rate
+        rng = np.random.RandomState(5)
+        x = 0.25 * np.sin(2 * np.pi * 440 * t) + 0.02 * rng.randn(len(t))
+        pcm = np.clip(x * 20000, -32768, 32767).astype(np.int16)
+        cfg = EncoderConfig(layer=3, mode=mpeg.MODE_MONO, bitrate_kbps=kbps,
+                            sample_rate_hz=rate)
+        out = encode(pcm, cfg, device="cuda")
+        lsf_grid(out, rate, kbps)
+        dec, drate = decode_mp3(out)
+        snr = float(snr_db(pcm.astype(np.float64), dec[:, 0]))
+        if drate != rate or not snr > 25.0:
+            fail(f"LSF {rate} Hz {kbps} kbps: rate {drate}, SNR {snr:.2f} dB")
+        print(f"LSF {rate} Hz {kbps} kbps mono 0.5 s: MPEG-2 grid, decoded "
+              f"SNR {snr:.2f} dB (> 25)", flush=True)
+
+    rate, kbps = 24000, 64
+    pcm = ctx["make_signal"](CLIP_SECONDS, rate)
+    cfg = EncoderConfig(layer=3, mode=mpeg.MODE_STEREO, bitrate_kbps=kbps,
+                        sample_rate_hz=rate)
+    k1.hist_c1.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = encode(pcm, cfg, device="cuda")
+    wall = time.perf_counter() - t0
+    launches = k1.hist_c1.launches
+    if launches <= 0:
+        fail("the LSF path launched K1 no time")
+    fsize = lsf_grid(out, rate, kbps)
+    print(f"LSF 60 s stereo 24 kHz 64 kbps: {len(out)} bytes, interior "
+          f"frames on the {fsize}-byte grid, {wall:.3f} s (first run): "
+          f"{CLIP_SECONDS / wall:.2f}x real time; K1 launches {launches}",
+          flush=True)
+    t0 = time.perf_counter()
+    encode(pcm, cfg, device="cuda")
+    wall = time.perf_counter() - t0
+    print(f"LSF 60 s stereo 24 kHz 64 kbps, second run: {wall:.3f} s, "
+          f"{CLIP_SECONDS / wall:.2f}x real time", flush=True)
+    short = pcm[:int(10.0 * rate)]
+    out_cpu = encode(short, cfg, device="cpu")
+    args = (np, decode_mp3, snr_db, rate, 576)
+    snr_gpu = first_seconds_snr(args[0], out, pcm, fsize, 10.0, *args[1:])
+    snr_cpu = first_seconds_snr(args[0], out_cpu, short, fsize, 10.0,
+                                *args[1:])
+    print(f"LSF first 10 s decoded SNR: cuda {snr_gpu} dB, cpu path "
+          f"{snr_cpu} dB", flush=True)
+    for g, c in zip(snr_gpu, snr_cpu):
+        if not np.isfinite(g) or g < c - 1.0:
+            fail(f"LSF first-10 s SNR {g:.2f} dB is more than 1 dB below "
+                 f"the CPU path's {c:.2f} dB")
+    return launches
+
+
+def phase_stream(ctx, pcm, cfg_of):
+    """Phase 7: StreamEncoder on the card against the one-shot encode;
+    returns K1's launches on the timed stream."""
+    torch, k1 = ctx["torch"], ctx["k1"]
+    from mp3tpu_torch.encoder import StreamEncoder
+    rate = 44100
+    one = ctx["encode"](pcm, cfg_of(), device="cuda", chunk=1024)
+
+    def run(enc, lo, hi):
+        out = []
+        for s in range(lo, hi, rate):
+            out.append(enc.feed(pcm[s:min(s + rate, hi)]))
+        return b"".join(out)
+
+    k1.hist_c1.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    enc = StreamEncoder(cfg_of(), "cuda", window=1024)
+    streamed = run(enc, 0, len(pcm)) + enc.finish()
+    wall = time.perf_counter() - t0
+    launches = k1.hist_c1.launches
+    if launches <= 0:
+        fail("the streaming path launched K1 no time")
+    if streamed != one:
+        fail(f"stream ({len(streamed)} bytes) != one-shot at chunk 1024 "
+             f"({len(one)} bytes)")
+    print(f"stream: 60 s stereo 128 kbps in 1 s pieces, window 1024: "
+          f"{wall:.3f} s, {CLIP_SECONDS / wall:.2f}x real time; equal to "
+          f"the one-shot encode at chunk 1024 ({len(one)} bytes); K1 "
+          f"launches {launches}", flush=True)
+
+    cut = 30 * rate
+    enc1 = StreamEncoder(cfg_of(), "cuda", window=1024)
+    part1 = run(enc1, 0, cut)
+    blob = pickle.dumps(enc1.checkpoint())
+    del enc1
+    enc2 = StreamEncoder.resume(cfg_of(), pickle.loads(blob), "cuda",
+                                window=1024)
+    part2 = run(enc2, cut, len(pcm)) + enc2.finish()
+    if part1 + part2 != one:
+        fail("checkpoint at 30 s + resume != the uninterrupted stream")
+    print(f"stream: checkpoint at 30 s ({len(blob)} bytes pickled) and "
+          f"resume in a fresh encoder give the same bytes", flush=True)
+    return launches
+
+
+L12_FIXTURES = [
+    ("l2_sine_st_192", 2, "s", 192, 44100),
+    ("l2_noise_j_128", 2, "j", 128, 44100),
+    ("l2_sweep_mono_96", 2, "m", 96, 44100),
+    ("l2_trans_st_256_48k", 2, "s", 256, 48000),
+    ("l1_sine_st_384", 1, "s", 384, 44100),
+    ("l1_sweep_j_256", 1, "j", 256, 44100),
+]
+L12_DELAY = {1: 545, 2: 481}
+
+
+def l12_snr(np, orig, deco, d):
+    n = min(len(orig) - d, len(deco) - d)
+    o = orig[:n].astype(np.float64)
+    err = o - deco[d:d + n] * 32768.0
+    return 10 * np.log10((o ** 2).sum() / max((err ** 2).sum(), 1e-30))
+
+
+def phase_layer12(ctx):
+    """Phase 8: Layers I/II on the card."""
+    np, torch, EncoderConfig, mpeg = (ctx["np"], ctx["torch"],
+                                      ctx["EncoderConfig"], ctx["mpeg"])
+    from mp3tpu.decoder import layer12 as dec12
+    from mp3tpu_torch.encoder import encode_layer12_fast
+    modes = {"s": mpeg.MODE_STEREO, "j": mpeg.MODE_JOINT,
+             "m": mpeg.MODE_MONO}
+    golden = os.path.join(ROOT, "tests", "golden")
+    worst = None
+    for name, layer, mode, kbps, rate in L12_FIXTURES:
+        pcm, _ = ctx["read_wav"](os.path.join(golden, f"{name}.wav"))
+        cfg = EncoderConfig(layer=layer, mode=modes[mode],
+                            bitrate_kbps=kbps, sample_rate_hz=rate)
+        out = encode_layer12_fast(pcm, cfg, "cuda")
+        with open(os.path.join(golden, f"{name}.ref.mp{layer}"), "rb") as f:
+            ref = f.read()
+        if len(out) != len(ref) or out[:3] != ref[:3]:
+            fail(f"{name}: length {len(out)} vs {len(ref)} or header "
+                 f"{out[:3].hex()} vs {ref[:3].hex()}")
+        dec_o, _ = dec12.decode(out)
+        dec_r, _ = dec12.decode(ref)
+        for c in range(pcm.shape[1]):
+            s_o = l12_snr(np, pcm[:, c], dec_o[:, c], L12_DELAY[layer])
+            s_r = l12_snr(np, pcm[:, c], dec_r[:, c], L12_DELAY[layer])
+            if not s_o >= s_r - 0.5:
+                fail(f"{name} ch{c}: SNR {s_o:.2f} dB vs reference "
+                     f"{s_r:.2f} dB")
+            if worst is None or s_o - s_r < worst[0]:
+                worst = (s_o - s_r, name, c)
+    pcm, rate = ctx["read_wav"](os.path.join(golden,
+                                             "l2_noise_st_192_crc.wav"))
+    cfg = EncoderConfig(layer=2, mode=mpeg.MODE_STEREO, bitrate_kbps=192,
+                        sample_rate_hz=rate, error_protection=True)
+    dec, _ = dec12.decode(encode_layer12_fast(pcm, cfg, "cuda"))
+    if len(dec) < len(pcm) - 1152 or \
+            not l12_snr(np, pcm[:, 0], dec[:, 0], L12_DELAY[2]) > 0.0:
+        fail("Layer II CRC fixture does not decode")
+    print(f"Layers I/II: 6 fixtures at the reference streams' length and "
+          f"header, decoded SNR within 0.5 dB (worst {worst[0]:+.4f} dB, "
+          f"{worst[1]} ch{worst[2]}); CRC fixture decodes", flush=True)
+
+    pcm = ctx["make_signal"](CLIP_SECONDS, 44100)
+    cfg = EncoderConfig(layer=2, mode=mpeg.MODE_STEREO, bitrate_kbps=192,
+                        sample_rate_hz=44100)
+    out = encode_layer12_fast(pcm, cfg, "cuda")             # warm-up
+    times = []
+    for _ in range(TIMED_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_t = encode_layer12_fast(pcm, cfg, "cuda")
+        times.append(time.perf_counter() - t0)
+        if out_t != out:
+            fail("Layer II: two encodes of one clip differ")
+    fsize = int(1152 / 44.1 * 192 / 8)
+    nframes = -(-len(pcm) // 1152)
+    if len(out) != nframes * fsize + 1:
+        fail(f"Layer II stream length {len(out)} != {nframes} x {fsize} + 1")
+    for f in range(nframes):
+        if out[f * fsize] != 0xFF or (out[f * fsize + 1] & 0xF0) != 0xF0:
+            fail(f"Layer II frame {f} off the grid")
+    wall = statistics.median(times)
+    short = pcm[:int(10.0 * 44100)]
+    out_cpu = encode_layer12_fast(short, cfg, "cpu")
+    nf = -(-len(short) // 1152)
+    dec_g, _ = dec12.decode(out[:nf * fsize])
+    dec_c, _ = dec12.decode(out_cpu[:nf * fsize])
+    snr_g = [l12_snr(np, short[:, c], dec_g[:, c], L12_DELAY[2])
+             for c in range(2)]
+    snr_c = [l12_snr(np, short[:, c], dec_c[:, c], L12_DELAY[2])
+             for c in range(2)]
+    print(f"Layer II 60 s stereo 192 kbps: {wall:.3f} s median of "
+          f"{TIMED_RUNS} ({', '.join(f'{t:.3f}' for t in times)} s): "
+          f"{CLIP_SECONDS / wall:.2f}x real time; frame grid ok; first 10 s "
+          f"SNR cuda {snr_g} dB, cpu path {snr_c} dB", flush=True)
+    for g, c in zip(snr_g, snr_c):
+        if not np.isfinite(g) or g < c - 0.5:
+            fail(f"Layer II first-10 s SNR {g:.2f} dB is more than 0.5 dB "
+                 f"below the CPU path's {c:.2f} dB")
+
+
+def phase_cli(ctx, pcm, cfg_of):
+    """Phase 9: python -m mp3tpu_torch writes the library's bytes."""
+    np, EncoderConfig, mpeg = ctx["np"], ctx["EncoderConfig"], ctx["mpeg"]
+    from mp3tpu.runtime.wav import write_wav
+    from mp3tpu_torch.encoder import encode_layer3_stream, encode_layer12_fast
+    work = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    pcm = pcm[:int(10.0 * 44100)]
+    wav = os.path.join(work, "in.wav")
+    write_wav(wav, pcm, 44100)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+
+    def cli(args, stdin=None):
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "mp3tpu_torch",
+                              "--device", "cuda"] + args, input=stdin,
+                             cwd=ROOT, env=env, capture_output=True,
+                             timeout=300)
+        if res.returncode != 0:
+            fail(f"mp3tpu_torch {' '.join(args)}: rc {res.returncode}\n"
+                 f"{res.stderr.decode(errors='replace')[-2000:]}")
+        return time.perf_counter() - t0
+
+    def read(path):
+        with open(path, "rb") as f:
+            return f.read()
+
+    out1 = os.path.join(work, "out.mp3")
+    t1 = cli(["-b", "128", wav, out1])
+    if read(out1) != ctx["encode"](pcm, cfg_of(), device="cuda"):
+        fail("CLI file encode != encode_layer3_fast(..., 'cuda')")
+    out2 = os.path.join(work, "out2.mp3")
+    raw = pcm.astype(">i2").tobytes()
+    t2 = cli(["-b", "128", "-s", "44.1", "-", out2], stdin=raw)
+    lib = b"".join(encode_layer3_stream([pcm], cfg_of(), "cuda"))
+    if read(out2) != lib:
+        fail("CLI stdin stream != encode_layer3_stream(..., 'cuda')")
+    out3 = os.path.join(work, "out3.mp2")
+    t3 = cli(["-l", "2", "-b", "192", wav, out3])
+    cfg = EncoderConfig(layer=2, mode=mpeg.MODE_STEREO, bitrate_kbps=192,
+                        sample_rate_hz=44100)
+    if read(out3) != encode_layer12_fast(pcm, cfg, "cuda"):
+        fail("CLI -l 2 encode != encode_layer12_fast(..., 'cuda')")
+    print(f"CLI: python -m mp3tpu_torch --device cuda equals the library "
+          f"on a 10 s WAV ({t1:.2f} s), raw stdin stream ({t2:.2f} s) and "
+          f"-l 2 ({t3:.2f} s), process start included", flush=True)
 
 
 def main():
@@ -261,13 +558,35 @@ def main():
             fail(f"first-10 s SNR {g:.2f} dB is more than 1 dB below the "
                  f"CPU path's {c:.2f} dB")
 
+    ctx = dict(np=np, torch=torch, k1=k1, EncoderConfig=EncoderConfig,
+               mpeg=mpeg, encode=encode_layer3_fast, decode_mp3=decode_mp3,
+               snr_db=snr_db, read_wav=read_wav, make_signal=make_signal)
+
+    def cfg_of():
+        return EncoderConfig(layer=3, mode=mpeg.MODE_STEREO,
+                             bitrate_kbps=128, sample_rate_hz=44100)
+
+    phases = [("6 LSF", lambda: phase_lsf(ctx)),
+              ("7 streaming", lambda: phase_stream(ctx, pcm, cfg_of)),
+              ("8 Layers I/II", lambda: phase_layer12(ctx)),
+              ("9 CLI", lambda: phase_cli(ctx, pcm, cfg_of))]
+    counts = {}
+    for name, run in phases:
+        t0 = time.perf_counter()
+        counts[name] = run()
+        print(f"phase {name}: {time.perf_counter() - t0:.2f} s", flush=True)
+
     err, k_ms, p_ms = kres[4096]
     print(json.dumps({"kernels": [{
         "name": "hist_c1", "route": "cuda",
         "source": "mp3tpu_torch/csrc/hist_c1.cu",
         "replaces": "mp3tpu/ops/pallas_bits.py:69",
         "launches": launches, "max_abs_err": err,
-        "ms": k_ms, "plain_ms": p_ms}]}), flush=True)
+        "ms": k_ms, "plain_ms": p_ms,
+        "launches_by_path": {"main": launches,
+                             "lsf": counts["6 LSF"],
+                             "stream": counts["7 streaming"]}}]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

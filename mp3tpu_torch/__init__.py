@@ -1,9 +1,12 @@
-"""mp3tpu_torch: the Layer III encoder of ``mp3tpu`` ported to PyTorch.
+"""mp3tpu_torch: the single-device encoder of ``mp3tpu`` ported to PyTorch
+(Layer III one-shot and streaming, MPEG-1 and MPEG-2 LSF; Layers I/II;
+``python -m mp3tpu_torch``).
 
 The JAX package ``mp3tpu`` is the reference; this package mirrors its
-layout (``ops/``, ``models/``, ``encoder.py``) and shares its jax-free
-parts as they are: ``mp3tpu.tables``, ``mp3tpu.config``,
-``mp3tpu.decoder``, ``mp3tpu.runtime.{wav,bitstream,mpg123}`` and the
+layout (``ops/``, ``models/``, ``encoder.py``, ``cli.py``) and shares its
+jax-free parts as they are: ``mp3tpu.tables``, ``mp3tpu.config``,
+``mp3tpu.cli``, ``mp3tpu.numpy_ref``, ``mp3tpu.decoder``,
+``mp3tpu.runtime.{wav,aiff,bitstream,alloc12,profiling,mpg123}`` and the
 native assembler under ``native/``.  Nothing here imports jax.
 
 Every entry point takes an explicit ``device``; there is no automatic

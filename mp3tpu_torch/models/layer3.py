@@ -72,13 +72,11 @@ def pack_state(state, block_type):
 
 class Layer3SegmentEncoder(nn.Module):
     """The Layer III segment program for one (version, sampling_frequency)
-    on `device`.  MPEG-1 only; LSF raises."""
+    on `device`: MPEG-1 (32/44.1/48 kHz) or MPEG-2 LSF (16/22.05/24 kHz,
+    one granule per frame, no scfsi)."""
 
     def __init__(self, version, sampling_frequency, device):
         super().__init__()
-        if version != mpeg.MPEG1:
-            raise NotImplementedError(
-                "mp3tpu_torch: MPEG-2 LSF is not ported yet")
         self.version = version
         self.sampling_frequency = sampling_frequency
         self.sfreq_hz = float(mpeg.S_FREQ_KHZ[version][sampling_frequency]) \
@@ -139,8 +137,8 @@ class Layer3SegmentEncoder(nn.Module):
         blocks_h4 (nch, 4+S, 576) int16-valued; rows 0:2 psy halo, rows
         2:4 warmup granules.  fsm_init (nch,) int.  Returns xr (nch*S,
         576) and its rate-loop inputs, pe, p23 (demand), qss (warm lower
-        bound for the final encode), fsm_state, n_nonfinite, and the
-        scfsi flags with the demand granule-0 scalefactors."""
+        bound for the final encode), fsm_state, n_nonfinite, and for
+        MPEG-1 the scfsi flags with the demand granule-0 scalefactors."""
         ST = self.tables("st")
         nch = blocks_h4.shape[0]
         S = blocks_h4.shape[1] - 4
@@ -165,17 +163,19 @@ class Layer3SegmentEncoder(nn.Module):
                               ana["ratio_s"],
                               ana["block_type"] != mpeg.NORM_TYPE,
                               ana["block_type"], ST)
-        return dict(
+        res = dict(
             xr=ana["xr"], ratio_l=ana["ratio_l"], ratio_s=ana["ratio_s"],
             block_type=ana["block_type"], pe=ana["pe"],
             p23=out["part2_3_length"].to(torch.int32),
             qss=out["qss0"].to(torch.float32), fsm_state=fsm_state,
-            n_nonfinite=(~finite).sum().to(torch.int32),
-            scfsi=torch.stack([_scfsi_flags(a["xr"], a["ratio_l"],
-                                            a["ratio_s"], a["block_type"],
-                                            ST) for a in anas]),
-            sf_fix=out["sf_l"].reshape(nch, S, 21)[:, 0::2]
-            .to(torch.int8))
+            n_nonfinite=(~finite).sum().to(torch.int32))
+        if not ST["lsf"]:
+            res["scfsi"] = torch.stack([
+                _scfsi_flags(a["xr"], a["ratio_l"], a["ratio_s"],
+                             a["block_type"], ST) for a in anas])
+            res["sf_fix"] = out["sf_l"].reshape(nch, S, 21)[:, 0::2] \
+                .to(torch.int8)
+        return res
 
     def encode_final(self, xr, ratio_l, ratio_s, block_type, budget,
                      payload_words=bits.PAYLOAD_WORDS, scfsi=None,
@@ -185,13 +185,14 @@ class Layer3SegmentEncoder(nn.Module):
         scfsi (nch, C//2, 4) + sf_fix (nch, C//2, 21): granule pairs
         whose marked bands are sent once; both granules of a pair fix
         those bands to the demand values, granule 1 skips sending them.
-        Returns dict(side (N, 19) int16, payload: (N, payload_words)
-        rows or, with flat_cap, the compacted (flat_cap,) buffer)."""
+        MPEG-2 LSF has no scfsi: both are ignored there.  Returns
+        dict(side (N, 19) int16, payload: (N, payload_words) rows or, with
+        flat_cap, the compacted (flat_cap,) buffer)."""
         ST = self.tables("st")
         is_short_block = block_type != mpeg.NORM_TYPE
         is_short = is_short_block & (block_type == 2)
         mask = vals = skipm = None
-        if scfsi is not None and sf_fix is not None:
+        if scfsi is not None and sf_fix is not None and not ST["lsf"]:
             N = xr.shape[0]
             C = N // nch
             band_idx = torch.as_tensor(BAND_OF_SFB, device=xr.device)
@@ -243,14 +244,18 @@ class Layer3SegmentEncoder(nn.Module):
         h = self.encode_final(ana["xr"], ana["ratio_l"], ana["ratio_s"],
                               ana["block_type"], row,
                               payload_words=payload_words,
-                              scfsi=ana["scfsi"], sf_fix=ana["sf_fix"],
-                              nch=nch, qss_lo=ana["qss"], flat_cap=flat_cap)
-        return dict(side=h["side"], payload=h["payload"],
-                    fsm_state=ana["fsm_state"], size=size_out,
-                    target=target, demand=demand,
-                    n_nonfinite=ana["n_nonfinite"], xr=ana["xr"],
-                    ratio_l=ana["ratio_l"], ratio_s=ana["ratio_s"],
-                    block_type=ana["block_type"], qss=ana["qss"],
-                    scfsi=ana["scfsi"], sf_fix=ana["sf_fix"])
+                              scfsi=ana.get("scfsi"),
+                              sf_fix=ana.get("sf_fix"), nch=nch,
+                              qss_lo=ana["qss"], flat_cap=flat_cap)
+        out = dict(side=h["side"], payload=h["payload"],
+                   fsm_state=ana["fsm_state"], size=size_out,
+                   target=target, demand=demand,
+                   n_nonfinite=ana["n_nonfinite"], xr=ana["xr"],
+                   ratio_l=ana["ratio_l"], ratio_s=ana["ratio_s"],
+                   block_type=ana["block_type"], qss=ana["qss"])
+        if "scfsi" in ana:
+            out["scfsi"] = ana["scfsi"]
+            out["sf_fix"] = ana["sf_fix"]
+        return out
 
     encode_segment_fused = forward

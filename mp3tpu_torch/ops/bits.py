@@ -23,6 +23,14 @@ PAYLOAD_WORDS = 128   # 4096 bits >= max part2_3_length (12-bit field)
 
 _MASK32 = 0xFFFFFFFF
 
+# LSF partition of each long sfb (21) and of each short (sfb, window)
+# slot (36), for table_number 0 and 2 (jaxbits._P_LONG_T0 ... _P_SHORT_T2)
+_NR = mpeg.NR_OF_SFB_BLOCK
+P_LONG_T0 = np.repeat(np.arange(4), _NR[0][0])
+P_LONG_T2 = np.repeat(np.arange(4), _NR[2][0])
+P_SHORT_T0 = np.repeat(np.arange(4), _NR[0][1] // 3)
+P_SHORT_T2 = np.repeat(np.arange(4), _NR[2][1] // 3)
+
 
 def numpy_tables():
     """Emission lookup tables (numpy, int64)."""
@@ -33,7 +41,10 @@ def numpy_tables():
         c1_code=HUFF.codes[32:34, 0, :16].reshape(32).astype(np.int64),
         c1_hlen=HUFF.hlen[32:34, 0, :16].reshape(32).astype(np.int64),
         slen1=mpeg.SLEN1_TAB.astype(np.int64),
-        slen2=mpeg.SLEN2_TAB.astype(np.int64))
+        slen2=mpeg.SLEN2_TAB.astype(np.int64),
+        lsf_part_long=np.stack([P_LONG_T0, P_LONG_T2]).astype(np.int64),
+        lsf_part_short=np.stack([np.repeat(P_SHORT_T0, 3),
+                                 np.repeat(P_SHORT_T2, 3)]).astype(np.int64))
 
 
 def device_tables(device):
@@ -60,6 +71,36 @@ def scalefac_elements(sf_l, sf_s, compress, is_short, BT, skip_mask=None):
         skip36 = torch.cat([skip_mask, torch.zeros((G, 15), dtype=torch.bool,
                                                    device=dev)], dim=1)
         len_l = torch.where(skip36, 0, len_l)
+    values = torch.where(is_short[:, None], sf_s.reshape(G, 36)
+                         .to(torch.int64), val_l)
+    lengths = torch.where(is_short[:, None], len_s, len_l)
+    return values, lengths
+
+
+def scalefac_elements_lsf(sf_l, sf_s, compress, is_short, BT):
+    """MPEG-2 LSF scalefactor elements, 36 slots per granule.  The four
+    slen values and the partition come from the 9-bit scalefac_compress
+    as a decoder derives them (IS 13818-3 2.4.3.2); compress >= 500
+    implies table_number 2 (preflag).  Long: sfb 0..20; short: (sfb,
+    window) slots."""
+    G = sf_l.shape[0]
+    dev = sf_l.device
+    sc = compress.to(torch.int64)
+    pre = sc >= 500
+    s2 = (sc - 500).clamp(min=0)
+    z = torch.zeros_like(s2)
+    slen = torch.where(
+        pre[:, None], torch.stack([s2 // 3, s2 % 3, z, z], dim=1),
+        torch.stack([(sc >> 4) // 5, (sc >> 4) % 5, (sc & 15) >> 2, sc & 3],
+                    dim=1))                                   # (G, 4)
+    p = pre.to(torch.int64)
+    len_l = torch.cat([torch.gather(slen, 1, BT["lsf_part_long"][p]),
+                       torch.zeros((G, 15), dtype=torch.int64, device=dev)],
+                      dim=1)
+    len_s = torch.gather(slen, 1, BT["lsf_part_short"][p])
+    val_l = torch.cat([sf_l.to(torch.int64),
+                       torch.zeros((G, 15), dtype=torch.int64, device=dev)],
+                      dim=1)
     values = torch.where(is_short[:, None], sf_s.reshape(G, 36)
                          .to(torch.int64), val_l)
     lengths = torch.where(is_short[:, None], len_s, len_l)
@@ -166,9 +207,13 @@ def count1_elements(ix_signed, big_values, count1, c1ts, BT):
 def granule_elements(state, ix_signed, is_short, ST, BT, skip_mask=None):
     """The whole main_data element stream of a granule batch: 36 + 576 +
     144 = 756 elements.  state: the outer_loop output dict."""
-    sv, sl = scalefac_elements(state["sf_l"], state["sf_s"],
-                               state["compress"], is_short, BT,
-                               skip_mask=skip_mask)
+    if ST["lsf"]:
+        sv, sl = scalefac_elements_lsf(state["sf_l"], state["sf_s"],
+                                       state["compress"], is_short, BT)
+    else:
+        sv, sl = scalefac_elements(state["sf_l"], state["sf_s"],
+                                   state["compress"], is_short, BT,
+                                   skip_mask=skip_mask)
     pv, pl = pair_elements(ix_signed, state["a1"], state["a2"],
                            state["big_values"], state["table_select"],
                            is_short, ST, BT)

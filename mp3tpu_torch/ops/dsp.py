@@ -69,6 +69,17 @@ def device_tables(c, device):
                 sign=f(SIGN))
 
 
+def polyphase(flat, DT):
+    """Polyphase analysis of a float32 sample stream whose first 512
+    samples are history: one (32,) subband vector per 32 new samples,
+    (len(flat) / 32 - 16, 32)."""
+    # W[t, j] = flat[32 (t + 1) + j]: the reference window z[t, 511 - j]
+    W = flat[32:].unfold(0, 512, 32)
+    v = W * DT["enwindow_rev"][None, :]
+    y = v.reshape(-1, 8, 64).sum(dim=1)
+    return y @ DT["ana_filter_rev_t"]
+
+
 def subband_granules(blocks, prev_tail, DT):
     """Polyphase analysis for a batch of granules.
 
@@ -78,12 +89,7 @@ def subband_granules(blocks, prev_tail, DT):
     G = blocks.shape[0]
     flat = torch.cat([prev_tail.to(torch.float32),
                       blocks.reshape(-1).to(torch.float32)])
-    # W[t, j] = flat[32 (t + 1) + j]: the reference window z[t, 511 - j]
-    W = flat[32:].unfold(0, 512, 32)                     # (18 G, 512)
-    v = W * DT["enwindow_rev"][None, :]
-    y = v.reshape(-1, 8, 64).sum(dim=1)
-    s = y @ DT["ana_filter_rev_t"]
-    return s.reshape(G, 18, 32)
+    return polyphase(flat, DT).reshape(G, 18, 32)
 
 
 def mdct_granules(sb, sb_prev_last, block_type, DT):

@@ -80,7 +80,8 @@ def static_tables(version, sampling_frequency):
 _FLOAT_KEYS = ("oh_l", "bw_l", "oh_s", "bw_s", "oh_s_perm", "pre_gain",
                "pre_gain75", "pre_xmin")
 _INT_KEYS = ("sfb_l", "perm_short", "subdv", "first", "esc_a", "esc_b",
-             "slen1", "slen2", "lim1", "lim2")
+             "slen1", "slen2", "lim1", "lim2", "lsf_slots", "lsf_maxsfac",
+             "log2_tab")
 
 
 def device_tables(st, device):
@@ -88,12 +89,19 @@ def device_tables(st, device):
     dict, plus the sample-rate independent lookup tables; the Python
     values r0_pairs_short and lsf ride along."""
     arrays = dict(st)
+    nr = mpeg.NR_OF_SFB_BLOCK
     arrays.update(subdv=mpeg.SUBDV_TABLE, first=FIRST_TABLE_FOR_MAX,
                   esc_a=ESC_TABLE_A, esc_b=ESC_TABLE_B,
                   slen1=mpeg.SLEN1_TAB, slen2=mpeg.SLEN2_TAB,
                   lim1=2 ** mpeg.SLEN1_TAB, lim2=2 ** mpeg.SLEN2_TAB,
                   pre_gain=_PRE_GAIN, pre_gain75=_PRE_GAIN75,
-                  pre_xmin=_PRE_XMIN)
+                  pre_xmin=_PRE_XMIN,
+                  # LSF partitions, [preflag][short]: table_number 0, or 2
+                  # with preflag (loop.c:871-993)
+                  lsf_slots=np.stack([nr[0][:2], nr[2][:2]]),
+                  lsf_maxsfac=np.stack([mpeg.MAX_SFAC_TAB[0],
+                                        mpeg.MAX_SFAC_TAB[2]]),
+                  log2_tab=mpeg.LOG2_TAB)
     out = {k: torch.as_tensor(np.asarray(arrays[k]), dtype=dt, device=device)
            for keys, dt in ((_FLOAT_KEYS, torch.float32),
                             (_INT_KEYS, torch.int64)) for k in keys}
@@ -310,6 +318,45 @@ def scale_bitcount(sf_l, sf_s, is_short, ST, skip_mask=None):
     return k.to(torch.int32), part2.to(torch.int32), overflow
 
 
+def _partition_max(sf, parts, per):
+    """(G, 4) maxima of sf over consecutive partitions of parts[p] // per
+    bands each; an empty partition gives 0 (scalefactors are >= 0)."""
+    G = sf.shape[0]
+    outs, s = [], 0
+    for n in parts:
+        e = s + int(n) // per
+        outs.append(sf[:, s:e].reshape(G, -1).amax(dim=1) if e > s
+                    else torch.zeros(G, dtype=sf.dtype, device=sf.device))
+        s = e
+    return torch.stack(outs, dim=1)
+
+
+def scale_bitcount_lsf(sf_l, sf_s, is_short, preflag, ST):
+    """MPEG-2 LSF slen/scalefac_compress selection (loop.c:871-993).
+    Non-intensity channels use table_number 0 (2 with preflag); rows 0
+    (long) / 1 (short, counted in thirds); no mixed blocks.
+    Returns compress (G,), part2 (G,), overflow (G,)."""
+    nr = mpeg.NR_OF_SFB_BLOCK
+
+    def maxima(t):
+        return torch.where(is_short[:, None],
+                           _partition_max(sf_s, nr[t][1], 3),
+                           _partition_max(sf_l, nr[t][0], 1))
+
+    pre = preflag == 1
+    max_sfac = torch.where(pre[:, None], maxima(2), maxima(0))    # (G, 4)
+    p = pre.to(torch.int64)
+    overflow = (max_sfac > ST["lsf_maxsfac"][p]).any(dim=1)
+    slen = ST["log2_tab"][max_sfac.clamp(0, 15).to(torch.int64)]
+    compress0 = (((slen[:, 0] * 5 + slen[:, 1]) << 4) + (slen[:, 2] << 2)
+                 + slen[:, 3])
+    compress2 = 500 + slen[:, 0] * 3 + slen[:, 1]
+    compress = torch.where(pre, compress2, compress0)
+    slots = ST["lsf_slots"][p, is_short.to(torch.int64)]          # (G, 4)
+    part2 = (slen * slots).sum(dim=1)
+    return compress.to(torch.int32), part2.to(torch.int32), overflow
+
+
 # ---------------------------------------------------------------------------
 # stepsize search + outer loop
 # ---------------------------------------------------------------------------
@@ -399,9 +446,6 @@ def outer_loop(xr, budget, ratio_l, ratio_s, is_short_block, block_type,
     qss_lo: warm lower bound for the initial bisection.
     Returns dict of per-granule coding decisions (see jaxloop.outer_loop).
     """
-    if ST["lsf"]:
-        raise NotImplementedError("mp3tpu_torch: MPEG-2 LSF rate loop "
-                                  "is not ported yet")
     G = xr.shape[0]
     dev = xr.device
     is_short = is_short_block & (block_type == 2)
@@ -430,6 +474,11 @@ def outer_loop(xr, budget, ratio_l, ratio_s, is_short_block, block_type,
     if sf_skip_mask is not None:
         skip = sf_skip_mask & long_[:, None]
 
+    def sbc(sf_l, sf_s, preflag):
+        if ST["lsf"]:
+            return scale_bitcount_lsf(sf_l, sf_s, is_short, preflag, ST)
+        return scale_bitcount(sf_l, sf_s, is_short, ST, skip_mask=skip)
+
     perm = ST["perm_short"]
     # initial full bisection once; iterations warm-walk from its result
     xr75 = torch.pow(xr_abs, 0.75)
@@ -453,8 +502,7 @@ def outer_loop(xr, budget, ratio_l, ratio_s, is_short_block, block_type,
 
     it = 0
     while it < max_iter and any_on_host(~done):
-        compress, part2, overflow = scale_bitcount(sf_l, sf_s, is_short, ST,
-                                                   skip_mask=skip)
+        compress, part2, overflow = sbc(sf_l, sf_s, preflag)
         huff = torch.clamp(budget - part2, min=0.0)
         qss, bits, c = search_walk(xr75p, huff, qss_prev, is_short,
                                    is_short_block, ST)
@@ -561,8 +609,7 @@ def outer_loop(xr, budget, ratio_l, ratio_s, is_short_block, block_type,
         all_amped = torch.where(is_short,
                                 (sf_s > 0).reshape(G, 36).all(dim=1),
                                 amped_l.all(dim=1))
-        overflow2 = scale_bitcount(sf_l, sf_s, is_short, ST,
-                                   skip_mask=skip)[2]
+        overflow2 = sbc(sf_l, sf_s, preflag)[2]
         done = done | overflow2 | torch.where(
             filling, (slack <= 32.0) | (fill_rounds_next >= 2),
             ~over_any | all_amped)

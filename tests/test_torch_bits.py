@@ -10,6 +10,10 @@ from mp3tpu.ops import jaxbits, jaxloop
 from mp3tpu.tables import mpeg
 from mp3tpu_torch.ops import bits, loop
 
+# the CPU path is thousands of small ops: intra-op threads only contend
+# with the other test processes
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def batch():

@@ -14,6 +14,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from mp3tpu import encoder as jencoder
 from mp3tpu.config import EncoderConfig
@@ -23,6 +24,10 @@ from mp3tpu.runtime import mpg123
 from mp3tpu.runtime.wav import read_wav
 from mp3tpu.tables import mpeg
 from mp3tpu_torch import encoder as tencoder
+
+# the CPU path is thousands of small ops: intra-op threads only contend
+# with the other test processes
+torch.set_num_threads(1)
 
 CASES = [
     ("sine_mono_64", mpeg.MODE_MONO, 64, 44100),
@@ -211,19 +216,28 @@ def test_port_never_imports_jax():
     code = (
         "import sys, numpy as np\n"
         "import mp3tpu_torch\n"
-        "from mp3tpu_torch.encoder import encode_layer3_fast\n"
+        "import mp3tpu_torch.cli\n"
+        "import mp3tpu_torch.ops.layer12\n"
+        "from mp3tpu_torch.encoder import (encode_layer3_fast,"
+        " encode_layer3_stream, encode_layer12_fast)\n"
         "from mp3tpu_torch.models.layer3 import Layer3SegmentEncoder\n"
         "from mp3tpu.config import EncoderConfig\n"
         "from mp3tpu.tables import mpeg\n"
-        "cfg = EncoderConfig(layer=3, mode=mpeg.MODE_MONO, bitrate_kbps=64,"
-        " sample_rate_hz=44100)\n"
         "rng = np.random.RandomState(0)\n"
         "pcm = (rng.randn(4 * 1152) * 3000).astype(np.int16)\n"
-        "out = encode_layer3_fast(pcm, cfg, device='cpu')\n"
-        "assert len(out) > 100 and out[0] == 0xFF\n"
+        "for rate, kbps in ((44100, 64), (22050, 32)):\n"
+        "    cfg = EncoderConfig(layer=3, mode=mpeg.MODE_MONO,"
+        " bitrate_kbps=kbps, sample_rate_hz=rate)\n"
+        "    out = encode_layer3_fast(pcm, cfg, device='cpu')\n"
+        "    assert len(out) > 100 and out[0] == 0xFF\n"
+        "    assert b''.join(encode_layer3_stream([pcm], cfg, 'cpu',"
+        " window=8))[0] == 0xFF\n"
+        "cfg = EncoderConfig(layer=2, mode=mpeg.MODE_MONO, bitrate_kbps=64,"
+        " sample_rate_hz=44100)\n"
+        "assert encode_layer12_fast(pcm, cfg, 'cpu')[0] == 0xFF\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "print('ok')\n")
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-2000:]

@@ -13,6 +13,10 @@ from mp3tpu.tables import mpeg
 from mp3tpu_torch.ops import hist_c1 as k1
 from test_torch_hist_c1_card import random_batch
 
+# the CPU path is thousands of small ops: intra-op threads only contend
+# with the other test processes
+torch.set_num_threads(1)
+
 
 def _jax_inputs(ix, is_short, wsf):
     ST = jaxloop._static(mpeg.MPEG1, 0)

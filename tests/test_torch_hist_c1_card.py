@@ -34,10 +34,12 @@ def random_batch(seed, G):
     return ix, is_short, wsf
 
 
-def kernel_args(ix, is_short, wsf, device):
+def kernel_args(ix, is_short, wsf, device, version=mpeg.MPEG1):
     """hist_c1's arguments for a batch, with run lengths and region
-    addresses from the port's own counting."""
-    ST = loop.device_tables(loop.static_tables(mpeg.MPEG1, 0), device)
+    addresses from the port's own counting at 44.1 kHz (MPEG-1) or
+    22.05 kHz (MPEG-2 LSF, whose short-block region-0 boundary
+    differs)."""
+    ST = loop.device_tables(loop.static_tables(version, 0), device)
     ixt = torch.as_tensor(ix, device=device)
     sh = torch.as_tensor(is_short, device=device)
     count1, bv = loop.calc_runlen(ixt, sh)
@@ -61,6 +63,19 @@ def test_kernel_matches_plain_on_card(card, G):
     got = k1.hist_c1(*args)
     torch.cuda.synchronize()
     assert k1.hist_c1.launches == before + 1
+    want = k1.hist_c1_plain(*args)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_on_card_lsf(card):
+    batch = random_batch(22050, 4096)
+    args = kernel_args(*batch, card, mpeg.MPEG2_LSF)
+    # the LSF long-block sfb table moves the region addresses a1, a2
+    assert not torch.equal(args[1], kernel_args(*batch, card)[1])
+    got = k1.hist_c1(*args)
+    torch.cuda.synchronize()
     want = k1.hist_c1_plain(*args)
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and torch.equal(a, b)

@@ -9,6 +9,10 @@ import jax.numpy as jnp
 from mp3tpu.ops import jaxresv
 from mp3tpu_torch.ops import resv
 
+# the CPU path is thousands of small ops: intra-op threads only contend
+# with the other test processes
+torch.set_num_threads(1)
+
 CASES = [
     # seed, frames, nch, mode_gr, mean_bits, resv_max, delta, size0, valid
     (0, 200, 2, 2, 3080, 4088, 28, 0, "all"),
