@@ -7,23 +7,40 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 Phases, each printing its own lines; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi); no CUDA -> exit 1;
-  2. build K1 (mp3tpu_torch/csrc/hist_c1.cu) with nvcc, timed;
+  2. build both kernels, K1 (mp3tpu_torch/csrc/hist_c1.cu) and bits_at
+     (csrc/bits_at.cu, with -Xptxas -v, whose report is printed), one
+     nvcc process each, started together; timed;
   3. K1 against its plain PyTorch version on the card, bit for bit, on
      random quantized batches at G = 512, 4096 (the main path's segment
      widths) and 4099, then both timed: device time per call from
      torch.profiler, and call time with CUDA events (median);
+  3b. bits_at, the rate loop's whole bit evaluation in one launch,
+     against its plain chain (bits_at_plain), torch.equal on every
+     output: random batches of long, short and start/stop granules at
+     G = 512, 4096 and 4099 (about a quarter past IXMAX) and at 16384
+     and 65536 (how its time scales with the batch), one with
+     MPEG-2 LSF 22.05 kHz tables, one wholly past IXMAX, and the main
+     path's own first 4096-lane evaluation at six stepsizes; timed
+     (kernel device and call time, the plain chain's device time, K1's
+     device time on the same quantized batch) beside the bound;
   4. the 15 quality fixtures of tests/test_fast_encoder.py through
      encode_layer3_fast(device="cuda"): frame grid and the reference
      encoder's decoded-SNR bars (in-repo decoder);
-  5. the main path: the 60 s stereo 44.1 kHz 128 kbps clip of bench.py,
-     one run with K1's launch count reset before and read after, then 3
-     timed runs; the stream must sit on the frame grid and its first
-     10 s must decode within 1 dB of the CPU path's 10 s encode;
+  5. the main path: the 60 s stereo 44.1 kHz 128 kbps clip of bench.py
+     (its signal, copied here), encoded with loop._bits_at swapped (by
+     this script) for the plain chain, then for the chain of K1 with
+     plain PyTorch around it, then as the package runs it with the
+     launch counts reset before and read after; the three streams must
+     be equal byte for byte.  Then the K1 chain and the package in turns
+     (3 timed runs each), one encode of each under torch.profiler (device
+     kernels and copies, device idle share); the stream must sit on the
+     frame grid and its first 10 s must decode within 1 dB of the CPU
+     path's 10 s encode;
   6. MPEG-2 LSF: the three 0.5 s mono cases of tests/test_lsf.py, then a
-     60 s stereo 24 kHz 64 kbps clip (K1 launches counted), interior
+     60 s stereo 24 kHz 64 kbps clip (launches counted), interior
      frames on the grid, first 10 s within 1 dB of the CPU path;
   7. streaming: the bench clip in 1 s pieces through StreamEncoder at
-     window 1024 (K1 launches counted, timed) must equal the one-shot
+     window 1024 (launches counted, timed) must equal the one-shot
      encode at chunk 1024 byte for byte, and so must a run checkpointed
      at 30 s, pickled and resumed in a fresh encoder;
   8. Layers I/II: the six fixtures of tests/test_layer12_fast.py and its
@@ -32,24 +49,59 @@ Phases, each printing its own lines; any failure exits non-zero:
   9. the command line: python -m mp3tpu_torch on a 10 s WAV and on raw
      PCM piped to stdin must write the library's bytes.
 Its last lines are a JSON object describing the kernels and then
-{"ok": true, "device": {...}}.  It imports nothing of JAX.
+{"ok": true, "device": {...}}.  It imports nothing of JAX and nothing of
+the JAX package.
 """
 import json
+import math
 import os
 import pickle
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CLIP_SECONDS = 60.0
 TIMED_RUNS = 3
+# NVIDIA H100 SXM, data sheet: HBM rate, float32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
 
 
 def fail(msg):
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def make_signal(seconds, rate):
+    """bench.py's 60 s test signal: two tones and noise per channel."""
+    import numpy as np
+    t = np.arange(int(seconds * rate)) / rate
+    rng = np.random.RandomState(42)
+    x = (0.35 * np.sin(2 * np.pi * 440.0 * t)
+         + 0.15 * np.sin(2 * np.pi * 1871.0 * t)
+         + 0.08 * rng.randn(len(t)))
+    y = (0.3 * np.sin(2 * np.pi * 554.0 * t + 0.3)
+         + 0.1 * rng.randn(len(t)))
+    pcm = np.stack([x, y], axis=1)
+    return np.clip(pcm * 24000, -32768, 32767).astype(np.int16)
+
+
+def bound(nbytes, ops):
+    """The least milliseconds an H100 could take: the larger of the
+    bytes over the HBM rate and the operations over the float32 rate;
+    returns (ms, "bytes" or "operations")."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / FP32_OPS_PER_S
+    if t_bytes >= t_ops:
+        return t_bytes * 1e3, "bytes"
+    return t_ops * 1e3, "operations"
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def card_line():
@@ -81,27 +133,67 @@ def call_ms(fn, reps=50):
     return statistics.median(times)
 
 
-def device_ms(fn, reps=20):
+def device_ms(fn, reps=20, tries=3):
     """Mean device milliseconds per fn() call: the summed time of the
-    kernels it runs, read from torch.profiler (None if the profiler
-    recorded no device time)."""
+    kernels it runs, read from torch.profiler.  The profiler now and
+    then records no device event in a window; it is asked up to `tries`
+    times (None if it never recorded device time)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if getattr(e, "device_type", None) == DeviceType.CUDA)
+        if us > 0:
+            return us / 1000.0 / reps
+    return None
+
+
+def profile_once(torch, fn):
+    """One fn() under torch.profiler: (device kernels and copies, device
+    busy s, profiled wall s).  Busy is the union of the device events'
+    intervals; the wall is the host clock around fn and a synchronize."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if getattr(e, "device_type", None) == DeviceType.CUDA)
-    return us / 1000.0 / reps if us > 0 else None
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if getattr(e, "device_type", None) == DeviceType.CUDA)
+    busy_us, end = 0.0, -math.inf
+    for s, e in spans:
+        if e > end:
+            busy_us += e - max(s, end)
+            end = e
+    return len(spans), busy_us / 1e6, wall
+
+
+def k1_bound(args, G):
+    """K1's bound: ixp, the four per-granule ints and is_short, the LUT
+    and count1 lengths read once; bits_tab (G, 3, 32), mx (G, 3), b0raw
+    and signs written once; 32 table sums per pair (9,216 adds a
+    granule) as operations."""
+    from mp3tpu_torch.ops import hist_c1 as k1
+    ixp, a1, a2, bv, c1, short, _ = args
+    lut, hlen = k1._device_tables(ixp.device)
+    out = G * (3 * 32 + 3 + 1 + 1) * 4
+    return bound(nbytes(ixp, a1, a2, bv, c1, short, lut, hlen) + out,
+                 288 * 32 * G)
 
 
 def phase_kernel(k1, torch):
     """K1 vs its plain version at the main path's widths; returns
-    {G: (max_abs_err, kernel_ms, plain_ms)}."""
+    {G: (max_abs_err, kernel_ms, plain_ms, (bound_ms, bound_by))}."""
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from test_torch_hist_c1_card import kernel_args, random_batch
     results = {}
@@ -128,10 +220,13 @@ def phase_kernel(k1, torch):
             k_dev, p_dev = k_call, p_call
             print("  (no profiler device time: the JSON reports call times)",
                   flush=True)
-        results[G] = (err, k_dev, p_dev)
+        b_ms, b_by = k1_bound(args, G)
+        print(f"  bound {b_ms:.6f} ms ({b_by}); kernel at "
+              f"{b_ms / k_dev:.1%} of it", flush=True)
+        results[G] = (err, k_dev, p_dev, (b_ms, b_by))
     # MPEG-2 LSF (22.05 kHz): its long-block sfb table moves the region
     # addresses
-    from mp3tpu.tables import mpeg
+    from mp3tpu_torch.tables import mpeg
     args = kernel_args(*random_batch(22050, 4096), "cuda", mpeg.MPEG2_LSF)
     got = k1.hist_c1(*args)
     torch.cuda.synchronize()
@@ -143,6 +238,124 @@ def phase_kernel(k1, torch):
     print("K1 hist_c1 G=4096 MPEG-2 LSF 22.05 kHz tables: equal to plain",
           flush=True)
     return results
+
+
+def bits_at_bound(args):
+    """bits_at's bound: xr75p, qss, the two block flags, the per-rate
+    table pack, the LUT and count1 lengths read once; 12 int32 rows per
+    granule written once; 3 float32 operations a line (scale, offset,
+    round) as operations."""
+    from mp3tpu_torch.ops import bits_at as K
+    xr75p, qss, short, sblk, ST = args
+    lut, hlen = K._device_tables(xr75p.device)
+    G = xr75p.shape[0]
+    return bound(nbytes(xr75p, qss, short, sblk, ST["bits_at_tab"], lut, hlen)
+                 + len(K.ROWS) * G * 4, 3 * 576 * G)
+
+
+def capture_main_batch(ctx, pcm, cfg):
+    """The main path's first 4096-lane bit evaluation, recorded by
+    wrapping loop._bits_at during one encode of the bench clip:
+    (xr75p, qss, is_short, is_short_block, ST)."""
+    loop = ctx["loop"]
+    real = loop._bits_at
+    seen = []
+
+    def record(xr75p, qss, is_short, is_short_block, ST):
+        if not seen and xr75p.shape[0] == 4096:
+            seen.append((xr75p.clone(), qss.clone(), is_short.clone(),
+                         is_short_block.clone(), ST))
+        return real(xr75p, qss, is_short, is_short_block, ST)
+
+    loop._bits_at = record
+    try:
+        ctx["encode"](pcm, cfg, device="cuda")
+    finally:
+        loop._bits_at = real
+    if not seen:
+        fail("the main path made no 4096-lane bit evaluation")
+    return seen[0]
+
+
+def phase_bits_at(ctx, main_args):
+    """Phase 3b: bits_at against bits_at_plain on the card; returns the
+    JSON fields measured on the main path's own 4096-lane batch."""
+    torch, k1, loop = ctx["torch"], ctx["k1"], ctx["loop"]
+    from mp3tpu_torch.ops import bits_at as K
+    from test_torch_bits_at_card import kernel_args, mismatches, random_batch
+    mpeg = ctx["mpeg"]
+    errs = []
+
+    def check(label, args):
+        got = K.bits_at(*args)
+        torch.cuda.synchronize()
+        want = K.bits_at_plain(*args)
+        bad = mismatches(got, want)
+        if bad:
+            fail(f"bits_at != plain on {label} in {bad}")
+        errs.append(max(float((got[k].to(torch.float64)
+                               - want[k].to(torch.float64)).abs().max())
+                        for k in want))
+        over = int((want["ix_max"] > loop.IXMAX).sum())
+        short = int(args[2].sum())
+        sblk = int((args[3] & ~args[2]).sum())
+        print(f"bits_at {label}: every output equal to plain (G="
+              f"{args[0].shape[0]}: {short} short, {sblk} start/stop, "
+              f"{over} past IXMAX)", flush=True)
+        return want
+
+    def timed(label, args):
+        """Kernel device and call time, the plain chain's device time,
+        and K1's device time on the same quantized batch."""
+        xr75p, qss, short, sblk, ST = args
+        ixp = loop.quantize_pow75(xr75p, qss)
+        count1, bv = loop.calc_runlen(ixp, short)
+        _, _, a1, a2 = loop.subdivide(bv, short, sblk, ST)
+        k1_args = (ixp, a1, a2, bv, count1, short, ST["r0_pairs_short"])
+        k_dev = device_ms(lambda: K.bits_at(*args))
+        k_call = call_ms(lambda: K.bits_at(*args))
+        p_dev = device_ms(lambda: K.bits_at_plain(*args))
+        k1_dev = device_ms(lambda: k1.hist_c1(*k1_args))
+        if k_dev is None or p_dev is None:
+            k_dev = k_call
+            p_dev = call_ms(lambda: K.bits_at_plain(*args))
+            print("  (no profiler device time: kernel and plain chain "
+                  "report call times)", flush=True)
+        b_ms, b_by = bits_at_bound(args)
+        print(f"bits_at {label} timed: device time per call (torch.profiler, "
+              f"mean of 20): kernel {k_dev} ms, plain chain {p_dev} ms, K1 "
+              f"alone on the same quantized batch {k1_dev} ms; kernel call "
+              f"time (CUDA events, median of 50) {k_call:.4f} ms; bound "
+              f"{b_ms:.6f} ms ({b_by}), kernel at {b_ms / k_dev:.1%} of it",
+              flush=True)
+        return k_dev, p_dev, k1_dev, b_ms, b_by
+
+    # the main path's widths, then wider batches (a corpus batches clips
+    # as extra lanes): one granule a warp at G = 4096 fills one wave
+    for G in (512, 4096, 4099, 16384, 65536):
+        args = kernel_args(*random_batch(3030 + G, G), "cuda")
+        check(f"random G={G}", args)
+        timed(f"random G={G}", args)
+    lsf = kernel_args(*random_batch(22050, 4096), "cuda", mpeg.MPEG2_LSF)
+    check("random G=4096, MPEG-2 LSF 22.05 kHz tables", lsf)
+    xr75, qss, is_short, wsf = random_batch(7, 4096)
+    xr75[:, 0] = 1e6
+    import numpy as np
+    over = kernel_args(xr75, np.full_like(qss, -40.0), is_short, wsf, "cuda")
+    if not bool((check("G=4096 all past IXMAX", over)["bits"] == 1e9).all()):
+        fail("bits_at: a granule past IXMAX did not get 1e9 bits")
+
+    xr75p, qss, short, sblk, ST = main_args
+    n_over = 0
+    for d in (-60.0, -8.0, -4.0, 0.0, 4.0, 8.0):
+        want = check(f"main path's batch at qss{d:+.0f}",
+                     (xr75p, qss + d, short, sblk, ST))
+        n_over += int((want["ix_max"] > loop.IXMAX).sum())
+    if n_over == 0:
+        fail("no stepsize of the main path's batch went past IXMAX")
+    k_dev, p_dev, k1_dev, b_ms, b_by = timed("main path's batch", main_args)
+    return dict(max_abs_err=max(errs), ms=k_dev, plain_ms=p_dev,
+                k1_ms=k1_dev, bound_ms=b_ms, bound_by=b_by)
 
 
 # (fixture, header mode: 3 mono / 0 stereo, kbps, rate) as in
@@ -223,10 +436,27 @@ def lsf_grid(out, rate, kbps):
     return fsize
 
 
+def reset_counts(ctx):
+    ctx["K"].bits_at.launches = 0
+    ctx["k1"].hist_c1.launches = 0
+    ctx["loop"].any_on_host.syncs = 0
+    ctx["torch"].cuda.synchronize()
+
+
+def read_counts(ctx, path):
+    """{kernel: launches} since reset_counts; fails if the path launched
+    bits_at no time."""
+    counts = {"bits_at": ctx["K"].bits_at.launches,
+              "hist_c1": ctx["k1"].hist_c1.launches}
+    if counts["bits_at"] <= 0:
+        fail(f"the {path} launched bits_at no time")
+    return counts
+
+
 def phase_lsf(ctx):
-    """Phase 6: MPEG-2 LSF on the card; returns K1's launches on the 60 s
+    """Phase 6: MPEG-2 LSF on the card; returns the launches on the 60 s
     clip."""
-    np, torch, k1 = ctx["np"], ctx["torch"], ctx["k1"]
+    np, torch = ctx["np"], ctx["torch"]
     EncoderConfig, mpeg = ctx["EncoderConfig"], ctx["mpeg"]
     encode, decode_mp3, snr_db = (ctx["encode"], ctx["decode_mp3"],
                                   ctx["snr_db"])
@@ -250,18 +480,15 @@ def phase_lsf(ctx):
     pcm = ctx["make_signal"](CLIP_SECONDS, rate)
     cfg = EncoderConfig(layer=3, mode=mpeg.MODE_STEREO, bitrate_kbps=kbps,
                         sample_rate_hz=rate)
-    k1.hist_c1.launches = 0
-    torch.cuda.synchronize()
+    reset_counts(ctx)
     t0 = time.perf_counter()
     out = encode(pcm, cfg, device="cuda")
     wall = time.perf_counter() - t0
-    launches = k1.hist_c1.launches
-    if launches <= 0:
-        fail("the LSF path launched K1 no time")
+    launches = read_counts(ctx, "LSF path")
     fsize = lsf_grid(out, rate, kbps)
     print(f"LSF 60 s stereo 24 kHz 64 kbps: {len(out)} bytes, interior "
           f"frames on the {fsize}-byte grid, {wall:.3f} s (first run): "
-          f"{CLIP_SECONDS / wall:.2f}x real time; K1 launches {launches}",
+          f"{CLIP_SECONDS / wall:.2f}x real time; launches {launches}",
           flush=True)
     t0 = time.perf_counter()
     encode(pcm, cfg, device="cuda")
@@ -285,8 +512,7 @@ def phase_lsf(ctx):
 
 def phase_stream(ctx, pcm, cfg_of):
     """Phase 7: StreamEncoder on the card against the one-shot encode;
-    returns K1's launches on the timed stream."""
-    torch, k1 = ctx["torch"], ctx["k1"]
+    returns the launches on the timed stream."""
     from mp3tpu_torch.encoder import StreamEncoder
     rate = 44100
     one = ctx["encode"](pcm, cfg_of(), device="cuda", chunk=1024)
@@ -297,21 +523,18 @@ def phase_stream(ctx, pcm, cfg_of):
             out.append(enc.feed(pcm[s:min(s + rate, hi)]))
         return b"".join(out)
 
-    k1.hist_c1.launches = 0
-    torch.cuda.synchronize()
+    reset_counts(ctx)
     t0 = time.perf_counter()
     enc = StreamEncoder(cfg_of(), "cuda", window=1024)
     streamed = run(enc, 0, len(pcm)) + enc.finish()
     wall = time.perf_counter() - t0
-    launches = k1.hist_c1.launches
-    if launches <= 0:
-        fail("the streaming path launched K1 no time")
+    launches = read_counts(ctx, "streaming path")
     if streamed != one:
         fail(f"stream ({len(streamed)} bytes) != one-shot at chunk 1024 "
              f"({len(one)} bytes)")
     print(f"stream: 60 s stereo 128 kbps in 1 s pieces, window 1024: "
           f"{wall:.3f} s, {CLIP_SECONDS / wall:.2f}x real time; equal to "
-          f"the one-shot encode at chunk 1024 ({len(one)} bytes); K1 "
+          f"the one-shot encode at chunk 1024 ({len(one)} bytes); "
           f"launches {launches}", flush=True)
 
     cut = 30 * rate
@@ -351,7 +574,7 @@ def phase_layer12(ctx):
     """Phase 8: Layers I/II on the card."""
     np, torch, EncoderConfig, mpeg = (ctx["np"], ctx["torch"],
                                       ctx["EncoderConfig"], ctx["mpeg"])
-    from mp3tpu.decoder import layer12 as dec12
+    from mp3tpu_torch.decoder import layer12 as dec12
     from mp3tpu_torch.encoder import encode_layer12_fast
     modes = {"s": mpeg.MODE_STEREO, "j": mpeg.MODE_JOINT,
              "m": mpeg.MODE_MONO}
@@ -431,8 +654,8 @@ def phase_layer12(ctx):
 def phase_cli(ctx, pcm, cfg_of):
     """Phase 9: python -m mp3tpu_torch writes the library's bytes."""
     np, EncoderConfig, mpeg = ctx["np"], ctx["EncoderConfig"], ctx["mpeg"]
-    from mp3tpu.runtime.wav import write_wav
     from mp3tpu_torch.encoder import encode_layer3_stream, encode_layer12_fast
+    from mp3tpu_torch.runtime.wav import write_wav
     work = os.path.join(ROOT, "build", "chip_smoke")
     os.makedirs(work, exist_ok=True)
     pcm = pcm[:int(10.0 * 44100)]
@@ -476,6 +699,133 @@ def phase_cli(ctx, pcm, cfg_of):
           f"-l 2 ({t3:.2f} s), process start included", flush=True)
 
 
+def phase_build(k1, K):
+    """Phase 2: build both kernel libraries, one nvcc process each,
+    started together; prints bits_at.cu's -Xptxas -v report."""
+    jobs = ((k1, ()), (K, ("-Xptxas", "-v")))
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        futures = [pool.submit(mod.build, True, extra) for mod, extra in jobs]
+        logs = [f.result() for f in futures]
+    wall = time.perf_counter() - t0
+    for mod, extra in jobs:
+        print(f"build: {os.path.relpath(mod.LIBRARY, ROOT)} from "
+              f"{os.path.relpath(mod.SOURCE, ROOT)} (nvcc "
+              f"{' '.join(list(mod.NVCC_FLAGS) + list(extra))})", flush=True)
+    print(f"build: both libraries in {wall:.2f} s", flush=True)
+    print("build: ptxas report for bits_at.cu:\n" + logs[1].strip(),
+          flush=True)
+
+
+def phase_main(ctx, pcm, cfg, line):
+    """Phase 5: the bench clip with loop._bits_at swapped for the plain
+    chain, for the K1 chain, and as the package runs it; the three
+    streams must be equal.  Returns the package run's counts and
+    measurements."""
+    np, torch, loop, K = ctx["np"], ctx["torch"], ctx["loop"], ctx["K"]
+    encode, decode_mp3, snr_db = (ctx["encode"], ctx["decode_mp3"],
+                                  ctx["snr_db"])
+    real = loop._bits_at
+
+    def plain_chain(xr75p, qss, is_short, is_short_block, ST):
+        c = K.bits_at_plain(xr75p, qss, is_short, is_short_block, ST)
+        return c["bits"], c
+
+    def k1_chain(xr75p, qss, is_short, is_short_block, ST):
+        """The evaluation before bits_at: plain PyTorch around one K1
+        launch."""
+        ixp = loop.quantize_pow75(xr75p, qss)
+        c = loop.count_all(ixp, is_short, is_short_block, ST,
+                           pre_permuted=True)
+        c["bits"] = torch.where(c["ix_max"] <= loop.IXMAX, c["bits"], 1e9)
+        return c["bits"], c
+
+    def run(chain=None):
+        if chain is None:
+            return encode(pcm, cfg, device="cuda")
+        loop._bits_at = chain
+        try:
+            return encode(pcm, cfg, device="cuda")
+        finally:
+            loop._bits_at = real
+
+    out_plain = run(plain_chain)
+    reset_counts(ctx)
+    out_k1 = run(k1_chain)
+    k1_chain_launches = ctx["k1"].hist_c1.launches
+    if k1_chain_launches <= 0:
+        fail("the K1 chain launched K1 no time")
+
+    reset_counts(ctx)
+    t0 = time.perf_counter()
+    out = run()
+    first_s = time.perf_counter() - t0
+    launches = read_counts(ctx, "main path")
+    syncs = loop.any_on_host.syncs
+    if out != out_plain:
+        fail(f"main path with bits_at ({len(out)} bytes) != with the plain "
+             f"chain ({len(out_plain)} bytes)")
+    if out != out_k1:
+        fail(f"main path with bits_at ({len(out)} bytes) != with the K1 "
+             f"chain ({len(out_k1)} bytes)")
+    fsize, nframes = check_grid(out, 128, 44100, pcm.shape[0])
+    from mp3tpu_torch.encoder import _plan_segments
+    plan = _plan_segments(nframes * 2)
+    print(f"main path: with loop._bits_at swapped for the plain chain, for "
+          f"the K1 chain, and with bits_at: the same {len(out)} bytes",
+          flush=True)
+    print(f"main path (bits_at, first run): {first_s:.3f} s; launches per "
+          f"encode {launches} (K1 chain: hist_c1 {k1_chain_launches}); "
+          f"loop-exit host syncs {syncs}; {len(plan)} segments "
+          f"{[(n_pad * 2) for _, _, n_pad in plan]} lanes (each adds 2 syncs: "
+          f"scan input, result download)", flush=True)
+
+    times = {"k1": [], "bits_at": []}
+    for who in ("k1", "bits_at", "bits_at", "k1", "k1", "bits_at"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_t = run(k1_chain if who == "k1" else None)
+        times[who].append(time.perf_counter() - t0)
+        if out_t != out:
+            fail(f"a timed encode ({who}) gave other bytes")
+    wall = statistics.median(times["bits_at"])
+    wall_k1 = statistics.median(times["k1"])
+    print(f"main path: 60 s stereo 128 kbps in {wall:.3f} s median of "
+          f"{TIMED_RUNS} ({', '.join(f'{t:.3f}' for t in times['bits_at'])} "
+          f"s): {CLIP_SECONDS / wall:.2f}x real time on {line}; in turns with "
+          f"the K1 chain: {wall_k1:.3f} s median "
+          f"({', '.join(f'{t:.3f}' for t in times['k1'])} s), "
+          f"{CLIP_SECONDS / wall_k1:.2f}x", flush=True)
+
+    for who, chain, median in (("k1", k1_chain, wall_k1),
+                               ("bits_at", None, wall)):
+        for _ in range(3):      # the profiler now and then records none
+            n, busy, pwall = profile_once(torch, lambda: run(chain))
+            if n > 0:
+                break
+        else:
+            fail(f"torch.profiler recorded no device event ({who})")
+        print(f"torch.profiler over one encode ({who}): {n} device kernels "
+              f"and copies; device busy {busy:.4f} s of a profiled wall of "
+              f"{pwall:.4f} s, idle share {1.0 - busy / pwall:.3f} (against "
+              f"the unprofiled median {median:.3f} s: "
+              f"{1.0 - busy / median:.3f})", flush=True)
+
+    snr_gpu = first_seconds_snr(np, out, pcm, fsize, 10.0, decode_mp3,
+                                snr_db)
+    short = pcm[:int(10.0 * 44100)]
+    out_cpu = encode(short, cfg, device="cpu")
+    snr_cpu = first_seconds_snr(np, out_cpu, short, fsize, 10.0, decode_mp3,
+                                snr_db)
+    print(f"decoded SNR of the first 10 s: cuda {snr_gpu} dB, cpu path "
+          f"{snr_cpu} dB", flush=True)
+    for g, c in zip(snr_gpu, snr_cpu):
+        if not np.isfinite(g) or g < c - 1.0:
+            fail(f"first-10 s SNR {g:.2f} dB is more than 1 dB below the "
+                 f"CPU path's {c:.2f} dB")
+    return dict(launches=launches, k1_chain_launches=k1_chain_launches)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -488,83 +838,42 @@ def main():
           flush=True)
 
     sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
     import numpy as np
 
     import mp3tpu_torch  # noqa: F401  (TF32 off)
-    from bench import make_signal
-    from mp3tpu.config import EncoderConfig
-    from mp3tpu.decoder import decode_mp3
-    from mp3tpu.decoder.layer3 import snr_db
-    from mp3tpu.runtime.wav import read_wav
-    from mp3tpu.tables import mpeg
-    from mp3tpu_torch.encoder import _plan_segments, encode_layer3_fast
+    from mp3tpu_torch.config import EncoderConfig
+    from mp3tpu_torch.decoder import decode_mp3
+    from mp3tpu_torch.decoder.layer3 import snr_db
+    from mp3tpu_torch.encoder import encode_layer3_fast
+    from mp3tpu_torch.ops import bits_at as K
     from mp3tpu_torch.ops import hist_c1 as k1
     from mp3tpu_torch.ops import loop
+    from mp3tpu_torch.runtime.wav import read_wav
+    from mp3tpu_torch.tables import mpeg
 
-    t0 = time.perf_counter()
-    lib = k1.build(force=True)
-    print(f"build: {os.path.relpath(lib, ROOT)} from "
-          f"{os.path.relpath(k1.SOURCE, ROOT)} in "
-          f"{time.perf_counter() - t0:.2f} s (nvcc {' '.join(k1.NVCC_FLAGS)})",
-          flush=True)
-
+    phase_build(k1, K)
     kres = phase_kernel(k1, torch)
-    phase_quality(np, encode_layer3_fast, EncoderConfig, decode_mp3, snr_db,
-                  read_wav)
 
-    # ---- the main path: 60 s stereo 44.1 kHz 128 kbps
-    pcm = make_signal(CLIP_SECONDS, 44100)
-    cfg = EncoderConfig(layer=3, mode=mpeg.MODE_STEREO, bitrate_kbps=128,
-                        sample_rate_hz=44100)
-    k1.hist_c1.launches = 0
-    loop.any_on_host.syncs = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = encode_layer3_fast(pcm, cfg, device="cuda")
-    first_s = time.perf_counter() - t0
-    launches = k1.hist_c1.launches
-    syncs = loop.any_on_host.syncs
-    if launches <= 0:
-        fail("the main path launched K1 no time")
-    fsize, nframes = check_grid(out, 128, 44100, pcm.shape[0])
-    plan = _plan_segments(nframes * 2)
-    print(f"main path (first run, incl. warm-up): {first_s:.3f} s; "
-          f"K1 launches {launches}; loop-exit host syncs {syncs}; "
-          f"{len(plan)} segments {[(n_pad * 2) for _, _, n_pad in plan]} "
-          f"lanes (each adds 2 syncs: scan input, result download)",
-          flush=True)
-    times = []
-    for _ in range(TIMED_RUNS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out_t = encode_layer3_fast(pcm, cfg, device="cuda")
-        times.append(time.perf_counter() - t0)
-        check_grid(out_t, 128, 44100, pcm.shape[0])
-    wall = statistics.median(times)
-    print(f"main path: 60 s stereo 128 kbps in {wall:.3f} s median of "
-          f"{TIMED_RUNS} ({', '.join(f'{t:.3f}' for t in times)} s): "
-          f"{CLIP_SECONDS / wall:.2f}x real time on {line}", flush=True)
-
-    snr_gpu = first_seconds_snr(np, out, pcm, fsize, 10.0, decode_mp3,
-                                snr_db)
-    short = pcm[:int(10.0 * 44100)]
-    out_cpu = encode_layer3_fast(short, cfg, device="cpu")
-    snr_cpu = first_seconds_snr(np, out_cpu, short, fsize, 10.0, decode_mp3,
-                                snr_db)
-    print(f"decoded SNR of the first 10 s: cuda {snr_gpu} dB, cpu path "
-          f"{snr_cpu} dB", flush=True)
-    for g, c in zip(snr_gpu, snr_cpu):
-        if not np.isfinite(g) or g < c - 1.0:
-            fail(f"first-10 s SNR {g:.2f} dB is more than 1 dB below the "
-                 f"CPU path's {c:.2f} dB")
-
-    ctx = dict(np=np, torch=torch, k1=k1, EncoderConfig=EncoderConfig,
-               mpeg=mpeg, encode=encode_layer3_fast, decode_mp3=decode_mp3,
+    ctx = dict(np=np, torch=torch, k1=k1, K=K, loop=loop,
+               EncoderConfig=EncoderConfig, mpeg=mpeg,
+               encode=encode_layer3_fast, decode_mp3=decode_mp3,
                snr_db=snr_db, read_wav=read_wav, make_signal=make_signal)
 
     def cfg_of():
         return EncoderConfig(layer=3, mode=mpeg.MODE_STEREO,
                              bitrate_kbps=128, sample_rate_hz=44100)
+
+    # ---- the main path: 60 s stereo 44.1 kHz 128 kbps
+    pcm = make_signal(CLIP_SECONDS, 44100)
+    t0 = time.perf_counter()
+    bres = phase_bits_at(ctx, capture_main_batch(ctx, pcm, cfg_of()))
+    print(f"phase 3b bits_at: {time.perf_counter() - t0:.2f} s", flush=True)
+    phase_quality(np, encode_layer3_fast, EncoderConfig, decode_mp3, snr_db,
+                  read_wav)
+    t0 = time.perf_counter()
+    main_res = phase_main(ctx, pcm, cfg_of(), line)
+    print(f"phase 5 main path: {time.perf_counter() - t0:.2f} s", flush=True)
 
     phases = [("6 LSF", lambda: phase_lsf(ctx)),
               ("7 streaming", lambda: phase_stream(ctx, pcm, cfg_of)),
@@ -576,16 +885,29 @@ def main():
         counts[name] = run()
         print(f"phase {name}: {time.perf_counter() - t0:.2f} s", flush=True)
 
-    err, k_ms, p_ms = kres[4096]
-    print(json.dumps({"kernels": [{
-        "name": "hist_c1", "route": "cuda",
-        "source": "mp3tpu_torch/csrc/hist_c1.cu",
-        "replaces": "mp3tpu/ops/pallas_bits.py:69",
-        "launches": launches, "max_abs_err": err,
-        "ms": k_ms, "plain_ms": p_ms,
-        "launches_by_path": {"main": launches,
-                             "lsf": counts["6 LSF"],
-                             "stream": counts["7 streaming"]}}]}),
+    launches = main_res["launches"]
+
+    def by_path(kernel):
+        return {"main": launches[kernel], "lsf": counts["6 LSF"][kernel],
+                "stream": counts["7 streaming"][kernel]}
+
+    err, k_ms, p_ms, (b_ms, b_by) = kres[4096]
+    print(json.dumps({"kernels": [
+        {"name": "hist_c1", "route": "cuda",
+         "source": "mp3tpu_torch/csrc/hist_c1.cu",
+         "replaces": "mp3tpu/ops/pallas_bits.py:69",
+         "launches": launches["hist_c1"], "max_abs_err": err,
+         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+         "library_ms": None, "launches_by_path": dict(
+             by_path("hist_c1"),
+             main_k1_chain=main_res["k1_chain_launches"])},
+        {"name": "bits_at", "route": "cuda",
+         "source": "mp3tpu_torch/csrc/bits_at.cu",
+         "replaces": "mp3tpu/ops/pallas_bits.py:69",
+         "launches": launches["bits_at"], "max_abs_err": bres["max_abs_err"],
+         "ms": bres["ms"], "plain_ms": bres["plain_ms"],
+         "bound_ms": bres["bound_ms"], "bound_by": bres["bound_by"],
+         "library_ms": None, "launches_by_path": by_path("bits_at")}]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,16 +3,18 @@
 ``python -m mp3tpu_torch``).
 
 The JAX package ``mp3tpu`` is the reference; this package mirrors its
-layout (``ops/``, ``models/``, ``encoder.py``, ``cli.py``) and shares its
-jax-free parts as they are: ``mp3tpu.tables``, ``mp3tpu.config``,
-``mp3tpu.cli``, ``mp3tpu.numpy_ref``, ``mp3tpu.decoder``,
-``mp3tpu.runtime.{wav,aiff,bitstream,alloc12,profiling,mpg123}`` and the
-native assembler under ``native/``.  Nothing here imports jax.
+layout (``ops/``, ``models/``, ``encoder.py``, ``cli.py``) and imports
+nothing of it.  What it needs of the JAX package's jax-free parts it
+keeps as copies: ``tables`` (with ``tables/data/*.npz``), ``config``,
+``numpy_ref``, ``decoder``, ``runtime`` (bitstream binding, alloc12,
+wav, aiff, profiling), the CLI's parser and readers, and the native
+assembler's source (``csrc/mp3bits.cpp``, ``csrc/huffdata.h``), built
+with g++ at first use.  Nothing here imports jax.
 
 Every entry point takes an explicit ``device``; there is no automatic
-pick.  On a CUDA device the rate loop's bit-count histogram runs in a
-hand-written CUDA kernel (``csrc/hist_c1.cu``); on the CPU it runs the
-kernel's plain PyTorch version.
+pick.  On a CUDA device each bit evaluation of the rate loop runs in
+one hand-written CUDA kernel (``csrc/bits_at.cu``); on the CPU it runs
+the kernel's plain PyTorch version.
 
 Importing the package turns TF32 off: the filterbank, MDCT and psy
 matmuls feed a 16-bit quantizer and threshold decisions and need true

@@ -6,21 +6,112 @@
          [-s sfrq][-b br][-d emp][-c][-o][-e][-L][--exact]
          inputPCM [outBS]
 
-The parser and the input readers are the JAX package's own (its CLI
-module loads no jax).  ``--device`` is explicit and defaults to cuda;
+The parser and the input readers are copies of the JAX package's
+(``mp3tpu/cli.py``).  ``--device`` is explicit and defaults to cuda;
 without a card that exits non-zero, it never falls back to the CPU.
 ``-`` reads raw interleaved PCM from stdin and streams every layer;
 with no output path the bytes go to stdout.  ``--exact`` runs the
 byte-exact numpy oracle and no device code.
 """
+import argparse
 import sys
 
-from mp3tpu.cli import (_EMPH, _MODES, build_parser, read_input,
-                        stdin_pcm_iter)
-from mp3tpu.config import EncoderConfig
-from mp3tpu.tables import mpeg
+import numpy as np
 
 from . import resolve_device
+from .config import EncoderConfig
+from .tables import mpeg
+
+_MODES = {"s": mpeg.MODE_STEREO, "d": mpeg.MODE_DUAL,
+          "j": mpeg.MODE_JOINT, "m": mpeg.MODE_MONO}
+_EMPH = {"n": 0, "5": 1, "c": 3}
+
+
+def build_parser():
+    p = argparse.ArgumentParser(
+        prog="mp3tpu",
+        description="TPU-native MPEG-1/2 audio encoder (Layers I/II/III)")
+    p.add_argument("-l", dest="layer", type=int, default=3,
+                   choices=(1, 2, 3), help="layer (default 3)")
+    p.add_argument("-m", dest="mode", default="s", choices=sorted(_MODES),
+                   help="channel mode: s/d/j/m (default s)")
+    p.add_argument("-p", dest="psy", type=int, default=2, choices=(1, 2),
+                   help="psychoacoustic model (default 2)")
+    p.add_argument("-s", dest="sfrq", type=float, default=None,
+                   help="input sample rate in kHz (overrides header)")
+    p.add_argument("-b", dest="brate", type=int, default=0,
+                   help="total bitrate in kbps (default: index 9)")
+    p.add_argument("-d", dest="emp", default="n", choices=sorted(_EMPH),
+                   help="de-emphasis n/5/c (default n)")
+    p.add_argument("-c", dest="copyright", action="store_true",
+                   help="mark as copyright")
+    p.add_argument("-o", dest="original", action="store_true",
+                   help="mark as original")
+    p.add_argument("-e", dest="error_protection", action="store_true",
+                   help="add CRC error protection")
+    p.add_argument("-L", dest="little_endian", action="store_true",
+                   help="raw PCM data is little endian")
+    p.add_argument("--exact", action="store_true",
+                   help="use the byte-exact oracle encoder")
+    p.add_argument("input", help="WAV, AIFF, raw PCM file, or '-'")
+    p.add_argument("output", nargs="?", default=None,
+                   help="output stream (default: input + .mp3)")
+    return p
+
+
+def stdin_pcm_iter(little_endian, nch=1, chunk_bytes=1 << 20):
+    """Yield (nch, n) int16 blocks from stdin until EOF -- the
+    reference's 'inf' streaming mode (musicin.c:310-312) reads
+    channel-interleaved PCM at the configured mode (stereo by default,
+    encoder.h:64 DFLT_MOD 's'; interleaved read encode.c:139-160).
+    O(chunk) memory; trailing bytes short of one interleaved frame are
+    dropped like a short final fread."""
+    dt = "<i2" if little_endian else ">i2"
+    frame = 2 * nch
+    carry = b""
+    while True:
+        raw = sys.stdin.buffer.read(chunk_bytes)
+        if not raw:
+            break
+        raw = carry + raw
+        usable = len(raw) - (len(raw) % frame)
+        carry = raw[usable:]
+        if usable:
+            flat = np.frombuffer(raw[:usable], dtype=dt).astype(np.int16)
+            yield flat.reshape(-1, nch).T
+
+
+def _deinterleave_raw(raw, args):
+    """Raw PCM is channel-interleaved at the configured mode
+    (encode.c:139-160 reads `stereo` samples per frame; stereo default
+    per encoder.h:64) -- returns (n, nch) int16."""
+    nch = 1 if _MODES[args.mode] == mpeg.MODE_MONO else 2
+    dt = "<i2" if args.little_endian else ">i2"
+    flat = np.frombuffer(raw, dtype=dt).astype(np.int16)
+    usable = len(flat) - (len(flat) % nch)
+    return flat[:usable].reshape(-1, nch)
+
+
+def read_input(args):
+    """Returns (pcm int16 (n, nch), rate_hz or None)."""
+    if args.input == "-":
+        return _deinterleave_raw(sys.stdin.buffer.read(), args), None
+    with open(args.input, "rb") as f:
+        head = f.read(12)
+    if head[:4] == b"FORM" and head[8:12] == b"AIFF":
+        from .runtime.aiff import read_aiff
+        pcm, rate = read_aiff(args.input)
+        print(f">>> Using Audio IFF sound file headers ({rate:.1f} Hz)",
+              file=sys.stderr)
+        return pcm, rate
+    if head[:4] == b"RIFF" and head[8:12] == b"WAVE":
+        from .runtime.wav import read_wav
+        pcm, rate = read_wav(args.input)
+        return pcm, float(rate)
+    # raw PCM
+    return _deinterleave_raw(open(args.input, "rb").read(), args), None
+
+
 
 
 def parser():
@@ -117,12 +208,11 @@ def main(argv=None):
         print(msg, file=sys.stderr)
         return 1
     if args.layer == 3 and args.exact:
-        from mp3tpu.numpy_ref.encoder import encode_layer3
+        from .numpy_ref.encoder import encode_layer3
         data = encode_layer3(pcm, cfg)
     elif args.layer == 3:
-        from mp3tpu.runtime import profiling
-
         from .encoder import encode_layer3_fast
+        from .runtime import profiling
         prof = profiling.from_env()
         data = encode_layer3_fast(pcm, cfg, args.device, prof=prof)
         m = prof.meta
@@ -133,7 +223,7 @@ def main(argv=None):
                  "silence (non-finite analysis)"
                  if m["nonfinite_granules"] else ""), file=sys.stderr)
     elif args.exact:
-        from mp3tpu.numpy_ref.layer12 import encode as encode12
+        from .numpy_ref.layer12 import encode as encode12
         data = encode12(pcm, cfg)
     else:
         from .encoder import encode_layer12_fast

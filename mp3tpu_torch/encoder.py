@@ -8,7 +8,7 @@ and the reservoir level carried from segment to segment; the side table
 and the compacted payload come to the host in one copy; then the
 reservoir guard validates the realized part2_3_length chain (clamp +
 re-encode on the rare overdraw) and the native assembler
-(native/mp3bits.cpp) writes the stream.  MPEG-1 (32/44.1/48 kHz) and
+(csrc/mp3bits.cpp) writes the stream.  MPEG-1 (32/44.1/48 kHz) and
 MPEG-2 LSF (16/22.05/24 kHz).
 
 Layer III, streaming (``StreamEncoder``, ``encode_layer3_stream``): the
@@ -17,19 +17,19 @@ explicit, so that it checkpoints to a small picklable dict.
 
 Layers I/II (``encode_layer12_fast``, ``encode_layer12_stream``):
 analysis and quantization on the device (``ops/layer12.py``), bit
-allocation on the host (``mp3tpu.runtime.alloc12``), native packing.
+allocation on the host (``runtime.alloc12``), native packing.
 
 Every entry point takes an explicit ``device``.
 """
 import numpy as np
 import torch
 
-from mp3tpu.config import EncoderConfig
-from mp3tpu.runtime import alloc12, profiling
-from mp3tpu.runtime.bitstream import (NativeAssembler, guard_clamp,
-                                      pack_elements, resv_guard)
-from mp3tpu.tables import layer12 as T12
-from mp3tpu.tables import mpeg
+from .config import EncoderConfig
+from .runtime import alloc12, profiling
+from .runtime.bitstream import (NativeAssembler, guard_clamp,
+                                pack_elements, resv_guard)
+from .tables import layer12 as T12
+from .tables import mpeg
 
 from . import resolve_device
 from .models.layer3 import Layer3SegmentEncoder
@@ -270,7 +270,7 @@ def encode_layer3_fast(pcm, cfg: EncoderConfig, device, chunk=None,
     SUPER_BUCKETS plan).  delta: predicted slack of reservoir-limited
     granules, folded into the budget scan.  pw: initial payload row
     width in 32-bit words (re-bucketed wider when a granule needs it).
-    prof: a ``mp3tpu.runtime.profiling`` sink (default: from the
+    prof: a ``runtime.profiling`` sink (default: from the
     MP3TPU_PROFILE environment variable); its ``meta`` receives the
     per-encode metrics of the JAX package.
     """
@@ -507,7 +507,7 @@ def encode_layer12_fast(pcm, cfg: EncoderConfig, device):
     scalar = ana["scalar"].cpu().numpy()                  # (nch, F, G, 32)
     scfsi = ana["scfsi"].cpu().numpy() if layer == 2 else None
     if cfg.psy_model == 1:
-        from mp3tpu.numpy_ref.tonal import psycho_one_frames
+        from .numpy_ref.tonal import psycho_one_frames
         snr = psycho_one_frames(pcm.astype(np.float64), layer, cfg,
                                 ana["sb"].cpu().numpy())
     else:
@@ -631,7 +631,7 @@ def _marshal_layer12(cfg, layer, table, sblimit, nch, F, mode, mode_ext,
 
     # --- CRC (common.c:1251-1308); a per-frame loop, only if on
     if cfg.error_protection:
-        from mp3tpu.numpy_ref.layer12 import _crc_calc
+        from .numpy_ref.layer12 import _crc_calc
         crc = np.zeros(F, np.int64)
         ba2 = ba if nch == 2 else np.repeat(ba[:, :1], 2, axis=1)
         for f in range(F):

@@ -3,7 +3,7 @@
 ``Layer3SegmentEncoder`` is the segment program for one
 (version, sampling_frequency): analysis + demand encode -> reservoir
 scan -> final encode + on-device emission and packing.  Its constant
-matrices and lookup tables are buffers, built from ``mp3tpu.tables`` or
+matrices and lookup tables are buffers, built from the port's ``tables`` or
 loaded from the JAX package's own numpy constants.
 
 Quality deviations from the reference are those of the JAX package:
@@ -14,7 +14,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from mp3tpu.tables import mpeg
+from ..tables import mpeg
 
 from ..ops import bits, dsp, loop, psy, resv
 
@@ -53,7 +53,7 @@ def _scfsi_flags(xr, ratio_l, ratio_s, block_type, ST):
 
 def pack_state(state, block_type):
     """The (N, 19) int16 side-info table in exactly the layout the native
-    assembler reads (native/mp3bits.cpp GranuleSide)."""
+    assembler reads (csrc/mp3bits.cpp GranuleSide)."""
     bt = block_type.to(torch.int32)
     wsf = (bt != mpeg.NORM_TYPE).to(torch.int32)
     z = torch.zeros_like(wsf)

@@ -16,8 +16,8 @@ uint32 only at the numpy boundary.
 import numpy as np
 import torch
 
-from mp3tpu.tables import mpeg
-from mp3tpu.tables.huffman import HUFF
+from ..tables import mpeg
+from ..tables.huffman import HUFF
 
 PAYLOAD_WORDS = 128   # 4096 bits >= max part2_3_length (12-bit field)
 

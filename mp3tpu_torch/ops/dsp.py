@@ -8,7 +8,7 @@ gathers on the TPU.
 import numpy as np
 import torch
 
-from mp3tpu.tables import dsp as T
+from ..tables import dsp as T
 
 SIGN = np.ones((18, 32))
 SIGN[1::2, 1::2] = -1.0

@@ -1,4 +1,7 @@
-"""K1: the rate loop's Huffman bit-count histogram.
+"""K1: the Huffman bit-count histogram of ``loop.count_all``.
+
+The rate loop's bit evaluations no longer reach it on a CUDA tensor:
+they run ``ops/bits_at.py``, K1 redesigned with the chain around it.
 
 Replaces the Pallas TPU kernel ``mp3tpu/ops/pallas_bits.py:_kernel``
 (called through ``pallas_bits.hist_c1``).  For a quantized granule batch
@@ -34,21 +37,17 @@ toolkit.
 """
 import ctypes
 import os
-import shutil
-import subprocess
 from functools import lru_cache
 
 import numpy as np
 import torch
 
-from mp3tpu.tables.huffman import HUFF
+from ..tables.huffman import HUFF
+from . import cuda_build
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "hist_c1.cu")
-BUILD_DIR = os.path.join(_PKG, "build")
-LIBRARY = os.path.join(BUILD_DIR, "libhist_c1.so")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+SOURCE = os.path.join(cuda_build.CSRC, "hist_c1.cu")
+LIBRARY = os.path.join(cuda_build.BUILD_DIR, "libhist_c1.so")
+NVCC_FLAGS = cuda_build.NVCC_FLAGS
 
 #: (256, 32) int8: pair_bits transposed, class-major (the kernel's LUT)
 PAIR_BITS_T = np.ascontiguousarray(HUFF.pair_bits.astype(np.int8).T)
@@ -56,36 +55,17 @@ PAIR_BITS_T = np.ascontiguousarray(HUFF.pair_bits.astype(np.int8).T)
 C1_HLEN_A = HUFF.hlen[32, 0, :16].astype(np.int32)
 
 
-def _nvcc():
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(cand):
-        return cand
-    raise RuntimeError("hist_c1: nvcc not found (PATH, /usr/local/cuda/bin)")
-
-
-def build(force=False):
+def build(force=False, extra_flags=()):
     """Compile csrc/hist_c1.cu into build/libhist_c1.so (if the library
-    is missing or older than the source).  Returns the library path."""
-    if (not force and os.path.exists(LIBRARY)
-            and os.path.getmtime(LIBRARY) >= os.path.getmtime(SOURCE)):
-        return LIBRARY
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIBRARY}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"hist_c1: nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, LIBRARY)
-    return LIBRARY
+    is missing or older than the source); returns nvcc's output."""
+    return cuda_build.build(SOURCE, LIBRARY, NVCC_FLAGS + list(extra_flags),
+                            force)
 
 
 @lru_cache(maxsize=None)
 def _library():
-    lib = ctypes.CDLL(build())
+    build()
+    lib = ctypes.CDLL(LIBRARY)
     fn = lib.mp3_hist_c1
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int]
@@ -98,18 +78,6 @@ def _device_tables(device):
     """LUT and count1 lengths resident on `device` (uploaded once)."""
     return (torch.from_numpy(PAIR_BITS_T).to(device),
             torch.from_numpy(C1_HLEN_A).to(device))
-
-
-def _check(name, t, dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"hist_c1: {name} on {t.device}, ixp on {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"hist_c1: {name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"hist_c1: {name} must have shape {shape}, "
-                         f"got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"hist_c1: {name} must be contiguous")
 
 
 def hist_c1(ixp, a1, a2, big_values, count1, is_short, r0_pairs_short):
@@ -130,11 +98,12 @@ def hist_c1(ixp, a1, a2, big_values, count1, is_short, r0_pairs_short):
     if dev.type != "cuda":
         raise ValueError(f"hist_c1: unsupported device {dev}")
     G = ixp.shape[0]
-    _check("ixp", ixp, torch.int32, (G, 576), dev)
+    check = cuda_build.check
+    check("hist_c1", "ixp", ixp, torch.int32, (G, 576), dev)
     for name, t in (("a1", a1), ("a2", a2), ("big_values", big_values),
                     ("count1", count1)):
-        _check(name, t, torch.int32, (G,), dev)
-    _check("is_short", is_short, torch.bool, (G,), dev)
+        check("hist_c1", name, t, torch.int32, (G,), dev)
+    check("hist_c1", "is_short", is_short, torch.bool, (G,), dev)
     pbt, c1h = _device_tables(dev)
     bits = torch.empty((G, 3, 32), dtype=torch.int32, device=dev)
     mx = torch.empty((G, 3), dtype=torch.int32, device=dev)

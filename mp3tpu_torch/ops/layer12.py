@@ -7,7 +7,7 @@ windows, partition sums and spreading as matmuls, the 32-subband SNR
 translation), scale factors, the Layer II scfsi classes and the
 a*x+b quantizers.  The JAX package computes all of this as plain XLA,
 so plain torch ops are its port; the greedy bit allocation stays on the
-host (``mp3tpu.runtime.alloc12``).
+host (``runtime.alloc12``).
 
 Precision follows the JAX package as its tests run it: filterbank and
 psy in float32 (TF32 is off package-wide), scale factors and
@@ -18,9 +18,9 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from mp3tpu.numpy_ref import psy12 as psy12_ref
-from mp3tpu.tables import layer12 as L
-from mp3tpu.tables import mpeg
+from ..numpy_ref import psy12 as psy12_ref
+from ..tables import layer12 as L
+from ..tables import mpeg
 
 from . import dsp
 
@@ -193,7 +193,7 @@ def analyze_frames(pcm, fb_stream, layer, sblimit, nch, nframes, sfreq_hz):
 
 @lru_cache(maxsize=None)
 def _table(name, device):
-    """A float64/int64 table of mp3tpu.tables on `device`."""
+    """A float64/int64 table of the port's ``tables`` on `device`."""
     return torch.as_tensor(
         {"multiple": mpeg.MULTIPLE, "quant_a": L.QUANT_A,
          "quant_b": L.QUANT_B, "quant_a_l1": L.QUANT_A_L1,

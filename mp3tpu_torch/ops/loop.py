@@ -3,10 +3,12 @@
 Same batched, masked formulation as the JAX package: every function
 works on a batch of granules (leading axis G), the stepsize search is a
 fixed-depth bisection plus monotone walks, and the distortion loop runs
-with per-lane convergence masks.  Counting differs in one place: the
-256-class pair histogram goes through K1 (``ops/hist_c1.py``), the
-CUDA kernel on a CUDA tensor and its plain version on the CPU; the
-TPU's one-hot factorization is not ported.
+with per-lane convergence masks.  Counting differs in two places: each
+bit evaluation of the searches (``_bits_at``) is one launch of the
+``bits_at`` kernel on a CUDA tensor (``ops/bits_at.py``; its plain
+version, this module's chain, on the CPU), and ``count_all``'s 256-class
+pair histogram goes through K1 (``ops/hist_c1.py``); the TPU's one-hot
+factorization is not ported.
 
 Each ``lax.while_loop`` of the JAX package whose exit is
 ``jnp.any(...)`` becomes a Python loop whose condition is read on the
@@ -22,10 +24,10 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from mp3tpu.tables import mpeg
-from mp3tpu.tables.huffman import (ESC_TABLE_A, ESC_TABLE_B,
-                                   FIRST_TABLE_FOR_MAX)
+from ..tables import mpeg
+from ..tables.huffman import ESC_TABLE_A, ESC_TABLE_B, FIRST_TABLE_FOR_MAX
 
+from . import bits_at
 from .hist_c1 import hist_c1
 
 IXMAX = 8191 + 14  # table range limit (loop.c:588)
@@ -105,6 +107,9 @@ def device_tables(st, device):
     out = {k: torch.as_tensor(np.asarray(arrays[k]), dtype=dt, device=device)
            for keys, dt in ((_FLOAT_KEYS, torch.float32),
                             (_INT_KEYS, torch.int64)) for k in keys}
+    # the bits_at kernel's per-rate tables in one int32 pack
+    out["bits_at_tab"] = torch.as_tensor(bits_at.rate_tables(st["sfb_l"]),
+                                         device=device)
     out["r0_pairs_short"] = int(st["r0_pairs_short"])
     out["lsf"] = bool(st["lsf"])
     return out
@@ -218,9 +223,11 @@ def choose_tables(bits_tab, mx, ST):
     return c.to(torch.int32), s
 
 
-def count_all(ix, is_short, is_short_block, ST, pre_permuted=False):
+def count_all(ix, is_short, is_short_block, ST, pre_permuted=False,
+              hist=None):
     """Full noiseless-coding analysis of a quantized batch ix (G,576)
-    int32.  pre_permuted: ix already in traversal order.
+    int32.  pre_permuted: ix already in traversal order.  hist: the
+    histogram function (default ``hist_c1``: K1 on a CUDA tensor).
 
     Returns dict: bits (G,) float32, count1, big_values, r0, r1, a1, a2,
     table_select (G,3), count1table_select (G,), ix_max (G,)."""
@@ -231,9 +238,9 @@ def count_all(ix, is_short, is_short_block, ST, pre_permuted=False):
     ixp = ixp.contiguous()
     count1, big_values = calc_runlen(ixp, is_short)
     r0, r1, a1, a2 = subdivide(big_values, is_short, is_short_block, ST)
-    bits_tab, mx, b0raw, signs = hist_c1(ixp, a1, a2, big_values, count1,
-                                         is_short.contiguous(),
-                                         ST["r0_pairs_short"])
+    bits_tab, mx, b0raw, signs = (hist or hist_c1)(
+        ixp, a1, a2, big_values, count1, is_short.contiguous(),
+        ST["r0_pairs_short"])
     b0 = (b0raw + signs).to(torch.float32)
     b1 = (4 * count1 + signs).to(torch.float32)
     c1_sel = torch.where(b0 < b1, 0, 1).to(torch.int32)
@@ -362,11 +369,10 @@ def scale_bitcount_lsf(sf_l, sf_s, is_short, preflag, ST):
 # ---------------------------------------------------------------------------
 
 def _bits_at(xr75p, qss, is_short, is_short_block, ST):
-    """Bits + full counts at a stepsize; xr75p is the PERMUTED |xr|^0.75."""
-    ixp = quantize_pow75(xr75p, qss)
-    c = count_all(ixp, is_short, is_short_block, ST, pre_permuted=True)
-    bits = torch.where(c["ix_max"] <= IXMAX, c["bits"], 1e9)
-    return bits, c
+    """Bits + full counts at a stepsize; xr75p is the PERMUTED |xr|^0.75.
+    One ``bits_at`` launch on a CUDA tensor, its plain chain on the CPU."""
+    c = bits_at.bits_at(xr75p, qss, is_short, is_short_block, ST)
+    return c["bits"], c
 
 
 def _bits_only(xr75p, qss, is_short, is_short_block, ST):

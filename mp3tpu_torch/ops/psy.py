@@ -12,9 +12,9 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from mp3tpu.tables import mpeg
-from mp3tpu.tables.psy import (CBANDS, CBANDS_S, SBMAX_L, SBMAX_S,
-                               psy_params_for_sfreq)
+from ..tables import mpeg
+from ..tables.psy import (CBANDS, CBANDS_S, SBMAX_L, SBMAX_S,
+                          psy_params_for_sfreq)
 
 LN = mpeg.LN_TO_LOG10
 SWITCH_PE = 1800.0

@@ -2,7 +2,7 @@
 
 The scan is serial over frames with a one-integer carry, so it runs on
 the host through the shared native scan
-(``mp3tpu.runtime.bitstream.resv_scan``, reservoir.c:101-134 policy),
+(``runtime.bitstream.resv_scan``, reservoir.c:101-134 policy),
 which tests/test_jaxresv.py holds equal to the JAX scan.  On a CUDA
 device this costs one device->host copy of (pe, demand) per segment.
 pe enters the scan as float64.
@@ -10,7 +10,7 @@ pe enters the scan as float64.
 import numpy as np
 import torch
 
-from mp3tpu.runtime.bitstream import resv_scan
+from ..runtime.bitstream import resv_scan
 
 
 def granule_major(x, nch, mode_gr):

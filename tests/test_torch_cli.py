@@ -14,11 +14,11 @@ import numpy as np
 import pytest
 import torch
 
-from mp3tpu.config import EncoderConfig
 from mp3tpu.decoder import decode_mp3
 from mp3tpu.runtime.wav import write_wav
 from mp3tpu.tables import mpeg
 from mp3tpu_torch import cli
+from mp3tpu_torch.config import EncoderConfig
 from mp3tpu_torch.encoder import encode_layer3_fast, encode_layer12_fast
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -17,13 +17,14 @@ import pytest
 import torch
 
 from mp3tpu import encoder as jencoder
-from mp3tpu.config import EncoderConfig
+from mp3tpu.config import EncoderConfig as JEncoderConfig
 from mp3tpu.decoder import decode_mp3
 from mp3tpu.decoder.layer3 import snr_db
 from mp3tpu.runtime import mpg123
 from mp3tpu.runtime.wav import read_wav
 from mp3tpu.tables import mpeg
 from mp3tpu_torch import encoder as tencoder
+from mp3tpu_torch.config import EncoderConfig
 
 # the CPU path is thousands of small ops: intra-op threads only contend
 # with the other test processes
@@ -133,8 +134,8 @@ def test_segments_carry_state(golden_dir):
 
 def test_slice_within_1db_of_jax(streams):
     pcm, out = streams["noise_mono_64"]
-    cfg = EncoderConfig(layer=3, mode=mpeg.MODE_MONO, bitrate_kbps=64,
-                        sample_rate_hz=44100)
+    cfg = JEncoderConfig(layer=3, mode=mpeg.MODE_MONO, bitrate_kbps=64,
+                         sample_rate_hz=44100)
     ref = jencoder.encode_layer3_fast(pcm[:, 0], cfg)
     assert len(ref) == len(out)
     x = pcm[:, 0].astype(np.float64)
@@ -221,8 +222,8 @@ def test_port_never_imports_jax():
         "from mp3tpu_torch.encoder import (encode_layer3_fast,"
         " encode_layer3_stream, encode_layer12_fast)\n"
         "from mp3tpu_torch.models.layer3 import Layer3SegmentEncoder\n"
-        "from mp3tpu.config import EncoderConfig\n"
-        "from mp3tpu.tables import mpeg\n"
+        "from mp3tpu_torch.config import EncoderConfig\n"
+        "from mp3tpu_torch.tables import mpeg\n"
         "rng = np.random.RandomState(0)\n"
         "pcm = (rng.randn(4 * 1152) * 3000).astype(np.int16)\n"
         "for rate, kbps in ((44100, 64), (22050, 32)):\n"

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from mp3tpu.tables import mpeg
+from mp3tpu_torch.tables import mpeg
 from mp3tpu_torch.ops import hist_c1 as k1
 from mp3tpu_torch.ops import loop
 

@@ -21,12 +21,12 @@ import torch
 import jax.numpy as jnp
 
 from mp3tpu import encoder as jencoder
-from mp3tpu.config import EncoderConfig
 from mp3tpu.decoder import layer12 as dec12
 from mp3tpu.ops import jaxlayer12 as J
 from mp3tpu.runtime.wav import read_wav
 from mp3tpu.tables import mpeg
 from mp3tpu_torch import encoder as tencoder
+from mp3tpu_torch.config import EncoderConfig
 from mp3tpu_torch.ops import dsp
 from mp3tpu_torch.ops import layer12 as L12
 

@@ -17,15 +17,17 @@ import torch
 import jax.numpy as jnp
 
 from mp3tpu import encoder as jencoder
-from mp3tpu.config import EncoderConfig
+from mp3tpu.config import EncoderConfig as JEncoderConfig
 from mp3tpu.decoder import decode_mp3
 from mp3tpu.decoder.layer3 import snr_db
 from mp3tpu.ops import jaxbits, jaxloop
-from mp3tpu.runtime.profiling import Profiler
+from mp3tpu.runtime.profiling import Profiler as JProfiler
 from mp3tpu.tables import mpeg
 from mp3tpu_torch import encoder as tencoder
+from mp3tpu_torch.config import EncoderConfig
 from mp3tpu_torch.models.layer3 import Layer3SegmentEncoder
 from mp3tpu_torch.ops import bits, loop
+from mp3tpu_torch.runtime.profiling import Profiler
 
 # the CPU path is thousands of small ops: intra-op threads only contend
 # with the other test processes
@@ -143,8 +145,8 @@ def test_port_lsf_roundtrip(lsf_streams, rate, kbps):
 def test_port_lsf_within_1db_of_jax(lsf_streams):
     rate, kbps = RATES[0]
     pcm = _signal(rate)
-    cfg = EncoderConfig(layer=3, mode=mpeg.MODE_MONO, bitrate_kbps=kbps,
-                        sample_rate_hz=rate)
+    cfg = JEncoderConfig(layer=3, mode=mpeg.MODE_MONO, bitrate_kbps=kbps,
+                         sample_rate_hz=rate)
     ref = jencoder.encode_layer3_fast(pcm, cfg)
     x = pcm.astype(np.float64)
     s_ref = float(snr_db(x, decode_mp3(ref)[0][:, 0]))
@@ -159,12 +161,14 @@ def test_encode_metrics_match_jax(rate, kbps, seconds):
     bytes, segments and guard retries agree, nothing degraded."""
     pcm = _signal(rate, seconds=seconds, seed=11)
     metas = []
-    for encode in (lambda c, p: jencoder.encode_layer3_fast(pcm, c, prof=p),
-                   lambda c, p: tencoder.encode_layer3_fast(pcm, c, "cpu",
-                                                            prof=p)):
-        cfg = EncoderConfig(layer=3, mode=mpeg.MODE_MONO, bitrate_kbps=kbps,
-                            sample_rate_hz=rate)
-        prof = Profiler()
+    for encode, Config, Prof in (
+            (lambda c, p: jencoder.encode_layer3_fast(pcm, c, prof=p),
+             JEncoderConfig, JProfiler),
+            (lambda c, p: tencoder.encode_layer3_fast(pcm, c, "cpu", prof=p),
+             EncoderConfig, Profiler)):
+        cfg = Config(layer=3, mode=mpeg.MODE_MONO, bitrate_kbps=kbps,
+                     sample_rate_hz=rate)
+        prof = Prof()
         out = encode(cfg, prof)
         assert prof.meta["bytes"] == len(out)
         metas.append(prof.meta)

@@ -13,8 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from mp3tpu.config import EncoderConfig
 from mp3tpu.tables import mpeg
+from mp3tpu_torch.config import EncoderConfig
 from mp3tpu_torch.encoder import (StreamEncoder, encode_layer3_fast,
                                   encode_layer3_stream)
 
