@@ -47,7 +47,25 @@ Phases, each printing its own lines; any failure exits non-zero:
      CRC case, then a 60 s stereo 44.1 kHz Layer II 192 kbps clip (frame
      grid, timed, first 10 s within 0.5 dB of the CPU path);
   9. the command line: python -m mp3tpu_torch on a 10 s WAV and on raw
-     PCM piped to stdin must write the library's bytes.
+     PCM piped to stdin must write the library's bytes;
+  10. corpus: 32 stereo 44.1 kHz 128 kbps clips x 10 s (bench_corpus.py's
+     clips, copied here) through encode_corpus_batched at lane batch 1, 2,
+     4, 8 and 16: one warm-up and 3 timed runs each (aggregate real-time
+     factor, bits_at launches per group, frame grid); one group of 1 and
+     one of 16 split into analysis, rate loop and the rest (wall between
+     synchronizes, device kernels by stage); the eight stereo 44.1 kHz
+     128 kbps quality fixtures as one mixed-length group, each at its bar
+     and within 0.5 dB of its one-shot encode; bits_at against its plain
+     chain on the 32,768-lane batch of a group of 16, timed;
+  11. multi-device: dryrun_multichip(1) on an NCCL mesh, then the 60 s
+     clip through encode_layer3_sharded at world size 1 (NCCL, this
+     process) and 2 (gloo, two processes of this script run with
+     --sharded-rank, both computing on cuda:0): equal length, equal block
+     types and first-10 s SNR within 0.5 dB of the one-shot encode at the
+     same chunk, both ranks' bytes equal; timed, kernels counted; bits_at
+     against its plain chain on each run's own first bit-evaluation batch
+     (9,216 lanes at world size 1, 4,608 on each rank at 2) at three
+     stepsizes.
 Its last lines are a JSON object describing the kernels and then
 {"ok": true, "device": {...}}.  It imports nothing of JAX and nothing of
 the JAX package.
@@ -253,89 +271,119 @@ def bits_at_bound(args):
                  + len(K.ROWS) * G * 4, 3 * 576 * G)
 
 
-def capture_main_batch(ctx, pcm, cfg):
-    """The main path's first 4096-lane bit evaluation, recorded by
-    wrapping loop._bits_at during one encode of the bench clip:
-    (xr75p, qss, is_short, is_short_block, ST)."""
+def capture_batch(ctx, run, lanes, what):
+    """The first bit evaluation of `lanes` granules that run() makes,
+    recorded by wrapping loop._bits_at: (xr75p, qss, is_short,
+    is_short_block, ST)."""
     loop = ctx["loop"]
     real = loop._bits_at
     seen = []
 
     def record(xr75p, qss, is_short, is_short_block, ST):
-        if not seen and xr75p.shape[0] == 4096:
+        if not seen and xr75p.shape[0] == lanes:
             seen.append((xr75p.clone(), qss.clone(), is_short.clone(),
                          is_short_block.clone(), ST))
         return real(xr75p, qss, is_short, is_short_block, ST)
 
     loop._bits_at = record
     try:
-        ctx["encode"](pcm, cfg, device="cuda")
+        run()
     finally:
         loop._bits_at = real
     if not seen:
-        fail("the main path made no 4096-lane bit evaluation")
+        fail(f"the {what} made no {lanes}-lane bit evaluation")
     return seen[0]
+
+
+def path_batch_check(ctx, run, lanes, what):
+    """bits_at against bits_at_plain on the first `lanes`-lane batch that
+    run() evaluates, at three stepsizes; returns (the batch, the max abs
+    error)."""
+    args = capture_batch(ctx, run, lanes, what)
+    errs = []
+    xr75p, qss, short, sblk, ST = args
+    for d in (-60.0, 0.0, 8.0):
+        bits_at_check(ctx, f"{what} batch at qss{d:+.0f}",
+                      (xr75p, qss + d, short, sblk, ST), errs)
+    return args, max(errs)
+
+
+def capture_main_batch(ctx, pcm, cfg):
+    """The main path's first 4096-lane bit evaluation."""
+    return capture_batch(ctx, lambda: ctx["encode"](pcm, cfg, device="cuda"),
+                         4096, "main path")
+
+
+def bits_at_check(ctx, label, args, errs):
+    """bits_at against bits_at_plain on every output (fails on any
+    difference); appends the max abs error to errs; returns the plain
+    chain's outputs."""
+    torch, loop = ctx["torch"], ctx["loop"]
+    from mp3tpu_torch.ops import bits_at as K
+    from test_torch_bits_at_card import mismatches
+    got = K.bits_at(*args)
+    torch.cuda.synchronize()
+    want = K.bits_at_plain(*args)
+    bad = mismatches(got, want)
+    if bad:
+        fail(f"bits_at != plain on {label} in {bad}")
+    errs.append(max(float((got[k].to(torch.float64)
+                           - want[k].to(torch.float64)).abs().max())
+                    for k in want))
+    over = int((want["ix_max"] > loop.IXMAX).sum())
+    short = int(args[2].sum())
+    sblk = int((args[3] & ~args[2]).sum())
+    print(f"bits_at {label}: every output equal to plain (G="
+          f"{args[0].shape[0]}: {short} short, {sblk} start/stop, "
+          f"{over} past IXMAX)", flush=True)
+    return want
+
+
+def bits_at_timed(ctx, label, args):
+    """Kernel device and call time, the plain chain's device time, and
+    K1's device time on the same quantized batch."""
+    k1, loop = ctx["k1"], ctx["loop"]
+    from mp3tpu_torch.ops import bits_at as K
+    xr75p, qss, short, sblk, ST = args
+    ixp = loop.quantize_pow75(xr75p, qss)
+    count1, bv = loop.calc_runlen(ixp, short)
+    _, _, a1, a2 = loop.subdivide(bv, short, sblk, ST)
+    k1_args = (ixp, a1, a2, bv, count1, short, ST["r0_pairs_short"])
+    k_dev = device_ms(lambda: K.bits_at(*args))
+    k_call = call_ms(lambda: K.bits_at(*args))
+    p_dev = device_ms(lambda: K.bits_at_plain(*args))
+    k1_dev = device_ms(lambda: k1.hist_c1(*k1_args))
+    if k_dev is None or p_dev is None:
+        k_dev = k_call
+        p_dev = call_ms(lambda: K.bits_at_plain(*args))
+        print("  (no profiler device time: kernel and plain chain "
+              "report call times)", flush=True)
+    b_ms, b_by = bits_at_bound(args)
+    print(f"bits_at {label} timed: device time per call (torch.profiler, "
+          f"mean of 20): kernel {k_dev} ms, plain chain {p_dev} ms, K1 "
+          f"alone on the same quantized batch {k1_dev} ms; kernel call "
+          f"time (CUDA events, median of 50) {k_call:.4f} ms; bound "
+          f"{b_ms:.6f} ms ({b_by}), kernel at {b_ms / k_dev:.1%} of it",
+          flush=True)
+    return k_dev, p_dev, k1_dev, b_ms, b_by
 
 
 def phase_bits_at(ctx, main_args):
     """Phase 3b: bits_at against bits_at_plain on the card; returns the
     JSON fields measured on the main path's own 4096-lane batch."""
-    torch, k1, loop = ctx["torch"], ctx["k1"], ctx["loop"]
-    from mp3tpu_torch.ops import bits_at as K
-    from test_torch_bits_at_card import kernel_args, mismatches, random_batch
-    mpeg = ctx["mpeg"]
+    loop, mpeg = ctx["loop"], ctx["mpeg"]
+    from test_torch_bits_at_card import kernel_args, random_batch
     errs = []
 
     def check(label, args):
-        got = K.bits_at(*args)
-        torch.cuda.synchronize()
-        want = K.bits_at_plain(*args)
-        bad = mismatches(got, want)
-        if bad:
-            fail(f"bits_at != plain on {label} in {bad}")
-        errs.append(max(float((got[k].to(torch.float64)
-                               - want[k].to(torch.float64)).abs().max())
-                        for k in want))
-        over = int((want["ix_max"] > loop.IXMAX).sum())
-        short = int(args[2].sum())
-        sblk = int((args[3] & ~args[2]).sum())
-        print(f"bits_at {label}: every output equal to plain (G="
-              f"{args[0].shape[0]}: {short} short, {sblk} start/stop, "
-              f"{over} past IXMAX)", flush=True)
-        return want
-
-    def timed(label, args):
-        """Kernel device and call time, the plain chain's device time,
-        and K1's device time on the same quantized batch."""
-        xr75p, qss, short, sblk, ST = args
-        ixp = loop.quantize_pow75(xr75p, qss)
-        count1, bv = loop.calc_runlen(ixp, short)
-        _, _, a1, a2 = loop.subdivide(bv, short, sblk, ST)
-        k1_args = (ixp, a1, a2, bv, count1, short, ST["r0_pairs_short"])
-        k_dev = device_ms(lambda: K.bits_at(*args))
-        k_call = call_ms(lambda: K.bits_at(*args))
-        p_dev = device_ms(lambda: K.bits_at_plain(*args))
-        k1_dev = device_ms(lambda: k1.hist_c1(*k1_args))
-        if k_dev is None or p_dev is None:
-            k_dev = k_call
-            p_dev = call_ms(lambda: K.bits_at_plain(*args))
-            print("  (no profiler device time: kernel and plain chain "
-                  "report call times)", flush=True)
-        b_ms, b_by = bits_at_bound(args)
-        print(f"bits_at {label} timed: device time per call (torch.profiler, "
-              f"mean of 20): kernel {k_dev} ms, plain chain {p_dev} ms, K1 "
-              f"alone on the same quantized batch {k1_dev} ms; kernel call "
-              f"time (CUDA events, median of 50) {k_call:.4f} ms; bound "
-              f"{b_ms:.6f} ms ({b_by}), kernel at {b_ms / k_dev:.1%} of it",
-              flush=True)
-        return k_dev, p_dev, k1_dev, b_ms, b_by
+        return bits_at_check(ctx, label, args, errs)
 
     # the main path's widths, then wider batches (a corpus batches clips
     # as extra lanes): one granule a warp at G = 4096 fills one wave
     for G in (512, 4096, 4099, 16384, 65536):
         args = kernel_args(*random_batch(3030 + G, G), "cuda")
         check(f"random G={G}", args)
-        timed(f"random G={G}", args)
+        bits_at_timed(ctx, f"random G={G}", args)
     lsf = kernel_args(*random_batch(22050, 4096), "cuda", mpeg.MPEG2_LSF)
     check("random G=4096, MPEG-2 LSF 22.05 kHz tables", lsf)
     xr75, qss, is_short, wsf = random_batch(7, 4096)
@@ -353,7 +401,8 @@ def phase_bits_at(ctx, main_args):
         n_over += int((want["ix_max"] > loop.IXMAX).sum())
     if n_over == 0:
         fail("no stepsize of the main path's batch went past IXMAX")
-    k_dev, p_dev, k1_dev, b_ms, b_by = timed("main path's batch", main_args)
+    k_dev, p_dev, k1_dev, b_ms, b_by = bits_at_timed(ctx, "main path's batch",
+                                                     main_args)
     return dict(max_abs_err=max(errs), ms=k_dev, plain_ms=p_dev,
                 k1_ms=k1_dev, bound_ms=b_ms, bound_by=b_by)
 
@@ -699,6 +748,355 @@ def phase_cli(ctx, pcm, cfg_of):
           f"-l 2 ({t3:.2f} s), process start included", flush=True)
 
 
+CORPUS_CLIPS = 32
+CORPUS_SECONDS = 10.0
+CORPUS_BATCHES = (1, 2, 4, 8, 16)
+
+
+def make_clip(seed, seconds, rate):
+    """bench_corpus.py's corpus clip: stereo tones at a pitch set by the
+    seed, and noise."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    t = np.arange(int(seconds * rate)) / rate
+    f0 = 200.0 + 80.0 * (seed % 13)
+    x = (0.3 * np.sin(2 * np.pi * f0 * t)
+         + 0.1 * np.sin(2 * np.pi * 2.7 * f0 * t)
+         + 0.05 * rng.randn(len(t)))
+    y = 0.25 * np.sin(2 * np.pi * 1.5 * f0 * t) + 0.05 * rng.randn(len(t))
+    pcm = np.stack([x, y], axis=0)
+    return np.clip(pcm * 22000, -32768, 32767).astype(np.int16)
+
+
+def group_split(ctx, group, kw):
+    """One corpus group's wall split into the per-lane analysis
+    (Layer3SegmentEncoder._analyze_chunk), the rate loops (loop.outer_loop)
+    and the rest, each timed between synchronizes; and the device kernels
+    and copies of each stage, counted by torch.profiler over a replay of
+    that stage's calls, and of the whole group."""
+    torch, loop = ctx["torch"], ctx["loop"]
+    from mp3tpu_torch.models.layer3 import Layer3SegmentEncoder as Enc
+    from mp3tpu_torch.parallel.corpus import encode_corpus_batched
+    real = {"analysis": Enc._analyze_chunk, "rate loop": loop.outer_loop}
+    secs = dict.fromkeys(real, 0.0)
+    calls = {k: [] for k in real}
+
+    def timed(key):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real[key](*args, **kwargs)
+            torch.cuda.synchronize()
+            secs[key] += time.perf_counter() - t0
+            calls[key].append((args, kwargs))
+            return out
+        return run
+
+    def encode():
+        return encode_corpus_batched(group, kw, "cuda", batch=len(group))
+
+    Enc._analyze_chunk, loop.outer_loop = timed("analysis"), timed("rate loop")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        encode()
+        wall = time.perf_counter() - t0
+    finally:
+        Enc._analyze_chunk = real["analysis"]
+        loop.outer_loop = real["rate loop"]
+    kernels = {}
+    for key, fn in real.items():
+        kernels[key] = profile_once(
+            torch, lambda: [fn(*a, **k) for a, k in calls[key]])[0]
+    kernels["whole group"] = profile_once(torch, encode)[0]
+    print(f"corpus group of {len(group)} clips ({2 * len(group)} lanes): "
+          f"wall {wall:.4f} s with a synchronize around each stage call; "
+          f"analysis {secs['analysis']:.4f} s in "
+          f"{len(calls['analysis'])} per-lane calls "
+          f"({secs['analysis'] / wall:.1%}), rate loop "
+          f"{secs['rate loop']:.4f} s in {len(calls['rate loop'])} calls "
+          f"({secs['rate loop'] / wall:.1%}), the rest "
+          f"{wall - secs['analysis'] - secs['rate loop']:.4f} s; device "
+          f"kernels and copies (torch.profiler): analysis "
+          f"{kernels['analysis']}, rate loop {kernels['rate loop']}, whole "
+          f"group {kernels['whole group']}", flush=True)
+
+
+def phase_corpus(ctx, line, cfg_of):
+    """Phase 10: encode_corpus_batched on the card; returns the launches
+    of one 32-clip encode at lane batch 16 and bits_at's numbers on the
+    captured 32,768-lane batch."""
+    np, torch, mpeg = ctx["np"], ctx["torch"], ctx["mpeg"]
+    decode_mp3, snr_db = ctx["decode_mp3"], ctx["snr_db"]
+    from mp3tpu_torch.parallel.corpus import encode_corpus_batched
+    kw = dict(layer=3, mode=mpeg.MODE_STEREO, bitrate_kbps=128)
+    rate = 44100
+    clips = [(make_clip(s, CORPUS_SECONDS, rate), rate)
+             for s in range(CORPUS_CLIPS)]
+    audio = CORPUS_CLIPS * CORPUS_SECONDS
+    launches = None
+    for batch in CORPUS_BATCHES:
+        encode_corpus_batched(clips[:2 * batch], kw, "cuda", batch=batch)
+        walls, first = [], None
+        for i in range(TIMED_RUNS):
+            if i == 0:
+                reset_counts(ctx)
+            outs, stats = encode_corpus_batched(clips, kw, "cuda",
+                                                batch=batch)
+            if i == 0:
+                counts = read_counts(ctx, f"corpus at lane batch {batch}")
+                first = outs
+            elif outs != first:
+                fail(f"corpus at lane batch {batch}: two runs differ")
+            walls.append(stats["wall_s"])
+        for out in first:
+            check_grid(out, 128, rate, int(CORPUS_SECONDS * rate))
+        groups = -(-CORPUS_CLIPS // batch)
+        wall = statistics.median(walls)
+        print(f"corpus: {CORPUS_CLIPS} stereo 44.1 kHz 128 kbps clips x "
+              f"{CORPUS_SECONDS:.0f} s, lane batch {batch}: aggregate "
+              f"{audio / wall:.2f}x real time, wall {wall:.4f} s median of "
+              f"{TIMED_RUNS} ({', '.join(f'{w:.4f}' for w in walls)} s); "
+              f"bits_at launches {counts['bits_at']} in {groups} groups "
+              f"({counts['bits_at'] / groups:.1f} a group) on {line}",
+              flush=True)
+        if batch == CORPUS_BATCHES[-1]:
+            launches = counts
+
+    for batch in (1, CORPUS_BATCHES[-1]):
+        group_split(ctx, clips[:batch], kw)
+
+    # the eight stereo 44.1 kHz 128 kbps quality fixtures as one group
+    golden = os.path.join(ROOT, "tests", "golden")
+    with open(os.path.join(golden, "ref_snr.json")) as f:
+        ref = json.load(f)
+    names = [n for n, mode, kbps, r in QUALITY
+             if mode == mpeg.MODE_STEREO and kbps == 128 and r == rate]
+    pcms = [ctx["read_wav"](os.path.join(golden, f"{n}.wav"))[0]
+            for n in names]
+    outs, _ = encode_corpus_batched([(p, rate) for p in pcms], kw, "cuda",
+                                    batch=len(names))
+    same, worst, gap = 0, None, 0.0
+    for name, pcm, out in zip(names, pcms, outs):
+        one = ctx["encode"](pcm, cfg_of(), device="cuda")
+        check_grid(out, 128, rate, pcm.shape[0])
+        if len(out) != len(one):
+            fail(f"corpus {name}: {len(out)} bytes, one-shot {len(one)}")
+        same += out == one
+        dec, _ = decode_mp3(out)
+        dec1, _ = decode_mp3(one)
+        for c in range(2):
+            s = float(snr_db(pcm[:, c].astype(np.float64), dec[:, c]))
+            s1 = float(snr_db(pcm[:, c].astype(np.float64), dec1[:, c]))
+            if not np.isfinite(s) or s < ref[name][c] or abs(s - s1) >= 0.5:
+                fail(f"corpus {name} ch{c}: SNR {s:.2f} dB, bar "
+                     f"{ref[name][c]} dB, one-shot {s1:.2f} dB")
+            gap = max(gap, abs(s - s1))
+            if worst is None or s - ref[name][c] < worst[0]:
+                worst = (s - ref[name][c], name, c)
+    print(f"corpus quality: the {len(names)} stereo 44.1 kHz 128 kbps "
+          f"fixtures ({', '.join(str(len(p)) for p in pcms)} samples) as one "
+          f"group: at or above their ref_snr.json bars (worst margin "
+          f"{worst[0]:+.2f} dB, {worst[1]} ch{worst[2]}), within 0.5 dB of "
+          f"their one-shot encodes (largest gap {gap:.4f} dB); {same} of "
+          f"{len(names)} byte-identical to the one-shot", flush=True)
+
+    group = clips[:CORPUS_BATCHES[-1]]
+    from mp3tpu_torch.encoder import _plan_segments
+    lanes = 2 * len(group) * _plan_segments(
+        2 * -(-int(CORPUS_SECONDS * rate) // 1152))[0][2]
+    args, err = path_batch_check(
+        ctx, lambda: encode_corpus_batched(group, kw, "cuda",
+                                           batch=len(group)),
+        lanes, f"corpus group of {len(group)}")
+    k_dev, p_dev, _, b_ms, b_by = bits_at_timed(ctx, "corpus batch", args)
+    return dict(launches=launches, max_abs_err=err, ms=k_dev,
+                plain_ms=p_dev, bound_ms=b_ms, bound_by=b_by)
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def sharded_lanes(G, world):
+    """The lanes of one rank's bit evaluations in encode_layer3_sharded:
+    its chunks x 2 channels x the chunk size (parallel/clip.py's grid)."""
+    from mp3tpu_torch.encoder import _chunk_size
+    C = _chunk_size(-(-G // world))
+    K = -(-(-(-G // C)) // world) * world
+    return K // world * 2 * C
+
+
+
+def sharded_rank(rank, world, url, out):
+    """One rank of phase 11's gloo group, run as
+    python3 chip_smoke.py --sharded-rank RANK WORLD URL OUT: the bench clip
+    through encode_layer3_sharded on cuda:0 over a "cpu" mesh, once to warm
+    up and once timed, then once more with this rank's bit evaluation
+    captured and bits_at held against its plain chain on it; writes the
+    stream to OUT and the seconds and the max abs error to OUT.json."""
+    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch
+    import torch.distributed as dist
+    if not torch.cuda.is_available():
+        fail("sharded rank: no CUDA device")
+    from mp3tpu_torch.config import EncoderConfig
+    from mp3tpu_torch.ops import loop
+    from mp3tpu_torch.parallel.clip import encode_layer3_sharded
+    from mp3tpu_torch.parallel.corpus import init_distributed
+    from mp3tpu_torch.parallel.sharding import make_mesh
+    from mp3tpu_torch.tables import mpeg
+    init_distributed(url, world, rank, "gloo")
+    try:
+        mesh = make_mesh("cpu", world)
+        pcm = make_signal(CLIP_SECONDS, 44100)
+
+        def encode():
+            cfg = EncoderConfig(layer=3, mode=mpeg.MODE_STEREO,
+                                bitrate_kbps=128, sample_rate_hz=44100)
+            return encode_layer3_sharded(pcm, cfg, "cuda", mesh=mesh)
+
+        encode()
+        dist.barrier()
+        t0 = time.perf_counter()
+        data = encode()
+        wall = time.perf_counter() - t0
+        _, err = path_batch_check(
+            dict(torch=torch, loop=loop), encode,
+            sharded_lanes(2 * -(-len(pcm) // 1152), world),
+            f"sharded path (world {world}, rank {rank})")
+    finally:
+        dist.destroy_process_group()
+    with open(out, "wb") as f:
+        f.write(data)
+    with open(out + ".json", "w") as f:
+        json.dump({"wall_s": wall, "max_abs_err": err}, f)
+
+
+def phase_sharded(ctx, cfg_of, line):
+    """Phase 11: dryrun_multichip(1) on an NCCL mesh; the bench clip
+    through encode_layer3_sharded at world size 1 (NCCL, this process) and
+    2 (gloo, two processes, both on cuda:0), each held to the one-shot
+    encode at the same chunk, and bits_at held against its plain chain on
+    each run's own bit-evaluation batch.  Returns the launches of the
+    world-1 encode and the largest error of those checks."""
+    np, torch = ctx["np"], ctx["torch"]
+    import torch.distributed as dist
+    from mp3tpu_torch.decoder.layer3 import stream_block_types
+    from mp3tpu_torch.encoder import _chunk_size
+    from mp3tpu_torch.parallel.clip import encode_layer3_sharded
+    from mp3tpu_torch.parallel.corpus import init_distributed
+    from mp3tpu_torch.parallel.dryrun import dryrun_multichip
+    pcm = make_signal(CLIP_SECONDS, 44100)
+    G = 2 * -(-len(pcm) // 1152)
+    streams = {}
+
+    rank, world = init_distributed(f"localhost:{free_port()}", 1, 0, "nccl")
+    try:
+        t0 = time.perf_counter()
+        dry = dryrun_multichip(1, "cuda")
+        print(f"dryrun_multichip(1) on an NCCL mesh: encode_sharded and a "
+              f"{len(dry)}-byte stream in {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        encode_layer3_sharded(pcm, cfg_of(), "cuda")             # warm-up
+        reset_counts(ctx)
+        t0 = time.perf_counter()
+        streams[1] = encode_layer3_sharded(pcm, cfg_of(), "cuda")
+        walls = {1: [time.perf_counter() - t0]}
+        launches = read_counts(ctx, "sharded path")
+        n_sh = profile_once(
+            torch, lambda: encode_layer3_sharded(pcm, cfg_of(), "cuda"))[0]
+        errs = [path_batch_check(
+            ctx, lambda: encode_layer3_sharded(pcm, cfg_of(), "cuda"),
+            sharded_lanes(G, 1), "sharded path (world 1)")[1]]
+    finally:
+        dist.destroy_process_group()
+
+    work = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    rendezvous = os.path.join(work, "rendezvous")
+    if os.path.exists(rendezvous):
+        os.remove(rendezvous)
+    env = dict(os.environ, PYTHONPATH=ROOT,
+               GLOO_SOCKET_IFNAME=os.environ.get("GLOO_SOCKET_IFNAME", "lo"))
+    outs = [os.path.join(work, f"sharded{r}.mp3") for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--sharded-rank", str(r),
+         "2", f"file://{rendezvous}", outs[r]], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE) for r in range(2)]
+    try:
+        for r, p in enumerate(procs):
+            said, err = p.communicate(timeout=600)
+            for text in said.decode(errors="replace").splitlines():
+                print(f"rank {r} of 2: {text}", flush=True)
+            if p.returncode != 0:
+                fail(f"sharded rank {r} of 2: rc {p.returncode}\n"
+                     f"{err.decode(errors='replace')[-3000:]}")
+    finally:
+        for p in procs:
+            p.kill()
+    ranks = []
+    walls[2] = []
+    for out in outs:
+        with open(out, "rb") as f:
+            ranks.append(f.read())
+        with open(out + ".json") as f:
+            res = json.load(f)
+        walls[2].append(res["wall_s"])
+        errs.append(res["max_abs_err"])
+    if ranks[0] != ranks[1]:
+        fail("the two gloo ranks returned different streams")
+    streams[2] = ranks[0]
+
+    one_shot = {}
+    for world, data in sorted(streams.items()):
+        chunk = _chunk_size(-(-G // world))
+        if chunk not in one_shot:
+            t0 = time.perf_counter()
+            one = ctx["encode"](pcm, cfg_of(), device="cuda", chunk=chunk)
+            wall1 = time.perf_counter() - t0
+            fsize, _ = check_grid(one, 128, 44100, len(pcm))
+            n_one = profile_once(torch, lambda: ctx["encode"](
+                pcm, cfg_of(), device="cuda", chunk=chunk))[0]
+            one_shot[chunk] = (one, wall1, n_one, first_seconds_snr(
+                np, one, pcm, fsize, 10.0, ctx["decode_mp3"], ctx["snr_db"]))
+        one, wall1, n_one, snr1 = one_shot[chunk]
+        if len(data) != len(one):
+            fail(f"sharded world {world}: {len(data)} bytes, one-shot at "
+                 f"chunk {chunk} {len(one)}")
+        bt = stream_block_types(data)
+        if not np.array_equal(bt, stream_block_types(one)):
+            fail(f"sharded world {world}: block types differ from the "
+                 f"one-shot at chunk {chunk}")
+        snr = first_seconds_snr(np, data, pcm, fsize, 10.0, ctx["decode_mp3"],
+                                ctx["snr_db"])
+        for s, s1 in zip(snr, snr1):
+            if not np.isfinite(s) or abs(s - s1) >= 0.5:
+                fail(f"sharded world {world}: first-10 s SNR {s:.2f} dB, "
+                     f"one-shot {s1:.2f} dB")
+        how = ("NCCL, this process" if world == 1
+               else "gloo, two processes on cuda:0")
+        print(f"sharded {CLIP_SECONDS:.0f} s stereo 128 kbps, world size "
+              f"{world} ({how}), "
+              f"chunk {chunk}: {len(data)} bytes, "
+              f"{'byte-identical to' if data == one else 'differs from'} the "
+              f"one-shot at chunk {chunk}; block types equal "
+              f"({int((bt != 0).sum())} non-long); first 10 s SNR {snr} dB "
+              f"(one-shot {snr1}); timed wall "
+              f"{', '.join(f'{w:.3f}' for w in walls[world])} s "
+              f"({', '.join(f'{CLIP_SECONDS / w:.2f}x' for w in walls[world])}"
+              f" real time; one-shot at chunk {chunk}: {wall1:.3f} s) on "
+              f"{line}", flush=True)
+    print(f"sharded world 1: {n_sh} device kernels and copies per encode "
+          f"(torch.profiler), one-shot at chunk {_chunk_size(G)}: "
+          f"{one_shot[_chunk_size(G)][2]}", flush=True)
+    return dict(launches=launches, max_abs_err=max(errs))
+
+
 def phase_build(k1, K):
     """Phase 2: build both kernel libraries, one nvcc process each,
     started together; prints bits_at.cu's -Xptxas -v report."""
@@ -827,6 +1225,7 @@ def phase_main(ctx, pcm, cfg, line):
 
 
 def main():
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs "
@@ -878,18 +1277,29 @@ def main():
     phases = [("6 LSF", lambda: phase_lsf(ctx)),
               ("7 streaming", lambda: phase_stream(ctx, pcm, cfg_of)),
               ("8 Layers I/II", lambda: phase_layer12(ctx)),
-              ("9 CLI", lambda: phase_cli(ctx, pcm, cfg_of))]
+              ("9 CLI", lambda: phase_cli(ctx, pcm, cfg_of)),
+              ("10 corpus", lambda: phase_corpus(ctx, line, cfg_of)),
+              ("11 multi-device", lambda: phase_sharded(ctx, cfg_of, line))]
     counts = {}
     for name, run in phases:
         t0 = time.perf_counter()
         counts[name] = run()
         print(f"phase {name}: {time.perf_counter() - t0:.2f} s", flush=True)
+    corpus, sharded = counts["10 corpus"], counts["11 multi-device"]
+    print(f"bits_at on the corpus path's 32,768-lane batch: max_abs_err "
+          f"{corpus['max_abs_err']}, {corpus['ms']} ms against the plain "
+          f"chain's {corpus['plain_ms']} ms and a bound of "
+          f"{corpus['bound_ms']:.6f} ms ({corpus['bound_by']}); on the "
+          f"sharded path's batches: max_abs_err {sharded['max_abs_err']}",
+          flush=True)
 
     launches = main_res["launches"]
 
     def by_path(kernel):
         return {"main": launches[kernel], "lsf": counts["6 LSF"][kernel],
-                "stream": counts["7 streaming"][kernel]}
+                "stream": counts["7 streaming"][kernel],
+                "corpus": corpus["launches"][kernel],
+                "sharded": sharded["launches"][kernel]}
 
     err, k_ms, p_ms, (b_ms, b_by) = kres[4096]
     print(json.dumps({"kernels": [
@@ -904,15 +1314,23 @@ def main():
         {"name": "bits_at", "route": "cuda",
          "source": "mp3tpu_torch/csrc/bits_at.cu",
          "replaces": "mp3tpu/ops/pallas_bits.py:69",
-         "launches": launches["bits_at"], "max_abs_err": bres["max_abs_err"],
+         "launches": launches["bits_at"],
+         "max_abs_err": max(bres["max_abs_err"], corpus["max_abs_err"],
+                            sharded["max_abs_err"]),
          "ms": bres["ms"], "plain_ms": bres["plain_ms"],
          "bound_ms": bres["bound_ms"], "bound_by": bres["bound_by"],
          "library_ms": None, "launches_by_path": by_path("bits_at")}]}),
           flush=True)
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--sharded-rank"]:
+        sharded_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                     sys.argv[5])
+    else:
+        main()

@@ -1,9 +1,11 @@
-"""mp3tpu_torch: the single-device encoder of ``mp3tpu`` ported to PyTorch
-(Layer III one-shot and streaming, MPEG-1 and MPEG-2 LSF; Layers I/II;
-``python -m mp3tpu_torch``).
+"""mp3tpu_torch: the encoder of ``mp3tpu`` ported to PyTorch (Layer III
+one-shot and streaming, MPEG-1 and MPEG-2 LSF; Layers I/II;
+``python -m mp3tpu_torch``; corpus batching and multi-rank encode over
+``torch.distributed`` in ``parallel/``).
 
 The JAX package ``mp3tpu`` is the reference; this package mirrors its
-layout (``ops/``, ``models/``, ``encoder.py``, ``cli.py``) and imports
+layout (``ops/``, ``models/``, ``parallel/``, ``encoder.py``,
+``cli.py``) and imports
 nothing of it.  What it needs of the JAX package's jax-free parts it
 keeps as copies: ``tables`` (with ``tables/data/*.npz``), ``config``,
 ``numpy_ref``, ``decoder``, ``runtime`` (bitstream binding, alloc12,

@@ -136,6 +136,31 @@ def _parse_side_info(br, nch, version=1):
     return si
 
 
+def stream_block_types(data):
+    """(nch, granules) block types read from a Layer III stream's side
+    info, whole frames only."""
+    data = np.frombuffer(data, np.uint8)
+    h0 = _parse_header(data, 0)
+    version = h0["version"]
+    nch = 1 if h0["mode"] == mpeg.MODE_MONO else 2
+    rate = int(mpeg.S_FREQ_KHZ[version][h0["sampling_frequency"]] * 1000)
+    kbps = int(mpeg.BITRATE_KBPS[version][2][h0["bitrate_index"]])
+    rows, i = [], 0
+    while True:
+        hdr = _parse_header(data, i)
+        if hdr is None:
+            break
+        size = (144000 if version else 72000) * kbps // rate + hdr["padding"]
+        if i + size > len(data):
+            break
+        br = BitReader(data[i:i + size])
+        br.pos = 48 if hdr["protection"] else 32
+        side = _parse_side_info(br, nch, version)
+        rows += [[gi["block_type"] for gi in gr] for gr in side["gr"]]
+        i += size
+    return np.array(rows, np.int32).reshape(-1, nch).T
+
+
 _SLEN1 = mpeg.SLEN1_TAB
 _SLEN2 = mpeg.SLEN2_TAB
 

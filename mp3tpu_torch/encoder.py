@@ -39,6 +39,10 @@ from .ops import layer12 as L12
 #: super-chunk buckets (granules per channel per segment), as in the
 #: JAX package, so that segments line up with it
 SUPER_BUCKETS = (256, 1024, 2048)
+#: chunk buckets (granules per channel per chunk) of the multi-rank path
+#: (parallel/clip.py): each rank's share is cut into chunks of the
+#: smallest bucket covering it
+CHUNK_BUCKETS = (64, 128, 256)
 #: predicted slack of reservoir-limited granules, folded into the scan
 RELAX_DELTA = 28
 #: initial payload row width in 32-bit words
@@ -66,6 +70,15 @@ def _plan_segments(G, buckets=SUPER_BUCKETS):
         if rem <= b:
             return plan + [(pos, rem, b)]
     return plan + [(pos, rem, big)]
+
+
+def _chunk_size(G):
+    """The smallest chunk bucket covering G granules (the largest when
+    none does)."""
+    for c in CHUNK_BUCKETS:
+        if G <= c:
+            return c
+    return CHUNK_BUCKETS[-1]
 
 
 def _stitch_flat(plan, seg_sides, seg_flats, nch, lane0=0, G=None):
@@ -115,6 +128,7 @@ class _Layer3Framing:
         self.dev = resolve_device(device)
         self.nch = cfg.nchannels
         self.mode_gr = cfg.mode_gr
+        self.spf = cfg.samples_per_frame
         self.bits_per_frame = 8 * cfg.slots_per_frame()[0]
         self.sideinfo_len = mpeg.sideinfo_bits(cfg.version, self.nch,
                                                cfg.error_protection)
@@ -127,6 +141,23 @@ class _Layer3Framing:
             mpeg.sfb_short(cfg.version, cfg.sampling_frequency), np.int32)
         self.enc = Layer3SegmentEncoder(cfg.version, cfg.sampling_frequency,
                                         self.dev)
+
+    def frame(self, pcm):
+        """Int16 or float PCM (samples x channels, or channels x samples)
+        as (nch, nframes*spf) int16 zero-padded to whole frames, and
+        nframes.  Float input is sanitized: NaN -> 0, +/-Inf -> full
+        scale, clipped to the int16 range."""
+        pcm = np.atleast_2d(np.asarray(pcm, np.float32))
+        if pcm.shape[0] > pcm.shape[1]:
+            pcm = pcm.T
+        if pcm.shape[0] != self.nch:
+            raise ValueError(
+                f"pcm has {pcm.shape[0]} channels, config {self.nch}")
+        nframes = -(-pcm.shape[1] // self.spf)
+        pcm = np.pad(pcm, ((0, 0), (0, nframes * self.spf - pcm.shape[1])))
+        pcm = np.clip(np.nan_to_num(pcm, nan=0.0, posinf=32767.0,
+                                    neginf=-32768.0), -32768, 32767)
+        return pcm.astype(np.int16), nframes
 
     def cap(self, n_pad):
         """Flat payload buffer size of an n_pad-granule segment."""
@@ -276,21 +307,11 @@ def encode_layer3_fast(pcm, cfg: EncoderConfig, device, chunk=None,
     """
     prof = prof if prof is not None else profiling.from_env()
     L3 = _Layer3Framing(cfg, device)
-    pcm = np.atleast_2d(np.asarray(pcm, np.float32))
-    if pcm.shape[0] > pcm.shape[1]:
-        pcm = pcm.T
     nch, mode_gr = L3.nch, L3.mode_gr
-    if pcm.shape[0] != nch:
-        raise ValueError(f"pcm has {pcm.shape[0]} channels, config {nch}")
-    spf = cfg.samples_per_frame
-    nframes = int(np.ceil(pcm.shape[1] / spf))
-    total = nframes * spf
-    pcm = np.pad(pcm, ((0, 0), (0, total - pcm.shape[1])))
+    pcm, nframes = L3.frame(pcm)
+    total = nframes * L3.spf
     G = nframes * mode_gr
-    # float-input sanitization: NaN -> 0, +/-Inf -> full scale
-    pcm = np.clip(np.nan_to_num(pcm, nan=0.0, posinf=32767.0,
-                                neginf=-32768.0), -32768, 32767)
-    blocks = pcm.astype(np.int16).reshape(nch, G, 576)
+    blocks = pcm.reshape(nch, G, 576)
     plan = _plan_segments(G, (chunk,) if chunk else SUPER_BUCKETS)
 
     # ---- one segment program per plan entry, state carried across

@@ -119,17 +119,22 @@ class Layer3SegmentEncoder(nn.Module):
     def _analyze_chunk(self, blocks_ext, halo2, fsm_init):
         """One channel's chunk: blocks_ext (2 warmup + C, 576), halo2
         (2, 576) before the warmups."""
-        DT = self.tables("dsp")
         p = psy.psycho_granules(blocks_ext, halo2, self.tables("psy"),
                                 warmup=2, fsm_init=fsm_init)
+        return dict(xr=self.spectrum(blocks_ext, p["block_type"]),
+                    pe=p["pe"], ratio_l=p["ratio_l"],
+                    ratio_s=p["ratio_s"], block_type=p["block_type"],
+                    fsm_state=p["fsm_state"])
+
+    def spectrum(self, blocks_ext, block_type):
+        """Filterbank + MDCT of one channel's chunk (2 warmup + C blocks)
+        at its C block types: xr (C, 576)."""
+        DT = self.tables("dsp")
         scaled = blocks_ext / 32768.0
         sb = dsp.subband_granules(scaled[2:], scaled[1, 64:], DT)
         sb_prev = dsp.subband_granules(scaled[1][None], scaled[0, 64:],
                                        DT)[0]
-        xr = dsp.mdct_granules(sb, sb_prev, p["block_type"], DT)
-        return dict(xr=xr, pe=p["pe"], ratio_l=p["ratio_l"],
-                    ratio_s=p["ratio_s"], block_type=p["block_type"],
-                    fsm_state=p["fsm_state"])
+        return dsp.mdct_granules(sb, sb_prev, block_type, DT)
 
     def analyze_demand_fused(self, blocks_h4, fsm_init):
         """Analysis + unconstrained (4095-bit) demand encode of a segment.

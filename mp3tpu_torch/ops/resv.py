@@ -72,3 +72,23 @@ def scan_budgets(pe, demand, size0, mean_bits, resv_max, mode_gr, nch,
                                       resv_max, mode_gr, nch, delta)
         f = e
     return torch.as_tensor(budgets, dtype=torch.int32, device=dev), size
+
+
+def scan_budgets_batched(pe, demand, size0, mean_bits, resv_max, mode_gr,
+                         nch, delta):
+    """Clip-batched scan of the corpus path: pe, demand (B, F, R)
+    granule-major tensors, size0 (B,) carried levels.  One copy of the
+    inputs to the host, then B native scans.  Returns (budgets (B, F, R)
+    int32, size_out (B,) int32), both on pe's device."""
+    dev = pe.device
+    pe_h = pe.detach().to("cpu", torch.float64).numpy()
+    dm_h = demand.detach().to("cpu", torch.int64).numpy()
+    s0 = torch.as_tensor(size0).to("cpu", torch.int64).numpy()
+    budgets = np.zeros(pe_h.shape, np.int64)
+    sizes = np.zeros(len(s0), np.int64)
+    for b in range(len(s0)):
+        budgets[b], sizes[b] = _native(pe_h[b], dm_h[b], int(s0[b]),
+                                       mean_bits, resv_max, mode_gr, nch,
+                                       delta)
+    return (torch.as_tensor(budgets, dtype=torch.int32, device=dev),
+            torch.as_tensor(sizes, dtype=torch.int32, device=dev))
