@@ -23,9 +23,10 @@ Phases, each printing its own lines; any failure exits non-zero:
      path's own first 4096-lane evaluation at six stepsizes; timed
      (kernel device and call time, the plain chain's device time, K1's
      device time on the same quantized batch) beside the bound;
-  4. the 15 quality fixtures of tests/test_fast_encoder.py through
-     encode_layer3_fast(device="cuda"): frame grid and the reference
-     encoder's decoded-SNR bars (in-repo decoder);
+  4. the 15 quality fixtures of tests/test_fast_encoder.py through the
+     quality tool (mp3tpu_torch.tools.quality, encode_layer3_fast on
+     "cuda"): frame grid and the reference encoder's decoded-SNR bars
+     (in-repo decoder), and libmpg123's best-lag SNR when it is present;
   5. the main path: the 60 s stereo 44.1 kHz 128 kbps clip of bench.py
      (its signal, copied here), encoded with loop._bits_at swapped (by
      this script) for the plain chain, then for the chain of K1 with
@@ -49,9 +50,10 @@ Phases, each printing its own lines; any failure exits non-zero:
   9. the command line: python -m mp3tpu_torch on a 10 s WAV and on raw
      PCM piped to stdin must write the library's bytes;
   10. corpus: 32 stereo 44.1 kHz 128 kbps clips x 10 s (bench_corpus.py's
-     clips, copied here) through encode_corpus_batched at lane batch 1, 2,
-     4, 8 and 16: one warm-up and 3 timed runs each (aggregate real-time
-     factor, bits_at launches per group, frame grid); one group of 1 and
+     clips) through encode_corpus_batched at lane batch 1, 2, 4, 8 and 16
+     by the corpus sweep tool (mp3tpu_torch.tools.corpus_sweep.sweep): one
+     warm-up and 3 timed runs each (aggregate real-time factor, bits_at
+     launches per group, equal outputs, frame grid); one group of 1 and
      one of 16 split into analysis, rate loop and the rest (wall between
      synchronizes, device kernels by stage); the eight stereo 44.1 kHz
      128 kbps quality fixtures as one mixed-length group, each at its bar
@@ -65,46 +67,45 @@ Phases, each printing its own lines; any failure exits non-zero:
      same chunk, both ranks' bytes equal; timed, kernels counted; bits_at
      against its plain chain on each run's own first bit-evaluation batch
      (9,216 lanes at world size 1, 4,608 on each rank at 2) at three
-     stepsizes.
+     stepsizes;
+  12. tooling: runtime.profiling.trace around one 60 s bench encode into
+     a temporary directory (trace.json parses, every named program span
+     of runtime.profiling.SPANS is in it, its bits_at_kernel events equal
+     bits_at.launches of that encode, the same bytes as phase 5; per span
+     its count, host wall and the device events launched inside it), the
+     trace_stages and profile_encode tools on the 60 s clip (their JSON
+     printed), and libmpg123 on the 60 s main-path, LSF and Layer II
+     streams (rate, channels, length; its best-lag SNR over the clip and
+     over the first 10 s, against the in-repo decoder's on the first 10 s
+     and the two decoders' agreement).
 Its last lines are a JSON object describing the kernels and then
 {"ok": true, "device": {...}}.  It imports nothing of JAX and nothing of
 the JAX package.
 """
 import json
-import math
 import os
 import pickle
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+
+from mp3tpu_torch.tools import (FP32_OPS_PER_S,  # noqa: E402
+                                HBM_BYTES_PER_S, profile_once)
+from mp3tpu_torch.tools.signals import make_signal  # noqa: E402
+
 CLIP_SECONDS = 60.0
 TIMED_RUNS = 3
-# NVIDIA H100 SXM, data sheet: HBM rate, float32 outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
 
 
 def fail(msg):
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
-
-
-def make_signal(seconds, rate):
-    """bench.py's 60 s test signal: two tones and noise per channel."""
-    import numpy as np
-    t = np.arange(int(seconds * rate)) / rate
-    rng = np.random.RandomState(42)
-    x = (0.35 * np.sin(2 * np.pi * 440.0 * t)
-         + 0.15 * np.sin(2 * np.pi * 1871.0 * t)
-         + 0.08 * rng.randn(len(t)))
-    y = (0.3 * np.sin(2 * np.pi * 554.0 * t + 0.3)
-         + 0.1 * rng.randn(len(t)))
-    pcm = np.stack([x, y], axis=1)
-    return np.clip(pcm * 24000, -32768, 32767).astype(np.int16)
 
 
 def bound(nbytes, ops):
@@ -171,29 +172,6 @@ def device_ms(fn, reps=20, tries=3):
         if us > 0:
             return us / 1000.0 / reps
     return None
-
-
-def profile_once(torch, fn):
-    """One fn() under torch.profiler: (device kernels and copies, device
-    busy s, profiled wall s).  Busy is the union of the device events'
-    intervals; the wall is the host clock around fn and a synchronize."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if getattr(e, "device_type", None) == DeviceType.CUDA)
-    busy_us, end = 0.0, -math.inf
-    for s, e in spans:
-        if e > end:
-            busy_us += e - max(s, end)
-            end = e
-    return len(spans), busy_us / 1e6, wall
 
 
 def k1_bound(args, G):
@@ -407,20 +385,6 @@ def phase_bits_at(ctx, main_args):
                 k1_ms=k1_dev, bound_ms=b_ms, bound_by=b_by)
 
 
-# (fixture, header mode: 3 mono / 0 stereo, kbps, rate) as in
-# tests/test_fast_encoder.py
-QUALITY = [
-    ("sine_mono_64", 3, 64, 44100), ("noise_mono_64", 3, 64, 44100),
-    ("sweep_st_128", 0, 128, 44100), ("noise_st_128", 0, 128, 44100),
-    ("trans_st_128", 0, 128, 44100), ("sine_st_128_32k", 0, 128, 32000),
-    ("q_sine_mono_64", 3, 64, 44100), ("q_sine_st_128", 0, 128, 44100),
-    ("q_noise_st_128", 0, 128, 44100), ("q_sweep_st_128", 0, 128, 44100),
-    ("q_trans_st_128", 0, 128, 44100), ("q_mix_st_128", 0, 128, 44100),
-    ("q_mix_st_192", 0, 192, 44100), ("q_mix_mono_96_32k", 3, 96, 32000),
-    ("q_mix_st_320_48k", 0, 320, 48000),
-]
-
-
 def check_grid(out, kbps, rate, nsamples):
     fsize = (144000 * kbps) // rate
     nframes = -(-nsamples // 1152)
@@ -432,32 +396,30 @@ def check_grid(out, kbps, rate, nsamples):
     return fsize, nframes
 
 
-def phase_quality(np, encode, EncoderConfig, decode_mp3, snr_db, read_wav):
-    golden = os.path.join(ROOT, "tests", "golden")
-    with open(os.path.join(golden, "ref_snr.json")) as f:
-        ref = json.load(f)
+def phase_quality():
+    """Phase 4: the quality tool on the card, every fixture."""
+    from mp3tpu_torch.tools import quality
+    report = quality.run([c[0] for c in quality.CASES], "cuda")
     worst = None
-    for name, mode, kbps, rate in QUALITY:
-        pcm, r = read_wav(os.path.join(golden, f"{name}.wav"))
-        cfg = EncoderConfig(layer=3, mode=mode, bitrate_kbps=kbps,
-                            sample_rate_hz=rate)
-        data = pcm[:, 0] if mode == 3 else pcm
-        out = encode(data, cfg, device="cuda")
-        check_grid(out, kbps, rate, pcm.shape[0])
-        dec, drate = decode_mp3(out)
-        if drate != rate:
-            fail(f"{name}: decoded rate {drate} != {rate}")
-        for c in range(min(dec.shape[1], pcm.shape[1])):
-            snr = float(snr_db(pcm[:, c].astype(np.float64), dec[:, c]))
-            if not np.isfinite(snr) or snr < ref[name][c]:
-                fail(f"{name} ch{c}: decoded SNR {snr:.2f} dB below the "
-                     f"reference bar {ref[name][c]} dB")
-            margin = snr - ref[name][c]
-            if worst is None or margin < worst[0]:
-                worst = (margin, name, c, snr)
-    print(f"quality: {len(QUALITY)} fixtures on the frame grid and at or "
-          f"above their ref_snr.json bars; worst margin {worst[0]:+.2f} dB "
-          f"({worst[1]} ch{worst[2]}: {worst[3]:.2f} dB)", flush=True)
+    for name, fx in report["fixtures"].items():
+        if not fx["valid_cbr_grid"]:
+            fail(f"{name}: the stream is off the CBR frame grid")
+        if not fx["pass"]:
+            fail(f"{name}: decoded rate or SNR below the reference bar: "
+                 f"{fx['channels']}")
+        for c, ch in enumerate(fx["channels"]):
+            if worst is None or ch["margin_db"] < worst[0]:
+                worst = (ch["margin_db"], name, c, ch["snr_db"])
+    print(f"quality: {len(report['fixtures'])} fixtures on the frame grid "
+          f"and at or above their ref_snr.json bars; worst margin "
+          f"{worst[0]:+.2f} dB ({worst[1]} ch{worst[2]}: {worst[3]:.2f} dB)",
+          flush=True)
+    mpg = {n: fx["mpg123_snr_db"] for n, fx in report["fixtures"].items()}
+    if all(v is None for v in mpg.values()):
+        print("quality: libmpg123 is absent: no cross-decode", flush=True)
+    else:
+        print(f"quality: libmpg123 best-lag SNR by fixture (dB): {mpg}",
+              flush=True)
 
 
 def first_seconds_snr(np, out, pcm, fsize, seconds, decode_mp3, snr_db,
@@ -552,6 +514,8 @@ def phase_lsf(ctx):
                                 *args[1:])
     print(f"LSF first 10 s decoded SNR: cuda {snr_gpu} dB, cpu path "
           f"{snr_cpu} dB", flush=True)
+    ctx["streams"]["LSF 60 s stereo 24 kHz 64 kbps"] = (
+        out, pcm, rate, fsize, 576, decode_mp3)
     for g, c in zip(snr_gpu, snr_cpu):
         if not np.isfinite(g) or g < c - 1.0:
             fail(f"LSF first-10 s SNR {g:.2f} dB is more than 1 dB below "
@@ -698,6 +662,8 @@ def phase_layer12(ctx):
         if not np.isfinite(g) or g < c - 0.5:
             fail(f"Layer II first-10 s SNR {g:.2f} dB is more than 0.5 dB "
                  f"below the CPU path's {c:.2f} dB")
+    ctx["streams"]["Layer II 60 s stereo 192 kbps"] = (
+        out, pcm, 44100, fsize, 1152, dec12.decode)
 
 
 def phase_cli(ctx, pcm, cfg_of):
@@ -753,21 +719,6 @@ CORPUS_SECONDS = 10.0
 CORPUS_BATCHES = (1, 2, 4, 8, 16)
 
 
-def make_clip(seed, seconds, rate):
-    """bench_corpus.py's corpus clip: stereo tones at a pitch set by the
-    seed, and noise."""
-    import numpy as np
-    rng = np.random.RandomState(seed)
-    t = np.arange(int(seconds * rate)) / rate
-    f0 = 200.0 + 80.0 * (seed % 13)
-    x = (0.3 * np.sin(2 * np.pi * f0 * t)
-         + 0.1 * np.sin(2 * np.pi * 2.7 * f0 * t)
-         + 0.05 * rng.randn(len(t)))
-    y = 0.25 * np.sin(2 * np.pi * 1.5 * f0 * t) + 0.05 * rng.randn(len(t))
-    pcm = np.stack([x, y], axis=0)
-    return np.clip(pcm * 22000, -32768, 32767).astype(np.int16)
-
-
 def group_split(ctx, group, kw):
     """One corpus group's wall split into the per-lane analysis
     (Layer3SegmentEncoder._analyze_chunk), the rate loops (loop.outer_loop)
@@ -807,8 +758,8 @@ def group_split(ctx, group, kw):
     kernels = {}
     for key, fn in real.items():
         kernels[key] = profile_once(
-            torch, lambda: [fn(*a, **k) for a, k in calls[key]])[0]
-    kernels["whole group"] = profile_once(torch, encode)[0]
+            lambda: [fn(*a, **k) for a, k in calls[key]])[0]
+    kernels["whole group"] = profile_once(encode)[0]
     print(f"corpus group of {len(group)} clips ({2 * len(group)} lanes): "
           f"wall {wall:.4f} s with a synchronize around each stage call; "
           f"analysis {secs['analysis']:.4f} s in "
@@ -826,33 +777,37 @@ def phase_corpus(ctx, line, cfg_of):
     """Phase 10: encode_corpus_batched on the card; returns the launches
     of one 32-clip encode at lane batch 16 and bits_at's numbers on the
     captured 32,768-lane batch."""
-    np, torch, mpeg = ctx["np"], ctx["torch"], ctx["mpeg"]
+    np, mpeg = ctx["np"], ctx["mpeg"]
     decode_mp3, snr_db = ctx["decode_mp3"], ctx["snr_db"]
     from mp3tpu_torch.parallel.corpus import encode_corpus_batched
-    kw = dict(layer=3, mode=mpeg.MODE_STEREO, bitrate_kbps=128)
-    rate = 44100
-    clips = [(make_clip(s, CORPUS_SECONDS, rate), rate)
-             for s in range(CORPUS_CLIPS)]
+    from mp3tpu_torch.tools import quality
+    from mp3tpu_torch.tools.corpus_sweep import (CORPUS_CFG, RATE, corpus,
+                                                 sweep)
+    kw, rate = CORPUS_CFG, RATE
+    clips = corpus(CORPUS_CLIPS, CORPUS_SECONDS)
     audio = CORPUS_CLIPS * CORPUS_SECONDS
-    launches = None
-    for batch in CORPUS_BATCHES:
-        encode_corpus_batched(clips[:2 * batch], kw, "cuda", batch=batch)
-        walls, first = [], None
-        for i in range(TIMED_RUNS):
-            if i == 0:
-                reset_counts(ctx)
-            outs, stats = encode_corpus_batched(clips, kw, "cuda",
-                                                batch=batch)
-            if i == 0:
-                counts = read_counts(ctx, f"corpus at lane batch {batch}")
-                first = outs
-            elif outs != first:
-                fail(f"corpus at lane batch {batch}: two runs differ")
-            walls.append(stats["wall_s"])
-        for out in first:
+    counts_of, first_of = {}, {}
+
+    def around(batch, i, encode):
+        """Run i of the sweep at `batch`: the first with the launch
+        counts reset before and read after, the others equal to it."""
+        if i == 0:
+            reset_counts(ctx)
+        outs, stats = encode()
+        if i == 0:
+            counts_of[batch] = read_counts(ctx,
+                                           f"corpus at lane batch {batch}")
+            first_of[batch] = outs
+        elif outs != first_of[batch]:
+            fail(f"corpus at lane batch {batch}: two runs differ")
+        return outs, stats
+
+    for rec in sweep(clips, CORPUS_BATCHES, "cuda", TIMED_RUNS, around):
+        batch, walls, wall = rec["lane_batch"], rec["walls_s"], rec["wall_s"]
+        counts = counts_of[batch]
+        for out in first_of[batch]:
             check_grid(out, 128, rate, int(CORPUS_SECONDS * rate))
         groups = -(-CORPUS_CLIPS // batch)
-        wall = statistics.median(walls)
         print(f"corpus: {CORPUS_CLIPS} stereo 44.1 kHz 128 kbps clips x "
               f"{CORPUS_SECONDS:.0f} s, lane batch {batch}: aggregate "
               f"{audio / wall:.2f}x real time, wall {wall:.4f} s median of "
@@ -860,8 +815,7 @@ def phase_corpus(ctx, line, cfg_of):
               f"bits_at launches {counts['bits_at']} in {groups} groups "
               f"({counts['bits_at'] / groups:.1f} a group) on {line}",
               flush=True)
-        if batch == CORPUS_BATCHES[-1]:
-            launches = counts
+    launches = counts_of[CORPUS_BATCHES[-1]]
 
     for batch in (1, CORPUS_BATCHES[-1]):
         group_split(ctx, clips[:batch], kw)
@@ -870,7 +824,7 @@ def phase_corpus(ctx, line, cfg_of):
     golden = os.path.join(ROOT, "tests", "golden")
     with open(os.path.join(golden, "ref_snr.json")) as f:
         ref = json.load(f)
-    names = [n for n, mode, kbps, r in QUALITY
+    names = [n for n, mode, kbps, r in quality.CASES
              if mode == mpeg.MODE_STEREO and kbps == 128 and r == rate]
     pcms = [ctx["read_wav"](os.path.join(golden, f"{n}.wav"))[0]
             for n in names]
@@ -1009,7 +963,7 @@ def phase_sharded(ctx, cfg_of, line):
         walls = {1: [time.perf_counter() - t0]}
         launches = read_counts(ctx, "sharded path")
         n_sh = profile_once(
-            torch, lambda: encode_layer3_sharded(pcm, cfg_of(), "cuda"))[0]
+            lambda: encode_layer3_sharded(pcm, cfg_of(), "cuda"))[0]
         errs = [path_batch_check(
             ctx, lambda: encode_layer3_sharded(pcm, cfg_of(), "cuda"),
             sharded_lanes(G, 1), "sharded path (world 1)")[1]]
@@ -1060,7 +1014,7 @@ def phase_sharded(ctx, cfg_of, line):
             one = ctx["encode"](pcm, cfg_of(), device="cuda", chunk=chunk)
             wall1 = time.perf_counter() - t0
             fsize, _ = check_grid(one, 128, 44100, len(pcm))
-            n_one = profile_once(torch, lambda: ctx["encode"](
+            n_one = profile_once(lambda: ctx["encode"](
                 pcm, cfg_of(), device="cuda", chunk=chunk))[0]
             one_shot[chunk] = (one, wall1, n_one, first_seconds_snr(
                 np, one, pcm, fsize, 10.0, ctx["decode_mp3"], ctx["snr_db"]))
@@ -1095,6 +1049,125 @@ def phase_sharded(ctx, cfg_of, line):
           f"(torch.profiler), one-shot at chunk {_chunk_size(G)}: "
           f"{one_shot[_chunk_size(G)][2]}", flush=True)
     return dict(launches=launches, max_abs_err=max(errs))
+
+
+def phase_trace(ctx, pcm, cfg_of, main_out):
+    """Phase 12a: runtime.profiling.trace around one bench encode; the
+    trace must hold every named span and one bits_at_kernel event per
+    bits_at launch (asked up to 3 times: the profiler now and then
+    records no device event in a window)."""
+    from mp3tpu_torch.runtime.profiling import SPANS, trace
+    from mp3tpu_torch.tools.trace_stages import span_breakdown
+    with tempfile.TemporaryDirectory() as tmp:
+        for attempt in range(3):
+            reset_counts(ctx)
+            with trace(tmp, "cuda"):
+                t0 = time.perf_counter()
+                out = ctx["encode"](pcm, cfg_of(), device="cuda")
+                wall = time.perf_counter() - t0
+            launches = read_counts(ctx, "traced main path")["bits_at"]
+            path = os.path.join(tmp, "trace.json")
+            size = os.path.getsize(path)
+            t0 = time.perf_counter()
+            bd = span_breakdown(path)
+            parse_s = time.perf_counter() - t0
+            if bd["bits_at_kernel_events"] == launches:
+                break
+            print(f"trace attempt {attempt + 1}: "
+                  f"{bd['bits_at_kernel_events']} bits_at_kernel events "
+                  f"against {launches} launches; asking again", flush=True)
+        else:
+            fail("the trace never held one bits_at_kernel event per launch")
+    if out != main_out:
+        fail("the traced encode gave other bytes than phase 5's")
+    missing = [n for n in SPANS if bd["spans"][n]["count"] == 0]
+    if missing:
+        fail(f"the trace lacks the spans {missing}")
+    print(f"trace: trace.json of {size} bytes parsed in {parse_s:.2f} s; "
+          f"encode under the trace {wall:.3f} s, the same bytes as phase 5; "
+          f"{bd['device_events']} device events ({bd['device_s']:.4f} s of "
+          f"device time), {bd['unlinked_events']} without their launching "
+          f"call in the trace; bits_at_kernel events "
+          f"{bd['bits_at_kernel_events']} = bits_at.launches {launches}",
+          flush=True)
+    for name in SPANS:
+        r = bd["spans"][name]
+        print(f"span {name}: {r['count']} x, host {r['host_s']:.4f} s "
+              f"({r['host_s'] / wall:.1%} of the traced wall; self "
+              f"{r['self_host_s']:.4f} s, {r['self_host_s'] / wall:.1%}); "
+              f"device events {r['device_events']} (self "
+              f"{r['self_device_events']}), device "
+              f"{r['device_s'] * 1e3:.3f} ms (self "
+              f"{r['self_device_s'] * 1e3:.3f} ms)", flush=True)
+
+
+def phase_conformance(ctx, main_out, pcm):
+    """Phase 12d: libmpg123 on the card's 60 s streams (main path, LSF,
+    Layer II): the rate, the channels and the length; per channel its
+    best-lag SNR over the clip and over the first 10 s, the in-repo
+    decoder's over the first 10 s (it must not be more than 0.5 dB
+    better) and the two decoders' agreement there (best-lag SNR of
+    mpg123's output against the in-repo decoder's, at least 20 dB as in
+    tests/test_conformance.py)."""
+    from mp3tpu_torch.runtime import mpg123
+    from mp3tpu_torch.tools.quality import best_lag_snr
+    if not mpg123.available():
+        print("conformance: libmpg123 is absent on this machine; the "
+              "streams are not cross-decoded", flush=True)
+        return
+    print("conformance: libmpg123 is present", flush=True)
+    streams = dict(ctx["streams"])
+    streams["main path 60 s stereo 44.1 kHz 128 kbps"] = (
+        main_out, pcm, 44100, 417, 1152, ctx["decode_mp3"])
+    for label, (out, ref, rate, fsize, spf, decode) in streams.items():
+        theirs, drate = mpg123.decode(out)
+        nch = ref.shape[1]
+        if drate != rate or theirs.shape[1] != nch \
+                or theirs.shape[0] < len(ref) - 2 * 1152:
+            fail(f"mpg123 on the {label} stream: rate {drate}, shape "
+                 f"{theirs.shape} for {ref.shape} at {rate} Hz")
+        nf = -(-int(10.0 * rate) // spf)
+        ours = decode(out[:nf * fsize])[0] * 32768.0
+        n10 = int(10.0 * rate)
+        rows = []
+        for c in range(nch):
+            whole = best_lag_snr(ref[:, c], theirs[:, c])
+            mpg10 = best_lag_snr(ref[:n10, c], theirs[:, c])
+            ours10 = best_lag_snr(ref[:n10, c], ours[:, c])
+            agree = best_lag_snr(ours[:n10, c], theirs[:, c])
+            if not agree >= 20.0 or not mpg10 >= ours10 - 0.5:
+                fail(f"mpg123 on the {label} stream ch{c}: agreement "
+                     f"{agree:.2f} dB, first-10 s SNR {mpg10:.2f} dB "
+                     f"against the in-repo decoder's {ours10:.2f} dB")
+            rows.append(f"ch{c} {whole:.2f} dB over the clip, first 10 s "
+                        f"{mpg10:.2f} dB (in-repo decoder {ours10:.2f} dB), "
+                        f"agreement {agree:.2f} dB")
+        print(f"conformance, {label} ({len(out)} bytes): mpg123 decodes "
+              f"{theirs.shape[0]} samples x {nch} at {drate} Hz; "
+              f"best-lag SNR {'; '.join(rows)}", flush=True)
+
+
+def phase_tooling(ctx, pcm, cfg_of, main_out):
+    """Phase 12: the trace, the trace_stages and profile_encode tools on
+    the bench clip, and libmpg123 on the card's streams."""
+    from mp3tpu_torch.tools import profile_encode, trace_stages
+    phase_trace(ctx, pcm, cfg_of, main_out)
+    t0 = time.perf_counter()
+    stages = trace_stages.run(CLIP_SECONDS, "cuda")
+    if stages["bytes"] != len(main_out) or \
+            not all(t > 0 for t in stages["stage_isolated_s"].values()):
+        fail(f"trace_stages: {stages['bytes']} bytes, stages "
+             f"{stages['stage_isolated_s']}")
+    print(f"trace_stages ({time.perf_counter() - t0:.2f} s): "
+          f"{json.dumps(stages)}", flush=True)
+    t0 = time.perf_counter()
+    record = profile_encode.run(CLIP_SECONDS, "cuda")
+    if record["bytes"] != len(main_out) or not record["flop_counter_flops"]:
+        fail(f"profile_encode: {record['bytes']} bytes, "
+             f"{record['flop_counter_flops']} FLOPs")
+    print(f"profile_encode ({time.perf_counter() - t0:.2f} s): "
+          f"{json.dumps(record)}", flush=True)
+    phase_conformance(ctx, main_out, pcm)
 
 
 def phase_build(k1, K):
@@ -1198,7 +1271,7 @@ def phase_main(ctx, pcm, cfg, line):
     for who, chain, median in (("k1", k1_chain, wall_k1),
                                ("bits_at", None, wall)):
         for _ in range(3):      # the profiler now and then records none
-            n, busy, pwall = profile_once(torch, lambda: run(chain))
+            n, busy, pwall = profile_once(lambda: run(chain))
             if n > 0:
                 break
         else:
@@ -1221,7 +1294,8 @@ def phase_main(ctx, pcm, cfg, line):
         if not np.isfinite(g) or g < c - 1.0:
             fail(f"first-10 s SNR {g:.2f} dB is more than 1 dB below the "
                  f"CPU path's {c:.2f} dB")
-    return dict(launches=launches, k1_chain_launches=k1_chain_launches)
+    return dict(launches=launches, k1_chain_launches=k1_chain_launches,
+                out=out)
 
 
 def main():
@@ -1257,7 +1331,8 @@ def main():
     ctx = dict(np=np, torch=torch, k1=k1, K=K, loop=loop,
                EncoderConfig=EncoderConfig, mpeg=mpeg,
                encode=encode_layer3_fast, decode_mp3=decode_mp3,
-               snr_db=snr_db, read_wav=read_wav, make_signal=make_signal)
+               snr_db=snr_db, read_wav=read_wav, make_signal=make_signal,
+               streams={})
 
     def cfg_of():
         return EncoderConfig(layer=3, mode=mpeg.MODE_STEREO,
@@ -1268,8 +1343,9 @@ def main():
     t0 = time.perf_counter()
     bres = phase_bits_at(ctx, capture_main_batch(ctx, pcm, cfg_of()))
     print(f"phase 3b bits_at: {time.perf_counter() - t0:.2f} s", flush=True)
-    phase_quality(np, encode_layer3_fast, EncoderConfig, decode_mp3, snr_db,
-                  read_wav)
+    t0 = time.perf_counter()
+    phase_quality()
+    print(f"phase 4 quality: {time.perf_counter() - t0:.2f} s", flush=True)
     t0 = time.perf_counter()
     main_res = phase_main(ctx, pcm, cfg_of(), line)
     print(f"phase 5 main path: {time.perf_counter() - t0:.2f} s", flush=True)
@@ -1279,7 +1355,9 @@ def main():
               ("8 Layers I/II", lambda: phase_layer12(ctx)),
               ("9 CLI", lambda: phase_cli(ctx, pcm, cfg_of)),
               ("10 corpus", lambda: phase_corpus(ctx, line, cfg_of)),
-              ("11 multi-device", lambda: phase_sharded(ctx, cfg_of, line))]
+              ("11 multi-device", lambda: phase_sharded(ctx, cfg_of, line)),
+              ("12 tooling", lambda: phase_tooling(ctx, pcm, cfg_of,
+                                                   main_res["out"]))]
     counts = {}
     for name, run in phases:
         t0 = time.perf_counter()

@@ -26,6 +26,7 @@ import torch
 
 from .config import EncoderConfig
 from .runtime import alloc12, profiling
+from .runtime.profiling import span
 from .runtime.bitstream import (NativeAssembler, guard_clamp,
                                 pack_elements, resv_guard)
 from .tables import layer12 as T12
@@ -172,6 +173,7 @@ class _Layer3Framing:
                         size, pw, self.nch, self.cap(n_pad), n_real,
                         self.mean_bits, self.resv_max, self.mode_gr, delta)
 
+    @span("fetch")
     def fetch(self, h, keys=None):
         """One device -> host copy of a segment's results: by default the
         side table (int16), the compacted payload (uint32), n_nonfinite
@@ -276,6 +278,7 @@ class _Layer3Framing:
         return side, payload, p23, retry, (res[2] if size is not None
                                            else None)
 
+    @span("native assembly")
     def weave(self, asm, nframes, side, payload, scfsi):
         """Native frame loop (reservoir.c:141-226 + side-info emission +
         payload splice) of (nch, G, 19) side rows and their payload."""

@@ -17,6 +17,7 @@ from torch import nn
 from ..tables import mpeg
 
 from ..ops import bits, dsp, loop, psy, resv
+from ..runtime.profiling import span
 
 #: sfb -> scfsi band map (loop.c scfsi_band_long 0,6,11,16,21)
 BAND_OF_SFB = np.repeat(np.arange(4), np.diff(mpeg.SCFSI_BAND_LONG))
@@ -51,6 +52,21 @@ def _scfsi_flags(xr, ratio_l, ratio_s, block_type, ST):
     return (cond[:, None] & (den < 10.0) & (dxm < 10.0)).to(torch.int32)
 
 
+def final_budgets(demand, budgets, n_real, nch, mode_gr):
+    """The final encode's budgets from the scan's granule-major budgets
+    (F, R): target = min(demand, budget) (nch, n_pad); the budget row
+    (nch*n_pad,) float32 is the target where it is below the demand and
+    the granule is real (before n_real), else 4095."""
+    target = torch.minimum(demand,
+                           resv.from_granule_major(budgets, nch, mode_gr))
+    valid = torch.arange(demand.shape[1], device=demand.device)[None, :] \
+        < n_real
+    row = torch.where(valid & (target < demand), target.to(torch.float32),
+                      4095.0).reshape(-1)
+    return target, row
+
+
+@span("pack_state")
 def pack_state(state, block_type):
     """The (N, 19) int16 side-info table in exactly the layout the native
     assembler reads (csrc/mp3bits.cpp GranuleSide)."""
@@ -136,6 +152,7 @@ class Layer3SegmentEncoder(nn.Module):
                                        DT)[0]
         return dsp.mdct_granules(sb, sb_prev, block_type, DT)
 
+    @span("analyze_demand_fused")
     def analyze_demand_fused(self, blocks_h4, fsm_init):
         """Analysis + unconstrained (4095-bit) demand encode of a segment.
 
@@ -182,6 +199,7 @@ class Layer3SegmentEncoder(nn.Module):
                 .to(torch.int8)
         return res
 
+    @span("encode_final")
     def encode_final(self, xr, ratio_l, ratio_s, block_type, budget,
                      payload_words=bits.PAYLOAD_WORDS, scfsi=None,
                      sf_fix=None, nch=1, qss_lo=None, flat_cap=None):
@@ -220,6 +238,7 @@ class Layer3SegmentEncoder(nn.Module):
             payload = bits.compact_payload(payload, nbits, flat_cap)
         return dict(side=pack_state(out, block_type), payload=payload)
 
+    @span("encode_segment_fused")
     def forward(self, blocks_h4, fsm_init, size_in, payload_words, nch,
                 flat_cap, n_real, mean_bits, resv_max, mode_gr, delta):
         """encode_segment_fused: analysis + demand -> reservoir scan
@@ -241,11 +260,7 @@ class Layer3SegmentEncoder(nn.Module):
             resv.granule_major(demand, nch, mode_gr),
             size_in, mean_bits, resv_max, mode_gr, nch, delta,
             valid=valid_f)
-        target = torch.minimum(demand,
-                               resv.from_granule_major(bud, nch, mode_gr))
-        valid_g = torch.arange(n_pad, device=dev)[None, :] < n_real
-        row = torch.where(valid_g & (target < demand),
-                          target.to(torch.float32), 4095.0).reshape(-1)
+        target, row = final_budgets(demand, bud, n_real, nch, mode_gr)
         h = self.encode_final(ana["xr"], ana["ratio_l"], ana["ratio_s"],
                               ana["block_type"], row,
                               payload_words=payload_words,

@@ -16,6 +16,7 @@ uint32 only at the numpy boundary.
 import numpy as np
 import torch
 
+from ..runtime.profiling import span
 from ..tables import mpeg
 from ..tables.huffman import HUFF
 
@@ -247,6 +248,7 @@ def pack_elements(values, lengths, w_cap=PAYLOAD_WORDS):
     return words[:, :w_cap], nbits
 
 
+@span("granule_payload")
 def granule_payload(state, ix_signed, is_short, ST, BT, w_cap=PAYLOAD_WORDS,
                     skip_mask=None):
     """Emit + pack a granule batch's main_data: (payload (G, w_cap),
@@ -256,6 +258,7 @@ def granule_payload(state, ix_signed, is_short, ST, BT, w_cap=PAYLOAD_WORDS,
     return pack_elements(values, lengths, w_cap)
 
 
+@span("compact_payload")
 def compact_payload(payload, nbits, total_cap):
     """Row-compact a (N, W) payload into one flat (total_cap,) buffer:
     lane g's ceil(nbits[g]/32) words land at the exclusive cumsum of the

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..tables import mpeg
+from ..runtime.profiling import span
 from ..tables.huffman import ESC_TABLE_A, ESC_TABLE_B, FIRST_TABLE_FOR_MAX
 
 from . import bits_at
@@ -441,6 +442,7 @@ def _sfb_gain(amp, oh):
     return 1.0 + amp @ oh.T
 
 
+@span("outer_loop")
 def outer_loop(xr, budget, ratio_l, ratio_s, is_short_block, block_type,
                ST, max_iter=6, sf_fix_mask=None, sf_fix_val=None,
                sf_skip_mask=None, qss_lo=None):

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from ..runtime.bitstream import resv_scan
+from ..runtime.profiling import span
 
 
 def granule_major(x, nch, mode_gr):
@@ -41,6 +42,7 @@ def _native(pe, demand, size, mean_bits, resv_max, mode_gr, nch, delta):
         .reshape(F, mode_gr * nch), size
 
 
+@span("scan_budgets")
 def scan_budgets(pe, demand, size0, mean_bits, resv_max, mode_gr, nch,
                  delta, valid=None):
     """pe, demand: (F, R) granule-major float/int tensors; size0: the

@@ -20,7 +20,7 @@ from mp3tpu import encoder as jencoder
 from mp3tpu.config import EncoderConfig as JEncoderConfig
 from mp3tpu.decoder import decode_mp3
 from mp3tpu.decoder.layer3 import snr_db
-from mp3tpu.runtime import mpg123
+from mp3tpu_torch.runtime import mpg123
 from mp3tpu.runtime.wav import read_wav
 from mp3tpu.tables import mpeg
 from mp3tpu_torch import encoder as tencoder

@@ -6,10 +6,11 @@ to that; a fresh interpreter that imports every port module and encodes
 Layer III, LSF and Layer II on the CPU loads no ``mp3tpu`` module; and
 every copy equals its original: tables, ``EncoderConfig``, the CLI's
 parser and readers, the decoders, the ``--exact`` oracles, the native
-assembler and the profiling sink.
+assembler, the libmpg123 binding and the profiling sink.
 """
 import ast
 import dataclasses
+import inspect
 import os
 import pkgutil
 import subprocess
@@ -29,6 +30,7 @@ from mp3tpu.numpy_ref import layer12 as j_ref12
 from mp3tpu.runtime import aiff as j_aiff
 from mp3tpu.runtime import alloc12 as j_alloc12
 from mp3tpu.runtime import bitstream as j_bitstream
+from mp3tpu.runtime import mpg123 as j_mpg123
 from mp3tpu.runtime import profiling as j_profiling
 from mp3tpu.runtime import wav as j_wav
 from mp3tpu.tables import dsp as j_dsp
@@ -47,6 +49,7 @@ from mp3tpu_torch.ops import resv as tresv
 from mp3tpu_torch.runtime import aiff as t_aiff
 from mp3tpu_torch.runtime import alloc12 as t_alloc12
 from mp3tpu_torch.runtime import bitstream as t_bitstream
+from mp3tpu_torch.runtime import mpg123 as t_mpg123
 from mp3tpu_torch.runtime import profiling as t_profiling
 from mp3tpu_torch.runtime import wav as t_wav
 from mp3tpu_torch.tables import dsp as t_dsp
@@ -92,6 +95,8 @@ def test_ast_scan_finds_every_port_module():
                  "mp3tpu_torch/numpy_ref/encoder.py",
                  "mp3tpu_torch/decoder/layer3.py",
                  "mp3tpu_torch/runtime/bitstream.py",
+                 "mp3tpu_torch/runtime/mpg123.py",
+                 "mp3tpu_torch/tools/quality.py",
                  "mp3tpu_torch/tables/huffman.py"):
         assert must in rel
 
@@ -395,4 +400,23 @@ def test_profiling_sink_equal(monkeypatch):
         assert set(p.stages) == {"a"} and p.meta == {}
         with mod.NULL.stage("b"):
             pass
-    assert not hasattr(t_profiling, "trace")
+    # the port adds trace() (on torch.profiler) and the named spans; the
+    # four copied names stay as they are in the original
+    assert callable(t_profiling.trace) and callable(t_profiling.span)
+    for name in ("Profiler", "_Null", "from_env"):
+        assert (inspect.getsource(getattr(j_profiling, name))
+                == inspect.getsource(getattr(t_profiling, name))), name
+    assert type(t_profiling.NULL).__name__ == "_Null"
+
+
+def test_mpg123_binding_equal():
+    """The binding is a byte copy (it imports nothing of the package);
+    where libmpg123 is present both decode a golden stream alike."""
+    with open(j_mpg123.__file__) as a, open(t_mpg123.__file__) as b:
+        assert a.read() == b.read()
+    assert j_mpg123.available() == t_mpg123.available()
+    if t_mpg123.available():
+        with open(os.path.join(GOLDEN, "noise_st_128.ref.mp3"), "rb") as f:
+            data = f.read()
+        (jp, jr), (tp, tr) = j_mpg123.decode(data), t_mpg123.decode(data)
+        assert jr == tr and np.array_equal(jp, tp) and jp.shape[0] > 1152
