@@ -7,9 +7,9 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 Phases, each printing its own lines; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi); no CUDA -> exit 1;
-  2. build both kernels, K1 (mp3tpu_torch/csrc/hist_c1.cu) and bits_at
-     (csrc/bits_at.cu, with -Xptxas -v, whose report is printed), one
-     nvcc process each, started together; timed;
+  2. build both kernel libraries, K1 (mp3tpu_torch/csrc/hist_c1.cu) and
+     bits_at with K3 (csrc/bits_at.cu, with -Xptxas -v, whose report is
+     printed), one nvcc process each, started together; timed;
   3. K1 against its plain PyTorch version on the card, bit for bit, on
      random quantized batches at G = 512, 4096 (the main path's segment
      widths) and 4099, then both timed: device time per call from
@@ -20,25 +20,39 @@ Phases, each printing its own lines; any failure exits non-zero:
      G = 512, 4096 and 4099 (about a quarter past IXMAX) and at 16384
      and 65536 (how its time scales with the batch), one with
      MPEG-2 LSF 22.05 kHz tables, one wholly past IXMAX, and the main
-     path's own first 4096-lane evaluation at six stepsizes; timed
-     (kernel device and call time, the plain chain's device time, K1's
-     device time on the same quantized batch) beside the bound;
+     path's own first 4096-lane evaluation (the first stepsize of its
+     first 4096-lane stepsize search, captured at the search's entry) at
+     six stepsizes; timed (kernel device and call time, the plain chain's
+     device time, K1's device time on the same quantized batch) beside
+     the bound;
+  3c. K3, the stepsize searches in one launch each, against the lockstep
+     plain searches on bits_at: torch.equal on qss, bits, every count row
+     and the evaluation counts, status 0: random stepsize and walk
+     batches at G = 512, 4096, 4099, 16384 and 65536, LSF batches, a
+     qss_lo batch, a batch driven into the 40-step cap, and the main
+     path's own first 4096-lane stepsize search and walk; timed (K3's
+     device and call time, the plain search's device time, call time and
+     bits_at launches) beside the bound;
   4. the 15 quality fixtures of tests/test_fast_encoder.py through the
      quality tool (mp3tpu_torch.tools.quality, encode_layer3_fast on
      "cuda"): frame grid and the reference encoder's decoded-SNR bars
      (in-repo decoder), and libmpg123's best-lag SNR when it is present;
   5. the main path: the 60 s stereo 44.1 kHz 128 kbps clip of bench.py
-     (its signal, copied here), encoded with loop._bits_at swapped (by
-     this script) for the plain chain, then for the chain of K1 with
-     plain PyTorch around it, then as the package runs it with the
-     launch counts reset before and read after; the three streams must
-     be equal byte for byte.  Then the K1 chain and the package in turns
-     (3 timed runs each), one encode of each under torch.profiler (device
-     kernels and copies, device idle share); the stream must sit on the
-     frame grid and its first 10 s must decode within 1 dB of the CPU
-     path's 10 s encode;
+     (its signal, copied here), encoded four ways: with loop's searches
+     swapped (by this script) for the lockstep plain searches and
+     loop._bits_at for the plain chain, then for the chain of K1 with
+     plain PyTorch around it, then the plain searches on bits_at (PR 5's
+     path), then as the package runs it (K3), each with the launch counts
+     reset before and read after (each swap must show in them); the four
+     streams must be equal byte for byte, and K3's evaluation counts must
+     give PR 5's bits_at launches.  Then PR 5's path and the package in
+     5 ABBA turns (10 timed runs each), one encode of each under
+     torch.profiler
+     (device kernels and copies, device idle share); the stream must sit
+     on the frame grid and its first 10 s must decode within 1 dB of the
+     CPU path's 10 s encode;
   6. MPEG-2 LSF: the three 0.5 s mono cases of tests/test_lsf.py, then a
-     60 s stereo 24 kHz 64 kbps clip (launches counted), interior
+     60 s stereo 24 kHz 64 kbps clip (launches and syncs counted), interior
      frames on the grid, first 10 s within 1 dB of the CPU path;
   7. streaming: the bench clip in 1 s pieces through StreamEncoder at
      window 1024 (launches counted, timed) must equal the one-shot
@@ -52,35 +66,39 @@ Phases, each printing its own lines; any failure exits non-zero:
   10. corpus: 32 stereo 44.1 kHz 128 kbps clips x 10 s (bench_corpus.py's
      clips) through encode_corpus_batched at lane batch 1, 2, 4, 8 and 16
      by the corpus sweep tool (mp3tpu_torch.tools.corpus_sweep.sweep): one
-     warm-up and 3 timed runs each (aggregate real-time factor, bits_at
+     warm-up and 3 timed runs each (aggregate real-time factor, K3
      launches per group, equal outputs, frame grid); one group of 1 and
      one of 16 split into analysis, rate loop and the rest (wall between
      synchronizes, device kernels by stage); the eight stereo 44.1 kHz
      128 kbps quality fixtures as one mixed-length group, each at its bar
-     and within 0.5 dB of its one-shot encode; bits_at against its plain
-     chain on the 32,768-lane batch of a group of 16, timed;
+     and within 0.5 dB of its one-shot encode; K3 against the plain search
+     on the first 32,768-lane stepsize search of a group of 16 and bits_at
+     against its plain chain at its first stepsize, both timed;
   11. multi-device: dryrun_multichip(1) on an NCCL mesh, then the 60 s
      clip through encode_layer3_sharded at world size 1 (NCCL, this
      process) and 2 (gloo, two processes of this script run with
      --sharded-rank, both computing on cuda:0): equal length, equal block
      types and first-10 s SNR within 0.5 dB of the one-shot encode at the
-     same chunk, both ranks' bytes equal; timed, kernels counted; bits_at
-     against its plain chain on each run's own first bit-evaluation batch
-     (9,216 lanes at world size 1, 4,608 on each rank at 2) at three
-     stepsizes;
+     same chunk, both ranks' bytes equal; timed, kernels counted; K3
+     against the plain search on each run's own first stepsize search
+     (9,216 lanes at world size 1, 4,608 on each rank at 2) and bits_at
+     against its plain chain at three stepsizes of that batch;
   12. tooling: runtime.profiling.trace around one 60 s bench encode into
      a temporary directory (trace.json parses, every named program span
-     of runtime.profiling.SPANS is in it, its bits_at_kernel events equal
-     bits_at.launches of that encode, the same bytes as phase 5; per span
+     of runtime.profiling.SPANS is in it, its search_kernel and
+     bits_at_kernel events equal search.launches and bits_at.launches of
+     that encode, the same bytes as phase 5; per span
      its count, host wall and the device events launched inside it), the
      trace_stages and profile_encode tools on the 60 s clip (their JSON
      printed), and libmpg123 on the 60 s main-path, LSF and Layer II
      streams (rate, channels, length; its best-lag SNR over the clip and
      over the first 10 s, against the in-repo decoder's on the first 10 s
      and the two decoders' agreement).
-Its last lines are a JSON object describing the kernels and then
-{"ok": true, "device": {...}}.  It imports nothing of JAX and nothing of
-the JAX package.
+On every path (main, LSF, stream, corpus, sharded) K3 must launch and the
+rate loop must launch bits_at no time; the launches and loop-exit syncs
+per path are printed.  Its last lines are a JSON object describing the
+kernels and then {"ok": true, "device": {...}}.  It imports nothing of
+JAX and nothing of the JAX package.
 """
 import json
 import os
@@ -101,6 +119,8 @@ from mp3tpu_torch.tools.signals import make_signal  # noqa: E402
 
 CLIP_SECONDS = 60.0
 TIMED_RUNS = 3
+#: phase 5 times PR 5's path and K3 in this many ABBA turns (2 runs each)
+TURNS = 5
 
 
 def fail(msg):
@@ -249,47 +269,73 @@ def bits_at_bound(args):
                  + len(K.ROWS) * G * 4, 3 * 576 * G)
 
 
-def capture_batch(ctx, run, lanes, what):
-    """The first bit evaluation of `lanes` granules that run() makes,
-    recorded by wrapping loop._bits_at: (xr75p, qss, is_short,
-    is_short_block, ST)."""
+def capture_searches(ctx, run, lanes, what):
+    """The first stepsize search and the first walk of `lanes` granules
+    that run() makes, recorded by wrapping loop.search_stepsize and
+    loop.search_walk (whose callers look them up at each call):
+    {"stepsize": (args, kwargs), "walk": (args, kwargs)}, tensors cloned."""
     loop = ctx["loop"]
-    real = loop._bits_at
-    seen = []
+    real = {"stepsize": loop.search_stepsize, "walk": loop.search_walk}
+    seen = {}
 
-    def record(xr75p, qss, is_short, is_short_block, ST):
-        if not seen and xr75p.shape[0] == lanes:
-            seen.append((xr75p.clone(), qss.clone(), is_short.clone(),
-                         is_short_block.clone(), ST))
-        return real(xr75p, qss, is_short, is_short_block, ST)
+    def recorder(kind):
+        def record(*args, **kwargs):
+            if kind not in seen and args[0].shape[0] == lanes:
+                seen[kind] = (tuple(a.clone() if hasattr(a, "clone") else a
+                                    for a in args),
+                              {k: v if v is None else v.clone()
+                               for k, v in kwargs.items()})
+            return real[kind](*args, **kwargs)
+        return record
 
-    loop._bits_at = record
+    loop.search_stepsize = recorder("stepsize")
+    loop.search_walk = recorder("walk")
     try:
         run()
     finally:
-        loop._bits_at = real
-    if not seen:
-        fail(f"the {what} made no {lanes}-lane bit evaluation")
-    return seen[0]
+        loop.search_stepsize = real["stepsize"]
+        loop.search_walk = real["walk"]
+    for kind in real:
+        if kind not in seen:
+            fail(f"the {what} made no {lanes}-lane {kind} search")
+    return seen
+
+
+def first_evaluation(captured):
+    """bits_at's arguments at the first stepsize a captured stepsize search
+    evaluates: the first mid of its bisection (its first bit evaluation,
+    the batch this script captured before the searches were one kernel)."""
+    import torch
+    (xr75p, budget, qanf, short, sblk, ST), kwargs = captured
+    from mp3tpu_torch.ops import loop
+    lo = torch.clamp(qanf, min=loop.QMIN)
+    if kwargs.get("qss_lo") is not None:
+        lo = torch.maximum(lo, kwargs["qss_lo"])
+    mid = torch.floor((lo + loop.QMAX) * 0.5)
+    return xr75p, mid, short, sblk, ST
 
 
 def path_batch_check(ctx, run, lanes, what):
-    """bits_at against bits_at_plain on the first `lanes`-lane batch that
-    run() evaluates, at three stepsizes; returns (the batch, the max abs
-    error)."""
-    args = capture_batch(ctx, run, lanes, what)
-    errs = []
-    xr75p, qss, short, sblk, ST = args
+    """On the first `lanes`-lane stepsize search that run() makes: K3
+    against the plain search, and bits_at against bits_at_plain at its
+    first stepsize -60, +0 and +8.  Returns (the stepsize search's
+    captured (args, kwargs), bits_at's max abs error, K3's)."""
+    seen = capture_searches(ctx, run, lanes, what)
+    s_errs, errs = [], []
+    search_check(ctx, f"{what} stepsize search", "stepsize",
+                 *seen["stepsize"], s_errs)
+    xr75p, qss, short, sblk, ST = first_evaluation(seen["stepsize"])
     for d in (-60.0, 0.0, 8.0):
         bits_at_check(ctx, f"{what} batch at qss{d:+.0f}",
                       (xr75p, qss + d, short, sblk, ST), errs)
-    return args, max(errs)
+    return seen["stepsize"], max(errs), max(s_errs)
 
 
-def capture_main_batch(ctx, pcm, cfg):
-    """The main path's first 4096-lane bit evaluation."""
-    return capture_batch(ctx, lambda: ctx["encode"](pcm, cfg, device="cuda"),
-                         4096, "main path")
+def capture_main_searches(ctx, pcm, cfg):
+    """The main path's first 4096-lane stepsize search and walk."""
+    return capture_searches(
+        ctx, lambda: ctx["encode"](pcm, cfg, device="cuda"), 4096,
+        "main path")
 
 
 def bits_at_check(ctx, label, args, errs):
@@ -385,6 +431,118 @@ def phase_bits_at(ctx, main_args):
                 k1_ms=k1_dev, bound_ms=b_ms, bound_by=b_by)
 
 
+def search_fns(kind):
+    """(K3's wrapper, the lockstep plain search) of a search kind."""
+    from mp3tpu_torch.ops import loop, search
+    if kind == "stepsize":
+        return search.search_stepsize, loop.search_stepsize_plain
+    return search.search_walk, loop.search_walk_plain
+
+
+def search_check(ctx, label, kind, args, kwargs, errs):
+    """K3 against the lockstep plain search (on bits_at): torch.equal on
+    qss, bits, every count row and the evaluation counts, and status 0
+    everywhere; appends the max abs error to errs; returns K3's result."""
+    import torch
+    from test_torch_search_card import search_mismatches
+    kernel, plain = search_fns(kind)
+    got = kernel(*args, **kwargs)
+    torch.cuda.synchronize()
+    want = plain(*args, **kwargs)
+    bad = search_mismatches(got, want)
+    if bad:
+        fail(f"K3 != the plain {kind} search on {label} in {bad}")
+    if bool(got[2]["status"].any()):
+        fail(f"K3 on {label}: a stepsize missed the istep75 table")
+    pairs = [(got[0], want[0]), (got[1], want[1])] + [
+        (got[2][k], v) for k, v in want[2].items()]
+    errs.append(max(float((a.to(torch.float64) - b.to(torch.float64))
+                          .abs().max()) if a.numel() else 0.0
+                    for a, b in pairs))
+    evals = got[2]["evals"]
+    cap = 42 if kind == "walk" else 53
+    print(f"K3 {kind} search {label}: equal to the plain search on every "
+          f"output, status 0 (G={args[0].shape[0]}: evaluations per granule "
+          f"{int(evals.min())}-{int(evals.max())}, {int(evals.sum())} in "
+          f"all, {int((evals == cap).sum())} at the 40-step cap; "
+          f"{int((got[1] == 1e9).sum())} left past IXMAX)", flush=True)
+    return got
+
+
+def search_bound(args, kwargs, evals):
+    """K3's bound: xr75p, the per-granule scalars, the rate tables, the LUT,
+    the count1 lengths and the istep75 table read once; 15 int32 rows a
+    granule written once; 3 float32 operations a line (scale, offset,
+    round) per bit evaluation that this run's granules made."""
+    from mp3tpu_torch.ops import bits_at as K
+    from mp3tpu_torch.ops import search
+    xr75p, budget, start, short, sblk, ST = args
+    lut, hlen = K._device_tables(xr75p.device)
+    extra = [v for v in kwargs.values() if v is not None]
+    G = xr75p.shape[0]
+    rows = len(K.ROWS) + len(search.EXTRA_ROWS)
+    return bound(nbytes(xr75p, budget, start, short, sblk, ST["bits_at_tab"],
+                        lut, hlen, search._istep_table(xr75p.device), *extra)
+                 + rows * G * 4, 3 * 576 * int(evals.sum()))
+
+
+def search_timed(ctx, label, kind, args, kwargs):
+    """K3's device and call time; the lockstep plain search on bits_at
+    (PR 5's path): its device time, call time and bits_at launches; the
+    bound."""
+    K = ctx["K"]
+    kernel, plain = search_fns(kind)
+    k_dev = device_ms(lambda: kernel(*args, **kwargs))
+    k_call = call_ms(lambda: kernel(*args, **kwargs))
+    p_dev = device_ms(lambda: plain(*args, **kwargs))
+    p_call = call_ms(lambda: plain(*args, **kwargs), reps=20)
+    before = K.bits_at.launches
+    plain(*args, **kwargs)
+    p_launches = K.bits_at.launches - before
+    if k_dev is None or p_dev is None:
+        k_dev, p_dev = k_call, p_call
+        print("  (no profiler device time: K3 and the plain search report "
+              "call times)", flush=True)
+    evals = kernel(*args, **kwargs)[2]["evals"]
+    b_ms, b_by = search_bound(args, kwargs, evals)
+    print(f"K3 {kind} search {label} timed: device time per call "
+          f"(torch.profiler, mean of 20): K3 {k_dev} ms, the plain search on "
+          f"bits_at {p_dev} ms ({p_launches} bits_at launches); call time "
+          f"(CUDA events, median): K3 {k_call:.4f} ms, plain {p_call:.4f} ms;"
+          f" bound {b_ms:.6f} ms ({b_by}), K3 at {b_ms / k_dev:.1%} of it",
+          flush=True)
+    return dict(ms=k_dev, call_ms=k_call, plain_ms=p_dev, plain_call_ms=p_call,
+                plain_launches=p_launches, bound_ms=b_ms, bound_by=b_by)
+
+
+def phase_search(ctx, main_searches):
+    """Phase 3c: K3 against the lockstep plain searches on the card;
+    returns the JSON fields measured on the main path's own first 4096-lane
+    stepsize search."""
+    from test_torch_search_card import case_args, search_case
+    errs = []
+    for G in (512, 4096, 4099, 16384, 65536):
+        for name in ("stepsize", "walk"):
+            kind, args, kwargs = case_args(search_case(name, G, 6060 + G),
+                                           "cuda")
+            search_check(ctx, f"random G={G}", kind, args, kwargs, errs)
+            if name == "stepsize":
+                search_timed(ctx, f"random G={G}", kind, args, kwargs)
+    for name in ("stepsize_lsf", "walk_lsf", "stepsize_qss_lo", "walk_cap"):
+        kind, args, kwargs = case_args(search_case(name, 4096, 22050),
+                                       "cuda")
+        got = search_check(ctx, f"{name} G=4096", kind, args, kwargs, errs)
+        if name == "walk_cap" and not int((got[2]["evals"] == 42).sum()):
+            fail("the cap case put no granule at the 40-step cap")
+    for kind in ("walk", "stepsize"):
+        args, kwargs = main_searches[kind]
+        search_check(ctx, f"main path's first {kind} search", kind, args,
+                     kwargs, errs)
+        res = search_timed(ctx, f"main path's first {kind} search", kind,
+                           args, kwargs)
+    return dict(res, max_abs_err=max(errs))
+
+
 def check_grid(out, kbps, rate, nsamples):
     fsize = (144000 * kbps) // rate
     nframes = -(-nsamples // 1152)
@@ -448,19 +606,29 @@ def lsf_grid(out, rate, kbps):
 
 
 def reset_counts(ctx):
+    ctx["S"].launches = 0
     ctx["K"].bits_at.launches = 0
     ctx["k1"].hist_c1.launches = 0
     ctx["loop"].any_on_host.syncs = 0
     ctx["torch"].cuda.synchronize()
 
 
+def launch_counts(ctx):
+    """{kernel: launches, "syncs": loop-exit host syncs} since
+    reset_counts."""
+    return {"search": ctx["S"].launches, "bits_at": ctx["K"].bits_at.launches,
+            "hist_c1": ctx["k1"].hist_c1.launches,
+            "syncs": ctx["loop"].any_on_host.syncs}
+
+
 def read_counts(ctx, path):
-    """{kernel: launches} since reset_counts; fails if the path launched
-    bits_at no time."""
-    counts = {"bits_at": ctx["K"].bits_at.launches,
-              "hist_c1": ctx["k1"].hist_c1.launches}
-    if counts["bits_at"] <= 0:
-        fail(f"the {path} launched bits_at no time")
+    """launch_counts; fails unless the path launched K3, and its rate loop
+    launched bits_at no time."""
+    counts = launch_counts(ctx)
+    if counts["search"] <= 0:
+        fail(f"the {path} launched K3 no time")
+    if counts["bits_at"]:
+        fail(f"the {path} launched bits_at {counts['bits_at']} times")
     return counts
 
 
@@ -812,8 +980,10 @@ def phase_corpus(ctx, line, cfg_of):
               f"{CORPUS_SECONDS:.0f} s, lane batch {batch}: aggregate "
               f"{audio / wall:.2f}x real time, wall {wall:.4f} s median of "
               f"{TIMED_RUNS} ({', '.join(f'{w:.4f}' for w in walls)} s); "
-              f"bits_at launches {counts['bits_at']} in {groups} groups "
-              f"({counts['bits_at'] / groups:.1f} a group) on {line}",
+              f"K3 launches {counts['search']} in {groups} groups "
+              f"({counts['search'] / groups:.1f} a group), bits_at "
+              f"{counts['bits_at']}, loop-exit syncs {counts['syncs']} on "
+              f"{line}",
               flush=True)
     launches = counts_of[CORPUS_BATCHES[-1]]
 
@@ -859,13 +1029,16 @@ def phase_corpus(ctx, line, cfg_of):
     from mp3tpu_torch.encoder import _plan_segments
     lanes = 2 * len(group) * _plan_segments(
         2 * -(-int(CORPUS_SECONDS * rate) // 1152))[0][2]
-    args, err = path_batch_check(
+    captured, err, s_err = path_batch_check(
         ctx, lambda: encode_corpus_batched(group, kw, "cuda",
                                            batch=len(group)),
         lanes, f"corpus group of {len(group)}")
-    k_dev, p_dev, _, b_ms, b_by = bits_at_timed(ctx, "corpus batch", args)
+    k_dev, p_dev, _, b_ms, b_by = bits_at_timed(
+        ctx, "corpus batch", first_evaluation(captured))
+    k3 = search_timed(ctx, "corpus batch", "stepsize", *captured)
     return dict(launches=launches, max_abs_err=err, ms=k_dev,
-                plain_ms=p_dev, bound_ms=b_ms, bound_by=b_by)
+                plain_ms=p_dev, bound_ms=b_ms, bound_by=b_by,
+                search_max_abs_err=s_err, search=k3)
 
 
 def free_port():
@@ -919,7 +1092,7 @@ def sharded_rank(rank, world, url, out):
         t0 = time.perf_counter()
         data = encode()
         wall = time.perf_counter() - t0
-        _, err = path_batch_check(
+        _, err, s_err = path_batch_check(
             dict(torch=torch, loop=loop), encode,
             sharded_lanes(2 * -(-len(pcm) // 1152), world),
             f"sharded path (world {world}, rank {rank})")
@@ -928,7 +1101,8 @@ def sharded_rank(rank, world, url, out):
     with open(out, "wb") as f:
         f.write(data)
     with open(out + ".json", "w") as f:
-        json.dump({"wall_s": wall, "max_abs_err": err}, f)
+        json.dump({"wall_s": wall, "max_abs_err": err,
+                   "search_max_abs_err": s_err}, f)
 
 
 def phase_sharded(ctx, cfg_of, line):
@@ -964,9 +1138,10 @@ def phase_sharded(ctx, cfg_of, line):
         launches = read_counts(ctx, "sharded path")
         n_sh = profile_once(
             lambda: encode_layer3_sharded(pcm, cfg_of(), "cuda"))[0]
-        errs = [path_batch_check(
+        _, err, s_err = path_batch_check(
             ctx, lambda: encode_layer3_sharded(pcm, cfg_of(), "cuda"),
-            sharded_lanes(G, 1), "sharded path (world 1)")[1]]
+            sharded_lanes(G, 1), "sharded path (world 1)")
+        errs, s_errs = [err], [s_err]
     finally:
         dist.destroy_process_group()
 
@@ -1002,6 +1177,7 @@ def phase_sharded(ctx, cfg_of, line):
             res = json.load(f)
         walls[2].append(res["wall_s"])
         errs.append(res["max_abs_err"])
+        s_errs.append(res["search_max_abs_err"])
     if ranks[0] != ranks[1]:
         fail("the two gloo ranks returned different streams")
     streams[2] = ranks[0]
@@ -1048,14 +1224,16 @@ def phase_sharded(ctx, cfg_of, line):
     print(f"sharded world 1: {n_sh} device kernels and copies per encode "
           f"(torch.profiler), one-shot at chunk {_chunk_size(G)}: "
           f"{one_shot[_chunk_size(G)][2]}", flush=True)
-    return dict(launches=launches, max_abs_err=max(errs))
+    return dict(launches=launches, max_abs_err=max(errs),
+                search_max_abs_err=max(s_errs))
 
 
 def phase_trace(ctx, pcm, cfg_of, main_out):
     """Phase 12a: runtime.profiling.trace around one bench encode; the
-    trace must hold every named span and one bits_at_kernel event per
-    bits_at launch (asked up to 3 times: the profiler now and then
-    records no device event in a window)."""
+    trace must hold every named span and one search_kernel event per K3
+    launch (and as many bits_at_kernel events as bits_at launches: none;
+    asked up to 3 times: the profiler now and then records no device
+    event in a window)."""
     from mp3tpu_torch.runtime.profiling import SPANS, trace
     from mp3tpu_torch.tools.trace_stages import span_breakdown
     with tempfile.TemporaryDirectory() as tmp:
@@ -1065,19 +1243,22 @@ def phase_trace(ctx, pcm, cfg_of, main_out):
                 t0 = time.perf_counter()
                 out = ctx["encode"](pcm, cfg_of(), device="cuda")
                 wall = time.perf_counter() - t0
-            launches = read_counts(ctx, "traced main path")["bits_at"]
+            launches = read_counts(ctx, "traced main path")
             path = os.path.join(tmp, "trace.json")
             size = os.path.getsize(path)
             t0 = time.perf_counter()
             bd = span_breakdown(path)
             parse_s = time.perf_counter() - t0
-            if bd["bits_at_kernel_events"] == launches:
+            if (bd["search_kernel_events"], bd["bits_at_kernel_events"]) \
+                    == (launches["search"], launches["bits_at"]):
                 break
             print(f"trace attempt {attempt + 1}: "
+                  f"{bd['search_kernel_events']} search_kernel and "
                   f"{bd['bits_at_kernel_events']} bits_at_kernel events "
-                  f"against {launches} launches; asking again", flush=True)
+                  f"against launches {launches}; asking again", flush=True)
         else:
-            fail("the trace never held one bits_at_kernel event per launch")
+            fail("the trace never held one search_kernel event per K3 "
+                 "launch")
     if out != main_out:
         fail("the traced encode gave other bytes than phase 5's")
     missing = [n for n in SPANS if bd["spans"][n]["count"] == 0]
@@ -1087,8 +1268,11 @@ def phase_trace(ctx, pcm, cfg_of, main_out):
           f"encode under the trace {wall:.3f} s, the same bytes as phase 5; "
           f"{bd['device_events']} device events ({bd['device_s']:.4f} s of "
           f"device time), {bd['unlinked_events']} without their launching "
-          f"call in the trace; bits_at_kernel events "
-          f"{bd['bits_at_kernel_events']} = bits_at.launches {launches}",
+          f"call in the trace; search_kernel events "
+          f"{bd['search_kernel_events']} = search.launches "
+          f"{launches['search']}, bits_at_kernel events "
+          f"{bd['bits_at_kernel_events']}; loop-exit syncs "
+          f"{launches['syncs']}",
           flush=True)
     for name in SPANS:
         r = bd["spans"][name]
@@ -1172,7 +1356,8 @@ def phase_tooling(ctx, pcm, cfg_of, main_out):
 
 def phase_build(k1, K):
     """Phase 2: build both kernel libraries, one nvcc process each,
-    started together; prints bits_at.cu's -Xptxas -v report."""
+    started together; prints bits_at.cu's -Xptxas -v report (its two
+    kernels, bits_at_kernel and K3's search_kernel)."""
     jobs = ((k1, ()), (K, ("-Xptxas", "-v")))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(jobs)) as pool:
@@ -1189,14 +1374,20 @@ def phase_build(k1, K):
 
 
 def phase_main(ctx, pcm, cfg, line):
-    """Phase 5: the bench clip with loop._bits_at swapped for the plain
-    chain, for the K1 chain, and as the package runs it; the three
-    streams must be equal.  Returns the package run's counts and
-    measurements."""
+    """Phase 5: the bench clip four ways: the plain searches with the
+    plain chain, the plain searches with the K1 chain, the plain searches
+    on bits_at (PR 5's path), each swapped in by this script, and as the
+    package runs it (K3); the four streams must be equal, and the launch
+    counts must show that each swap took effect.  PR 5's path and K3 are
+    timed in turns and profiled once each.  Returns the package run's
+    counts and measurements."""
     np, torch, loop, K = ctx["np"], ctx["torch"], ctx["loop"], ctx["K"]
     encode, decode_mp3, snr_db = (ctx["encode"], ctx["decode_mp3"],
                                   ctx["snr_db"])
-    real = loop._bits_at
+    real = dict(_bits_at=loop._bits_at, search_stepsize=loop.search_stepsize,
+                search_walk=loop.search_walk)
+    plain_searches = dict(search_stepsize=loop.search_stepsize_plain,
+                          search_walk=loop.search_walk_plain)
 
     def plain_chain(xr75p, qss, is_short, is_short_block, ST):
         c = K.bits_at_plain(xr75p, qss, is_short, is_short_block, ST)
@@ -1211,75 +1402,110 @@ def phase_main(ctx, pcm, cfg, line):
         c["bits"] = torch.where(c["ix_max"] <= loop.IXMAX, c["bits"], 1e9)
         return c["bits"], c
 
-    def run(chain=None):
-        if chain is None:
-            return encode(pcm, cfg, device="cuda")
-        loop._bits_at = chain
+    # the four ways: the functions swapped into loop, and the launch
+    # counts that must be 0 / more than 0 after each
+    ways = {"plain": (dict(plain_searches, _bits_at=plain_chain),
+                      ("search", "bits_at", "hist_c1"), ()),
+            "k1": (dict(plain_searches, _bits_at=k1_chain),
+                   ("search", "bits_at"), ("hist_c1",)),
+            "pr5": (plain_searches, ("search", "hist_c1"), ("bits_at",)),
+            "k3": ({}, ("bits_at", "hist_c1"), ("search",))}
+    label = {"plain": "plain", "k1": "K1 chain", "pr5": "PR 5's path",
+             "k3": "K3"}
+
+    def run(way, swaps=None):
+        swaps = ways[way][0] if swaps is None else swaps
+        for name, fn in swaps.items():
+            setattr(loop, name, fn)
         try:
             return encode(pcm, cfg, device="cuda")
         finally:
-            loop._bits_at = real
+            for name in swaps:
+                setattr(loop, name, real[name])
 
-    out_plain = run(plain_chain)
-    reset_counts(ctx)
-    out_k1 = run(k1_chain)
-    k1_chain_launches = ctx["k1"].hist_c1.launches
-    if k1_chain_launches <= 0:
-        fail("the K1 chain launched K1 no time")
+    def counted(way, swaps=None):
+        reset_counts(ctx)
+        t0 = time.perf_counter()
+        out = run(way, swaps)
+        wall = time.perf_counter() - t0
+        counts = launch_counts(ctx)
+        zero, more = ways[way][1:]
+        if any(counts[k] for k in zero) or not all(counts[k] for k in more):
+            fail(f"main path, {label[way]}: launches {counts}: the swap did "
+                 f"not take effect")
+        return out, counts, wall
 
-    reset_counts(ctx)
-    t0 = time.perf_counter()
-    out = run()
-    first_s = time.perf_counter() - t0
-    launches = read_counts(ctx, "main path")
-    syncs = loop.any_on_host.syncs
-    if out != out_plain:
-        fail(f"main path with bits_at ({len(out)} bytes) != with the plain "
-             f"chain ({len(out_plain)} bytes)")
-    if out != out_k1:
-        fail(f"main path with bits_at ({len(out)} bytes) != with the K1 "
-             f"chain ({len(out_k1)} bytes)")
+    outs, counts = {}, {}
+    for way in ("plain", "k1", "pr5"):
+        outs[way], counts[way], _ = counted(way)
+    # K3's counted run also records each search's evaluation counts
+    evals = []
+
+    def recording(fn):
+        def record(*args, **kwargs):
+            res = fn(*args, **kwargs)
+            evals.append(res[2]["evals"])
+            return res
+        return record
+
+    out, launches, first_s = counted(
+        "k3", {k: recording(real[k]) for k in plain_searches})
+    for way, o in outs.items():
+        if o != out:
+            fail(f"main path with K3 ({len(out)} bytes) != with "
+                 f"{label[way]} ({len(o)} bytes)")
+    # a plain search launches bits_at as often as its slowest granule
+    # evaluates in K3
+    lockstep = sum(int(e.max()) for e in evals)
+    per_granule = sum(int(e.sum()) for e in evals)
+    if lockstep != counts["pr5"]["bits_at"]:
+        fail(f"K3's evaluation counts give {lockstep} lockstep evaluations; "
+             f"PR 5's path launched bits_at {counts['pr5']['bits_at']} times")
     fsize, nframes = check_grid(out, 128, 44100, pcm.shape[0])
     from mp3tpu_torch.encoder import _plan_segments
     plan = _plan_segments(nframes * 2)
-    print(f"main path: with loop._bits_at swapped for the plain chain, for "
-          f"the K1 chain, and with bits_at: the same {len(out)} bytes",
-          flush=True)
-    print(f"main path (bits_at, first run): {first_s:.3f} s; launches per "
-          f"encode {launches} (K1 chain: hist_c1 {k1_chain_launches}); "
-          f"loop-exit host syncs {syncs}; {len(plan)} segments "
+    print(f"main path: the plain searches with the plain chain, with the K1 "
+          f"chain, on bits_at (PR 5's path), and K3: the same {len(out)} "
+          f"bytes", flush=True)
+    for way in ("plain", "k1", "pr5"):
+        print(f"main path ({label[way]}): launches and loop-exit syncs per "
+              f"encode {counts[way]}", flush=True)
+    print(f"main path (K3, first run): {first_s:.3f} s; launches and "
+          f"loop-exit syncs per encode {launches}; {len(evals)} searches, "
+          f"{lockstep} lockstep evaluations (= PR 5's bits_at launches), "
+          f"{per_granule} granule evaluations; {len(plan)} segments "
           f"{[(n_pad * 2) for _, _, n_pad in plan]} lanes (each adds 2 syncs: "
           f"scan input, result download)", flush=True)
 
-    times = {"k1": [], "bits_at": []}
-    for who in ("k1", "bits_at", "bits_at", "k1", "k1", "bits_at"):
+    times = {"pr5": [], "k3": []}
+    for way in ("pr5", "k3", "k3", "pr5") * TURNS:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out_t = run(k1_chain if who == "k1" else None)
-        times[who].append(time.perf_counter() - t0)
+        out_t = run(way)
+        times[way].append(time.perf_counter() - t0)
         if out_t != out:
-            fail(f"a timed encode ({who}) gave other bytes")
-    wall = statistics.median(times["bits_at"])
-    wall_k1 = statistics.median(times["k1"])
+            fail(f"a timed encode ({label[way]}) gave other bytes")
+    wall = statistics.median(times["k3"])
+    wall_pr5 = statistics.median(times["pr5"])
     print(f"main path: 60 s stereo 128 kbps in {wall:.3f} s median of "
-          f"{TIMED_RUNS} ({', '.join(f'{t:.3f}' for t in times['bits_at'])} "
+          f"{2 * TURNS} ({', '.join(f'{t:.3f}' for t in times['k3'])} "
           f"s): {CLIP_SECONDS / wall:.2f}x real time on {line}; in turns with "
-          f"the K1 chain: {wall_k1:.3f} s median "
-          f"({', '.join(f'{t:.3f}' for t in times['k1'])} s), "
-          f"{CLIP_SECONDS / wall_k1:.2f}x", flush=True)
+          f"PR 5's path: {wall_pr5:.3f} s median "
+          f"({', '.join(f'{t:.3f}' for t in times['pr5'])} s), "
+          f"{CLIP_SECONDS / wall_pr5:.2f}x; K3's wall {wall / wall_pr5:.3f} "
+          f"of PR 5's", flush=True)
 
-    for who, chain, median in (("k1", k1_chain, wall_k1),
-                               ("bits_at", None, wall)):
+    for way, median in (("pr5", wall_pr5), ("k3", wall)):
         for _ in range(3):      # the profiler now and then records none
-            n, busy, pwall = profile_once(lambda: run(chain))
+            n, busy, pwall = profile_once(lambda: run(way))
             if n > 0:
                 break
         else:
-            fail(f"torch.profiler recorded no device event ({who})")
-        print(f"torch.profiler over one encode ({who}): {n} device kernels "
-              f"and copies; device busy {busy:.4f} s of a profiled wall of "
-              f"{pwall:.4f} s, idle share {1.0 - busy / pwall:.3f} (against "
-              f"the unprofiled median {median:.3f} s: "
+            fail(f"torch.profiler recorded no device event ({label[way]})")
+        print(f"torch.profiler over one encode ({label[way]}): {n} device "
+              f"kernels and copies; device busy {busy:.4f} s of a profiled "
+              f"wall of {pwall:.4f} s, idle share {1.0 - busy / pwall:.3f} "
+              f"(against the unprofiled median {median:.3f} s: "
               f"{1.0 - busy / median:.3f})", flush=True)
 
     snr_gpu = first_seconds_snr(np, out, pcm, fsize, 10.0, decode_mp3,
@@ -1294,8 +1520,7 @@ def phase_main(ctx, pcm, cfg, line):
         if not np.isfinite(g) or g < c - 1.0:
             fail(f"first-10 s SNR {g:.2f} dB is more than 1 dB below the "
                  f"CPU path's {c:.2f} dB")
-    return dict(launches=launches, k1_chain_launches=k1_chain_launches,
-                out=out)
+    return dict(launches=launches, by_way=counts, out=out)
 
 
 def main():
@@ -1322,13 +1547,14 @@ def main():
     from mp3tpu_torch.ops import bits_at as K
     from mp3tpu_torch.ops import hist_c1 as k1
     from mp3tpu_torch.ops import loop
+    from mp3tpu_torch.ops import search as S
     from mp3tpu_torch.runtime.wav import read_wav
     from mp3tpu_torch.tables import mpeg
 
     phase_build(k1, K)
     kres = phase_kernel(k1, torch)
 
-    ctx = dict(np=np, torch=torch, k1=k1, K=K, loop=loop,
+    ctx = dict(np=np, torch=torch, k1=k1, K=K, S=S, loop=loop,
                EncoderConfig=EncoderConfig, mpeg=mpeg,
                encode=encode_layer3_fast, decode_mp3=decode_mp3,
                snr_db=snr_db, read_wav=read_wav, make_signal=make_signal,
@@ -1340,9 +1566,13 @@ def main():
 
     # ---- the main path: 60 s stereo 44.1 kHz 128 kbps
     pcm = make_signal(CLIP_SECONDS, 44100)
+    main_searches = capture_main_searches(ctx, pcm, cfg_of())
     t0 = time.perf_counter()
-    bres = phase_bits_at(ctx, capture_main_batch(ctx, pcm, cfg_of()))
+    bres = phase_bits_at(ctx, first_evaluation(main_searches["stepsize"]))
     print(f"phase 3b bits_at: {time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    sres = phase_search(ctx, main_searches)
+    print(f"phase 3c K3: {time.perf_counter() - t0:.2f} s", flush=True)
     t0 = time.perf_counter()
     phase_quality()
     print(f"phase 4 quality: {time.perf_counter() - t0:.2f} s", flush=True)
@@ -1370,6 +1600,13 @@ def main():
           f"{corpus['bound_ms']:.6f} ms ({corpus['bound_by']}); on the "
           f"sharded path's batches: max_abs_err {sharded['max_abs_err']}",
           flush=True)
+    k3 = corpus["search"]
+    print(f"K3 on the corpus path's 32,768-lane stepsize search: max_abs_err "
+          f"{corpus['search_max_abs_err']}, {k3['ms']} ms against the plain "
+          f"search's {k3['plain_ms']} ms ({k3['plain_launches']} bits_at "
+          f"launches) and a bound of {k3['bound_ms']:.6f} ms "
+          f"({k3['bound_by']}); on the sharded path's: max_abs_err "
+          f"{sharded['search_max_abs_err']}", flush=True)
 
     launches = main_res["launches"]
 
@@ -1378,6 +1615,10 @@ def main():
                 "stream": counts["7 streaming"][kernel],
                 "corpus": corpus["launches"][kernel],
                 "sharded": sharded["launches"][kernel]}
+
+    for kernel in ("search", "bits_at", "syncs"):
+        print(f"{kernel} {'per encode' if kernel == 'syncs' else 'launches'}"
+              f" by path: {by_path(kernel)}", flush=True)
 
     err, k_ms, p_ms, (b_ms, b_by) = kres[4096]
     print(json.dumps({"kernels": [
@@ -1388,7 +1629,7 @@ def main():
          "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
          "library_ms": None, "launches_by_path": dict(
              by_path("hist_c1"),
-             main_k1_chain=main_res["k1_chain_launches"])},
+             main_k1_chain=main_res["by_way"]["k1"]["hist_c1"])},
         {"name": "bits_at", "route": "cuda",
          "source": "mp3tpu_torch/csrc/bits_at.cu",
          "replaces": "mp3tpu/ops/pallas_bits.py:69",
@@ -1397,7 +1638,19 @@ def main():
                             sharded["max_abs_err"]),
          "ms": bres["ms"], "plain_ms": bres["plain_ms"],
          "bound_ms": bres["bound_ms"], "bound_by": bres["bound_by"],
-         "library_ms": None, "launches_by_path": by_path("bits_at")}]}),
+         "library_ms": None, "launches_by_path": dict(
+             by_path("bits_at"),
+             main_plain_searches=main_res["by_way"]["pr5"]["bits_at"])},
+        {"name": "search", "route": "cuda",
+         "source": "mp3tpu_torch/csrc/bits_at.cu",
+         "replaces": "mp3tpu/ops/jaxloop.py:528-613",
+         "launches": launches["search"],
+         "max_abs_err": max(sres["max_abs_err"],
+                            corpus["search_max_abs_err"],
+                            sharded["search_max_abs_err"]),
+         "ms": sres["ms"], "plain_ms": sres["plain_ms"],
+         "bound_ms": sres["bound_ms"], "bound_by": sres["bound_by"],
+         "library_ms": None, "launches_by_path": by_path("search")}]}),
           flush=True)
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)

@@ -1,14 +1,21 @@
 """One bit evaluation of the rate loop in one launch: ``bits_at``.
 
-The rate loop evaluates a batch of granules at candidate stepsizes some
-240 times per 60 s clip.  Each evaluation is ``jaxloop._bits_at``:
-quantize the permuted |xr|^0.75 at the stepsize, find the run lengths,
-subdivide the big_values region, count the Huffman bits of every table
-candidate (K1's histogram, ``mp3tpu/ops/pallas_bits.py:_kernel``) and
-pick the tables and the count1 table.  ``bits_at`` does all of it in
-one CUDA kernel (``csrc/bits_at.cu``) for a CUDA tensor and runs
-``bits_at_plain``, the same chain in plain PyTorch, for a CPU tensor;
-there is no fallback between the two.
+Each bit evaluation of the rate loop's stepsize searches is
+``jaxloop._bits_at``: quantize the permuted |xr|^0.75 at the stepsize,
+find the run lengths, subdivide the big_values region, count the Huffman
+bits of every table candidate (K1's histogram,
+``mp3tpu/ops/pallas_bits.py:_kernel``) and pick the tables and the
+count1 table.  ``bits_at`` does all of it in one CUDA kernel
+(``csrc/bits_at.cu``) for a CUDA tensor and runs ``bits_at_plain``, the
+same chain in plain PyTorch, for a CPU tensor; there is no fallback
+between the two.
+
+Its evaluation is K3's building block: ``search_kernel`` in the same
+source runs the searches on the card and calls the same ``__device__``
+evaluation at every step (``ops/search.py``).  So on the card the rate
+loop launches ``bits_at`` no time; it is the plain searches' evaluation
+(``loop.search_stepsize_plain``, ``search_walk_plain``) and the baseline
+that ``chip_smoke.py`` phase 3b holds against ``bits_at_plain``.
 
 Both return one dict of per-granule rows: ``bits`` (G,) float32 (1e9
 where ix_max > IXMAX), ``count1``, ``big_values``, ``r0``, ``r1``,

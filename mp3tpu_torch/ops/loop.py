@@ -3,18 +3,24 @@
 Same batched, masked formulation as the JAX package: every function
 works on a batch of granules (leading axis G), the stepsize search is a
 fixed-depth bisection plus monotone walks, and the distortion loop runs
-with per-lane convergence masks.  Counting differs in two places: each
-bit evaluation of the searches (``_bits_at``) is one launch of the
-``bits_at`` kernel on a CUDA tensor (``ops/bits_at.py``; its plain
-version, this module's chain, on the CPU), and ``count_all``'s 256-class
-pair histogram goes through K1 (``ops/hist_c1.py``); the TPU's one-hot
-factorization is not ported.
+with per-lane convergence masks.
+
+The stepsize searches, device loops in the JAX package, are one launch
+each of K3 on a CUDA tensor (``ops/search.py``, ``csrc/bits_at.cu``):
+every granule runs its own search to its own exit on the card, with no
+host round trip.  On a CPU tensor they run ``search_stepsize_plain`` and
+``search_walk_plain``, the lockstep loops with the JAX semantics (caps,
+fixed 3-step downward walk), each bit evaluation one ``_bits_at``
+(``ops/bits_at.py``: its plain chain on the CPU, the ``bits_at`` kernel
+if the plain searches are given a CUDA tensor).  ``count_all``'s
+256-class pair histogram goes through K1 (``ops/hist_c1.py``); the TPU's
+one-hot factorization is not ported.
 
 Each ``lax.while_loop`` of the JAX package whose exit is
-``jnp.any(...)`` becomes a Python loop whose condition is read on the
-host -- one device sync per step on CUDA, counted in
-``any_on_host.syncs``.  Loop bodies, caps and the fixed 3-step downward
-walk keep the JAX semantics exactly.
+``jnp.any(...)`` and that is not inside a K3 launch (``outer_loop``'s
+own, and the plain searches' walks) is a Python loop whose condition is
+read on the host -- one device sync per step on CUDA, counted in
+``any_on_host.syncs``.
 
 Bit arithmetic stays in int32/int64 and float32 bit totals, as in the
 JAX package; nothing here uses unsigned tensors.
@@ -28,7 +34,7 @@ from ..tables import mpeg
 from ..runtime.profiling import span
 from ..tables.huffman import ESC_TABLE_A, ESC_TABLE_B, FIRST_TABLE_FOR_MAX
 
-from . import bits_at
+from . import bits_at, search
 from .hist_c1 import hist_c1
 
 IXMAX = 8191 + 14  # table range limit (loop.c:588)
@@ -381,34 +387,40 @@ def _bits_only(xr75p, qss, is_short, is_short_block, ST):
     return _bits_at(xr75p, qss, is_short, is_short_block, ST)[0]
 
 
-def _walk_up(xr75p, budget, qss, bits, is_short, is_short_block, ST,
-             max_steps):
-    """Step every over-budget lane up by one until all fit (or the cap)."""
+def _walk_up_plain(xr75p, budget, qss, bits, is_short, is_short_block, ST,
+                   max_steps):
+    """Step every over-budget lane up by one until all fit (or the cap).
+    Returns (qss, bits, steps): steps (G,) int32, each lane's own."""
+    steps = torch.zeros(qss.shape, dtype=torch.int32, device=qss.device)
     it = 0
     while it < max_steps and any_on_host(bits > budget):
         bad = bits > budget
         qss = torch.where(bad, qss + 1.0, qss)
         b2 = _bits_only(xr75p, qss, is_short, is_short_block, ST)
         bits = torch.where(bad, b2, bits)
+        steps += bad
         it += 1
-    return qss, bits
+    return qss, bits, steps
 
 
-def search_walk(xr75p, budget, start_qss, is_short, is_short_block, ST,
-                max_steps=40):
-    """Walk up from a warm start while over budget; returns (qss, bits,
-    counts at qss)."""
+def search_walk_plain(xr75p, budget, start_qss, is_short, is_short_block,
+                      ST, max_steps=40):
+    """Walk up from a warm start while over budget, the batch in lockstep;
+    returns (qss, bits, counts at qss).  The counts hold ``evals``, each
+    lane's own bit evaluations (its steps and the two at either end)."""
     bits = _bits_only(xr75p, start_qss, is_short, is_short_block, ST)
-    qss, bits = _walk_up(xr75p, budget, start_qss, bits, is_short,
-                         is_short_block, ST, max_steps)
+    qss, bits, steps = _walk_up_plain(xr75p, budget, start_qss, bits,
+                                      is_short, is_short_block, ST, max_steps)
     bits, c = _bits_at(xr75p, qss, is_short, is_short_block, ST)
+    c["evals"] = steps + 2
     return qss, bits, c
 
 
-def search_stepsize(xr75p, budget, qanf, is_short, is_short_block, ST,
-                    n_bisect=8, qss_lo=None):
+def search_stepsize_plain(xr75p, budget, qanf, is_short, is_short_block, ST,
+                          n_bisect=8, qss_lo=None):
     """Bisection on [lo, QMAX], an upward fix-up walk, then a fixed
-    3-step downward refinement; returns (qss, bits, counts).
+    3-step downward refinement, the batch in lockstep; returns (qss, bits,
+    counts), the counts with ``evals`` as in ``search_walk_plain``.
 
     qss_lo: optional warm lower bound for the bisection."""
     floor_q = torch.clamp(qanf, min=QMIN)
@@ -420,8 +432,8 @@ def search_stepsize(xr75p, budget, qanf, is_short, is_short_block, ST,
         lo, hi = torch.where(ok, lo, mid), torch.where(ok, mid, hi)
     qss = hi
     bits = _bits_only(xr75p, qss, is_short, is_short_block, ST)
-    qss, bits = _walk_up(xr75p, budget, qss, bits, is_short,
-                         is_short_block, ST, 40)
+    qss, bits, steps = _walk_up_plain(xr75p, budget, qss, bits, is_short,
+                                      is_short_block, ST, 40)
     for _ in range(3):
         qss2 = qss - 1.0
         b2 = _bits_only(xr75p, qss2, is_short, is_short_block, ST)
@@ -429,7 +441,30 @@ def search_stepsize(xr75p, budget, qanf, is_short, is_short_block, ST,
         qss = torch.where(good, qss2, qss)
         bits = torch.where(good, b2, bits)
     bits, c = _bits_at(xr75p, qss, is_short, is_short_block, ST)
+    c["evals"] = steps + (n_bisect + 5)
     return qss, bits, c
+
+
+def search_walk(xr75p, budget, start_qss, is_short, is_short_block, ST,
+                max_steps=40):
+    """Walk up from a warm start while over budget; returns (qss, bits,
+    counts at qss): K3 (``ops/search.py``) on a CUDA tensor,
+    ``search_walk_plain`` on a CPU tensor."""
+    return search.search_walk(xr75p, budget, start_qss, is_short,
+                              is_short_block, ST, max_steps=max_steps)
+
+
+def search_stepsize(xr75p, budget, qanf, is_short, is_short_block, ST,
+                    n_bisect=8, qss_lo=None):
+    """Bisection on [lo, QMAX], an upward fix-up walk, then a fixed
+    3-step downward refinement; returns (qss, bits, counts): K3
+    (``ops/search.py``) on a CUDA tensor, ``search_stepsize_plain`` on a
+    CPU tensor.
+
+    qss_lo: optional warm lower bound for the bisection."""
+    return search.search_stepsize(xr75p, budget, qanf, is_short,
+                                  is_short_block, ST, n_bisect=n_bisect,
+                                  qss_lo=qss_lo)
 
 
 def _lanes(mask, v):

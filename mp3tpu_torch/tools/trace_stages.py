@@ -122,7 +122,9 @@ def span_breakdown(path, names=SPANS):
 
     Returns {"spans": {name: {...}}, "device_events": all device events,
     "device_s": their summed time, "unlinked_events": device events whose
-    launching call the trace does not hold, "bits_at_kernel_events"}."""
+    launching call the trace does not hold, "bits_at_kernel_events",
+    "search_kernel_events": the device events of the bits_at and K3
+    kernels}."""
     with open(path) as f:
         events = [e for e in json.load(f)["traceEvents"]
                   if e.get("ph") == "X"]
@@ -177,7 +179,9 @@ def span_breakdown(path, names=SPANS):
             "device_s": sum(e["dur"] for e in device) / 1e6,
             "unlinked_events": unlinked,
             "bits_at_kernel_events": sum(
-                "bits_at_kernel(" in e["name"] for e in device)}
+                "bits_at_kernel(" in e["name"] for e in device),
+            "search_kernel_events": sum(
+                "search_kernel(" in e["name"] for e in device)}
 
 
 def isolated_stages(L3, pcm, dev):

@@ -91,6 +91,7 @@ def test_ast_scan_finds_every_port_module():
     rel = {os.path.relpath(p, REPO) for p in _port_sources()}
     for must in ("chip_smoke.py", "mp3tpu_torch/encoder.py",
                  "mp3tpu_torch/ops/bits_at.py",
+                 "mp3tpu_torch/ops/search.py",
                  "mp3tpu_torch/parallel/corpus.py",
                  "mp3tpu_torch/numpy_ref/encoder.py",
                  "mp3tpu_torch/decoder/layer3.py",
