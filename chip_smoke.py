@@ -25,32 +25,39 @@ Phases, each printing its own lines; any failure exits non-zero:
      six stepsizes; timed (kernel device and call time, the plain chain's
      device time, K1's device time on the same quantized batch) beside
      the bound;
-  3c. K3, the stepsize searches in one launch each, against the lockstep
-     plain searches on bits_at: torch.equal on qss, bits, every count row
-     and the evaluation counts, status 0: random stepsize and walk
-     batches at G = 512, 4096, 4099, 16384 and 65536, LSF batches, a
-     qss_lo batch, a batch driven into the 40-step cap, and the main
-     path's own first 4096-lane stepsize search and walk; timed (K3's
-     device and call time, the plain search's device time, call time and
-     bits_at launches) beside the bound;
+  3c. K3, the stepsize searches in one launch each, at the width (warps
+     a granule) its launch picks and at widths 1, 2, 3, 4 and 7, and
+     K3's first design kept as the baseline, against the lockstep plain
+     searches on bits_at: torch.equal on qss, bits, every count row and
+     the evaluation counts, status 0: random stepsize and walk batches at
+     G = 512, 4096, 4099, 16384 and 65536, LSF batches, a qss_lo batch,
+     a walk and a stepsize batch driven into the 40-step cap, and the
+     main path's own first 4096- and 512-lane stepsize searches and
+     walks; timed: the baseline and K3 in turns (device time), K3 at
+     each width, both call times, the evaluations the plain schedule
+     counts against those K3 runs, the plain search's device time, call
+     time and bits_at launches, beside the bound (the larger of the
+     bytes' and the operations' time) and each design's share of it;
   4. the 15 quality fixtures of tests/test_fast_encoder.py through the
      quality tool (mp3tpu_torch.tools.quality, encode_layer3_fast on
      "cuda"): frame grid and the reference encoder's decoded-SNR bars
      (in-repo decoder), and libmpg123's best-lag SNR when it is present;
   5. the main path: the 60 s stereo 44.1 kHz 128 kbps clip of bench.py
-     (its signal, copied here), encoded four ways: with loop's searches
+     (its signal, copied here), encoded five ways: with loop's searches
      swapped (by this script) for the lockstep plain searches and
      loop._bits_at for the plain chain, then for the chain of K1 with
-     plain PyTorch around it, then the plain searches on bits_at (PR 5's
-     path), then as the package runs it (K3), each with the launch counts
-     reset before and read after (each swap must show in them); the four
-     streams must be equal byte for byte, and K3's evaluation counts must
-     give PR 5's bits_at launches.  Then PR 5's path and the package in
-     5 ABBA turns (10 timed runs each), one encode of each under
-     torch.profiler
-     (device kernels and copies, device idle share); the stream must sit
-     on the frame grid and its first 10 s must decode within 1 dB of the
-     CPU path's 10 s encode;
+     plain PyTorch around it, then the plain searches on bits_at (the
+     lockstep path), then K3's first design (the baseline), then as the
+     package runs it (K3), each with the launch counts reset before and
+     read after (each swap must show in them); the five streams must be
+     equal byte for byte, and K3's evaluation counts must give the
+     lockstep path's bits_at launches.
+     Then the lockstep path and the package in 5 ABBA turns (10 timed runs
+     each), one encode of each under torch.profiler (device kernels and
+     copies, device idle share), and the searches' kernel's device time
+     summed over one encode, K3 and the baseline in turns; the stream
+     must sit on the frame grid and its first 10 s must decode within
+     1 dB of the CPU path's 10 s encode;
   6. MPEG-2 LSF: the three 0.5 s mono cases of tests/test_lsf.py, then a
      60 s stereo 24 kHz 64 kbps clip (launches and syncs counted), interior
      frames on the grid, first 10 s within 1 dB of the CPU path;
@@ -71,9 +78,10 @@ Phases, each printing its own lines; any failure exits non-zero:
      one of 16 split into analysis, rate loop and the rest (wall between
      synchronizes, device kernels by stage); the eight stereo 44.1 kHz
      128 kbps quality fixtures as one mixed-length group, each at its bar
-     and within 0.5 dB of its one-shot encode; K3 against the plain search
-     on the first 32,768-lane stepsize search of a group of 16 and bits_at
-     against its plain chain at its first stepsize, both timed;
+     and within 0.5 dB of its one-shot encode; K3 (each width) and the
+     baseline against the plain search on the first 32,768-lane stepsize
+     search of a group of 16, timed as in phase 3c, and bits_at against
+     its plain chain at its first stepsize, timed;
   11. multi-device: dryrun_multichip(1) on an NCCL mesh, then the 60 s
      clip through encode_layer3_sharded at world size 1 (NCCL, this
      process) and 2 (gloo, two processes of this script run with
@@ -95,10 +103,10 @@ Phases, each printing its own lines; any failure exits non-zero:
      over the first 10 s, against the in-repo decoder's on the first 10 s
      and the two decoders' agreement).
 On every path (main, LSF, stream, corpus, sharded) K3 must launch and the
-rate loop must launch bits_at no time; the launches and loop-exit syncs
-per path are printed.  Its last lines are a JSON object describing the
-kernels and then {"ok": true, "device": {...}}.  It imports nothing of
-JAX and nothing of the JAX package.
+rate loop must launch bits_at and the baseline no time; the launches and
+loop-exit syncs per path are printed.  Its last lines are a JSON object
+describing the kernels and then {"ok": true, "device": {...}}.  It
+imports nothing of JAX and nothing of the JAX package.
 """
 import json
 import os
@@ -119,8 +127,27 @@ from mp3tpu_torch.tools.signals import make_signal  # noqa: E402
 
 CLIP_SECONDS = 60.0
 TIMED_RUNS = 3
-#: phase 5 times PR 5's path and K3 in this many ABBA turns (2 runs each)
+#: phase 5 times the lockstep path and K3 in this many ABBA turns (2 runs each)
 TURNS = 5
+#: the widths (warps a granule) at which phase 3c checks and times K3
+WIDTHS = (1, 2, 3, 4, 7)
+#: NVIDIA H100 SXM: 64 int32 lanes an SM on 132 SMs at the 1.98 GHz boost
+#: clock (the float32 rate of mp3tpu_torch.tools counts 128 lanes and an
+#: FMA as two)
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+#: the operations that one K3 evaluation cannot avoid (csrc/bits_at.cu
+#: evaluate), by the lines that need them.  Every line of the 576:
+#: float32, the quantizer's multiply, subtract, add and floor and its
+#: clamp's max and min, 6; int32, the conversion and the running largest
+#: value, 2.  A line of the big_values region (2 * big_values lines), int32:
+#: the pair's class (two mins and a multiply-add a pair: 1.5), its region
+#: (two compares a pair: 1), the three LUT lookups (an address and a load
+#: each a pair: 3) and the three candidate sums (an add each a pair: 1.5),
+#: 7.  A count1 quad, int32: its index from four values (four mins, three
+#: shift-adds), the count1 length's address and load, its sum, and the
+#: sign count's popc and sum, 12.
+K3_FP32_OPS_LINE, K3_INT32_OPS_LINE = 6, 2
+K3_INT32_OPS_PAIR_LINE, K3_INT32_OPS_QUAD = 7, 12
 
 
 def fail(msg):
@@ -191,6 +218,85 @@ def device_ms(fn, reps=20, tries=3):
                  if getattr(e, "device_type", None) == DeviceType.CUDA)
         if us > 0:
             return us / 1000.0 / reps
+    return None
+
+
+def kernel_events(fn, names, tries=3):
+    """One fn() under torch.profiler's CUDA activity: {name: (events, device
+    ms)} of the device events whose name holds each of `names` (asked up to
+    `tries` times while the profiler records no device event)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        device = [e for e in prof.events()
+                  if getattr(e, "device_type", None) == DeviceType.CUDA]
+        if device:
+            break
+    return {n: (sum(n in e.name for e in device),
+                sum(e.time_range.elapsed_us() for e in device
+                    if n in e.name) / 1e3) for n in names}
+
+
+def kernel_series(fns, names, reps=20, tries=3):
+    """One torch.profiler window over `reps` calls of each fn in turn, each
+    call launching one kernel whose name holds the fn's entry of `names`:
+    the mean device milliseconds of each fn's launches, split by launch
+    order.  A window that misses or misplaces an event is asked again, up
+    to `tries` times (None if every window did).  One window for many
+    timings: the profiler loses more events the more windows a process
+    opens."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for fn in fns:
+                for _ in range(reps):
+                    fn()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if getattr(e, "device_type", None) == DeviceType.CUDA
+                         and any(n in e.name for n in names)),
+                        key=lambda e: e.time_range.start)
+        blocks = [events[i * reps:(i + 1) * reps] for i in range(len(fns))]
+        if len(events) == reps * len(fns) and all(
+                name in e.name for name, b in zip(names, blocks) for e in b):
+            return [sum(e.time_range.elapsed_us() for e in b) / reps / 1e3
+                    for b in blocks]
+    return None
+
+
+def queued_ms(fn, reps=20, tries=4):
+    """Mean device milliseconds per fn() call from CUDA events around
+    `reps` calls queued behind a sleeping kernel: the card starts the
+    first call only once the host has queued the last, so the events read
+    the calls back to back on the card (the gaps between kernels
+    included), not the host's launch time.  The sleep grows until the
+    queue was full before it ended (None if it never was).  The fallback
+    where torch.profiler loses events."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    cycles = 10_000_000
+    for _ in range(tries):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        full = not a.query()
+        b.synchronize()
+        if full:
+            return a.elapsed_time(b) / reps
+        cycles *= 4
     return None
 
 
@@ -319,23 +425,25 @@ def path_batch_check(ctx, run, lanes, what):
     """On the first `lanes`-lane stepsize search that run() makes: K3
     against the plain search, and bits_at against bits_at_plain at its
     first stepsize -60, +0 and +8.  Returns (the stepsize search's
-    captured (args, kwargs), bits_at's max abs error, K3's)."""
+    captured (args, kwargs), bits_at's max abs error, K3's, the
+    baseline's)."""
     seen = capture_searches(ctx, run, lanes, what)
-    s_errs, errs = [], []
+    s_errs, b_errs, errs = [], [], []
     search_check(ctx, f"{what} stepsize search", "stepsize",
-                 *seen["stepsize"], s_errs)
+                 *seen["stepsize"], s_errs, b_errs)
     xr75p, qss, short, sblk, ST = first_evaluation(seen["stepsize"])
     for d in (-60.0, 0.0, 8.0):
         bits_at_check(ctx, f"{what} batch at qss{d:+.0f}",
                       (xr75p, qss + d, short, sblk, ST), errs)
-    return seen["stepsize"], max(errs), max(s_errs)
+    return seen["stepsize"], max(errs), max(s_errs), max(b_errs)
 
 
 def capture_main_searches(ctx, pcm, cfg):
-    """The main path's first 4096-lane stepsize search and walk."""
-    return capture_searches(
-        ctx, lambda: ctx["encode"](pcm, cfg, device="cuda"), 4096,
-        "main path")
+    """The main path's first stepsize search and walk of each segment
+    width: {4096: captured, 512: captured}."""
+    return {lanes: capture_searches(
+        ctx, lambda: ctx["encode"](pcm, cfg, device="cuda"), lanes,
+        "main path") for lanes in (4096, 512)}
 
 
 def bits_at_check(ctx, label, args, errs):
@@ -432,48 +540,161 @@ def phase_bits_at(ctx, main_args):
 
 
 def search_fns(kind):
-    """(K3's wrapper, the lockstep plain search) of a search kind."""
+    """(K3's wrapper, the lockstep plain search, K3's first design kept
+    as the baseline) of a search kind."""
     from mp3tpu_torch.ops import loop, search
     if kind == "stepsize":
-        return search.search_stepsize, loop.search_stepsize_plain
-    return search.search_walk, loop.search_walk_plain
+        return (search.search_stepsize, loop.search_stepsize_plain,
+                search.baseline_stepsize)
+    return search.search_walk, loop.search_walk_plain, search.baseline_walk
 
 
-def search_check(ctx, label, kind, args, kwargs, errs):
-    """K3 against the lockstep plain search (on bits_at): torch.equal on
-    qss, bits, every count row and the evaluation counts, and status 0
-    everywhere; appends the max abs error to errs; returns K3's result."""
+def search_err(got, want):
+    """The largest absolute difference of two search results over qss,
+    bits and the plain search's count rows."""
     import torch
-    from test_torch_search_card import search_mismatches
-    kernel, plain = search_fns(kind)
-    got = kernel(*args, **kwargs)
-    torch.cuda.synchronize()
-    want = plain(*args, **kwargs)
-    bad = search_mismatches(got, want)
-    if bad:
-        fail(f"K3 != the plain {kind} search on {label} in {bad}")
-    if bool(got[2]["status"].any()):
-        fail(f"K3 on {label}: a stepsize missed the istep75 table")
     pairs = [(got[0], want[0]), (got[1], want[1])] + [
         (got[2][k], v) for k, v in want[2].items()]
-    errs.append(max(float((a.to(torch.float64) - b.to(torch.float64))
-                          .abs().max()) if a.numel() else 0.0
-                    for a, b in pairs))
-    evals = got[2]["evals"]
+    return max(float((a.to(torch.float64) - b.to(torch.float64)).abs().max())
+               if a.numel() else 0.0 for a, b in pairs)
+
+
+def search_check(ctx, label, kind, args, kwargs, errs, base_errs):
+    """K3 at the width its launch picks and at each width of WIDTHS, and
+    the baseline, against the lockstep plain search (on bits_at):
+    torch.equal on qss, bits, every count row and the evaluation counts,
+    and status 0 everywhere; appends K3's max abs error (at the picked
+    width) to errs and the baseline's to base_errs; returns K3's result at
+    the picked width."""
+    import torch
+    from mp3tpu_torch.ops import search
+    from test_torch_search_card import search_mismatches
+    kernel, plain, baseline = search_fns(kind)
+    G = args[0].shape[0]
+    got = {"the picked width": kernel(*args, **kwargs)}
+    for w in WIDTHS:
+        got[f"width {w}"] = kernel(*args, **kwargs, width=w)
+    got["the baseline"] = baseline(*args, **kwargs)
+    torch.cuda.synchronize()
+    want = plain(*args, **kwargs)
+    for how, res in got.items():
+        bad = search_mismatches(res, want)
+        if bad:
+            fail(f"K3 at {how} != the plain {kind} search on {label} in "
+                 f"{bad}")
+        if bool(res[2]["status"].any()):
+            fail(f"K3 at {how} on {label}: a stepsize missed the istep75 "
+                 f"table")
+    res = got["the picked width"]
+    errs.append(search_err(res, want))
+    base_errs.append(search_err(got["the baseline"], want))
+    evals = res[2]["evals"]
     cap = 42 if kind == "walk" else 53
+    runs = {w: int(got[f"width {w}"][2]["runs"].sum()) for w in WIDTHS}
+    pick = search.plan(G)["width"] if G else 1
     print(f"K3 {kind} search {label}: equal to the plain search on every "
-          f"output, status 0 (G={args[0].shape[0]}: evaluations per granule "
-          f"{int(evals.min())}-{int(evals.max())}, {int(evals.sum())} in "
-          f"all, {int((evals == cap).sum())} at the 40-step cap; "
-          f"{int((got[1] == 1e9).sum())} left past IXMAX)", flush=True)
-    return got
+          f"output, status 0, at the picked width {pick}, at widths "
+          f"{', '.join(map(str, WIDTHS))} and in the baseline (G={G}: "
+          f"evaluations per granule {int(evals.min())}-{int(evals.max())}, "
+          f"{int(evals.sum())} in all, {int((evals == cap).sum())} at the "
+          f"40-step cap; {int((res[1] == 1e9).sum())} left past IXMAX); "
+          f"evaluations run by width {runs}", flush=True)
+    return res
 
 
-def search_bound(args, kwargs, evals):
-    """K3's bound: xr75p, the per-granule scalars, the rate tables, the LUT,
-    the count1 lengths and the istep75 table read once; 15 int32 rows a
-    granule written once; 3 float32 operations a line (scale, offset,
-    round) per bit evaluation that this run's granules made."""
+def serial_work(kind, args, kwargs, n_bisect=8, max_steps=40):
+    """K3's schedule at width 1 (csrc/bits_at.cu search_kernel with one warp
+    a granule; tests/test_torch_search_card.py model_granule on the CPU)
+    replayed over the batch, one bits_at launch a pass: the stepsizes whose
+    outcome the plain search reads, each evaluated once.  Returns (G,)
+    tensors: qss, runs (the evaluations), pair_lines (2 * big_values summed
+    over them: the lines of their big_values regions) and quads (count1
+    summed over them)."""
+    import torch
+    from mp3tpu_torch.ops import bits_at as K
+    from mp3tpu_torch.ops import loop
+    xr75p, budget, start, short, sblk, ST = args
+    G, dev = xr75p.shape[0], xr75p.device
+    BISECT, WALK, DOWN, DONE = 0, 1, 2, 3
+
+    def full(v, dtype=torch.float32):
+        return torch.full((G,), v, dtype=dtype, device=dev)
+
+    qss = start.clone()
+    floor_q, lo, hi, below = (full(loop.QMIN), full(loop.QMIN),
+                              full(loop.QMAX), full(0.0))
+    lo_known, hi_known, below_known = (full(False, torch.bool)
+                                       for _ in range(3))
+    left, steps, first, down, runs, pair_lines, quads = (
+        full(0, torch.int64) for _ in range(7))
+    phase = full(WALK, torch.int64)
+    if kind == "stepsize":
+        floor_q = torch.maximum(qss, floor_q)        # NaN as nan_max keeps it
+        lo = floor_q
+        if kwargs.get("qss_lo") is not None:
+            lo = torch.maximum(floor_q, kwargs["qss_lo"])
+        left = full(n_bisect, torch.int64)
+        phase = full(BISECT, torch.int64)
+    for _ in range(n_bisect + max_steps + 8):
+        # a bisection with no step left hands hi on without an evaluation;
+        # a down rung known not to fit ends the search
+        end = (phase == BISECT) & (left == 0)
+        qss = torch.where(end, hi, qss)
+        phase = torch.where(end, torch.where(hi_known, DOWN, WALK), phase)
+        mid = torch.floor((lo + hi) * 0.5)
+        q_down = qss - 1.0
+        known_miss = ~(q_down >= floor_q) | (below_known & (q_down == below)) \
+            | (lo_known & (q_down == lo))
+        phase = torch.where((phase == DOWN) & known_miss, DONE, phase)
+        if not bool((phase != DONE).any()):
+            break
+        bis, walk_, dn = phase == BISECT, phase == WALK, phase == DOWN
+        mid_lo, mid_hi = lo_known & (mid == lo), hi_known & (mid == hi)
+        q = torch.where(bis, mid, torch.where(walk_, qss + first, q_down))
+        active = walk_ | dn | (bis & ~mid_lo & ~mid_hi)
+        c = K.bits_at(xr75p, torch.where(active, q, 0.0), short, sblk, ST)
+        fits = c["bits"] <= budget
+        runs += active
+        pair_lines += torch.where(active, 2 * c["big_values"], 0)
+        quads += torch.where(active, c["count1"], 0)
+        # the bisection: a mid equal to a known bound takes its outcome
+        ok = torch.where(mid_lo, False, torch.where(mid_hi, True, fits))
+        hi = torch.where(bis & ok, mid, hi)
+        lo = torch.where(bis & ~ok, mid, lo)
+        hi_known |= bis & ok
+        lo_known |= bis & ~ok
+        left = left - bis.long()
+        # the walk: one rung up from the second on, until it fits or caps
+        up = walk_ & (first == 1)
+        below = torch.where(up, qss, below)
+        below_known |= up
+        qss = torch.where(walk_, q, qss)
+        steps = steps + torch.where(walk_, first, 0)
+        first = torch.where(walk_, 1, first)
+        w_end = walk_ & (fits | (steps >= max_steps))
+        # the down steps: keep a rung that fits, end at the first miss
+        qss = torch.where(dn & fits, q_down, qss)
+        down = down + (dn & fits).long()
+        d_end = dn & (~fits | (down == 3))
+        phase = torch.where(w_end, DONE if kind == "walk" else DOWN, phase)
+        phase = torch.where(d_end, DONE, phase)
+    else:
+        fail(f"the width-1 replay of a {kind} search did not end")
+    return dict(qss=qss, runs=runs, pair_lines=pair_lines, quads=quads)
+
+
+def search_bound(args, kwargs, work):
+    """K3's bound, the larger of two times.  Bytes: xr75p, the per-granule
+    scalars, the rate tables, the LUT, the count1 lengths and the istep75
+    table read once, 16 int32 rows a granule written once, over the HBM
+    rate.  Operations: the evaluations the search needs (`work`, from
+    serial_work: once each stepsize whose outcome the plain search reads),
+    K3_FP32_OPS_LINE float32 operations a line over the float32 rate and
+    the int32 operations that each evaluation's lines need
+    (K3_INT32_OPS_LINE on all 576, K3_INT32_OPS_PAIR_LINE on the lines of
+    its big_values region, K3_INT32_OPS_QUAD a count1 quad) over the
+    int32 rate, the two pipes side by side.  Returns (ms, "bytes" or
+    "operations", the bytes' ms, the operations' ms)."""
     from mp3tpu_torch.ops import bits_at as K
     from mp3tpu_torch.ops import search
     xr75p, budget, start, short, sblk, ST = args
@@ -481,66 +702,152 @@ def search_bound(args, kwargs, evals):
     extra = [v for v in kwargs.values() if v is not None]
     G = xr75p.shape[0]
     rows = len(K.ROWS) + len(search.EXTRA_ROWS)
-    return bound(nbytes(xr75p, budget, start, short, sblk, ST["bits_at_tab"],
-                        lut, hlen, search._istep_table(xr75p.device), *extra)
-                 + rows * G * 4, 3 * 576 * int(evals.sum()))
+    b_ms = 1e3 * (nbytes(xr75p, budget, start, short, sblk, ST["bits_at_tab"],
+                         lut, hlen, search._istep_table(xr75p.device), *extra)
+                  + rows * G * 4) / HBM_BYTES_PER_S
+    lines = 576 * int(work["runs"].sum())
+    int32_ops = (K3_INT32_OPS_LINE * lines
+                 + K3_INT32_OPS_PAIR_LINE * int(work["pair_lines"].sum())
+                 + K3_INT32_OPS_QUAD * int(work["quads"].sum()))
+    o_ms = 1e3 * max(K3_FP32_OPS_LINE * lines / FP32_OPS_PER_S,
+                     int32_ops / INT32_OPS_PER_S)
+    if b_ms >= o_ms:
+        return b_ms, "bytes", b_ms, o_ms
+    return o_ms, "operations", b_ms, o_ms
 
 
-def search_timed(ctx, label, kind, args, kwargs):
-    """K3's device and call time; the lockstep plain search on bits_at
-    (PR 5's path): its device time, call time and bits_at launches; the
-    bound."""
+def search_timed(ctx, label, kind, args, kwargs, plain_too=False):
+    """K3's first design (the baseline) and K3 at the width its launch picks,
+    in turns (baseline, K3, K3, baseline; device time per call from
+    torch.profiler, a mean of 20 a turn); K3 at each width of WIDTHS; both
+    call times; the evaluations the plain schedule counts against those
+    K3 runs; the bound and each design's share of it.  With plain_too also
+    the lockstep plain search on bits_at (the lockstep path): its device time,
+    call time and bits_at launches."""
     K = ctx["K"]
-    kernel, plain = search_fns(kind)
-    k_dev = device_ms(lambda: kernel(*args, **kwargs))
-    k_call = call_ms(lambda: kernel(*args, **kwargs))
-    p_dev = device_ms(lambda: plain(*args, **kwargs))
-    p_call = call_ms(lambda: plain(*args, **kwargs), reps=20)
-    before = K.bits_at.launches
-    plain(*args, **kwargs)
-    p_launches = K.bits_at.launches - before
-    if k_dev is None or p_dev is None:
-        k_dev, p_dev = k_call, p_call
-        print("  (no profiler device time: K3 and the plain search report "
-              "call times)", flush=True)
+    from mp3tpu_torch.ops import search
+    kernel, plain, baseline = search_fns(kind)
+    G = args[0].shape[0]
+    pick = search.plan(G)["width"]
+
+    def k3(width=None):
+        return lambda: kernel(*args, **kwargs, width=width)
+
+    def base():
+        return baseline(*args, **kwargs)
+
+    k3_name, b_name = "search_kernel(", "search_baseline("
+    fns = [base, k3(), k3(), base] + [k3(w) for w in WIDTHS]
+    ms = kernel_series(fns, [b_name, k3_name, k3_name, b_name]
+                       + [k3_name] * len(WIDTHS))
+    # the repeated launches left K3's granule counter at zero and gave the
+    # checked results
+    import torch
+    from test_torch_search_card import search_mismatches
+    again = kernel(*args, **kwargs)
+    stream = torch.cuda.current_stream().cuda_stream
+    if search_mismatches(again, plain(*args, **kwargs)) or bool(
+            search._counter(args[0].device, stream).any()):
+        fail(f"K3 on {label}: a timed launch left other results or a "
+             f"granule counter off zero")
+    k_call = call_ms(k3())
+    b_call = call_ms(base)
+    note = ""
+    if ms is None:
+        ms = [queued_ms(fn) for fn in fns]
+        note = (" (torch.profiler lost events: CUDA events around 20 calls "
+                "queued behind a sleep)")
+        if None in ms[:4]:
+            ms = [b_call, k_call, k_call, b_call] + [None] * len(WIDTHS)
+            note = " (no device time: call times)"
+    turns = {"baseline": [ms[0], ms[3]], "k3": [ms[1], ms[2]]}
+    by_width = dict(zip(WIDTHS, ms[4:]))
+    k_dev = statistics.mean(turns["k3"])
+    b_dev = statistics.mean(turns["baseline"])
     evals = kernel(*args, **kwargs)[2]["evals"]
-    b_ms, b_by = search_bound(args, kwargs, evals)
-    print(f"K3 {kind} search {label} timed: device time per call "
-          f"(torch.profiler, mean of 20): K3 {k_dev} ms, the plain search on "
-          f"bits_at {p_dev} ms ({p_launches} bits_at launches); call time "
-          f"(CUDA events, median): K3 {k_call:.4f} ms, plain {p_call:.4f} ms;"
-          f" bound {b_ms:.6f} ms ({b_by}), K3 at {b_ms / k_dev:.1%} of it",
-          flush=True)
-    return dict(ms=k_dev, call_ms=k_call, plain_ms=p_dev, plain_call_ms=p_call,
-                plain_launches=p_launches, bound_ms=b_ms, bound_by=b_by)
+    runs = {w: kernel(*args, **kwargs, width=w) for w in sorted({1, pick})}
+    work = serial_work(kind, args, kwargs)
+    one = runs[1]
+    if not (bool(((work["qss"] == one[0])
+                  | (work["qss"].isnan() & one[0].isnan())).all())
+            and torch.equal(work["runs"].int(), one[2]["runs"])):
+        fail(f"K3 on {label}: the width-1 replay of its schedule ran other "
+             f"stepsizes than K3 at width 1")
+    runs = {w: r[2]["runs"] for w, r in runs.items()}
+    b_ms, b_by, bytes_ms, ops_ms = search_bound(args, kwargs, work)
+    res = dict(ms=k_dev, call_ms=k_call, baseline_ms=b_dev,
+               baseline_call_ms=b_call, turns=turns, by_width=by_width,
+               width=pick, evals=int(evals.sum()),
+               runs={w: int(r.sum()) for w, r in runs.items()},
+               bound_ms=b_ms, bound_by=b_by, bytes_ms=bytes_ms,
+               ops_ms=ops_ms, work={k: int(work[k].sum()) for k in
+                                    ("runs", "pair_lines", "quads")})
+    line = (f"K3 {kind} search {label} timed: G={G}, width {pick} picked; "
+            f"device time per call (torch.profiler, the kernels' own events, "
+            f"mean of 20 a turn; turns baseline, K3, K3, baseline, then K3 by "
+            f"width, in one window){note}: K3 "
+            f"{' / '.join(str(t) for t in turns['k3'])} ms, the baseline "
+            f"{' / '.join(str(t) for t in turns['baseline'])} ms, "
+            f"{b_dev / k_dev:.2f}x; K3 by width (ms): {by_width}; call "
+            f"time (CUDA events, median of 50): K3 {k_call:.4f} ms, baseline "
+            f"{b_call:.4f} ms; evaluations: {res['evals']} as the plain "
+            f"schedule counts them, run {res['runs']} by width; bound "
+            f"{b_ms:.6f} ms ({b_by}; bytes {bytes_ms:.6f} ms, operations "
+            f"{ops_ms:.6f} ms over the width-1 schedule's {res['work']}): K3 "
+            f"at {b_ms / k_dev:.1%} of it, the baseline "
+            f"at {b_ms / b_dev:.1%}")
+    if plain_too:
+        p_dev = device_ms(lambda: plain(*args, **kwargs))
+        p_call = call_ms(lambda: plain(*args, **kwargs), reps=20)
+        before = K.bits_at.launches
+        plain(*args, **kwargs)
+        res.update(plain_ms=p_dev if p_dev is not None else p_call,
+                   plain_call_ms=p_call,
+                   plain_launches=K.bits_at.launches - before)
+        line += (f"; the plain search on bits_at: device {p_dev} ms, call "
+                 f"{p_call:.4f} ms ({res['plain_launches']} bits_at "
+                 f"launches)")
+    print(line, flush=True)
+    return res
 
 
 def phase_search(ctx, main_searches):
-    """Phase 3c: K3 against the lockstep plain searches on the card;
-    returns the JSON fields measured on the main path's own first 4096-lane
-    stepsize search."""
+    """Phase 3c: K3 and the baseline against the lockstep plain searches
+    on the card, and timed in turns; returns the fields measured on the
+    main path's own first 4096-lane stepsize search, and the main path's
+    four captured searches' measurements under "main"."""
     from test_torch_search_card import case_args, search_case
-    errs = []
+    errs, base_errs = [], []
+    # the main path's searches first: the profiler's windows after the
+    # widest batches have lost events
+    main = {}
+    for lanes in (4096, 512):
+        for kind in ("walk", "stepsize"):
+            args, kwargs = main_searches[lanes][kind]
+            label = f"main path's first {lanes}-lane {kind} search"
+            search_check(ctx, label, kind, args, kwargs, errs, base_errs)
+            main[(lanes, kind)] = search_timed(ctx, label, kind, args,
+                                               kwargs, plain_too=True)
     for G in (512, 4096, 4099, 16384, 65536):
         for name in ("stepsize", "walk"):
             kind, args, kwargs = case_args(search_case(name, G, 6060 + G),
                                            "cuda")
-            search_check(ctx, f"random G={G}", kind, args, kwargs, errs)
-            if name == "stepsize":
-                search_timed(ctx, f"random G={G}", kind, args, kwargs)
-    for name in ("stepsize_lsf", "walk_lsf", "stepsize_qss_lo", "walk_cap"):
+            search_check(ctx, f"random G={G}", kind, args, kwargs, errs,
+                         base_errs)
+            search_timed(ctx, f"random G={G}", kind, args, kwargs,
+                         plain_too=name == "stepsize")
+    for name in ("stepsize_lsf", "walk_lsf", "stepsize_qss_lo", "walk_cap",
+                 "stepsize_cap"):
         kind, args, kwargs = case_args(search_case(name, 4096, 22050),
                                        "cuda")
-        got = search_check(ctx, f"{name} G=4096", kind, args, kwargs, errs)
-        if name == "walk_cap" and not int((got[2]["evals"] == 42).sum()):
-            fail("the cap case put no granule at the 40-step cap")
-    for kind in ("walk", "stepsize"):
-        args, kwargs = main_searches[kind]
-        search_check(ctx, f"main path's first {kind} search", kind, args,
-                     kwargs, errs)
-        res = search_timed(ctx, f"main path's first {kind} search", kind,
-                           args, kwargs)
-    return dict(res, max_abs_err=max(errs))
+        got = search_check(ctx, f"{name} G=4096", kind, args, kwargs, errs,
+                           base_errs)
+        cap = {"walk_cap": 42, "stepsize_cap": 53}.get(name)
+        if cap and not int((got[2]["evals"] == cap).sum()):
+            fail(f"the {name} case put no granule at the 40-step cap")
+        search_timed(ctx, f"{name} G=4096", kind, args, kwargs)
+    return dict(main[(4096, "stepsize")], max_abs_err=max(errs),
+                baseline_max_abs_err=max(base_errs), main=main)
 
 
 def check_grid(out, kbps, rate, nsamples):
@@ -607,6 +914,7 @@ def lsf_grid(out, rate, kbps):
 
 def reset_counts(ctx):
     ctx["S"].launches = 0
+    ctx["S"].baseline_launches = 0
     ctx["K"].bits_at.launches = 0
     ctx["k1"].hist_c1.launches = 0
     ctx["loop"].any_on_host.syncs = 0
@@ -618,17 +926,19 @@ def launch_counts(ctx):
     reset_counts."""
     return {"search": ctx["S"].launches, "bits_at": ctx["K"].bits_at.launches,
             "hist_c1": ctx["k1"].hist_c1.launches,
+            "baseline": ctx["S"].baseline_launches,
             "syncs": ctx["loop"].any_on_host.syncs}
 
 
 def read_counts(ctx, path):
     """launch_counts; fails unless the path launched K3, and its rate loop
-    launched bits_at no time."""
+    launched bits_at and the baseline no time."""
     counts = launch_counts(ctx)
     if counts["search"] <= 0:
         fail(f"the {path} launched K3 no time")
-    if counts["bits_at"]:
-        fail(f"the {path} launched bits_at {counts['bits_at']} times")
+    for kernel in ("bits_at", "baseline"):
+        if counts[kernel]:
+            fail(f"the {path} launched {kernel} {counts[kernel]} times")
     return counts
 
 
@@ -1029,16 +1339,18 @@ def phase_corpus(ctx, line, cfg_of):
     from mp3tpu_torch.encoder import _plan_segments
     lanes = 2 * len(group) * _plan_segments(
         2 * -(-int(CORPUS_SECONDS * rate) // 1152))[0][2]
-    captured, err, s_err = path_batch_check(
+    captured, err, s_err, b_err = path_batch_check(
         ctx, lambda: encode_corpus_batched(group, kw, "cuda",
                                            batch=len(group)),
         lanes, f"corpus group of {len(group)}")
     k_dev, p_dev, _, b_ms, b_by = bits_at_timed(
         ctx, "corpus batch", first_evaluation(captured))
-    k3 = search_timed(ctx, "corpus batch", "stepsize", *captured)
+    k3 = search_timed(ctx, "corpus batch", "stepsize", *captured,
+                      plain_too=True)
     return dict(launches=launches, max_abs_err=err, ms=k_dev,
                 plain_ms=p_dev, bound_ms=b_ms, bound_by=b_by,
-                search_max_abs_err=s_err, search=k3)
+                search_max_abs_err=s_err, baseline_max_abs_err=b_err,
+                search=k3)
 
 
 def free_port():
@@ -1092,7 +1404,7 @@ def sharded_rank(rank, world, url, out):
         t0 = time.perf_counter()
         data = encode()
         wall = time.perf_counter() - t0
-        _, err, s_err = path_batch_check(
+        _, err, s_err, b_err = path_batch_check(
             dict(torch=torch, loop=loop), encode,
             sharded_lanes(2 * -(-len(pcm) // 1152), world),
             f"sharded path (world {world}, rank {rank})")
@@ -1102,7 +1414,8 @@ def sharded_rank(rank, world, url, out):
         f.write(data)
     with open(out + ".json", "w") as f:
         json.dump({"wall_s": wall, "max_abs_err": err,
-                   "search_max_abs_err": s_err}, f)
+                   "search_max_abs_err": s_err,
+                   "baseline_max_abs_err": b_err}, f)
 
 
 def phase_sharded(ctx, cfg_of, line):
@@ -1138,10 +1451,10 @@ def phase_sharded(ctx, cfg_of, line):
         launches = read_counts(ctx, "sharded path")
         n_sh = profile_once(
             lambda: encode_layer3_sharded(pcm, cfg_of(), "cuda"))[0]
-        _, err, s_err = path_batch_check(
+        _, err, s_err, b_err = path_batch_check(
             ctx, lambda: encode_layer3_sharded(pcm, cfg_of(), "cuda"),
             sharded_lanes(G, 1), "sharded path (world 1)")
-        errs, s_errs = [err], [s_err]
+        errs, s_errs, b_errs = [err], [s_err], [b_err]
     finally:
         dist.destroy_process_group()
 
@@ -1178,6 +1491,7 @@ def phase_sharded(ctx, cfg_of, line):
         walls[2].append(res["wall_s"])
         errs.append(res["max_abs_err"])
         s_errs.append(res["search_max_abs_err"])
+        b_errs.append(res["baseline_max_abs_err"])
     if ranks[0] != ranks[1]:
         fail("the two gloo ranks returned different streams")
     streams[2] = ranks[0]
@@ -1225,7 +1539,8 @@ def phase_sharded(ctx, cfg_of, line):
           f"(torch.profiler), one-shot at chunk {_chunk_size(G)}: "
           f"{one_shot[_chunk_size(G)][2]}", flush=True)
     return dict(launches=launches, max_abs_err=max(errs),
-                search_max_abs_err=max(s_errs))
+                search_max_abs_err=max(s_errs),
+                baseline_max_abs_err=max(b_errs))
 
 
 def phase_trace(ctx, pcm, cfg_of, main_out):
@@ -1374,13 +1689,13 @@ def phase_build(k1, K):
 
 
 def phase_main(ctx, pcm, cfg, line):
-    """Phase 5: the bench clip four ways: the plain searches with the
+    """Phase 5: the bench clip five ways: the plain searches with the
     plain chain, the plain searches with the K1 chain, the plain searches
-    on bits_at (PR 5's path), each swapped in by this script, and as the
-    package runs it (K3); the four streams must be equal, and the launch
-    counts must show that each swap took effect.  PR 5's path and K3 are
-    timed in turns and profiled once each.  Returns the package run's
-    counts and measurements."""
+    on bits_at (the lockstep path), K3's first design, each swapped in by
+    this script, and as the package runs it (K3); the five streams must
+    be equal, and the launch counts must show that each swap took effect.
+    The lockstep path and K3 are timed in turns and profiled once each.
+    Returns the package run's counts and measurements."""
     np, torch, loop, K = ctx["np"], ctx["torch"], ctx["loop"], ctx["K"]
     encode, decode_mp3, snr_db = (ctx["encode"], ctx["decode_mp3"],
                                   ctx["snr_db"])
@@ -1388,6 +1703,8 @@ def phase_main(ctx, pcm, cfg, line):
                 search_walk=loop.search_walk)
     plain_searches = dict(search_stepsize=loop.search_stepsize_plain,
                           search_walk=loop.search_walk_plain)
+    baseline = dict(search_stepsize=ctx["S"].baseline_stepsize,
+                    search_walk=ctx["S"].baseline_walk)
 
     def plain_chain(xr75p, qss, is_short, is_short_block, ST):
         c = K.bits_at_plain(xr75p, qss, is_short, is_short_block, ST)
@@ -1402,16 +1719,19 @@ def phase_main(ctx, pcm, cfg, line):
         c["bits"] = torch.where(c["ix_max"] <= loop.IXMAX, c["bits"], 1e9)
         return c["bits"], c
 
-    # the four ways: the functions swapped into loop, and the launch
+    # the five ways: the functions swapped into loop, and the launch
     # counts that must be 0 / more than 0 after each
     ways = {"plain": (dict(plain_searches, _bits_at=plain_chain),
-                      ("search", "bits_at", "hist_c1"), ()),
+                      ("search", "bits_at", "hist_c1", "baseline"), ()),
             "k1": (dict(plain_searches, _bits_at=k1_chain),
-                   ("search", "bits_at"), ("hist_c1",)),
-            "pr5": (plain_searches, ("search", "hist_c1"), ("bits_at",)),
-            "k3": ({}, ("bits_at", "hist_c1"), ("search",))}
-    label = {"plain": "plain", "k1": "K1 chain", "pr5": "PR 5's path",
-             "k3": "K3"}
+                   ("search", "bits_at", "baseline"), ("hist_c1",)),
+            "pr5": (plain_searches, ("search", "hist_c1", "baseline"),
+                    ("bits_at",)),
+            "baseline": (baseline, ("search", "bits_at", "hist_c1"),
+                         ("baseline",)),
+            "k3": ({}, ("bits_at", "hist_c1", "baseline"), ("search",))}
+    label = {"plain": "plain", "k1": "K1 chain", "pr5": "the lockstep path",
+             "baseline": "K3's first design", "k3": "K3"}
 
     def run(way, swaps=None):
         swaps = ways[way][0] if swaps is None else swaps
@@ -1436,15 +1756,17 @@ def phase_main(ctx, pcm, cfg, line):
         return out, counts, wall
 
     outs, counts = {}, {}
-    for way in ("plain", "k1", "pr5"):
+    for way in ("plain", "k1", "pr5", "baseline"):
         outs[way], counts[way], _ = counted(way)
-    # K3's counted run also records each search's evaluation counts
-    evals = []
+    # K3's counted run also records each search's evaluation counts and
+    # the evaluations K3 ran
+    evals, runs = [], []
 
     def recording(fn):
         def record(*args, **kwargs):
             res = fn(*args, **kwargs)
             evals.append(res[2]["evals"])
+            runs.append(res[2]["runs"])
             return res
         return record
 
@@ -1458,22 +1780,26 @@ def phase_main(ctx, pcm, cfg, line):
     # evaluates in K3
     lockstep = sum(int(e.max()) for e in evals)
     per_granule = sum(int(e.sum()) for e in evals)
+    ran = sum(int(r.sum()) for r in runs)
     if lockstep != counts["pr5"]["bits_at"]:
         fail(f"K3's evaluation counts give {lockstep} lockstep evaluations; "
-             f"PR 5's path launched bits_at {counts['pr5']['bits_at']} times")
+             f"the lockstep path launched bits_at "
+             f"{counts['pr5']['bits_at']} times")
     fsize, nframes = check_grid(out, 128, 44100, pcm.shape[0])
     from mp3tpu_torch.encoder import _plan_segments
     plan = _plan_segments(nframes * 2)
     print(f"main path: the plain searches with the plain chain, with the K1 "
-          f"chain, on bits_at (PR 5's path), and K3: the same {len(out)} "
-          f"bytes", flush=True)
-    for way in ("plain", "k1", "pr5"):
+          f"chain, on bits_at (the lockstep path), K3's first design and K3: "
+          f"the same {len(out)} bytes", flush=True)
+    for way in ("plain", "k1", "pr5", "baseline"):
         print(f"main path ({label[way]}): launches and loop-exit syncs per "
               f"encode {counts[way]}", flush=True)
     print(f"main path (K3, first run): {first_s:.3f} s; launches and "
           f"loop-exit syncs per encode {launches}; {len(evals)} searches, "
-          f"{lockstep} lockstep evaluations (= PR 5's bits_at launches), "
-          f"{per_granule} granule evaluations; {len(plan)} segments "
+          f"{lockstep} lockstep evaluations (= the lockstep path's bits_at "
+          f"launches), "
+          f"{per_granule} granule evaluations as the plain schedule counts "
+          f"them, {ran} run by K3; {len(plan)} segments "
           f"{[(n_pad * 2) for _, _, n_pad in plan]} lanes (each adds 2 syncs: "
           f"scan input, result download)", flush=True)
 
@@ -1490,10 +1816,10 @@ def phase_main(ctx, pcm, cfg, line):
     print(f"main path: 60 s stereo 128 kbps in {wall:.3f} s median of "
           f"{2 * TURNS} ({', '.join(f'{t:.3f}' for t in times['k3'])} "
           f"s): {CLIP_SECONDS / wall:.2f}x real time on {line}; in turns with "
-          f"PR 5's path: {wall_pr5:.3f} s median "
+          f"the lockstep path: {wall_pr5:.3f} s median "
           f"({', '.join(f'{t:.3f}' for t in times['pr5'])} s), "
           f"{CLIP_SECONDS / wall_pr5:.2f}x; K3's wall {wall / wall_pr5:.3f} "
-          f"of PR 5's", flush=True)
+          f"of the lockstep path's", flush=True)
 
     for way, median in (("pr5", wall_pr5), ("k3", wall)):
         for _ in range(3):      # the profiler now and then records none
@@ -1508,6 +1834,27 @@ def phase_main(ctx, pcm, cfg, line):
               f"(against the unprofiled median {median:.3f} s: "
               f"{1.0 - busy / median:.3f})", flush=True)
 
+    # K3's device time summed over one encode, and its first design's with
+    # the baseline swapped in, in turns
+    k3_ms = {"k3": [], "baseline": []}
+    for way in ("baseline", "k3", "k3", "baseline"):
+        name = "search_kernel(" if way == "k3" else "search_baseline("
+        for _ in range(3):      # until the window holds every launch
+            count, ms = kernel_events(lambda: run(way), (name,))[name]
+            if count == launches["search"]:
+                break
+        else:
+            print(f"  (main path, {label[way]}: the profiler recorded "
+                  f"{count} of {launches['search']} {name} events)",
+                  flush=True)
+            ms = None
+        k3_ms[way].append(ms)
+    print(f"main path, the searches' kernel summed over one encode "
+          f"(torch.profiler, {launches['search']} launches; turns baseline, "
+          f"K3, K3, baseline): K3 {' / '.join(map(str, k3_ms['k3']))} ms, "
+          f"K3's first design {' / '.join(map(str, k3_ms['baseline']))} ms",
+          flush=True)
+
     snr_gpu = first_seconds_snr(np, out, pcm, fsize, 10.0, decode_mp3,
                                 snr_db)
     short = pcm[:int(10.0 * 44100)]
@@ -1520,7 +1867,8 @@ def phase_main(ctx, pcm, cfg, line):
         if not np.isfinite(g) or g < c - 1.0:
             fail(f"first-10 s SNR {g:.2f} dB is more than 1 dB below the "
                  f"CPU path's {c:.2f} dB")
-    return dict(launches=launches, by_way=counts, out=out)
+    return dict(launches=launches, by_way=counts, out=out,
+                k3_encode_ms=k3_ms)
 
 
 def main():
@@ -1568,7 +1916,8 @@ def main():
     pcm = make_signal(CLIP_SECONDS, 44100)
     main_searches = capture_main_searches(ctx, pcm, cfg_of())
     t0 = time.perf_counter()
-    bres = phase_bits_at(ctx, first_evaluation(main_searches["stepsize"]))
+    bres = phase_bits_at(ctx, first_evaluation(
+        main_searches[4096]["stepsize"]))
     print(f"phase 3b bits_at: {time.perf_counter() - t0:.2f} s", flush=True)
     t0 = time.perf_counter()
     sres = phase_search(ctx, main_searches)
@@ -1602,11 +1951,12 @@ def main():
           flush=True)
     k3 = corpus["search"]
     print(f"K3 on the corpus path's 32,768-lane stepsize search: max_abs_err "
-          f"{corpus['search_max_abs_err']}, {k3['ms']} ms against the plain "
-          f"search's {k3['plain_ms']} ms ({k3['plain_launches']} bits_at "
-          f"launches) and a bound of {k3['bound_ms']:.6f} ms "
-          f"({k3['bound_by']}); on the sharded path's: max_abs_err "
-          f"{sharded['search_max_abs_err']}", flush=True)
+          f"{corpus['search_max_abs_err']}, {k3['ms']} ms (K3's first design "
+          f"{k3['baseline_ms']} ms) against the plain search's "
+          f"{k3['plain_ms']} ms ({k3['plain_launches']} bits_at launches) "
+          f"and a bound of {k3['bound_ms']:.6f} ms ({k3['bound_by']}); on the "
+          f"sharded path's: max_abs_err {sharded['search_max_abs_err']}",
+          flush=True)
 
     launches = main_res["launches"]
 
@@ -1616,7 +1966,7 @@ def main():
                 "corpus": corpus["launches"][kernel],
                 "sharded": sharded["launches"][kernel]}
 
-    for kernel in ("search", "bits_at", "syncs"):
+    for kernel in ("search", "baseline", "bits_at", "syncs"):
         print(f"{kernel} {'per encode' if kernel == 'syncs' else 'launches'}"
               f" by path: {by_path(kernel)}", flush=True)
 
@@ -1650,7 +2000,22 @@ def main():
                             sharded["search_max_abs_err"]),
          "ms": sres["ms"], "plain_ms": sres["plain_ms"],
          "bound_ms": sres["bound_ms"], "bound_by": sres["bound_by"],
-         "library_ms": None, "launches_by_path": by_path("search")}]}),
+         "library_ms": None, "launches_by_path": by_path("search"),
+         "width": sres["width"], "runs": sres["runs"], "evals": sres["evals"],
+         "encode_ms": main_res["k3_encode_ms"]["k3"]},
+        {"name": "search_baseline", "route": "cuda",
+         "source": "mp3tpu_torch/csrc/bits_at.cu",
+         "replaces": "mp3tpu/ops/jaxloop.py:528-613",
+         "launches": launches["baseline"],
+         "max_abs_err": max(sres["baseline_max_abs_err"],
+                            corpus["baseline_max_abs_err"],
+                            sharded["baseline_max_abs_err"]),
+         "ms": sres["baseline_ms"], "plain_ms": sres["plain_ms"],
+         "bound_ms": sres["bound_ms"], "bound_by": sres["bound_by"],
+         "library_ms": None, "launches_by_path": dict(
+             by_path("baseline"),
+             main_swapped_in=main_res["by_way"]["baseline"]["baseline"]),
+         "encode_ms": main_res["k3_encode_ms"]["baseline"]}]}),
           flush=True)
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)

@@ -269,8 +269,10 @@ _WORKER = textwrap.dedent("""
         [clip(i) for i in range(s, e)],
         dict(layer=3, mode=mpeg.MODE_MONO, bitrate_kbps=64), "cpu")
     ok = all(len(o) > 500 and o[0] == 0xFF for o in outs)
-    torch.distributed.destroy_process_group()
+    # results first, then teardown once both ranks are done with the group
     print("SHARE", p, s, e, int(ok), stats["x_realtime"], flush=True)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
 """)
 
 
@@ -284,15 +286,17 @@ def test_two_process_distributed_corpus(tmp_path):
     procs = [subprocess.Popen([sys.executable, str(script), str(pid), url],
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               env=env, cwd=REPO) for pid in range(2)]
-    outs = []
     try:
-        for p in procs:
-            out, err = p.communicate(timeout=240)
-            assert p.returncode == 0, err.decode()[-2000:]
-            outs.append(out.decode())
+        said = [p.communicate(timeout=240) for p in procs]
     finally:
         for p in procs:
             p.kill()
+    # both workers' whole stderr, so that a failure shows its peer's too
+    report = "\n".join(f"--- rank {pid}: rc {p.returncode}\n"
+                        f"{err.decode(errors='replace')}"
+                        for pid, (p, (_, err)) in enumerate(zip(procs, said)))
+    assert all(p.returncode == 0 for p in procs), report
+    outs = [out.decode() for out, _ in said]
     rows = sorted(o.split("SHARE")[1].split() for o in outs)
     assert [r[:3] for r in rows] == [["0", "0", "2"], ["1", "2", "4"]], rows
     assert all(r[3] == "1" for r in rows), rows

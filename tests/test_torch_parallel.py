@@ -95,9 +95,13 @@ _WORKER = textwrap.dedent("""
         res[rate] = encode_layer3_sharded(pcm, cfg, "cpu", mesh=mesh,
                                           chunk=job["chunk"])
     res["dryrun"] = dryrun_multichip(world, "cpu")
-    torch.distributed.destroy_process_group()
+    # results first, then teardown once every rank is done with the group:
+    # a rank that destroys its pairs while a peer still uses them can take
+    # that peer down, and its results with it
     with open(out, "wb") as f:
         pickle.dump(res, f)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
 """)
 
 
@@ -141,14 +145,21 @@ def ranks(tmp_path_factory):
     res = {1: [], 2: []}
     try:
         res["jax"] = _jax_encode_sharded(_stationary(16))
+        said = []
         for world, out, p in jobs:
-            _, err = p.communicate(timeout=300)
-            assert p.returncode == 0, err.decode()[-3000:]
-            with open(out, "rb") as f:
-                res[world].append(pickle.load(f))
+            err = p.communicate(timeout=300)[1]
+            said.append((world, out, p.returncode, err))
     finally:
         for _, _, p in jobs:
             p.kill()
+    # every worker's whole stderr, so that a failure shows its peers' too
+    report = "\n".join(f"--- world {world}, {out.name}: rc {rc}\n"
+                        f"{err.decode(errors='replace')}"
+                        for world, out, rc, err in said)
+    assert all(rc == 0 for _, _, rc, _ in said), report
+    for world, out, _, _ in said:
+        with open(out, "rb") as f:
+            res[world].append(pickle.load(f))
     return res
 
 

@@ -94,7 +94,7 @@ def test_cpu_searches_return_what_they_returned_before(name):
 
 
 @pytest.mark.parametrize("case", ["dtype", "shape", "device", "contiguous",
-                                  "flags", "qss_lo", "unsupported"])
+                                  "flags", "qss_lo", "unsupported", "width"])
 def test_wrapper_refuses_bad_inputs_before_any_launch(case):
     kind, args, _ = case_args(search_case("stepsize", 16, 2), "cpu")
     xr75p, budget, qanf, short, wsf, ST = args
@@ -114,6 +114,9 @@ def test_wrapper_refuses_bad_inputs_before_any_launch(case):
     elif case == "qss_lo":
         err, args = TypeError, (xr75p, budget, qanf, short, wsf)
         kwargs = {"qss_lo": qanf.to(torch.int32)}
+    elif case == "width":
+        err, args = ValueError, (xr75p, budget, qanf, short, wsf)
+        kwargs = {"width": search.MAX_WIDTH + 1}
     else:
         err, args = ValueError, tuple(t.to("meta") for t in
                                       (xr75p, budget, qanf, short, wsf))
@@ -122,7 +125,11 @@ def test_wrapper_refuses_bad_inputs_before_any_launch(case):
         search.search_stepsize(*args, ST, **kwargs)
     if case != "qss_lo":                    # the walk takes no qss_lo
         with pytest.raises(err):
-            search.search_walk(*args, ST)
+            search.search_walk(*args, ST, **kwargs)
+    if case == "width":
+        for width in (0, -1):
+            with pytest.raises(err):
+                search.search_walk(*args, ST, width=width)
     assert search.launches == before
 
 
@@ -143,15 +150,24 @@ def test_constants_match_the_cuda_source():
         src = f.read()
     const = dict(re.findall(r"constexpr (?:int|float) (k\w+) = ([^;]+);",
                             src))
-    assert const["kSearchOut"] == "kOut + 3" == f"kOut + "\
+    assert const["kSearchOut"] == "kOut + 4" == f"kOut + "\
         f"{len(search.EXTRA_ROWS)}"
+    assert int(const["kMaxWidth"]) == search.MAX_WIDTH
+    # the rows after bits_at's, in the order the kernel's lanes write them
+    for i, row in enumerate(search.EXTRA_ROWS):
+        value = {"qss": "__float_as_int(qss)",
+                 "evals": "walk ? steps + 2 : n_bisect + 5 + steps"}.get(row,
+                                                                        row)
+        assert re.search(rf"lane == kOut(?: \+ {i})?\)\s+out\[at\] = "
+                         rf"{re.escape(value)};", src), row
     assert int(const["kStepLo"]) == search.STEP_LO
     assert int(const["kStepCount"]) == search.STEP_HI - search.STEP_LO + 1
     assert float(const["kQMin"].rstrip("f")) == loop.QMIN
     assert float(const["kQMax"].rstrip("f")) == loop.QMAX
     assert int(const["kDownSteps"]) == 3
-    assert "extern \"C\" int mp3_search(" in src
-    assert search.EXTRA_ROWS == ("qss", "evals", "status")
+    for entry in ("mp3_search", "mp3_search_baseline", "mp3_search_plan"):
+        assert f"extern \"C\" int {entry}(" in src
+    assert search.EXTRA_ROWS == ("qss", "evals", "status", "runs")
 
 
 def test_istep_table_is_torch_exp2_of_each_stepsize():

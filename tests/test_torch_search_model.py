@@ -1,16 +1,25 @@
 """A granule-level numpy model of K3 (csrc/bits_at.cu search_kernel)
 against the lockstep plain searches, and both against the JAX package.
 
-The kernel runs each granule's search in its own loop (one warp, its own
+The kernel runs each granule's search on its own (its warps, its own
 exit) where the plain searches (loop.search_stepsize_plain and
 search_walk_plain, the JAX package's loops) step the whole batch until
-its slowest granule fits.  The model follows the kernel granule by
-granule: the same phases and caps, the stepsize's factor read from the
-integer table the wrapper builds with torch's exp2 (every stepsize it
-meets is checked to be an integer in [-512, 511], the status rule), and
-each evaluation bits_at_plain on that one granule.  It must equal the
-lockstep search exactly on qss, bits, every count row and each granule's
-evaluation count.
+its slowest granule fits.  The model (``model_search`` in
+tests/test_torch_search_card.py, which runs on the card too) follows the
+kernel granule by granule and pass by pass, at each width the kernel
+takes: a granule's warps evaluate a bisection tree of 1, 2 or 3 levels,
+a ladder of walk rungs or the down rungs at once; it never evaluates a
+stepsize whose outcome it knows (the bisection's lo and hi, the walk's
+last rung), keeps the accepted stepsize's rows instead of evaluating it
+again, and ends the down steps at their first miss.  The stepsize's
+factor is read from the integer table the wrapper builds with torch's
+exp2 (every stepsize it meets is checked to be an integer in [-512,
+511], the status rule), and each evaluation is bits_at_plain.  At every
+width the model must equal the lockstep search exactly on qss, bits,
+every count row and each granule's evaluation count (``evals``, the
+plain search's); at width 1 the evaluations it runs (``runs``) must be
+the distinct stepsizes whose outcome the plain search reads, and a wider
+granule runs those and more in as many passes or fewer.
 
 One caveat of the CPU only: torch's exp2 rounds a few factors one way in
 its vectorized path and the other in its scalar tail, so the same
@@ -37,92 +46,166 @@ import jax
 import jax.numpy as jnp
 
 from mp3tpu.ops import jaxloop
-from mp3tpu_torch.ops import bits_at as K
-from mp3tpu_torch.ops import loop, search
-from test_torch_search_card import (CASES, case_args, run_search,
-                                    search_case, search_mismatches)
+from mp3tpu_torch.ops import loop
+from test_torch_search_card import (CASES, F32, WIDTHS, batch_evaluations,
+                                    case_args, model_search, on_table,
+                                    run_search, search_case,
+                                    search_mismatches, table_quantize)
 
 torch.set_num_threads(1)
 
 G = 128
 SEED = 3
-TABLE = search._istep_table(torch.device("cpu"))
 COUNT_KEYS = ("count1", "big_values", "r0", "r1", "a1", "a2",
               "table_select", "count1table_select", "ix_max")
 
 
-def on_table(q):
-    """The status rule: an integer stepsize in the table's range."""
-    q = np.asarray(q, np.float32)
-    return bool(np.all((q == np.floor(q)) & (q >= search.STEP_LO)
-                       & (q <= search.STEP_HI)))
+def serial_reads(kind, at, b, start, qss_lo, n_bisect=8, max_steps=40):
+    """The stepsizes whose outcome one granule's plain search reads, in
+    its order, as the plain schedule runs them one by one (the schedule
+    of K3's first design): every bisection mid, the walk's stepsizes,
+    and each down step at or above the floor (below it the step is
+    refused whatever its bits), then the accepted stepsize once more."""
+    reads = []
+
+    def bits(q):
+        reads.append(q)
+        return at(q)["bits"]
+
+    qss = F32(start)
+    floor_q = F32(-210.0)
+    if kind == "stepsize":
+        floor_q = max(qss, floor_q)
+        lo = floor_q if qss_lo is None else max(floor_q, F32(qss_lo))
+        hi = F32(45.0)
+        for _ in range(n_bisect):
+            mid = F32(np.floor(F32(F32(lo + hi) * F32(0.5))))
+            if bits(mid) <= b:
+                hi = mid
+            else:
+                lo = mid
+        qss = hi
+    b_q = bits(qss)
+    steps = 0
+    while steps < max_steps and b_q > b:
+        qss = F32(qss + F32(1.0))
+        b_q = bits(qss)
+        steps += 1
+    if kind == "stepsize":
+        for _ in range(3):
+            q2 = F32(qss - F32(1.0))
+            if q2 >= floor_q and bits(q2) <= b:
+                qss = q2
+    reads.append(qss)
+    return reads
 
 
-def table_quantize(xr75, qss):
-    """loop.quantize_pow75 with K3's factor: the table entry of qss."""
-    assert on_table(qss.numpy()), qss
-    istep75 = TABLE[(qss - search.STEP_LO).long()][:, None]
-    return loop._to_ix(xr75 * istep75 - 0.0946 + 0.5)
+_RESULTS = {}
 
 
-def model_search(kind, args, kwargs, n_bisect=8, max_steps=40):
-    """Each granule's search as one warp of search_kernel runs it.
-    Returns dict(qss, bits, c: the counts with evals, status, met: every
-    stepsize met, first_bits: each granule's bits at its first one)."""
-    xr75p, budget, start, short, sblk, ST = args
-    qss_lo = kwargs.get("qss_lo")
-    f32 = np.float32
-    out, met, first_bits = [], [], []
-    for g in range(xr75p.shape[0]):
-        evals = 0
-        status = 0
+def results(name):
+    """Per case: the model at every width and the plain search with the
+    table's factor, the stepsizes the plain schedule reads, the unpatched
+    plain search, and JAX's."""
+    if name not in _RESULTS:
+        case = search_case(name, G, SEED)
+        kind, version = case[:2]
+        kind, args, kwargs = case_args(case, "cpu")
+        at = batch_evaluations(args)
+        models = {w: model_search(kind, args, kwargs, w, at=at)
+                  for w in WIDTHS}
+        budget, start = args[1].numpy(), args[2].numpy()
+        lo = kwargs.get("qss_lo")
+        reads = [serial_reads(kind, lambda q, g=g: at(g, q), budget[g],
+                              start[g], None if lo is None else lo[g].item())
+                 for g in range(G)]
+        with mock.patch.object(loop, "quantize_pow75", table_quantize):
+            table_plain = run_search(kind, args, kwargs, plain=True)
+        plain = run_search(kind, args, kwargs, plain=True)
+        first_bits = np.array([at(g, reads[g][0])["bits"]
+                               for g in range(G)])
+        _RESULTS[name] = dict(models=models, model=models[1], reads=reads,
+                              at=at, args=(kind, args, kwargs),
+                              first_bits=first_bits,
+                              table_plain=table_plain, plain=plain,
+                              jax=jax_search(kind, version, args, kwargs))
+    return _RESULTS[name]
 
-        def at(q):
-            nonlocal evals, status
-            evals += 1
-            met.append(q)
-            status |= not on_table(q)
-            c = K.bits_at_plain(xr75p[g:g + 1],
-                                torch.tensor([q], dtype=torch.float32),
-                                short[g:g + 1], sblk[g:g + 1], ST)
-            if evals == 1:
-                first_bits.append(float(c["bits"][0]))
-            return c
 
-        b = f32(budget[g])
-        qss = f32(start[g])
-        if kind == "stepsize":
-            floor_q = max(qss, f32(loop.QMIN))
-            lo = floor_q if qss_lo is None else max(floor_q, f32(qss_lo[g]))
-            hi = f32(loop.QMAX)
-            for _ in range(n_bisect):
-                mid = f32(np.floor(f32(f32(lo + hi) * f32(0.5))))
-                if at(mid)["bits"][0] <= b:
-                    hi = mid
-                else:
-                    lo = mid
-            qss = hi
-        bits = at(qss)["bits"][0]
-        steps = 0
-        while steps < max_steps and bits > b:
-            qss = f32(qss + f32(1.0))
-            bits = at(qss)["bits"][0]
-            steps += 1
-        if kind == "stepsize":
-            for _ in range(3):
-                q2 = f32(qss - f32(1.0))
-                b2 = at(q2)["bits"][0]
-                if b2 <= b and q2 >= floor_q:
-                    qss, bits = q2, b2
-        c = at(qss)
-        c["evals"] = torch.tensor([evals], dtype=torch.int32)
-        out.append((qss, c, status))
-    qss = torch.tensor([o[0] for o in out], dtype=torch.float32)
-    c = {k: torch.cat([o[1][k] for o in out]) for k in out[0][1]}
-    return dict(qss=qss, bits=c["bits"], c=c,
-                status=np.array([o[2] for o in out]),
-                met=np.array(met, np.float32),
-                first_bits=np.array(first_bits))
+@pytest.mark.parametrize("name", [c[0] for c in CASES])
+def test_model_equals_lockstep_plain(name):
+    r = results(name)
+    m = r["model"]
+    assert not search_mismatches((m["qss"], m["bits"], m["c"]),
+                                 r["table_plain"])
+    # every stepsize the searches meet is an integer in the table
+    met = [q for g in m["met"] for q in g]
+    assert on_table(met) and on_table(r["plain"][0].numpy())
+    evals = m["c"]["evals"].numpy()
+    # silent granules, and granules past IXMAX at their first stepsize
+    assert (r["first_bits"] == 0).any() and (r["first_bits"] == 1e9).any()
+    if name.startswith("stepsize"):
+        assert evals.min() >= 13
+        # some granule fits at no bisection mid (hi = QMAX unevaluated)
+        assert not all(m["mid_fit"])
+    if name == "walk_cap":
+        assert (evals == 42).sum() >= G - G // 7 - 1
+        assert (r["plain"][1][evals == 42] > 0).all()
+    if name == "stepsize_cap":
+        assert (evals == 53).sum() >= G - G // 7 - 1
+        assert (r["plain"][1][evals == 53] > 0).all()
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("name", [c[0] for c in CASES])
+def test_model_at_width_equals_lockstep_plain(name, width):
+    """K3's schedule at `width` warps a granule: the lockstep search's
+    results and evaluation counts; at width 1 it runs each stepsize whose
+    outcome the plain search reads once, and no other; a wider granule
+    runs a superset of those in as many passes or fewer, its bisection in
+    ceil(8 / levels) rounds."""
+    r = results(name)
+    m = r["models"][width]
+    assert not search_mismatches((m["qss"], m["bits"], m["c"]),
+                                 r["table_plain"])
+    runs = m["c"]["runs"].numpy()
+    evals = m["c"]["evals"].numpy()
+    one = r["models"][1]
+    levels = (width + 1).bit_length() - 1
+    for g in range(G):
+        met = m["met"][g]
+        assert len(met) == runs[g]
+        assert set(one["met"][g]) <= set(met)
+        assert m["passes"][g] <= one["passes"][g]
+        if name.startswith("stepsize"):
+            assert m["bisect_passes"][g] == -(-8 // levels)
+    if width == 1:
+        # each read stepsize once; the accepted one is never run again
+        assert [sorted(x) for x in one["met"]] == \
+            [sorted(set(x)) for x in r["reads"]]
+        assert (runs < evals).all()
+    else:
+        assert (runs >= one["c"]["runs"].numpy()).all()
+
+
+@pytest.mark.parametrize("name", [c[0] for c in CASES])
+def test_bound_replay_equals_model_at_width_1(name):
+    """chip_smoke.py's serial_work, the width-1 schedule replayed over the
+    batch that K3's operations bound counts, runs the model's stepsizes at
+    width 1: the same qss and runs, and the same big_values lines and
+    count1 quads summed over them."""
+    from chip_smoke import serial_work
+    r = results(name)
+    one, at = r["models"][1], r["at"]
+    with mock.patch.object(loop, "quantize_pow75", table_quantize):
+        work = serial_work(*r["args"])
+    assert torch.equal(work["qss"], one["qss"])
+    assert torch.equal(work["runs"].int(), one["c"]["runs"])
+    for key, row, scale in (("pair_lines", "big_values", 2),
+                            ("quads", "count1", 1)):
+        want = [sum(scale * int(at(g, q)[row][0]) for q in met)
+                for g, met in enumerate(one["met"])]
+        assert work[key].tolist() == want, key
 
 
 def jax_search(kind, version, args, kwargs):
@@ -140,45 +223,6 @@ def jax_search(kind, version, args, kwargs):
     fn = jax.jit(lambda x, b, q, s, w: jaxloop.search_walk(x, b, q, s, w,
                                                            STj))
     return fn(xr75p, budget, start, short, sblk)
-
-
-_RESULTS = {}
-
-
-def results(name):
-    """Per case: the model and the plain search with the table's factor,
-    the unpatched plain search, and JAX's."""
-    if name not in _RESULTS:
-        case = search_case(name, G, SEED)
-        kind, version = case[:2]
-        kind, args, kwargs = case_args(case, "cpu")
-        with mock.patch.object(loop, "quantize_pow75", table_quantize):
-            model = model_search(kind, args, kwargs)
-            table_plain = run_search(kind, args, kwargs, plain=True)
-        plain = run_search(kind, args, kwargs, plain=True)
-        _RESULTS[name] = dict(model=model, table_plain=table_plain,
-                              plain=plain,
-                              jax=jax_search(kind, version, args, kwargs))
-    return _RESULTS[name]
-
-
-@pytest.mark.parametrize("name", [c[0] for c in CASES])
-def test_model_equals_lockstep_plain(name):
-    r = results(name)
-    m = r["model"]
-    assert not search_mismatches((m["qss"], m["bits"], m["c"]),
-                                 r["table_plain"])
-    assert not m["status"].any()
-    # every stepsize the searches meet is an integer in the table
-    assert on_table(m["met"]) and on_table(r["plain"][0].numpy())
-    evals = m["c"]["evals"].numpy()
-    # silent granules, and granules past IXMAX at their first stepsize
-    assert (m["first_bits"] == 0).any() and (m["first_bits"] == 1e9).any()
-    if name.startswith("stepsize"):
-        assert evals.min() >= 13
-    if name == "walk_cap":
-        assert (evals == 42).sum() >= G - G // 7 - 1
-        assert (r["plain"][1][evals == 42] > 0).all()
 
 
 def _agreement(name, got, ref):
