@@ -53,11 +53,11 @@ Phases, each printing its own lines; any failure exits non-zero:
      equal byte for byte, and K3's evaluation counts must give the
      lockstep path's bits_at launches.
      Then the lockstep path and the package in 5 ABBA turns (10 timed runs
-     each), one encode of each under torch.profiler (device kernels and
-     copies, device idle share), and the searches' kernel's device time
-     summed over one encode, K3 and the baseline in turns; the stream
-     must sit on the frame grid and its first 10 s must decode within
-     1 dB of the CPU path's 10 s encode;
+     each), one encode of each under torch.profiler (device kernels,
+     copies and memsets by category, device idle share), and the
+     searches' kernel's device time summed over one encode, K3 and the
+     baseline in turns; the stream must sit on the frame grid and its
+     first 10 s must decode within 1 dB of the CPU path's 10 s encode;
   6. MPEG-2 LSF: the three 0.5 s mono cases of tests/test_lsf.py, then a
      60 s stereo 24 kHz 64 kbps clip (launches and syncs counted), interior
      frames on the grid, first 10 s within 1 dB of the CPU path;
@@ -95,13 +95,25 @@ Phases, each printing its own lines; any failure exits non-zero:
      a temporary directory (trace.json parses, every named program span
      of runtime.profiling.SPANS is in it, its search_kernel and
      bits_at_kernel events equal search.launches and bits_at.launches of
-     that encode, the same bytes as phase 5; per span
+     that encode, the same bytes as phase 5; its device events by
+     category (kernels, copies, memsets) as span_breakdown reads them
+     from trace.json must equal tools.device_events of the same window,
+     beside the copy calls with no device event; per span
      its count, host wall and the device events launched inside it), the
      trace_stages and profile_encode tools on the 60 s clip (their JSON
      printed), and libmpg123 on the 60 s main-path, LSF and Layer II
      streams (rate, channels, length; its best-lag SNR over the clip and
      over the first 10 s, against the in-repo decoder's on the first 10 s
-     and the two decoders' agreement).
+     and the two decoders' agreement);
+  13. the benchmark tools (mp3tpu_torch.tools.bench and bench_corpus, the
+     port's bench.py and bench_corpus.py): in this process bench.run on
+     the 60 s clip (its timed stream must be phase 5's) and
+     bench_corpus.run on 20 clips x 10 s at lane batch 2 (each stream on
+     the frame grid and equal to phase 10's at lane batch 2: the same
+     groups of two); then each tool with its defaults in 3 fresh
+     processes from an empty temporary directory, each JSON line
+     printed, and per tool the three values with their median, min and
+     max beside the card's name and power limit.
 On every path (main, LSF, stream, corpus, sharded) K3 must launch and the
 rate loop must launch bits_at and the baseline no time; the launches and
 loop-exit syncs per path are printed.  Its last lines are a JSON object
@@ -121,8 +133,9 @@ from concurrent.futures import ThreadPoolExecutor
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-from mp3tpu_torch.tools import (FP32_OPS_PER_S,  # noqa: E402
-                                HBM_BYTES_PER_S, profile_once)
+from mp3tpu_torch.tools import (DEVICE_CATS,  # noqa: E402
+                                FP32_OPS_PER_S, HBM_BYTES_PER_S,
+                                device_events, profile_once)
 from mp3tpu_torch.tools.signals import make_signal  # noqa: E402
 
 CLIP_SECONDS = 60.0
@@ -219,6 +232,11 @@ def device_ms(fn, reps=20, tries=3):
         if us > 0:
             return us / 1000.0 / reps
     return None
+
+
+def events_by_cat(events):
+    """{category: count} of tools.device_events' list."""
+    return {c: sum(e[0] == c for e in events) for c in DEVICE_CATS}
 
 
 def kernel_events(fn, names, tries=3):
@@ -1235,9 +1253,9 @@ def group_split(ctx, group, kw):
         loop.outer_loop = real["rate loop"]
     kernels = {}
     for key, fn in real.items():
-        kernels[key] = profile_once(
-            lambda: [fn(*a, **k) for a, k in calls[key]])[0]
-    kernels["whole group"] = profile_once(encode)[0]
+        kernels[key] = len(profile_once(
+            lambda: [fn(*a, **k) for a, k in calls[key]])[0])
+    kernels["whole group"] = len(profile_once(encode)[0])
     print(f"corpus group of {len(group)} clips ({2 * len(group)} lanes): "
           f"wall {wall:.4f} s with a synchronize around each stage call; "
           f"analysis {secs['analysis']:.4f} s in "
@@ -1253,8 +1271,8 @@ def group_split(ctx, group, kw):
 
 def phase_corpus(ctx, line, cfg_of):
     """Phase 10: encode_corpus_batched on the card; returns the launches
-    of one 32-clip encode at lane batch 16 and bits_at's numbers on the
-    captured 32,768-lane batch."""
+    of one 32-clip encode at lane batch 16, bits_at's numbers on the
+    captured 32,768-lane batch, and the streams at lane batch 2."""
     np, mpeg = ctx["np"], ctx["mpeg"]
     decode_mp3, snr_db = ctx["decode_mp3"], ctx["snr_db"]
     from mp3tpu_torch.parallel.corpus import encode_corpus_batched
@@ -1350,7 +1368,7 @@ def phase_corpus(ctx, line, cfg_of):
     return dict(launches=launches, max_abs_err=err, ms=k_dev,
                 plain_ms=p_dev, bound_ms=b_ms, bound_by=b_by,
                 search_max_abs_err=s_err, baseline_max_abs_err=b_err,
-                search=k3)
+                search=k3, batch2_outs=first_of[2])
 
 
 def free_port():
@@ -1449,8 +1467,8 @@ def phase_sharded(ctx, cfg_of, line):
         streams[1] = encode_layer3_sharded(pcm, cfg_of(), "cuda")
         walls = {1: [time.perf_counter() - t0]}
         launches = read_counts(ctx, "sharded path")
-        n_sh = profile_once(
-            lambda: encode_layer3_sharded(pcm, cfg_of(), "cuda"))[0]
+        n_sh = len(profile_once(
+            lambda: encode_layer3_sharded(pcm, cfg_of(), "cuda"))[0])
         _, err, s_err, b_err = path_batch_check(
             ctx, lambda: encode_layer3_sharded(pcm, cfg_of(), "cuda"),
             sharded_lanes(G, 1), "sharded path (world 1)")
@@ -1504,8 +1522,8 @@ def phase_sharded(ctx, cfg_of, line):
             one = ctx["encode"](pcm, cfg_of(), device="cuda", chunk=chunk)
             wall1 = time.perf_counter() - t0
             fsize, _ = check_grid(one, 128, 44100, len(pcm))
-            n_one = profile_once(lambda: ctx["encode"](
-                pcm, cfg_of(), device="cuda", chunk=chunk))[0]
+            n_one = len(profile_once(lambda: ctx["encode"](
+                pcm, cfg_of(), device="cuda", chunk=chunk))[0])
             one_shot[chunk] = (one, wall1, n_one, first_seconds_snr(
                 np, one, pcm, fsize, 10.0, ctx["decode_mp3"], ctx["snr_db"]))
         one, wall1, n_one, snr1 = one_shot[chunk]
@@ -1554,7 +1572,7 @@ def phase_trace(ctx, pcm, cfg_of, main_out):
     with tempfile.TemporaryDirectory() as tmp:
         for attempt in range(3):
             reset_counts(ctx)
-            with trace(tmp, "cuda"):
+            with trace(tmp, "cuda") as prof:
                 t0 = time.perf_counter()
                 out = ctx["encode"](pcm, cfg_of(), device="cuda")
                 wall = time.perf_counter() - t0
@@ -1589,6 +1607,17 @@ def phase_trace(ctx, pcm, cfg_of, main_out):
           f"{bd['bits_at_kernel_events']}; loop-exit syncs "
           f"{launches['syncs']}",
           flush=True)
+    # the trace's count and profile_once's count the same events in one
+    # window (PERF.md section 6: across windows only the copies move)
+    cats = events_by_cat(device_events(prof))
+    if cats != bd["device_events_by_cat"]:
+        fail(f"the trace window's device events by category: "
+             f"span_breakdown {bd['device_events_by_cat']}, "
+             f"tools.device_events {cats}")
+    print(f"trace: device events by category {cats} "
+          f"({sum(cats.values())}; span_breakdown and tools.device_events "
+          f"agree), {bd['copy_calls_without_event']} copy and memset calls "
+          f"with no device event", flush=True)
     for name in SPANS:
         r = bd["spans"][name]
         print(f"span {name}: {r['count']} x, host {r['host_s']:.4f} s "
@@ -1667,6 +1696,83 @@ def phase_tooling(ctx, pcm, cfg_of, main_out):
     print(f"profile_encode ({time.perf_counter() - t0:.2f} s): "
           f"{json.dumps(record)}", flush=True)
     phase_conformance(ctx, main_out, pcm)
+
+
+#: phase 13: bench_corpus's defaults (its clips are phase 10's first 20,
+#: grouped two at a time as at phase 10's lane batch 2)
+BENCH_CORPUS = (20, 10.0, 2)
+#: phase 13: each tool run with its defaults in this many fresh processes
+FRESH_RUNS = 3
+#: the keys of bench.py's and bench_corpus.py's JSON lines, and the port's
+BENCH_KEYS = {"bench": ("metric", "value", "unit", "vs_baseline",
+                        "spread_x", "device"),
+              "bench_corpus": ("metric", "value", "unit", "vs_baseline",
+                               "device")}
+
+
+def bench_record(tool, record, where):
+    """Fails unless `record` has exactly the tool's keys and a positive
+    value."""
+    if tuple(record) != BENCH_KEYS[tool] or not record["value"] > 0:
+        fail(f"{tool} ({where}): {record}")
+    return record
+
+
+def phase_bench(main_out, corpus_outs, line):
+    """Phase 13: the benchmark tools on the card.  In this process,
+    bench.run's timed stream must be phase 5's and bench_corpus.run's
+    streams phase 10's at lane batch 2, each on the frame grid; then each
+    tool with its defaults in FRESH_RUNS fresh processes (python -m, from
+    an empty temporary directory), their values printed with median,
+    min and max."""
+    from mp3tpu_torch.tools import bench, bench_corpus
+    from mp3tpu_torch.tools.corpus_sweep import RATE
+    record, out = bench.run(CLIP_SECONDS, "cuda")
+    bench_record("bench", record, "in process")
+    if out != main_out:
+        fail(f"bench: the timed stream ({len(out)} bytes) is not phase 5's "
+             f"({len(main_out)} bytes)")
+    check_grid(out, 128, RATE, int(CLIP_SECONDS * RATE))
+    print(f"bench in process: {json.dumps(record)}; the timed stream is "
+          f"phase 5's {len(out)} bytes", flush=True)
+    n_clips, seconds, batch = BENCH_CORPUS
+    record, outs = bench_corpus.run(n_clips, seconds, batch, "cuda")
+    bench_record("bench_corpus", record, "in process")
+    if len(outs) != n_clips:
+        fail(f"bench_corpus: {len(outs)} streams for {n_clips} clips")
+    for i, o in enumerate(outs):
+        check_grid(o, 128, RATE, int(seconds * RATE))
+        if o != corpus_outs[i]:
+            fail(f"bench_corpus: clip {i}'s stream is not phase 10's at "
+                 f"lane batch {batch}")
+    print(f"bench_corpus in process: {json.dumps(record)}; its {n_clips} "
+          f"streams are phase 10's at lane batch {batch}", flush=True)
+
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    with tempfile.TemporaryDirectory() as cwd:
+        for tool in BENCH_KEYS:
+            values = []
+            for i in range(FRESH_RUNS):
+                t0 = time.perf_counter()
+                res = subprocess.run(
+                    [sys.executable, "-m", f"mp3tpu_torch.tools.{tool}"],
+                    cwd=cwd, env=env, capture_output=True, text=True,
+                    timeout=600)
+                wall = time.perf_counter() - t0
+                if res.returncode != 0:
+                    fail(f"{tool} in a fresh process: exit "
+                         f"{res.returncode}\n{res.stderr[-3000:]}")
+                record = bench_record(tool, json.loads(res.stdout),
+                                      f"fresh process {i + 1}")
+                values.append(record["value"])
+                print(f"{tool}, fresh process {i + 1} ({wall:.2f} s with "
+                      f"its start): {res.stdout.strip()}", flush=True)
+            if os.listdir(cwd):
+                fail(f"{tool} wrote {os.listdir(cwd)} into its cwd")
+            print(f"{tool} with its defaults in {FRESH_RUNS} fresh "
+                  f"processes: values {values} x_realtime, median "
+                  f"{statistics.median(values)}, min {min(values)}, max "
+                  f"{max(values)} on {line}", flush=True)
 
 
 def phase_build(k1, K):
@@ -1823,16 +1929,17 @@ def phase_main(ctx, pcm, cfg, line):
 
     for way, median in (("pr5", wall_pr5), ("k3", wall)):
         for _ in range(3):      # the profiler now and then records none
-            n, busy, pwall = profile_once(lambda: run(way))
-            if n > 0:
+            events, busy, pwall = profile_once(lambda: run(way))
+            if events:
                 break
         else:
             fail(f"torch.profiler recorded no device event ({label[way]})")
-        print(f"torch.profiler over one encode ({label[way]}): {n} device "
-              f"kernels and copies; device busy {busy:.4f} s of a profiled "
-              f"wall of {pwall:.4f} s, idle share {1.0 - busy / pwall:.3f} "
-              f"(against the unprofiled median {median:.3f} s: "
-              f"{1.0 - busy / median:.3f})", flush=True)
+        print(f"torch.profiler over one encode ({label[way]}): "
+              f"{len(events)} device events, by category "
+              f"{events_by_cat(events)}; device busy {busy:.4f} s of a "
+              f"profiled wall of {pwall:.4f} s, idle share "
+              f"{1.0 - busy / pwall:.3f} (against the unprofiled median "
+              f"{median:.3f} s: {1.0 - busy / median:.3f})", flush=True)
 
     # K3's device time summed over one encode, and its first design's with
     # the baseline swapped in, in turns
@@ -1936,7 +2043,10 @@ def main():
               ("10 corpus", lambda: phase_corpus(ctx, line, cfg_of)),
               ("11 multi-device", lambda: phase_sharded(ctx, cfg_of, line)),
               ("12 tooling", lambda: phase_tooling(ctx, pcm, cfg_of,
-                                                   main_res["out"]))]
+                                                   main_res["out"])),
+              ("13 benchmark tools", lambda: phase_bench(
+                  main_res["out"], counts["10 corpus"]["batch2_outs"],
+                  line))]
     counts = {}
     for name, run in phases:
         t0 = time.perf_counter()

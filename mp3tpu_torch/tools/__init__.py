@@ -1,6 +1,10 @@
 """The port's measurement and quality tools, each run as
 ``python -m mp3tpu_torch.tools.<name> [--device cuda|cpu] ...``:
 
+- ``bench``: the headline, ``bench.py``'s Layer III real-time factor of
+  the 60 s clip (median of 5) and its JSON line;
+- ``bench_corpus``: ``bench_corpus.py``'s aggregate real-time factor of
+  a corpus at one lane batch and its JSON line;
 - ``quality``: the 15 decoded-SNR fixtures on the device, against the
   reference encoder's bars and through libmpg123;
 - ``trace_stages``: the end-to-end wall, each segment stage in isolation,
@@ -25,6 +29,11 @@ import torch
 #: NVIDIA H100 SXM, data sheet: HBM rate, float32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+#: the device events that every count here counts, by their category in a
+#: trace: kernels, copies and memsets.  A window with CPU activity also
+#: records each record_function span's range on the device
+#: ("gpu_user_annotation"), which is no device work of its own.
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
 def device_or_exit(prog, device):
@@ -62,12 +71,28 @@ def sync(dev):
         torch.cuda.synchronize(dev)
 
 
-def profile_once(fn):
-    """One fn() under torch.profiler's CUDA activity: (device kernels and
-    copies, device busy s, profiled wall s).  Busy is the union of the
-    device events' intervals; the wall is the host clock around fn and a
-    synchronize."""
+def device_events(prof):
+    """The device events of a finished torch.profiler window: [(category,
+    start us, end us)] of its kernels, copies and memsets (DEVICE_CATS,
+    the set that ``trace_stages.span_breakdown`` counts in a trace); the
+    device-side ranges of record_function spans are left out."""
     from torch.autograd import DeviceType
+    out = []
+    for e in prof.events():
+        if getattr(e, "device_type", None) != DeviceType.CUDA \
+                or e.is_user_annotation:
+            continue
+        cat = ("gpu_memcpy" if e.name.startswith("Memcpy") else
+               "gpu_memset" if e.name.startswith("Memset") else "kernel")
+        out.append((cat, e.time_range.start, e.time_range.end))
+    return out
+
+
+def profile_once(fn):
+    """One fn() under torch.profiler's CUDA activity: (its device events
+    as device_events gives them, device busy s, profiled wall s).  Busy
+    is the union of the events' intervals; the wall is the host clock
+    around fn and a synchronize."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -75,12 +100,10 @@ def profile_once(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if getattr(e, "device_type", None) == DeviceType.CUDA)
+    events = device_events(prof)
     busy_us, end = 0.0, -math.inf
-    for s, e in spans:
+    for _, s, e in sorted(events, key=lambda e: e[1:]):
         if e > end:
             busy_us += e - max(s, end)
             end = e
-    return len(spans), busy_us / 1e6, wall
+    return events, busy_us / 1e6, wall

@@ -4,9 +4,11 @@ The corpus of ``bench_corpus.py`` (32 stereo 44.1 kHz 128 kbps clips x
 10 s) through ``encode_corpus_batched`` at lane batches 1-16: per batch
 one warm-up on two groups, then the aggregate real-time factor of the
 whole corpus as the median of 3 runs, with its spread; and the
-single-clip headline (the 60 s bench signal, median of 3 after one
-warm-up) for comparison.  Groups run in order (the JAX tool's group
-lookahead is not ported).
+single-clip headline for comparison, by ``bench.py``'s rule
+(``bench.run``: the 60 s bench signal after one warm-up, clip seconds
+over the middle wall of ``--runs`` encodes -- the upper middle for an
+even count -- rounded to 2 decimals).  Groups run in order (the JAX
+tool's group lookahead is not ported).
 
     python -m mp3tpu_torch.tools.corpus_sweep [--device cuda|cpu]
         [--clips 32] [--seconds 10] [--batches 1 2 4 8 16] [--runs 3]
@@ -19,16 +21,13 @@ import argparse
 import json
 import statistics
 import sys
-import time
 
 import torch
 
-from ..config import EncoderConfig
-from ..encoder import encode_layer3_fast
 from ..parallel.corpus import encode_corpus_batched
 from ..tables import mpeg
-from . import describe, device_or_exit, sync
-from .signals import make_clip, make_signal
+from . import bench, describe, device_or_exit, sync
+from .signals import make_clip
 
 RATE = 44100
 #: the corpus's EncoderConfig keywords (the rate comes from the clips)
@@ -67,27 +66,13 @@ def sweep(clips, batches, device, runs=3, around=None):
     return records
 
 
-def single_clip(seconds, device, runs=3):
-    """The real-time factor of the one-shot encode of the bench signal:
-    median of `runs` after one warm-up."""
-    pcm = make_signal(seconds, RATE)
-    cfg = EncoderConfig(sample_rate_hz=RATE, **CORPUS_CFG)
-    encode_layer3_fast(pcm, cfg, device=device)
-    ts = []
-    for _ in range(runs):
-        t0 = time.perf_counter()
-        encode_layer3_fast(pcm, cfg, device=device)
-        ts.append(time.perf_counter() - t0)
-    return seconds / statistics.median(ts)
-
-
 def run(device, n_clips=32, seconds=10.0, batches=(1, 2, 4, 8, 16), runs=3,
         single_seconds=60.0):
     """The report of the sweep on `device`."""
     dev = torch.device(device)
     records = sweep(corpus(n_clips, seconds), batches, dev, runs)
     sync(dev)
-    single = single_clip(single_seconds, dev, runs)
+    single = bench.run(single_seconds, dev, runs)[0]["value"]
     best = max(records, key=lambda r: r["aggregate_x_realtime"])
     return {
         "corpus": f"{n_clips} clips x {seconds:g}s stereo 44.1kHz 128kbps, "

@@ -59,6 +59,7 @@ def run(seconds, device):
     events = busy = None
     if dev.type == "cuda":
         events, busy, _ = profile_once(measured)
+        events = len(events)
     else:
         measured()
     wall = got["wall"]

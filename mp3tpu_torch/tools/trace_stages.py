@@ -36,12 +36,10 @@ from ..models.layer3 import final_budgets
 from ..ops import resv
 from ..runtime.profiling import SPANS, trace
 from ..tables import mpeg
-from . import describe, device_or_exit, profile_once, sync
+from . import DEVICE_CATS, describe, device_or_exit, profile_once, sync
 from .signals import make_signal
 
 MIB10 = 10 << 20
-#: device events in a trace: kernels, copies and memsets
-DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 #: host calls that enqueue device work (their "correlation" names it)
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 
@@ -120,11 +118,13 @@ def span_breakdown(path, names=SPANS):
     memsets) whose launching host call lies inside it, with their summed
     device time (inclusive, and "self": those of no nested span).
 
-    Returns {"spans": {name: {...}}, "device_events": all device events,
+    Returns {"spans": {name: {...}}, "device_events": all device events
+    (DEVICE_CATS), "device_events_by_cat": their count by category,
     "device_s": their summed time, "unlinked_events": device events whose
-    launching call the trace does not hold, "bits_at_kernel_events",
-    "search_kernel_events": the device events of the bits_at and K3
-    kernels}."""
+    launching call the trace does not hold, "copy_calls_without_event":
+    copy and memset calls with no device event in the trace,
+    "bits_at_kernel_events", "search_kernel_events": the device events of
+    the bits_at and K3 kernels}."""
     with open(path) as f:
         events = [e for e in json.load(f)["traceEvents"]
                   if e.get("ph") == "X"]
@@ -175,9 +175,16 @@ def span_breakdown(path, names=SPANS):
                 rec["self_device_s"] += e["dur"] / 1e6
                 first = False
             j = parent[j]
+    linked = {e.get("args", {}).get("correlation") for e in device}
     return {"spans": out, "device_events": len(device),
+            "device_events_by_cat": {c: sum(e["cat"] == c for e in device)
+                                     for c in DEVICE_CATS},
             "device_s": sum(e["dur"] for e in device) / 1e6,
             "unlinked_events": unlinked,
+            "copy_calls_without_event": sum(
+                ("Memcpy" in e["name"] or "Memset" in e["name"])
+                and e.get("args", {}).get("correlation") not in linked
+                for e in events if e.get("cat") in LAUNCH_CATS),
             "bits_at_kernel_events": sum(
                 "bits_at_kernel(" in e["name"] for e in device),
             "search_kernel_events": sum(
@@ -245,8 +252,8 @@ def isolated_stages(L3, pcm, dev):
     if dev.type == "cuda":
         device = {}
         for k, f in stages.items():
-            n, busy, _ = profile_once(lambda: f(0))
-            device[k] = {"device_events": n, "device_busy_s": busy}
+            events, busy, _ = profile_once(lambda: f(0))
+            device[k] = {"device_events": len(events), "device_busy_s": busy}
     return times, device, plan, G
 
 

@@ -1,8 +1,9 @@
 """The port's tooling on the CPU at small sizes: ``runtime.profiling.trace``
 and its named program spans, the trace's breakdown by span, the
-benchmark signals, the best-lag SNR, and the four tools
+benchmark signals, the best-lag SNR, and the tools
 (``python -m mp3tpu_torch.tools.<name>``), which print JSON, write only
-to a path they are given and refuse ``--device cuda`` without a card."""
+to a path they are given and refuse ``--device cuda`` without a card
+(the benchmark tools' own tests are in tests/test_torch_bench.py)."""
 import json
 import os
 import subprocess
@@ -21,6 +22,9 @@ from mp3tpu_torch.encoder import encode_layer3_fast
 from mp3tpu_torch.runtime.profiling import SPANS, trace
 from mp3tpu_torch.runtime.wav import read_wav
 from mp3tpu_torch.tables import mpeg
+from mp3tpu_torch import tools
+from mp3tpu_torch.tools import bench as tbench
+from mp3tpu_torch.tools import bench_corpus as tbench_corpus
 from mp3tpu_torch.tools import (corpus_sweep, profile_encode, quality,
                                 signals, trace_stages)
 from test_conformance import _best_lag_snr
@@ -30,7 +34,8 @@ from test_conformance import _best_lag_snr
 torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-TOOLS = [quality, trace_stages, profile_encode, corpus_sweep]
+TOOLS = [quality, trace_stages, profile_encode, corpus_sweep, tbench,
+         tbench_corpus]
 
 
 def _cfg(rate=44100, kbps=128, mode=mpeg.MODE_STEREO):
@@ -83,6 +88,7 @@ def test_span_breakdown_attributes_device_events(tmp_path):
         x("cuda_driver", "cuLaunchKernel", 30, 1, correlation=3),
         x("cuda_runtime", "cudaMemcpyAsync", 250, 1, correlation=4),
         x("cuda_runtime", "cudaLaunchKernel", 400, 1, correlation=5),
+        x("cuda_runtime", "cudaMemcpyAsync", 420, 1, correlation=6),
         x("kernel", "elementwise", 50, 2, correlation=1),
         x("kernel", "(anonymous namespace)::bits_at_kernel(float4 const*)",
           60, 3, correlation=2),
@@ -91,6 +97,8 @@ def test_span_breakdown_attributes_device_events(tmp_path):
         x("gpu_memcpy", "Memcpy DtoH", 260, 10, correlation=4),
         x("kernel", "after", 410, 1, correlation=5),
         x("kernel", "orphan", 500, 1, correlation=99),
+        x("gpu_user_annotation", "encode_segment_fused", 50, 250,
+          correlation=7),
         {"ph": "M", "name": "process_name", "args": {}},
     ]
     path = tmp_path / "trace.json"
@@ -106,8 +114,37 @@ def test_span_breakdown_attributes_device_events(tmp_path):
     assert (loop["device_events"], loop["self_device_events"]) == (2, 2)
     assert loop["device_s"] == pytest.approx(7e-6)
     assert bd["device_events"] == 6 and bd["unlinked_events"] == 1
+    assert bd["device_events_by_cat"] == {"kernel": 5, "gpu_memcpy": 1,
+                                          "gpu_memset": 0}
+    assert bd["copy_calls_without_event"] == 1
     assert bd["bits_at_kernel_events"] == 2
     assert bd["spans"]["fetch"]["count"] == 0
+
+
+def test_device_events_count_the_trace_categories():
+    """profile_once's events: kernels, copies and memsets by the trace's
+    categories; neither a span's device-side range nor a host op."""
+    from types import SimpleNamespace as NS
+
+    from torch.autograd import DeviceType
+
+    def ev(name, device_type=DeviceType.CUDA, annotation=False, t=0):
+        return NS(name=name, device_type=device_type,
+                  is_user_annotation=annotation,
+                  time_range=NS(start=t, end=t + 1))
+    prof = NS(events=lambda: [
+        ev("void elementwise_kernel<128, 4>(int)", t=1),
+        ev("Memcpy HtoD (Pageable -> Device)", t=2),
+        ev("Memset (Device)", t=3),
+        ev("(anonymous namespace)::search_kernel(Args)", t=4),
+        ev("outer_loop", annotation=True, t=5),
+        ev("aten::add", DeviceType.CPU, t=6),
+        ev("outer_loop", DeviceType.CPU, annotation=True, t=7)])
+    assert tools.device_events(prof) == [
+        ("kernel", 1, 2), ("gpu_memcpy", 2, 3), ("gpu_memset", 3, 4),
+        ("kernel", 4, 5)]
+    assert set(tools.DEVICE_CATS) == {c for c, _, _ in
+                                      tools.device_events(prof)}
 
 
 @pytest.mark.parametrize("seconds,rate", [(1.0, 44100), (2.5, 24000)])
