@@ -43,21 +43,38 @@ Phases, each printing its own lines; any failure exits non-zero:
      "cuda"): frame grid and the reference encoder's decoded-SNR bars
      (in-repo decoder), and libmpg123's best-lag SNR when it is present;
   5. the main path: the 60 s stereo 44.1 kHz 128 kbps clip of bench.py
-     (its signal, copied here), encoded five ways: with loop's searches
+     (its signal, copied here), encoded six ways: with loop's searches
      swapped (by this script) for the lockstep plain searches and
      loop._bits_at for the plain chain, then for the chain of K1 with
      plain PyTorch around it, then the plain searches on bits_at (the
-     lockstep path), then K3's first design (the baseline), then as the
-     package runs it (K3), each with the launch counts reset before and
-     read after (each swap must show in them); the five streams must be
-     equal byte for byte, and K3's evaluation counts must give the
-     lockstep path's bits_at launches.
+     lockstep path), then K3's first design (the baseline), then K3 with
+     the rate loop op by op (its evaluation counts recorded), each of
+     these with loop.outer_loop_eager (a replayed graph calls no Python),
+     then as the package runs it (K3, the rate loop as CUDA graphs), each
+     with the launch counts reset before and read after (each swap must
+     show in them); the six streams must be equal byte for byte, K3's
+     launches and the loop-exit syncs equal op by op and as graphs, and
+     K3's evaluation counts must give the lockstep path's bits_at
+     launches.
      Then the lockstep path and the package in 5 ABBA turns (10 timed runs
      each), one encode of each under torch.profiler (device kernels,
      copies and memsets by category, device idle share), and the
      searches' kernel's device time summed over one encode, K3 and the
      baseline in turns; the stream must sit on the frame grid and its
      first 10 s must decode within 1 dB of the CPU path's 10 s encode;
+  5b. the rate loop as CUDA graphs (loop.outer_loop on the card) against
+     op by op (loop.outer_loop_eager) on the main path: captures from an
+     empty cache (capture time per key, torch.cuda.memory_reserved before
+     and after), captures, replays, loop-exit syncs and K3 launches of
+     both, the iterations of each outer_loop call, the same bytes, 3 ABBA
+     turns (real-time factor), one profiled encode each (device events,
+     idle share) and one traced encode each (host dispatches -- kernel
+     and graph launches, copies, memsets -- and device events inside the
+     outer_loop spans; search_kernel events = search.launches); then
+     outer_loop == outer_loop_eager (torch.equal on every output) on the
+     main path's own first 512- and 4096-lane demand and final batches
+     and on random MPEG-1 and LSF demand and final batches at G = 4096
+     and 32,768, each new key called twice (its capture, then replays);
   6. MPEG-2 LSF: the three 0.5 s mono cases of tests/test_lsf.py, then a
      60 s stereo 24 kHz 64 kbps clip (launches and syncs counted), interior
      frames on the grid, first 10 s within 1 dB of the CPU path;
@@ -114,9 +131,10 @@ Phases, each printing its own lines; any failure exits non-zero:
      processes from an empty temporary directory, each JSON line
      printed, and per tool the three values with their median, min and
      max beside the card's name and power limit.
-On every path (main, LSF, stream, corpus, sharded) K3 must launch and the
-rate loop must launch bits_at and the baseline no time; the launches and
-loop-exit syncs per path are printed.  Its last lines are a JSON object
+On every path (main, LSF, stream, corpus, sharded) K3 must launch, the
+rate loop's CUDA graphs must replay, and the rate loop must launch
+bits_at and the baseline no time; the launches, loop-exit syncs and
+graph captures and replays per path are printed.  Its last lines are a JSON object
 describing the kernels and then {"ok": true, "device": {...}}.  It
 imports nothing of JAX and nothing of the JAX package.
 """
@@ -396,10 +414,13 @@ def bits_at_bound(args):
 def capture_searches(ctx, run, lanes, what):
     """The first stepsize search and the first walk of `lanes` granules
     that run() makes, recorded by wrapping loop.search_stepsize and
-    loop.search_walk (whose callers look them up at each call):
-    {"stepsize": (args, kwargs), "walk": (args, kwargs)}, tensors cloned."""
+    loop.search_walk (whose callers look them up at each call), with the
+    rate loop run by loop.outer_loop_eager (a replayed graph calls no
+    Python): {"stepsize": (args, kwargs), "walk": (args, kwargs)},
+    tensors cloned."""
     loop = ctx["loop"]
-    real = {"stepsize": loop.search_stepsize, "walk": loop.search_walk}
+    real = {"stepsize": loop.search_stepsize, "walk": loop.search_walk,
+            "outer_loop": loop.outer_loop}
     seen = {}
 
     def recorder(kind):
@@ -414,12 +435,14 @@ def capture_searches(ctx, run, lanes, what):
 
     loop.search_stepsize = recorder("stepsize")
     loop.search_walk = recorder("walk")
+    loop.outer_loop = loop.outer_loop_eager
     try:
         run()
     finally:
         loop.search_stepsize = real["stepsize"]
         loop.search_walk = real["walk"]
-    for kind in real:
+        loop.outer_loop = real["outer_loop"]
+    for kind in ("stepsize", "walk"):
         if kind not in seen:
             fail(f"the {what} made no {lanes}-lane {kind} search")
     return seen
@@ -763,9 +786,8 @@ def search_timed(ctx, label, kind, args, kwargs, plain_too=False):
     import torch
     from test_torch_search_card import search_mismatches
     again = kernel(*args, **kwargs)
-    stream = torch.cuda.current_stream().cuda_stream
     if search_mismatches(again, plain(*args, **kwargs)) or bool(
-            search._counter(args[0].device, stream).any()):
+            search._counter(args[0].device).any()):
         fail(f"K3 on {label}: a timed launch left other results or a "
              f"granule counter off zero")
     k_call = call_ms(k3())
@@ -936,24 +958,30 @@ def reset_counts(ctx):
     ctx["K"].bits_at.launches = 0
     ctx["k1"].hist_c1.launches = 0
     ctx["loop"].any_on_host.syncs = 0
+    ctx["loop"].graph_counts.update(captures=0, replays=0)
     ctx["torch"].cuda.synchronize()
 
 
 def launch_counts(ctx):
-    """{kernel: launches, "syncs": loop-exit host syncs} since
+    """{kernel: launches, "syncs": loop-exit host syncs, "captures" and
+    "replays": the rate loop's CUDA graph captures and replays} since
     reset_counts."""
     return {"search": ctx["S"].launches, "bits_at": ctx["K"].bits_at.launches,
             "hist_c1": ctx["k1"].hist_c1.launches,
             "baseline": ctx["S"].baseline_launches,
-            "syncs": ctx["loop"].any_on_host.syncs}
+            "syncs": ctx["loop"].any_on_host.syncs,
+            **ctx["loop"].graph_counts}
 
 
 def read_counts(ctx, path):
-    """launch_counts; fails unless the path launched K3, and its rate loop
-    launched bits_at and the baseline no time."""
+    """launch_counts; fails unless the path launched K3 and replayed the
+    rate loop's graphs, and its rate loop launched bits_at and the
+    baseline no time."""
     counts = launch_counts(ctx)
     if counts["search"] <= 0:
         fail(f"the {path} launched K3 no time")
+    if counts["replays"] <= 0:
+        fail(f"the {path} replayed the rate loop's graphs no time")
     for kernel in ("bits_at", "baseline"):
         if counts[kernel]:
             fail(f"the {path} launched {kernel} {counts[kernel]} times")
@@ -1310,8 +1338,9 @@ def phase_corpus(ctx, line, cfg_of):
               f"{TIMED_RUNS} ({', '.join(f'{w:.4f}' for w in walls)} s); "
               f"K3 launches {counts['search']} in {groups} groups "
               f"({counts['search'] / groups:.1f} a group), bits_at "
-              f"{counts['bits_at']}, loop-exit syncs {counts['syncs']} on "
-              f"{line}",
+              f"{counts['bits_at']}, loop-exit syncs {counts['syncs']}, "
+              f"rate-loop graph captures {counts['captures']} and replays "
+              f"{counts['replays']} on {line}",
               flush=True)
     launches = counts_of[CORPUS_BATCHES[-1]]
 
@@ -1419,9 +1448,11 @@ def sharded_rank(rank, world, url, out):
 
         encode()
         dist.barrier()
+        loop.graph_counts.update(captures=0, replays=0)
         t0 = time.perf_counter()
         data = encode()
         wall = time.perf_counter() - t0
+        graphs = dict(loop.graph_counts)
         _, err, s_err, b_err = path_batch_check(
             dict(torch=torch, loop=loop), encode,
             sharded_lanes(2 * -(-len(pcm) // 1152), world),
@@ -1433,7 +1464,7 @@ def sharded_rank(rank, world, url, out):
     with open(out + ".json", "w") as f:
         json.dump({"wall_s": wall, "max_abs_err": err,
                    "search_max_abs_err": s_err,
-                   "baseline_max_abs_err": b_err}, f)
+                   "baseline_max_abs_err": b_err, "graphs": graphs}, f)
 
 
 def phase_sharded(ctx, cfg_of, line):
@@ -1499,7 +1530,7 @@ def phase_sharded(ctx, cfg_of, line):
     finally:
         for p in procs:
             p.kill()
-    ranks = []
+    ranks, replays = [], []
     walls[2] = []
     for out in outs:
         with open(out, "rb") as f:
@@ -1507,6 +1538,10 @@ def phase_sharded(ctx, cfg_of, line):
         with open(out + ".json") as f:
             res = json.load(f)
         walls[2].append(res["wall_s"])
+        if res["graphs"]["replays"] <= 0:
+            fail(f"sharded world 2: a rank's timed encode replayed the rate "
+                 f"loop's graphs no time ({res['graphs']})")
+        replays.append(res["graphs"])
         errs.append(res["max_abs_err"])
         s_errs.append(res["search_max_abs_err"])
         b_errs.append(res["baseline_max_abs_err"])
@@ -1555,7 +1590,10 @@ def phase_sharded(ctx, cfg_of, line):
               f"{line}", flush=True)
     print(f"sharded world 1: {n_sh} device kernels and copies per encode "
           f"(torch.profiler), one-shot at chunk {_chunk_size(G)}: "
-          f"{one_shot[_chunk_size(G)][2]}", flush=True)
+          f"{one_shot[_chunk_size(G)][2]}; rate-loop graph captures and "
+          f"replays of the timed encode: world 1 {launches['captures']} / "
+          f"{launches['replays']}, world 2 by rank "
+          f"{[(r['captures'], r['replays']) for r in replays]}", flush=True)
     return dict(launches=launches, max_abs_err=max(errs),
                 search_max_abs_err=max(s_errs),
                 baseline_max_abs_err=max(b_errs))
@@ -1626,7 +1664,9 @@ def phase_trace(ctx, pcm, cfg_of, main_out):
               f"device events {r['device_events']} (self "
               f"{r['self_device_events']}), device "
               f"{r['device_s'] * 1e3:.3f} ms (self "
-              f"{r['self_device_s'] * 1e3:.3f} ms)", flush=True)
+              f"{r['self_device_s'] * 1e3:.3f} ms); host dispatches "
+              f"{r['host_dispatches']} (self {r['self_host_dispatches']})",
+              flush=True)
 
 
 def phase_conformance(ctx, main_out, pcm):
@@ -1806,10 +1846,13 @@ def phase_main(ctx, pcm, cfg, line):
     encode, decode_mp3, snr_db = (ctx["encode"], ctx["decode_mp3"],
                                   ctx["snr_db"])
     real = dict(_bits_at=loop._bits_at, search_stepsize=loop.search_stepsize,
-                search_walk=loop.search_walk)
-    plain_searches = dict(search_stepsize=loop.search_stepsize_plain,
+                search_walk=loop.search_walk, outer_loop=loop.outer_loop)
+    # a swapped search is Python that a replayed graph would not call: the
+    # swapped ways run the rate loop op by op
+    eager = dict(outer_loop=loop.outer_loop_eager)
+    plain_searches = dict(eager, search_stepsize=loop.search_stepsize_plain,
                           search_walk=loop.search_walk_plain)
-    baseline = dict(search_stepsize=ctx["S"].baseline_stepsize,
+    baseline = dict(eager, search_stepsize=ctx["S"].baseline_stepsize,
                     search_walk=ctx["S"].baseline_walk)
 
     def plain_chain(xr75p, qss, is_short, is_short_block, ST):
@@ -1826,18 +1869,27 @@ def phase_main(ctx, pcm, cfg, line):
         return c["bits"], c
 
     # the five ways: the functions swapped into loop, and the launch
-    # counts that must be 0 / more than 0 after each
+    # counts that must be 0 / more than 0 after each; K3's evaluation
+    # counts are read with the rate loop op by op ("k3_eager")
+    op_by_op = ("captures", "replays")
     ways = {"plain": (dict(plain_searches, _bits_at=plain_chain),
-                      ("search", "bits_at", "hist_c1", "baseline"), ()),
+                      ("search", "bits_at", "hist_c1", "baseline")
+                      + op_by_op, ()),
             "k1": (dict(plain_searches, _bits_at=k1_chain),
-                   ("search", "bits_at", "baseline"), ("hist_c1",)),
-            "pr5": (plain_searches, ("search", "hist_c1", "baseline"),
-                    ("bits_at",)),
-            "baseline": (baseline, ("search", "bits_at", "hist_c1"),
-                         ("baseline",)),
-            "k3": ({}, ("bits_at", "hist_c1", "baseline"), ("search",))}
+                   ("search", "bits_at", "baseline") + op_by_op,
+                   ("hist_c1",)),
+            "pr5": (plain_searches, ("search", "hist_c1", "baseline")
+                    + op_by_op, ("bits_at",)),
+            "baseline": (baseline, ("search", "bits_at", "hist_c1")
+                         + op_by_op, ("baseline",)),
+            "k3_eager": (eager, ("bits_at", "hist_c1", "baseline")
+                         + op_by_op, ("search",)),
+            "k3": ({}, ("bits_at", "hist_c1", "baseline"),
+                   ("search", "replays"))}
     label = {"plain": "plain", "k1": "K1 chain", "pr5": "the lockstep path",
-             "baseline": "K3's first design", "k3": "K3"}
+             "baseline": "K3's first design",
+             "k3_eager": "K3, the rate loop op by op",
+             "k3": "K3, the rate loop as CUDA graphs"}
 
     def run(way, swaps=None):
         swaps = ways[way][0] if swaps is None else swaps
@@ -1876,8 +1928,11 @@ def phase_main(ctx, pcm, cfg, line):
             return res
         return record
 
-    out, launches, first_s = counted(
-        "k3", {k: recording(real[k]) for k in plain_searches})
+    outs["k3_eager"], counts["k3_eager"], _ = counted(
+        "k3_eager", dict(eager, **{k: recording(real[k])
+                                   for k in ("search_stepsize",
+                                             "search_walk")}))
+    out, launches, first_s = counted("k3")
     for way, o in outs.items():
         if o != out:
             fail(f"main path with K3 ({len(out)} bytes) != with "
@@ -1895,12 +1950,18 @@ def phase_main(ctx, pcm, cfg, line):
     from mp3tpu_torch.encoder import _plan_segments
     plan = _plan_segments(nframes * 2)
     print(f"main path: the plain searches with the plain chain, with the K1 "
-          f"chain, on bits_at (the lockstep path), K3's first design and K3: "
+          f"chain, on bits_at (the lockstep path), K3's first design, K3 "
+          f"with the rate loop op by op and K3 with it as CUDA graphs: "
           f"the same {len(out)} bytes", flush=True)
-    for way in ("plain", "k1", "pr5", "baseline"):
+    for way in ("plain", "k1", "pr5", "baseline", "k3_eager"):
         print(f"main path ({label[way]}): launches and loop-exit syncs per "
               f"encode {counts[way]}", flush=True)
-    print(f"main path (K3, first run): {first_s:.3f} s; launches and "
+    for k in ("search", "syncs"):
+        if launches[k] != counts["k3_eager"][k]:
+            fail(f"main path: {k} {launches[k]} with the rate loop as CUDA "
+                 f"graphs, {counts['k3_eager'][k]} op by op")
+    print(f"main path (K3, the rate loop as CUDA graphs, first run): "
+          f"{first_s:.3f} s; launches and "
           f"loop-exit syncs per encode {launches}; {len(evals)} searches, "
           f"{lockstep} lockstep evaluations (= the lockstep path's bits_at "
           f"launches), "
@@ -1978,6 +2039,193 @@ def phase_main(ctx, pcm, cfg, line):
                 k3_encode_ms=k3_ms)
 
 
+#: phase 5b times the rate loop op by op and as CUDA graphs in this many
+#: ABBA turns (2 runs each)
+GRAPH_TURNS = 3
+
+
+def loop_equal(ctx, label, args, kwargs, times=1):
+    """loop.outer_loop (`times` calls: a new key's first captures, the
+    next replay throughout) against loop.outer_loop_eager on the same
+    inputs: torch.equal on every output; fails on any difference."""
+    torch, loop = ctx["torch"], ctx["loop"]
+    ref = loop.outer_loop_eager(*args, **kwargs)
+    for i in range(times):
+        got = loop.outer_loop(*args, **kwargs)
+        bad = [k for k in ref if not torch.equal(got[k], ref[k])]
+        if got.keys() != ref.keys() or bad:
+            fail(f"outer_loop as CUDA graphs != outer_loop_eager on {label} "
+                 f"(call {i + 1}): {bad or 'keys'}")
+
+
+def phase_graphs(ctx, pcm, cfg, line, main_out):
+    """Phase 5b: the main path with the rate loop as CUDA graphs (as the
+    package runs it) and op by op (loop.outer_loop_eager): captures from
+    an empty cache (capture time per key, torch.cuda.memory_reserved
+    before and after), the counts of both (captures, replays, loop-exit
+    syncs, K3 launches; the iterations of each outer_loop call), the same
+    bytes, ABBA turns, one profiled encode each (device events, idle
+    share), one traced encode each (host dispatches and device events in
+    the outer_loop spans, search_kernel events = search.launches), and
+    outer_loop against outer_loop_eager with torch.equal on the main
+    path's own 512- and 4096-lane demand and final batches and on random
+    batches at G = 4096 and 32,768, MPEG-1 and LSF."""
+    torch, loop, S = ctx["torch"], ctx["loop"], ctx["S"]
+    from mp3tpu_torch.runtime.profiling import trace
+    from mp3tpu_torch.tools.trace_stages import span_breakdown
+    from test_torch_graph_card import loop_batch
+    graphed, eager = loop.outer_loop, loop.outer_loop_eager
+    forms = {"graphs": graphed, "eager": eager}
+    name = {"graphs": "as CUDA graphs", "eager": "op by op"}
+    calls, batches = {"graphs": [], "eager": []}, {}
+
+    def logged(form):
+        """forms[form], logging each call's lanes, kind, iterations and
+        syncs (and cloning the first call of each lane count and kind)."""
+        def call(*args, **kwargs):
+            k0, s0 = S.launches, loop.any_on_host.syncs
+            out = forms[form](*args, **kwargs)
+            kind = "final" if kwargs.get("qss_lo") is not None else "demand"
+            G = args[0].shape[0]
+            calls[form].append((G, kind, S.launches - k0 - 1,
+                                loop.any_on_host.syncs - s0))
+            if form == "eager" and (G, kind) not in batches:
+                batches[G, kind] = (
+                    tuple(a.clone() if hasattr(a, "clone") else a
+                          for a in args),
+                    {k: v if v is None else v.clone()
+                     for k, v in kwargs.items()})
+            return out
+        return call
+
+    def run(form, log=False):
+        loop.outer_loop = logged(form) if log else forms[form]
+        try:
+            return ctx["encode"](pcm, cfg, device="cuda")
+        finally:
+            loop.outer_loop = graphed
+
+    # captures from an empty cache
+    torch.cuda.synchronize()
+    loop.GRAPHS.clear()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
+    counts = {}
+    outs = {}
+    for form in ("graphs", "eager"):
+        reset_counts(ctx)
+        outs[form] = run(form, log=True)
+        torch.cuda.synchronize()
+        counts[form] = launch_counts(ctx)
+        if form == "graphs":
+            reserved1 = torch.cuda.memory_reserved()
+            keys = [(e.inputs["xr"].shape[0],
+                     "final" if e.inputs["qss_lo"] is not None else "demand",
+                     e.capture_s) for e in loop.GRAPHS.entries.values()]
+    for form, out in outs.items():
+        if out != main_out:
+            fail(f"main path with the rate loop {name[form]}: other bytes "
+                 f"than phase 5's")
+    g, e = counts["graphs"], counts["eager"]
+    if (g["search"], g["syncs"]) != (e["search"], e["syncs"]) or \
+            [c[2:] for c in calls["graphs"]] != \
+            [c[2:] for c in calls["eager"]]:
+        fail(f"the rate loop as CUDA graphs {g}, {calls['graphs']}; op by "
+             f"op {e}, {calls['eager']}")
+    if g["captures"] != 2 * len(keys) or g["replays"] <= 0 or \
+            e["captures"] or e["replays"]:
+        fail(f"graph counts: as CUDA graphs {g}, op by op {e}, "
+             f"{len(keys)} keys")
+    print(f"rate loop as CUDA graphs: the same {len(main_out)} bytes as op "
+          f"by op; counts {g} (op by op {e}); {len(keys)} keys captured: "
+          f"{', '.join(f'{G} lanes {kind} {s * 1e3:.1f} ms' for G, kind, s in keys)}"
+          f" (two captures each); torch.cuda.memory_reserved "
+          f"{reserved0 / 2**20:.1f} MiB before the captures, "
+          f"{reserved1 / 2**20:.1f} MiB after", flush=True)
+    print(f"outer_loop calls of one encode (lanes, kind, iterations, "
+          f"loop-exit syncs): {calls['graphs']}; iterations "
+          f"{sum(c[2] for c in calls['graphs'])} in {len(calls['graphs'])} "
+          f"calls", flush=True)
+
+    times = {"eager": [], "graphs": []}
+    for form in ("eager", "graphs", "graphs", "eager") * GRAPH_TURNS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run(form)
+        times[form].append(time.perf_counter() - t0)
+        if out != main_out:
+            fail(f"a timed encode (rate loop {name[form]}) gave other bytes")
+    res = {}
+    for form in ("eager", "graphs"):
+        wall = statistics.median(times[form])
+        for _ in range(3):      # the profiler now and then records none
+            events, busy, pwall = profile_once(lambda: run(form))
+            if events:
+                break
+        else:
+            fail(f"torch.profiler recorded no device event (rate loop "
+                 f"{name[form]})")
+        with tempfile.TemporaryDirectory() as tmp:
+            for _ in range(3):
+                reset_counts(ctx)
+                with trace(tmp, "cuda"):
+                    run(form)
+                launches = launch_counts(ctx)
+                bd = span_breakdown(os.path.join(tmp, "trace.json"))
+                if bd["search_kernel_events"] == launches["search"]:
+                    break
+            else:
+                fail(f"the trace (rate loop {name[form]}) never held one "
+                     f"search_kernel event per K3 launch")
+        span = bd["spans"]["outer_loop"]
+        res[form] = dict(rtf=CLIP_SECONDS / wall, wall=wall,
+                         dispatches=span["host_dispatches"],
+                         span_events=span["device_events"],
+                         events=len(events), idle=1.0 - busy / pwall)
+        print(f"main path, rate loop {name[form]}: median wall {wall:.3f} s "
+              f"of {2 * GRAPH_TURNS} ({', '.join(f'{t:.3f}' for t in times[form])}"
+              f" s), {CLIP_SECONDS / wall:.2f}x real time; one profiled "
+              f"encode: {len(events)} device events, by category "
+              f"{events_by_cat(events)}, busy {busy:.4f} s of {pwall:.4f} s, "
+              f"idle share {1.0 - busy / pwall:.3f}; one traced encode: "
+              f"outer_loop spans {span['count']} x {span['host_s']:.4f} s "
+              f"host, {span['host_dispatches']} host dispatches (kernel and "
+              f"graph launches, copies, memsets; {bd['graph_launches']} graph "
+              f"launches in the trace), {span['device_events']} device "
+              f"events; the whole trace {bd['host_dispatches']} dispatches, "
+              f"{bd['device_events']} device events, search_kernel events "
+              f"{bd['search_kernel_events']} = search.launches "
+              f"{launches['search']}, {bd['unlinked_events']} unlinked; on "
+              f"{line}", flush=True)
+    if res["graphs"]["dispatches"] >= res["eager"]["dispatches"]:
+        fail(f"the rate loop as CUDA graphs made {res['graphs']['dispatches']}"
+             f" host dispatches, op by op {res['eager']['dispatches']}")
+
+    for (G, kind), (args, kwargs) in sorted(batches.items()):
+        loop_equal(ctx, f"the main path's first {G}-lane {kind} batch", args,
+                   kwargs)
+    if sorted(batches) != [(512, "demand"), (512, "final"), (4096, "demand"),
+                           (4096, "final")]:
+        fail(f"the main path's outer_loop batches: {sorted(batches)}")
+    for G in (4096, 32768):
+        for version in (ctx["mpeg"].MPEG1, ctx["mpeg"].MPEG2_LSF):
+            for final in (False, True):
+                args, kwargs = loop_batch("cuda", G, version, G + final,
+                                          final)
+                lsf = version == ctx["mpeg"].MPEG2_LSF
+                loop_equal(ctx, f"a random {G}-lane "
+                           f"{'LSF' if lsf else 'MPEG-1'} "
+                           f"{'final' if final else 'demand'} batch", args,
+                           kwargs, times=2)
+    print(f"outer_loop as CUDA graphs == outer_loop_eager (torch.equal, every "
+          f"output) on the main path's {len(batches)} first batches "
+          f"{sorted(batches)} and on random MPEG-1 and LSF demand and final "
+          f"batches at G = 4096 and 32,768 (two calls each: the capture, "
+          f"then replays)", flush=True)
+    return dict(counts=counts, calls=calls["graphs"], keys=keys,
+                reserved=(reserved0, reserved1), **res)
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -2035,6 +2283,10 @@ def main():
     t0 = time.perf_counter()
     main_res = phase_main(ctx, pcm, cfg_of(), line)
     print(f"phase 5 main path: {time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    phase_graphs(ctx, pcm, cfg_of(), line, main_res["out"])
+    print(f"phase 5b the rate loop as CUDA graphs: "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     phases = [("6 LSF", lambda: phase_lsf(ctx)),
               ("7 streaming", lambda: phase_stream(ctx, pcm, cfg_of)),
@@ -2076,9 +2328,12 @@ def main():
                 "corpus": corpus["launches"][kernel],
                 "sharded": sharded["launches"][kernel]}
 
-    for kernel in ("search", "baseline", "bits_at", "syncs"):
-        print(f"{kernel} {'per encode' if kernel == 'syncs' else 'launches'}"
-              f" by path: {by_path(kernel)}", flush=True)
+    for kernel in ("search", "baseline", "bits_at", "syncs", "captures",
+                   "replays"):
+        what = {"syncs": "loop-exit syncs per encode",
+                "captures": "rate-loop graph captures",
+                "replays": "rate-loop graph replays"}.get(kernel, "launches")
+        print(f"{kernel} {what} by path: {by_path(kernel)}", flush=True)
 
     err, k_ms, p_ms, (b_ms, b_by) = kres[4096]
     print(json.dumps({"kernels": [

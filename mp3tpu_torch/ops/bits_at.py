@@ -115,7 +115,8 @@ def bits_at(xr75p, qss, is_short, is_short_block, ST):
 
     Inputs are checked first on every device.  A CPU tensor then runs
     ``bits_at_plain``; a CUDA tensor launches the kernel (and counts the
-    launch in ``bits_at.launches``) or raises."""
+    launch in ``bits_at.launches``; a launch made into a CUDA graph of
+    ``loop.outer_loop`` counts at each replay instead) or raises."""
     dev, G = _check_inputs(xr75p, qss, is_short, is_short_block)
     if dev.type == "cpu":
         return bits_at_plain(xr75p, qss, is_short, is_short_block, ST)

@@ -22,9 +22,22 @@ own, and the plain searches' walks) is a Python loop whose condition is
 read on the host -- one device sync per step on CUDA, counted in
 ``any_on_host.syncs``.
 
+``outer_loop`` is three functions over one state: ``_prologue`` (up to
+and with the initial stepsize search), ``_iteration`` (one step of the
+while loop, updating the state in place) and ``_epilogue``.  On a CUDA
+tensor the prologue and the iteration are each captured once per key
+as a CUDA graph and replayed (the port's counterpart of the JAX
+package's compiled ``while_loop``; ``GRAPHS``, counted in
+``graph_counts``); ``outer_loop_eager`` dispatches the same functions op
+by op, and is what the CPU runs.
+
 Bit arithmetic stays in int32/int64 and float32 bit totals, as in the
 JAX package; nothing here uses unsigned tensors.
 """
+import hashlib
+import threading
+import time
+from collections import OrderedDict
 from functools import lru_cache
 
 import numpy as np
@@ -93,10 +106,37 @@ _INT_KEYS = ("sfb_l", "perm_short", "subdv", "first", "esc_a", "esc_b",
              "log2_tab")
 
 
+#: device_tables' dicts by the tables' contents and the device
+_DEVICE_TABLES = {}
+
+
+def _fingerprint(st):
+    h = hashlib.sha256()
+    for k in sorted(st):
+        a = np.ascontiguousarray(np.asarray(st[k]))
+        h.update(f"{k}:{a.dtype.str}:{a.shape}".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
 def device_tables(st, device):
     """Tensors on `device` for a ``static_tables`` (or ``jaxloop._static``)
     dict, plus the sample-rate independent lookup tables; the Python
-    values r0_pairs_short and lsf ride along."""
+    values r0_pairs_short and lsf ride along.
+
+    Equal tables on one device give the same tensors (no code writes
+    them): the captured rate loops are keyed by the tables' identity, so
+    that every encoder of a sample rate finds the graphs of the first."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    key = (_fingerprint(st), str(dev))
+    if key not in _DEVICE_TABLES:
+        _DEVICE_TABLES.setdefault(key, _device_tables(st, dev))
+    return dict(_DEVICE_TABLES[key])
+
+
+def _device_tables(st, device):
     arrays = dict(st)
     nr = mpeg.NR_OF_SFB_BLOCK
     arrays.update(subdv=mpeg.SUBDV_TABLE, first=FIRST_TABLE_FOR_MAX,
@@ -477,6 +517,462 @@ def _sfb_gain(amp, oh):
     return 1.0 + amp @ oh.T
 
 
+# ---------------------------------------------------------------------------
+# outer loop: a prologue, an iteration body and an epilogue over one state
+# ---------------------------------------------------------------------------
+
+#: the state entries that ``_iteration`` updates in place (besides best)
+LOOP_STATE = ("xr_a", "xr75", "xr75p", "xmin_l", "xmin_s", "sf_l", "sf_s",
+              "preflag", "qss_prev", "done", "filling", "fill_rounds")
+
+
+def _sbc(state, sf_l, sf_s, preflag, ST):
+    """Scalefactor bits of the batch: (compress, part2, overflow)."""
+    if ST["lsf"]:
+        return scale_bitcount_lsf(sf_l, sf_s, state["is_short"], preflag, ST)
+    return scale_bitcount(sf_l, sf_s, state["is_short"], ST,
+                          skip_mask=state["skip"])
+
+
+def _prologue(xr, budget, ratio_l, ratio_s, is_short_block, block_type, ST,
+              sf_fix_mask=None, sf_fix_val=None, sf_skip_mask=None,
+              qss_lo=None):
+    """``outer_loop`` up to and with its initial stepsize search.
+
+    Returns (state, best).  state holds what the iterations read (the
+    inputs budget and is_short_block, is_short, long_, nonsilent, the
+    masks fixed and skip or None, the initial stepsize qss0) and the
+    LOOP_STATE entries they update; best the coding decisions kept so
+    far.  Every tensor that an iteration writes is its own."""
+    G = xr.shape[0]
+    dev = xr.device
+    is_short = is_short_block & (block_type == 2)
+    long_ = ~is_short
+    xr_abs = xr.abs()
+    nonsilent = xr_abs.amax(dim=1) > 0.0
+    xmin_l, xmin_s = calc_xmin(xr_abs, ratio_l, ratio_s, ST)
+    qanf = quantanf_init(xr_abs)
+
+    def zeros(*shape):
+        return torch.zeros((G,) + shape, dtype=torch.int32, device=dev)
+
+    sf_l = zeros(21)
+    fixed = skip = None
+    if sf_fix_mask is not None:
+        fixed = sf_fix_mask & long_[:, None]
+        fv = torch.where(fixed, sf_fix_val.to(torch.int32), 0) \
+            .to(torch.int32)
+        sf_l = sf_l + fv
+        # pre-amplify by the fixed scalefactors (ifqstep sqrt(2))
+        gain = _sfb_gain(torch.pow(_SQRT2, fv.to(xr.dtype)) - 1.0,
+                         ST["oh_l"])
+        xr_abs = torch.where(long_[:, None], xr_abs * gain, xr_abs)
+        xmin_l = xmin_l * torch.pow(2.0, fv.to(xr.dtype))
+    if sf_skip_mask is not None:
+        skip = sf_skip_mask & long_[:, None]
+
+    # initial full bisection once; iterations warm-walk from its result
+    xr75 = torch.pow(xr_abs, 0.75)
+    xr75p = torch.where(is_short[:, None], xr75[:, ST["perm_short"]], xr75)
+    qss_init, _, _ = search_stepsize(xr75p, budget, qanf, is_short,
+                                     is_short_block, ST, qss_lo=qss_lo)
+
+    done = torch.zeros(G, dtype=torch.bool, device=dev)
+    state = dict(budget=budget, is_short_block=is_short_block,
+                 is_short=is_short, long_=long_, nonsilent=nonsilent,
+                 fixed=fixed, skip=skip, qss0=qss_init,
+                 xr_a=xr_abs, xr75=xr75, xr75p=xr75p, xmin_l=xmin_l,
+                 xmin_s=xmin_s, sf_l=sf_l, sf_s=zeros(12, 3),
+                 preflag=zeros(), qss_prev=qss_init.clone(), done=done,
+                 filling=done.clone(), fill_rounds=zeros())
+    best = dict(ix=zeros(576), qss=qanf, bits=budget * 0, part2=zeros(),
+                compress=zeros(), sf_l=sf_l.clone(), sf_s=zeros(12, 3),
+                preflag=zeros(), used=zeros(), count1=zeros(),
+                big_values=zeros(), r0=zeros(), r1=zeros(), a1=zeros(),
+                a2=zeros(), table_select=zeros(3),
+                count1table_select=zeros())
+    return state, best
+
+
+def _iteration(state, best, ST):
+    """One iteration of ``outer_loop``'s while loop, in place: it reads
+    state and best and copies each new value into its tensor (state's
+    LOOP_STATE entries and every entry of best) at the end.  It makes
+    only temporaries, reads no device value on the host and builds no
+    tensor from host data, so that a CUDA graph can capture it."""
+    budget, is_short, long_ = state["budget"], state["is_short"], \
+        state["long_"]
+    is_short_block, fixed = state["is_short_block"], state["fixed"]
+    xr_a, xr75, xr75p = state["xr_a"], state["xr75"], state["xr75p"]
+    xmin_l, xmin_s = state["xmin_l"], state["xmin_s"]
+    sf_l, sf_s, preflag = state["sf_l"], state["sf_s"], state["preflag"]
+    done, filling = state["done"], state["filling"]
+    fill_rounds = state["fill_rounds"]
+    oh_l, oh_s, oh_sp = ST["oh_l"], ST["oh_s"], ST["oh_s_perm"]
+    G = budget.shape[0]
+
+    compress, part2, overflow = _sbc(state, sf_l, sf_s, preflag, ST)
+    huff = torch.clamp(budget - part2, min=0.0)
+    qss, bits, c = search_walk(xr75p, huff, state["qss_prev"], is_short,
+                               is_short_block, ST)
+    ix = quantize_pow75(xr75, qss)
+    xfsf_l, xfsf_s = calc_noise(xr_a, ix, qss, ST)
+
+    # keep the latest encoding as best; in the FILL phase accept
+    # only results that spend strictly more of the granted bits
+    used_new = (part2 + bits).to(torch.int32)
+    new_best = dict(ix=ix, qss=qss, bits=bits, part2=part2,
+                    compress=compress, sf_l=sf_l, sf_s=sf_s,
+                    preflag=preflag, used=used_new,
+                    count1=c["count1"], big_values=c["big_values"],
+                    r0=c["r0"], r1=c["r1"], a1=c["a1"], a2=c["a2"],
+                    table_select=c["table_select"],
+                    count1table_select=c["count1table_select"])
+    upd = (~done) & ((~filling) | (used_new > best["used"]))
+    new_best = {k: torch.where(_lanes(upd, best[k]), new_best[k], best[k])
+                for k in best}
+    upd = ~done
+
+    # preemphasis (long only, once); the reference amplifies with
+    # the pre-preemphasis noise, and so does this loop
+    over_hi = (xfsf_l[:, 17:21] > xmin_l[:, 17:21]).sum(dim=1)
+    trigger_pre = long_ & (preflag == 0) & (over_hi == 4) & upd
+    tp = trigger_pre[:, None]
+    pre75 = 1.0 + oh_l @ (ST["pre_gain75"] - 1.0)
+    xr_a = torch.where(tp, xr_a * (1.0 + oh_l @ (ST["pre_gain"] - 1.0)),
+                       xr_a)
+    xr75 = torch.where(tp, xr75 * pre75, xr75)
+    # preemphasis is long-only, where xr75p == xr75 line for line
+    xr75p = torch.where(tp, xr75p * pre75, xr75p)
+    xmin_l = torch.where(tp, xmin_l * ST["pre_xmin"], xmin_l)
+    preflag = torch.where(trigger_pre, 1, preflag).to(torch.int32)
+
+    # amplify distorted bands by sqrt(2); xmin doubles accordingly
+    over_l = (xfsf_l > xmin_l) & long_[:, None] & upd[:, None]
+    if fixed is not None:
+        over_l = over_l & ~fixed
+    over_s = (xfsf_s > xmin_s) & is_short[:, None, None] \
+        & upd[:, None, None]
+
+    # budget FILL: a budget-limited granule about to stop with a
+    # large unspent gap amplifies only its k most distorted bands
+    over_any_real = over_l.any(dim=1) | over_s.any(dim=2).any(dim=1)
+    amped_or_over_l = (sf_l > 0) | over_l
+    if fixed is not None:
+        amped_or_over_l = amped_or_over_l | fixed
+    prosp_stop = torch.where(
+        is_short, ((sf_s > 0) | over_s).reshape(G, 36).all(dim=1),
+        amped_or_over_l.all(dim=1)) | ~over_any_real
+    slack = budget - used_new.to(budget.dtype)
+    fillable = (budget < 4000.0) & (slack > 32.0) & (fill_rounds < 2) \
+        & state["nonsilent"]
+    filling = filling | (upd & prosp_stop & fillable & ~overflow)
+    use_subset = filling & upd & fillable
+    fill_rounds_next = fill_rounds + use_subset.to(torch.int32)
+    k = torch.clamp((slack / 40.0).to(torch.int32), 1, 20) \
+        .to(torch.int64)
+    ratio_fill_l = xfsf_l / torch.clamp(xmin_l, min=1e-30)
+    thresh_l = torch.sort(ratio_fill_l, dim=1, descending=True).values \
+        .gather(1, (k - 1)[:, None])
+    topk_l = ratio_fill_l >= thresh_l
+    if fixed is not None:
+        topk_l = topk_l & ~fixed
+    over_l = torch.where((use_subset & long_)[:, None], topk_l, over_l)
+    ratio_fill_s = (xfsf_s / torch.clamp(xmin_s, min=1e-30)) \
+        .reshape(G, 36)
+    # the short path indexes with clip(k, 1, 35) where the long path
+    # uses k - 1: kept as the JAX package has it
+    thresh_s = torch.sort(ratio_fill_s, dim=1, descending=True).values \
+        .gather(1, torch.clamp(k, 1, 35)[:, None])
+    topk_s = (ratio_fill_s >= thresh_s).reshape(G, 12, 3)
+    over_s = torch.where((use_subset & is_short)[:, None, None], topk_s,
+                         over_s)
+    sf_l = sf_l + over_l.to(torch.int32)
+    sf_s = sf_s + over_s.to(torch.int32)
+    xmin_l = torch.where(over_l, xmin_l * 2.0, xmin_l)
+    xmin_s = torch.where(over_s, xmin_s * 2.0, xmin_s)
+    over_lf = over_l.to(xr_a.dtype)
+    gain_long = _sfb_gain(over_lf * (_SQRT2 - 1.0), oh_l)
+    gain_long75 = _sfb_gain(over_lf * (_SQRT2_75 - 1.0), oh_l)
+    lm = long_[:, None]
+    xr_a = torch.where(lm, xr_a * gain_long, xr_a)
+    xr75 = torch.where(lm, xr75 * gain_long75, xr75)
+    xr75p = torch.where(lm, xr75p * gain_long75, xr75p)
+    over_sf = over_s.to(xr_a.dtype)
+    amp_s = over_sf * (_SQRT2 - 1.0)                 # (G, 12, 3)
+    amp_s75 = over_sf * (_SQRT2_75 - 1.0)
+    gain_s = 1.0 + torch.einsum("lb,gbs->gls", oh_s, amp_s) \
+        .reshape(G, 576)
+    gain_s75 = 1.0 + torch.einsum("lb,gbs->gls", oh_s, amp_s75) \
+        .reshape(G, 576)
+    sm = is_short[:, None]
+    xr_a = torch.where(sm, xr_a * gain_s, xr_a)
+    xr75 = torch.where(sm, xr75 * gain_s75, xr75)
+    # permuted-order short gain via the precomputed line map
+    xr75p = torch.where(sm, xr75p * _sfb_gain(amp_s75.reshape(G, 36),
+                                              oh_sp), xr75p)
+
+    over_any = over_l.any(dim=1) | over_s.any(dim=2).any(dim=1)
+    amped_l = (sf_l > 0) if fixed is None else ((sf_l > 0) | fixed)
+    all_amped = torch.where(is_short,
+                            (sf_s > 0).reshape(G, 36).all(dim=1),
+                            amped_l.all(dim=1))
+    overflow2 = _sbc(state, sf_l, sf_s, preflag, ST)[2]
+    done = done | overflow2 | torch.where(
+        filling, (slack <= 32.0) | (fill_rounds_next >= 2),
+        ~over_any | all_amped)
+
+    new = dict(xr_a=xr_a, xr75=xr75, xr75p=xr75p, xmin_l=xmin_l,
+               xmin_s=xmin_s, sf_l=sf_l, sf_s=sf_s, preflag=preflag,
+               qss_prev=qss, done=done, filling=filling,
+               fill_rounds=fill_rounds_next)
+    for k in LOOP_STATE:
+        state[k].copy_(new[k])
+    for k, v in new_best.items():
+        best[k].copy_(v)
+
+
+def _epilogue(xr, best, qss0, block_type, is_short_block):
+    """``outer_loop``'s outputs from the kept decisions (best is taken
+    over, less ``used``)."""
+    silent = xr.abs().amax(dim=1) == 0.0
+    out = dict(best)
+    out.pop("used")
+    p23 = (best["part2"] + best["bits"]).to(torch.int32)
+    # iteration-0 stepsize: the sound warm lower bound for a later
+    # encode of the same spectrum at an equal-or-smaller budget
+    out["qss0"] = qss0
+    out["part2_3_length"] = torch.where(silent, 0, p23).to(torch.int32)
+    out["global_gain"] = torch.where(
+        silent, 210, torch.round(best["qss"] + 210.0).to(torch.int32)) \
+        .to(torch.int32)
+    out["block_type"] = block_type
+    out["window_switching_flag"] = is_short_block.to(torch.int32)
+    return out
+
+
+def _eager(inputs, ST, max_iter):
+    """The three parts dispatched op by op."""
+    state, best = _prologue(ST=ST, **inputs)
+    it = 0
+    while it < max_iter and any_on_host(~state["done"]):
+        _iteration(state, best, ST)
+        it += 1
+    return _epilogue(inputs["xr"], best, state["qss0"], inputs["block_type"],
+                     inputs["is_short_block"])
+
+
+# ---------------------------------------------------------------------------
+# the outer loop as CUDA graphs
+# ---------------------------------------------------------------------------
+
+#: captured rate loops kept at once (a stereo clip of one sample rate
+#: makes 6 keys: 3 segment widths, each for the demand and final encode)
+GRAPH_CACHE_SIZE = 16
+#: graph captures and replays (each replay of a prologue or an iteration)
+graph_counts = dict(captures=0, replays=0)
+
+
+class GraphCache:
+    """At most `size` entries by key, the least recently used dropped
+    first.  An entry (``_Captured``) holds every tensor that its graphs
+    read, so no graph outlives what it reads."""
+
+    def __init__(self, size):
+        self.size = size
+        self.entries = OrderedDict()
+
+    def __len__(self):
+        return len(self.entries)
+
+    def get(self, key):
+        """The entry of `key` (now the most recent), or None."""
+        entry = self.entries.get(key)
+        if entry is not None:
+            self.entries.move_to_end(key)
+        return entry
+
+    def put(self, key, entry):
+        """Add `entry` as the most recent; returns the entries dropped."""
+        self.entries[key] = entry
+        self.entries.move_to_end(key)
+        dropped = []
+        while len(self.entries) > self.size:
+            dropped.append(self.entries.popitem(last=False)[1])
+        return dropped
+
+    def clear(self):
+        self.entries.clear()
+
+
+#: the process's captured rate loops
+GRAPHS = GraphCache(GRAPH_CACHE_SIZE)
+# one captured loop runs at a time: the entries' static tensors, the
+# loop stream and K3's counter are shared
+_GRAPH_LOCK = threading.Lock()
+
+
+def _launch_counts():
+    return search.launches, bits_at.bits_at.launches
+
+
+def _add_launches(n_search, n_bits_at):
+    search.launches += n_search
+    bits_at.bits_at.launches += n_bits_at
+
+
+class _Captured:
+    """One key's captured rate loop: the static inputs, state and best
+    (made by the eager warm-up, outside the graphs' memory pool), the
+    prologue and iteration graphs with the kernel launches each holds,
+    and the other tensors they read (`refs`: the rate's tables, K3's
+    tables and counter)."""
+
+    def __init__(self, inputs, state, best, refs):
+        self.inputs, self.state, self.best, self.refs = (inputs, state,
+                                                         best, refs)
+        self.graphs, self.held = {}, {}
+        self.capture_s = 0.0
+
+    def capture(self, name, fn, record):
+        """``record(fn)`` as graph `name`.  The kernel wrappers count a
+        launch as it is made; those made into the graph are taken back
+        out of their counts, and added again at each replay."""
+        before = _launch_counts()
+        t0 = time.perf_counter()
+        self.graphs[name] = record(fn)
+        self.capture_s += time.perf_counter() - t0
+        after = _launch_counts()
+        self.held[name] = [a - b for a, b in zip(after, before)]
+        _add_launches(*[b - a for a, b in zip(after, before)])
+        graph_counts["captures"] += 1
+
+    def replay(self, name):
+        self.graphs[name].replay()
+        _add_launches(*self.held[name])
+        graph_counts["replays"] += 1
+
+
+def _assign(state, best, new_state, new_best):
+    """Copy a prologue's results into the static state and best (the
+    inputs that it passed through are there already)."""
+    for k, v in new_state.items():
+        if v is not None and v is not state[k]:
+            state[k].copy_(v)
+    for k, v in new_best.items():
+        best[k].copy_(v)
+
+
+def _graph_key(inputs, ST):
+    """What a captured loop is specific to: each input's dtype, shape and
+    device (G among them) or its absence, and the rate's tables (their
+    Python values and the identity of their tensors, which the entry
+    keeps alive)."""
+    return (tuple(None if t is None else (t.dtype, tuple(t.shape), t.device)
+                  for t in inputs.values()),
+            bool(ST["lsf"]), int(ST["r0_pairs_short"]),
+            tuple((k, id(v)) for k, v in ST.items()
+                  if isinstance(v, torch.Tensor)))
+
+
+def _run_captured(inputs, ST, max_iter, record, refs=()):
+    """The captured loop's host side, on the current stream.  On first
+    sight of a key the prologue and the first iteration run eagerly (the
+    warm-up: their results are this call's) on static copies of the
+    inputs, then ``record`` captures each of them (CUDA: ``_cuda_graph``);
+    otherwise the inputs are copied into the key's static inputs and
+    the prologue replays.  Then one iteration replays while ``jaxloop``'s
+    exit condition holds, read on the host (one sync each).  Returns
+    (entry, the entries the cache dropped); the entry's best and state
+    hold this call's results until the next call of its key."""
+    key = _graph_key(inputs, ST)
+    entry = GRAPHS.get(key)
+    dropped = []
+    if entry is None:
+        static = {k: None if v is None else v.clone()
+                  for k, v in inputs.items()}
+        state, best = _prologue(ST=ST, **static)
+        it = 0
+        if it < max_iter and any_on_host(~state["done"]):
+            _iteration(state, best, ST)
+            it += 1
+        entry = _Captured(static, state, best, (dict(ST),) + tuple(refs))
+        entry.capture("prologue", lambda: _assign(
+            state, best, *_prologue(ST=ST, **static)), record)
+        entry.capture("iteration", lambda: _iteration(state, best, ST),
+                      record)
+        dropped = GRAPHS.put(key, entry)
+    else:
+        for k, t in entry.inputs.items():
+            if t is not None:
+                t.copy_(inputs[k])
+        entry.replay("prologue")
+        it = 0
+    while it < max_iter and any_on_host(~entry.state["done"]):
+        entry.replay("iteration")
+        it += 1
+    return entry, dropped
+
+
+@lru_cache(maxsize=None)
+def _loop_stream(device):
+    """The stream on which the captured rate loops of `device` warm up,
+    are captured and replay."""
+    return torch.cuda.Stream(device=device)
+
+
+@lru_cache(maxsize=None)
+def _graph_pool(device):
+    """One memory pool for every rate-loop graph of `device`: no tensor
+    of the pool lives past its graph's run (what crosses replays is in
+    the entries' static tensors), and the graphs replay one at a time on
+    one stream, so they can share their temporaries."""
+    return torch.cuda.graph_pool_handle()
+
+
+def _cuda_graph(device):
+    """``record`` for ``_run_captured`` on `device`: fn() captured into a
+    CUDA graph on the loop stream, in the shared pool."""
+    def record(fn):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=_graph_pool(device),
+                              stream=_loop_stream(device),
+                              capture_error_mode="thread_local"):
+            fn()
+        return graph
+    return record
+
+
+def _graphed(inputs, ST, max_iter):
+    """``outer_loop`` on a CUDA device: ``_run_captured`` on the loop
+    stream (which first waits for the caller's), then the epilogue on
+    the caller's stream on clones of best."""
+    dev = inputs["xr"].device
+    caller = torch.cuda.current_stream(dev)
+    with _GRAPH_LOCK:
+        stream = _loop_stream(dev)
+        stream.wait_stream(caller)
+        with torch.cuda.stream(stream):
+            entry, dropped = _run_captured(
+                inputs, ST, max_iter, _cuda_graph(dev),
+                search.device_buffers(dev))
+            for old in dropped:         # no dropped graph still runs
+                _loop_stream(old.inputs["xr"].device).synchronize()
+        caller.wait_stream(stream)
+        best = {k: v.clone() for k, v in entry.best.items()}
+        qss0 = entry.state["qss0"].clone()
+    return _epilogue(inputs["xr"], best, qss0, inputs["block_type"],
+                     inputs["is_short_block"])
+
+
+def _inputs(xr, budget, ratio_l, ratio_s, is_short_block, block_type,
+            sf_fix_mask, sf_fix_val, sf_skip_mask, qss_lo):
+    return dict(xr=xr, budget=budget, ratio_l=ratio_l, ratio_s=ratio_s,
+                is_short_block=is_short_block, block_type=block_type,
+                sf_fix_mask=sf_fix_mask, sf_fix_val=sf_fix_val,
+                sf_skip_mask=sf_skip_mask, qss_lo=qss_lo)
+
+
 @span("outer_loop")
 def outer_loop(xr, budget, ratio_l, ratio_s, is_short_block, block_type,
                ST, max_iter=6, sf_fix_mask=None, sf_fix_val=None,
@@ -488,188 +984,27 @@ def outer_loop(xr, budget, ratio_l, ratio_s, is_short_block, block_type,
     FIXED (scfsi); sf_skip_mask (G, 21): fixed bands not transmitted.
     qss_lo: warm lower bound for the initial bisection.
     Returns dict of per-granule coding decisions (see jaxloop.outer_loop).
-    """
-    G = xr.shape[0]
-    dev = xr.device
-    is_short = is_short_block & (block_type == 2)
-    long_ = ~is_short
-    xr_abs = xr.abs()
-    nonsilent = xr_abs.amax(dim=1) > 0.0
-    xmin_l, xmin_s = calc_xmin(xr_abs, ratio_l, ratio_s, ST)
-    qanf = quantanf_init(xr_abs)
-    oh_l, oh_s, oh_sp = ST["oh_l"], ST["oh_s"], ST["oh_s_perm"]
 
-    zi = torch.zeros(G, dtype=torch.int32, device=dev)
-    sf_l = torch.zeros((G, 21), dtype=torch.int32, device=dev)
-    sf_s = torch.zeros((G, 12, 3), dtype=torch.int32, device=dev)
+    On a CUDA tensor the prologue and every iteration replay CUDA graphs
+    captured on the key's first call (``GRAPHS``; a capture or replay
+    error raises); on any other device it is ``outer_loop_eager``."""
+    inputs = _inputs(xr, budget, ratio_l, ratio_s, is_short_block,
+                     block_type, sf_fix_mask, sf_fix_val, sf_skip_mask,
+                     qss_lo)
+    if xr.device.type == "cuda":
+        return _graphed(inputs, ST, max_iter)
+    return _eager(inputs, ST, max_iter)
 
-    fixed = None
-    if sf_fix_mask is not None:
-        fixed = sf_fix_mask & long_[:, None]
-        fv = torch.where(fixed, sf_fix_val.to(torch.int32), 0) \
-            .to(torch.int32)
-        sf_l = sf_l + fv
-        # pre-amplify by the fixed scalefactors (ifqstep sqrt(2))
-        gain = _sfb_gain(torch.pow(_SQRT2, fv.to(xr.dtype)) - 1.0, oh_l)
-        xr_abs = torch.where(long_[:, None], xr_abs * gain, xr_abs)
-        xmin_l = xmin_l * torch.pow(2.0, fv.to(xr.dtype))
-    skip = None
-    if sf_skip_mask is not None:
-        skip = sf_skip_mask & long_[:, None]
 
-    def sbc(sf_l, sf_s, preflag):
-        if ST["lsf"]:
-            return scale_bitcount_lsf(sf_l, sf_s, is_short, preflag, ST)
-        return scale_bitcount(sf_l, sf_s, is_short, ST, skip_mask=skip)
-
-    perm = ST["perm_short"]
-    # initial full bisection once; iterations warm-walk from its result
-    xr75 = torch.pow(xr_abs, 0.75)
-    xr75p = torch.where(is_short[:, None], xr75[:, perm], xr75)
-    qss_init, _, _ = search_stepsize(xr75p, budget, qanf, is_short,
-                                     is_short_block, ST, qss_lo=qss_lo)
-
-    xr_a = xr_abs
-    preflag = zi.clone()
-    qss_prev = qss_init
-    done = torch.zeros(G, dtype=torch.bool, device=dev)
-    filling = done.clone()
-    fill_rounds = zi.clone()
-    best = dict(ix=torch.zeros((G, 576), dtype=torch.int32, device=dev),
-                qss=qanf, bits=budget * 0, part2=zi, compress=zi,
-                sf_l=sf_l, sf_s=sf_s, preflag=zi, used=zi, count1=zi,
-                big_values=zi, r0=zi, r1=zi, a1=zi, a2=zi,
-                table_select=torch.zeros((G, 3), dtype=torch.int32,
-                                         device=dev),
-                count1table_select=zi)
-
-    it = 0
-    while it < max_iter and any_on_host(~done):
-        compress, part2, overflow = sbc(sf_l, sf_s, preflag)
-        huff = torch.clamp(budget - part2, min=0.0)
-        qss, bits, c = search_walk(xr75p, huff, qss_prev, is_short,
-                                   is_short_block, ST)
-        ix = quantize_pow75(xr75, qss)
-        xfsf_l, xfsf_s = calc_noise(xr_a, ix, qss, ST)
-
-        # keep the latest encoding as best; in the FILL phase accept
-        # only results that spend strictly more of the granted bits
-        used_new = (part2 + bits).to(torch.int32)
-        new_best = dict(ix=ix, qss=qss, bits=bits, part2=part2,
-                        compress=compress, sf_l=sf_l, sf_s=sf_s,
-                        preflag=preflag, used=used_new,
-                        count1=c["count1"], big_values=c["big_values"],
-                        r0=c["r0"], r1=c["r1"], a1=c["a1"], a2=c["a2"],
-                        table_select=c["table_select"],
-                        count1table_select=c["count1table_select"])
-        upd = (~done) & ((~filling) | (used_new > best["used"]))
-        best = {k: torch.where(_lanes(upd, best[k]), new_best[k], best[k])
-                for k in best}
-        upd = ~done
-
-        # preemphasis (long only, once); the reference amplifies with
-        # the pre-preemphasis noise, and so does this loop
-        over_hi = (xfsf_l[:, 17:21] > xmin_l[:, 17:21]).sum(dim=1)
-        trigger_pre = long_ & (preflag == 0) & (over_hi == 4) & upd
-        tp = trigger_pre[:, None]
-        pre75 = 1.0 + oh_l @ (ST["pre_gain75"] - 1.0)
-        xr_a = torch.where(tp, xr_a * (1.0 + oh_l @ (ST["pre_gain"] - 1.0)),
-                           xr_a)
-        xr75 = torch.where(tp, xr75 * pre75, xr75)
-        # preemphasis is long-only, where xr75p == xr75 line for line
-        xr75p = torch.where(tp, xr75p * pre75, xr75p)
-        xmin_l = torch.where(tp, xmin_l * ST["pre_xmin"], xmin_l)
-        preflag = torch.where(trigger_pre, 1, preflag).to(torch.int32)
-
-        # amplify distorted bands by sqrt(2); xmin doubles accordingly
-        over_l = (xfsf_l > xmin_l) & long_[:, None] & upd[:, None]
-        if fixed is not None:
-            over_l = over_l & ~fixed
-        over_s = (xfsf_s > xmin_s) & is_short[:, None, None] \
-            & upd[:, None, None]
-
-        # budget FILL: a budget-limited granule about to stop with a
-        # large unspent gap amplifies only its k most distorted bands
-        over_any_real = over_l.any(dim=1) | over_s.any(dim=2).any(dim=1)
-        amped_or_over_l = (sf_l > 0) | over_l
-        if fixed is not None:
-            amped_or_over_l = amped_or_over_l | fixed
-        prosp_stop = torch.where(
-            is_short, ((sf_s > 0) | over_s).reshape(G, 36).all(dim=1),
-            amped_or_over_l.all(dim=1)) | ~over_any_real
-        slack = budget - used_new.to(budget.dtype)
-        fillable = (budget < 4000.0) & (slack > 32.0) & (fill_rounds < 2) \
-            & nonsilent
-        filling = filling | (upd & prosp_stop & fillable & ~overflow)
-        use_subset = filling & upd & fillable
-        fill_rounds_next = fill_rounds + use_subset.to(torch.int32)
-        k = torch.clamp((slack / 40.0).to(torch.int32), 1, 20) \
-            .to(torch.int64)
-        ratio_fill_l = xfsf_l / torch.clamp(xmin_l, min=1e-30)
-        thresh_l = torch.sort(ratio_fill_l, dim=1, descending=True).values \
-            .gather(1, (k - 1)[:, None])
-        topk_l = ratio_fill_l >= thresh_l
-        if fixed is not None:
-            topk_l = topk_l & ~fixed
-        over_l = torch.where((use_subset & long_)[:, None], topk_l, over_l)
-        ratio_fill_s = (xfsf_s / torch.clamp(xmin_s, min=1e-30)) \
-            .reshape(G, 36)
-        # the short path indexes with clip(k, 1, 35) where the long path
-        # uses k - 1: kept as the JAX package has it
-        thresh_s = torch.sort(ratio_fill_s, dim=1, descending=True).values \
-            .gather(1, torch.clamp(k, 1, 35)[:, None])
-        topk_s = (ratio_fill_s >= thresh_s).reshape(G, 12, 3)
-        over_s = torch.where((use_subset & is_short)[:, None, None], topk_s,
-                             over_s)
-        sf_l = sf_l + over_l.to(torch.int32)
-        sf_s = sf_s + over_s.to(torch.int32)
-        xmin_l = torch.where(over_l, xmin_l * 2.0, xmin_l)
-        xmin_s = torch.where(over_s, xmin_s * 2.0, xmin_s)
-        over_lf = over_l.to(xr.dtype)
-        gain_long = _sfb_gain(over_lf * (_SQRT2 - 1.0), oh_l)
-        gain_long75 = _sfb_gain(over_lf * (_SQRT2_75 - 1.0), oh_l)
-        lm = long_[:, None]
-        xr_a = torch.where(lm, xr_a * gain_long, xr_a)
-        xr75 = torch.where(lm, xr75 * gain_long75, xr75)
-        xr75p = torch.where(lm, xr75p * gain_long75, xr75p)
-        over_sf = over_s.to(xr.dtype)
-        amp_s = over_sf * (_SQRT2 - 1.0)                 # (G, 12, 3)
-        amp_s75 = over_sf * (_SQRT2_75 - 1.0)
-        gain_s = 1.0 + torch.einsum("lb,gbs->gls", oh_s, amp_s) \
-            .reshape(G, 576)
-        gain_s75 = 1.0 + torch.einsum("lb,gbs->gls", oh_s, amp_s75) \
-            .reshape(G, 576)
-        sm = is_short[:, None]
-        xr_a = torch.where(sm, xr_a * gain_s, xr_a)
-        xr75 = torch.where(sm, xr75 * gain_s75, xr75)
-        # permuted-order short gain via the precomputed line map
-        xr75p = torch.where(sm, xr75p * _sfb_gain(amp_s75.reshape(G, 36),
-                                                  oh_sp), xr75p)
-
-        over_any = over_l.any(dim=1) | over_s.any(dim=2).any(dim=1)
-        qss_prev = qss
-        amped_l = (sf_l > 0) if fixed is None else ((sf_l > 0) | fixed)
-        all_amped = torch.where(is_short,
-                                (sf_s > 0).reshape(G, 36).all(dim=1),
-                                amped_l.all(dim=1))
-        overflow2 = sbc(sf_l, sf_s, preflag)[2]
-        done = done | overflow2 | torch.where(
-            filling, (slack <= 32.0) | (fill_rounds_next >= 2),
-            ~over_any | all_amped)
-        fill_rounds = fill_rounds_next
-        it += 1
-
-    silent = xr.abs().amax(dim=1) == 0.0
-    out = dict(best)
-    out.pop("used")
-    p23 = (best["part2"] + best["bits"]).to(torch.int32)
-    # iteration-0 stepsize: the sound warm lower bound for a later
-    # encode of the same spectrum at an equal-or-smaller budget
-    out["qss0"] = qss_init
-    out["part2_3_length"] = torch.where(silent, 0, p23).to(torch.int32)
-    out["global_gain"] = torch.where(
-        silent, 210, torch.round(best["qss"] + 210.0).to(torch.int32)) \
-        .to(torch.int32)
-    out["block_type"] = block_type
-    out["window_switching_flag"] = is_short_block.to(torch.int32)
-    return out
+@span("outer_loop")
+def outer_loop_eager(xr, budget, ratio_l, ratio_s, is_short_block,
+                     block_type, ST, max_iter=6, sf_fix_mask=None,
+                     sf_fix_val=None, sf_skip_mask=None, qss_lo=None):
+    """``outer_loop`` with the same prologue, iterations and epilogue
+    dispatched op by op on every device: what the CPU runs, and on the
+    card the yardstick of the captured loop.  A run whose searches are
+    swapped for other Python (the plain searches sync on the host) must
+    call this form: a graph replays kernels, not Python."""
+    return _eager(_inputs(xr, budget, ratio_l, ratio_s, is_short_block,
+                          block_type, sf_fix_mask, sf_fix_val, sf_skip_mask,
+                          qss_lo), ST, max_iter)

@@ -30,6 +30,10 @@ waits on the card); and ``runs`` (G,) int32, the evaluations the kernel
 ran for the granule, speculative ones included.  The kernel's rows are
 views of one (16, G) buffer.
 
+``launches`` counts K3's launches as they run: a launch made into a CUDA
+graph (``loop.outer_loop``) is counted at each replay of the graph, not
+at its capture.
+
 ``baseline_stepsize`` and ``baseline_walk`` launch K3's first design
 (``search_baseline``: one warp a granule, every evaluation of the
 plain schedule in turn; no ``runs`` row), which no path calls: it is the
@@ -89,9 +93,12 @@ def plan(G, width=None, device=None):
 
 
 @lru_cache(maxsize=None)
-def _counter(device, stream):
-    """K3's granule counter for launches on `stream`: one int32, zero
-    between launches (the kernel sets it back), allocated once."""
+def _counter(device):
+    """K3's granule counter on `device`: one int32, zero between launches
+    (the kernel sets it back), allocated once.  One a device is enough
+    while no two K3 launches run at once: the launches of one process go
+    to one stream at a time (the caller's, or the rate loop's graph
+    stream, which waits for the caller's and is waited for)."""
     return torch.zeros(1, dtype=torch.int32, device=device)
 
 
@@ -102,6 +109,16 @@ def _istep_table(device):
     q = torch.arange(STEP_LO, STEP_HI + 1, dtype=torch.float32,
                      device=device)
     return torch.exp2(-0.1875 * q)
+
+
+def device_buffers(device):
+    """Every buffer a K3 launch on `device` reads besides its arguments:
+    ``bits_at``'s LUT and count1 lengths, the stepsize table and the
+    counter, made now if they are not yet.  A CUDA graph capture makes
+    them first (a capture must not upload or allocate them) and keeps
+    them alive."""
+    return bits_at._device_tables(device) + (_istep_table(device),
+                                             _counter(device))
 
 
 def _check_inputs(xr75p, budget, start, qss_lo, is_short, is_short_block,
@@ -136,8 +153,7 @@ def _launch(baseline, walk, xr75p, budget, start, qss_lo, is_short,
     rows = bits_at.ROWS + EXTRA_ROWS[:3 if baseline else 4]
     out = torch.empty((len(rows), G), dtype=torch.int32, device=dev)
     if G:
-        lut, hlen = bits_at._device_tables(dev)
-        istep = _istep_table(dev)
+        lut, hlen, istep, counter = device_buffers(dev)
         lib = _library()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
@@ -152,8 +168,7 @@ def _launch(baseline, walk, xr75p, budget, start, qss_lo, is_short,
                                               stream)
             else:
                 err = lib.mp3_search(*args, int(width or 0), G,
-                                     out.data_ptr(),
-                                     _counter(dev, stream).data_ptr(),
+                                     out.data_ptr(), counter.data_ptr(),
                                      stream)
         if err != 0:
             raise RuntimeError(f"search: kernel launch failed, CUDA error "

@@ -7,8 +7,9 @@ MP3TPU_PROFILE env var, or a Profiler is passed explicitly.  For deep
 dives, `trace()` wraps torch.profiler for a device trace viewable in
 Perfetto or chrome://tracing.
 
-In a jax.profiler trace each jitted program carries its name; the eager
-port's encode is some 17k unnamed launches instead.  `span` gives the
+In a jax.profiler trace each jitted program carries its name; the
+port's encode is thousands of unnamed launches and CUDA graph replays
+instead.  `span` gives the
 port's counterparts of those programs the JAX names (``SPANS``) as
 torch.profiler record_function scopes, one per stage call (never per
 bit evaluation), so that a trace groups every launch under the program

@@ -8,7 +8,9 @@ CUDA activity (device kernels and copies, busy and idle share of the
 measured wall), then once more under
 ``torch.utils.flop_counter.FlopCounterMode``, which counts the matmul
 FLOPs (psy DFT, filterbank, MDCT, the rate loop's contractions) in
-place of the JAX tool's XLA cost analysis.
+place of the JAX tool's XLA cost analysis; that encode runs the rate
+loop eagerly (``loop.outer_loop_eager``), since the counter sees no op
+of a replayed CUDA graph.
 
     python -m mp3tpu_torch.tools.profile_encode [--device cuda|cpu]
         [--seconds 60] [out.json]
@@ -26,6 +28,7 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from ..config import EncoderConfig
 from ..encoder import encode_layer3_fast
+from ..ops import loop
 from ..runtime.profiling import Profiler
 from ..tables import mpeg
 from . import FP32_OPS_PER_S, describe, device_or_exit, profile_once, sync
@@ -64,8 +67,15 @@ def run(seconds, device):
         measured()
     wall = got["wall"]
 
-    with FlopCounterMode(display=False) as counter:
-        encode()
+    # a replayed CUDA graph runs no aten op that the counter could see:
+    # the counted encode runs the rate loop op by op (the same arithmetic)
+    graphed = loop.outer_loop
+    loop.outer_loop = loop.outer_loop_eager
+    try:
+        with FlopCounterMode(display=False) as counter:
+            encode()
+    finally:
+        loop.outer_loop = graphed
     flops = int(counter.get_total_flops())
     on_card = dev.type == "cuda"
     return {

@@ -7,9 +7,10 @@ measured in isolation with ``torch.cuda.synchronize()`` after it (the
 JAX tool's honest sync was a scalar ``device_get``), beside the real
 end-to-end wall, this card's link (10 MiB host-to-device pageable and
 pinned, device-to-host, a synchronize round trip) and the host cost of
-one tiny eager launch, the figure that bounds an encode of some 17k
-launches.  Each stage also gets its device kernels and copies and their
-busy time from torch.profiler.
+one tiny eager launch, the figure that bounds an encode of thousands of
+host dispatches (kernel launches, copies, memsets, CUDA graph launches;
+``span_breakdown`` counts them by span).  Each stage also gets its
+device kernels and copies and their busy time from torch.profiler.
 
     python -m mp3tpu_torch.tools.trace_stages [--device cuda|cpu]
         [--seconds 60] [--runs 5] [--trace DIR] [out.json]
@@ -42,6 +43,9 @@ from .signals import make_signal
 MIB10 = 10 << 20
 #: host calls that enqueue device work (their "correlation" names it)
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+#: the CUDA API calls that put work on a stream (kernel and graph
+#: launches, copies, memsets), by a part of their name
+DISPATCH_WORDS = ("Launch", "Memcpy", "Memset")
 
 
 def med(f, n=3):
@@ -114,12 +118,18 @@ def link_figures(dev, n=5):
 def span_breakdown(path, names=SPANS):
     """The encode in a ``trace()`` file by named span: for each name its
     instances, their summed host wall (inclusive, and "self": less the
-    spans nested in them), and the device events (kernels, copies,
-    memsets) whose launching host call lies inside it, with their summed
-    device time (inclusive, and "self": those of no nested span).
+    spans nested in them), the device events (kernels, copies, memsets)
+    whose launching host call lies inside it, with their summed device
+    time, and the host dispatches inside it (CUDA API calls that launch
+    a kernel or a CUDA graph, copy or set memory:
+    ``DISPATCH_WORDS``), each inclusive and "self" (those of no nested
+    span).  A replayed CUDA graph is one dispatch, and each of its
+    kernels a device event linked to it.
 
     Returns {"spans": {name: {...}}, "device_events": all device events
-    (DEVICE_CATS), "device_events_by_cat": their count by category,
+    (DEVICE_CATS), "host_dispatches": all dispatches, "graph_launches":
+    the CUDA graph launches among them, "device_events_by_cat": their
+    count by category,
     "device_s": their summed time, "unlinked_events": device events whose
     launching call the trace does not hold, "copy_calls_without_event":
     copy and memset calls with no device event in the trace,
@@ -145,7 +155,8 @@ def span_breakdown(path, names=SPANS):
         stack.append(i)
     out = {n: {"count": 0, "host_s": 0.0, "self_host_s": 0.0,
                "device_events": 0, "device_s": 0.0,
-               "self_device_events": 0, "self_device_s": 0.0}
+               "self_device_events": 0, "self_device_s": 0.0,
+               "host_dispatches": 0, "self_host_dispatches": 0}
            for n in names}
     for i, s in enumerate(spans):
         rec = out[s["name"]]
@@ -155,28 +166,40 @@ def span_breakdown(path, names=SPANS):
         if parent[i] is not None:
             out[spans[parent[i]]["name"]]["self_host_s"] -= s["dur"] / 1e6
     starts = [s["ts"] for s in spans]
+
+    def holding(ts):
+        """The spans holding host time ts, innermost first."""
+        j = int(np.searchsorted(starts, ts, side="right")) - 1
+        while j >= 0 and spans[j]["ts"] + spans[j]["dur"] < ts:
+            j = parent[j] if parent[j] is not None else -1
+        while j is not None and j >= 0:
+            yield out[spans[j]["name"]]
+            j = parent[j]
+
     unlinked = 0
     for e in device:
         ts = launch_ts.get(e.get("args", {}).get("correlation"))
         if ts is None:
             unlinked += 1
             continue
-        # the innermost span holding the launch, then its ancestors
-        j = int(np.searchsorted(starts, ts, side="right")) - 1
-        while j >= 0 and spans[j]["ts"] + spans[j]["dur"] < ts:
-            j = parent[j] if parent[j] is not None else -1
-        first = True
-        while j is not None and j >= 0:
-            rec = out[spans[j]["name"]]
+        for depth, rec in enumerate(holding(ts)):
             rec["device_events"] += 1
             rec["device_s"] += e["dur"] / 1e6
-            if first:
+            if depth == 0:
                 rec["self_device_events"] += 1
                 rec["self_device_s"] += e["dur"] / 1e6
-                first = False
-            j = parent[j]
+    dispatches = [e for e in events if e.get("cat") in LAUNCH_CATS
+                  and any(w in e["name"] for w in DISPATCH_WORDS)]
+    for e in dispatches:
+        for depth, rec in enumerate(holding(e["ts"])):
+            rec["host_dispatches"] += 1
+            if depth == 0:
+                rec["self_host_dispatches"] += 1
     linked = {e.get("args", {}).get("correlation") for e in device}
     return {"spans": out, "device_events": len(device),
+            "host_dispatches": len(dispatches),
+            "graph_launches": sum("GraphLaunch" in e["name"]
+                                  for e in dispatches),
             "device_events_by_cat": {c: sum(e["cat"] == c for e in device)
                                      for c in DEVICE_CATS},
             "device_s": sum(e["dur"] for e in device) / 1e6,

@@ -378,8 +378,7 @@ def test_search_past_the_grid_shares_granules_out(card, width):
         "groups"]
     for name in ("stepsize", "walk"):
         _, (_, args, _) = _check(search_case(name, G, 77), card, width)
-        stream = torch.cuda.current_stream().cuda_stream
-        assert not bool(search._counter(args[0].device, stream).any())
+        assert not bool(search._counter(args[0].device).any())
 
 
 @pytest.mark.cuda
