@@ -63,7 +63,9 @@ Phases, each printing its own lines; any failure exits non-zero:
      baseline in turns; the stream must sit on the frame grid and its
      first 10 s must decode within 1 dB of the CPU path's 10 s encode;
   5b. the rate loop as CUDA graphs (loop.outer_loop on the card) against
-     op by op (loop.outer_loop_eager) on the main path: captures from an
+     op by op (loop.outer_loop_eager) on the main path, the analysis and
+     the emission in their yardstick forms in both
+     (mp3tpu_torch.tools.yardstick_form): captures from an
      empty cache (capture time per key, torch.cuda.memory_reserved before
      and after), captures, replays, loop-exit syncs and K3 launches of
      both, the iterations of each outer_loop call, the same bytes, 3 ABBA
@@ -75,13 +77,32 @@ Phases, each printing its own lines; any failure exits non-zero:
      main path's own first 512- and 4096-lane demand and final batches
      and on random MPEG-1 and LSF demand and final batches at G = 4096
      and 32,768, each new key called twice (its capture, then replays);
+  5c. the segment program as the package runs it on the card (the
+     analysis of all lanes in one batch, the rate loop, and the emission
+     and packing after the final rate loop, each replaying CUDA graphs)
+     against the yardstick form (the analysis lane by lane and the
+     emission op by op, the rate loop as graphs): captures from empty
+     caches (capture ms by stage and key, torch.cuda.memory_reserved
+     before and after); the captured analysis against the lane-by-lane
+     one, torch.equal on every output, on the main path's own 512- and
+     4096-lane segments, two calls each, and each product of the
+     analysis batched alone (which change an output); encode_final with
+     the emission replayed against encode_final_eager on the main path's
+     own final encodes; then both forms: the same bytes, counts (launches,
+     syncs, captures and replays by stage), 3 ABBA turns (real-time
+     factor), one profiled encode each (device events, idle share) and
+     one traced encode each (host dispatches and device events by span;
+     analyze_demand_fused's own dispatches at most 100, granule_payload's
+     at most 32);
   6. MPEG-2 LSF: the three 0.5 s mono cases of tests/test_lsf.py, then a
      60 s stereo 24 kHz 64 kbps clip (launches and syncs counted), interior
-     frames on the grid, first 10 s within 1 dB of the CPU path;
+     frames on the grid, the yardstick form's bytes, first 10 s within
+     1 dB of the CPU path;
   7. streaming: the bench clip in 1 s pieces through StreamEncoder at
      window 1024 (launches counted, timed) must equal the one-shot
-     encode at chunk 1024 byte for byte, and so must a run checkpointed
-     at 30 s, pickled and resumed in a fresh encoder;
+     encode at chunk 1024 byte for byte, and the stream in the yardstick
+     form, and so must a run checkpointed at 30 s, pickled and resumed in
+     a fresh encoder;
   8. Layers I/II: the six fixtures of tests/test_layer12_fast.py and its
      CRC case, then a 60 s stereo 44.1 kHz Layer II 192 kbps clip (frame
      grid, timed, first 10 s within 0.5 dB of the CPU path);
@@ -91,9 +112,14 @@ Phases, each printing its own lines; any failure exits non-zero:
      clips) through encode_corpus_batched at lane batch 1, 2, 4, 8 and 16
      by the corpus sweep tool (mp3tpu_torch.tools.corpus_sweep.sweep): one
      warm-up and 3 timed runs each (aggregate real-time factor, K3
-     launches per group, equal outputs, frame grid); one group of 1 and
-     one of 16 split into analysis, rate loop and the rest (wall between
-     synchronizes, device kernels by stage); the eight stereo 44.1 kHz
+     launches per group, equal outputs, frame grid); the captured graphs
+     then held (capture ms, torch.cuda.memory_reserved); one group of 1
+     and one of 16 split into analysis, rate loop with emission and the
+     rest (wall between synchronizes, device kernels by stage); the whole
+     corpus at lane batch 16 as the package runs it against the
+     yardstick form as in 5c (the same bytes for every clip, the sweep's);
+     the captured analysis against the lane-by-lane one on a group's 32
+     lanes as in 5c; the eight stereo 44.1 kHz
      128 kbps quality fixtures as one mixed-length group, each at its bar
      and within 0.5 dB of its one-shot encode; K3 (each width) and the
      baseline against the plain search on the first 32,768-lane stepsize
@@ -104,13 +130,16 @@ Phases, each printing its own lines; any failure exits non-zero:
      process) and 2 (gloo, two processes of this script run with
      --sharded-rank, both computing on cuda:0): equal length, equal block
      types and first-10 s SNR within 0.5 dB of the one-shot encode at the
-     same chunk, both ranks' bytes equal; timed, kernels counted; K3
+     same chunk, both ranks' bytes equal, each run's bytes those of its
+     yardstick form; timed, kernels counted; K3
      against the plain search on each run's own first stepsize search
      (9,216 lanes at world size 1, 4,608 on each rank at 2) and bits_at
      against its plain chain at three stepsizes of that batch;
   12. tooling: runtime.profiling.trace around one 60 s bench encode into
      a temporary directory (trace.json parses, every named program span
-     of runtime.profiling.SPANS is in it, its search_kernel and
+     of runtime.profiling.SPANS is in it but those whose programs a
+     replayed graph covers (runtime.profiling.REPLAY_COVERS), its
+     search_kernel and
      bits_at_kernel events equal search.launches and bits_at.launches of
      that encode, the same bytes as phase 5; its device events by
      category (kernels, copies, memsets) as span_breakdown reads them
@@ -132,11 +161,14 @@ Phases, each printing its own lines; any failure exits non-zero:
      printed, and per tool the three values with their median, min and
      max beside the card's name and power limit.
 On every path (main, LSF, stream, corpus, sharded) K3 must launch, the
-rate loop's CUDA graphs must replay, and the rate loop must launch
-bits_at and the baseline no time; the launches, loop-exit syncs and
-graph captures and replays per path are printed.  Its last lines are a JSON object
-describing the kernels and then {"ok": true, "device": {...}}.  It
-imports nothing of JAX and nothing of the JAX package.
+segment program's CUDA graphs must replay (the analysis, the rate loop
+and the emission; the sharded path's analysis, which holds an exchange
+between ranks, runs its lanes as one batch op by op), and the rate loop
+must launch bits_at and the baseline no time; the launches, loop-exit
+syncs and graph captures and replays by stage per path are printed.
+Its last lines are a JSON object describing the kernels and then
+{"ok": true, "device": {...}}.  It imports nothing of JAX and nothing of
+the JAX package.
 """
 import json
 import os
@@ -153,7 +185,7 @@ sys.path.insert(0, ROOT)
 
 from mp3tpu_torch.tools import (DEVICE_CATS,  # noqa: E402
                                 FP32_OPS_PER_S, HBM_BYTES_PER_S,
-                                device_events, profile_once)
+                                device_events, profile_once, yardstick_form)
 from mp3tpu_torch.tools.signals import make_signal  # noqa: E402
 
 CLIP_SECONDS = 60.0
@@ -958,30 +990,53 @@ def reset_counts(ctx):
     ctx["K"].bits_at.launches = 0
     ctx["k1"].hist_c1.launches = 0
     ctx["loop"].any_on_host.syncs = 0
-    ctx["loop"].graph_counts.update(captures=0, replays=0)
+    ctx["graphs"].reset_counts()
     ctx["torch"].cuda.synchronize()
+
+
+def graph_count_keys(by_stage):
+    """{"<stage>_captures": n, "<stage>_replays": m} of graphs.by_stage()."""
+    return {f"{s}_{kind}": n for s, pair in by_stage.items()
+            for kind, n in zip(("captures", "replays"), pair)}
+
+
+def stage_pairs(counts):
+    """{stage: (captures, replays)} of launch_counts' "<stage>_..." keys."""
+    return {s: (counts[f"{s}_captures"], counts[f"{s}_replays"])
+            for s in SEGMENT_STAGES}
 
 
 def launch_counts(ctx):
     """{kernel: launches, "syncs": loop-exit host syncs, "captures" and
-    "replays": the rate loop's CUDA graph captures and replays} since
-    reset_counts."""
+    "replays": the segment program's CUDA graph captures and replays, and
+    each stage's ("<stage>_captures", "<stage>_replays": analysis,
+    prologue, iteration, emission)} since reset_counts."""
     return {"search": ctx["S"].launches, "bits_at": ctx["K"].bits_at.launches,
             "hist_c1": ctx["k1"].hist_c1.launches,
             "baseline": ctx["S"].baseline_launches,
             "syncs": ctx["loop"].any_on_host.syncs,
-            **ctx["loop"].graph_counts}
+            **ctx["graphs"].totals(),
+            **graph_count_keys(ctx["graphs"].by_stage())}
 
 
-def read_counts(ctx, path):
+#: the captured stages that every path replays: the one-shot, LSF,
+#: stream and corpus paths run the whole segment program; the sharded
+#: path's analysis holds an exchange between ranks and runs its lanes as
+#: one batch op by op (parallel/clip.py)
+SEGMENT_STAGES = ("analysis", "prologue", "iteration", "emission")
+SHARDED_STAGES = ("prologue", "iteration", "emission")
+
+
+def read_counts(ctx, path, stages=SEGMENT_STAGES):
     """launch_counts; fails unless the path launched K3 and replayed the
-    rate loop's graphs, and its rate loop launched bits_at and the
-    baseline no time."""
+    graphs of each of `stages`, and its rate loop launched bits_at and
+    the baseline no time."""
     counts = launch_counts(ctx)
     if counts["search"] <= 0:
         fail(f"the {path} launched K3 no time")
-    if counts["replays"] <= 0:
-        fail(f"the {path} replayed the rate loop's graphs no time")
+    for stage in stages:
+        if counts[f"{stage}_replays"] <= 0:
+            fail(f"the {path} replayed the {stage} graphs no time: {counts}")
     for kernel in ("bits_at", "baseline"):
         if counts[kernel]:
             fail(f"the {path} launched {kernel} {counts[kernel]} times")
@@ -1021,10 +1076,14 @@ def phase_lsf(ctx):
     wall = time.perf_counter() - t0
     launches = read_counts(ctx, "LSF path")
     fsize = lsf_grid(out, rate, kbps)
+    with yardstick_form():
+        if encode(pcm, cfg, device="cuda") != out:
+            fail("LSF 60 s: the segment graphs and the yardstick form give "
+                 "other bytes")
     print(f"LSF 60 s stereo 24 kHz 64 kbps: {len(out)} bytes, interior "
           f"frames on the {fsize}-byte grid, {wall:.3f} s (first run): "
-          f"{CLIP_SECONDS / wall:.2f}x real time; launches {launches}",
-          flush=True)
+          f"{CLIP_SECONDS / wall:.2f}x real time; launches {launches}; the "
+          f"yardstick form gives the same bytes", flush=True)
     t0 = time.perf_counter()
     encode(pcm, cfg, device="cuda")
     wall = time.perf_counter() - t0
@@ -1069,10 +1128,15 @@ def phase_stream(ctx, pcm, cfg_of):
     if streamed != one:
         fail(f"stream ({len(streamed)} bytes) != one-shot at chunk 1024 "
              f"({len(one)} bytes)")
+    with yardstick_form():
+        enc = StreamEncoder(cfg_of(), "cuda", window=1024)
+        if run(enc, 0, len(pcm)) + enc.finish() != streamed:
+            fail("stream: the segment graphs and the yardstick form give "
+                 "other bytes")
     print(f"stream: 60 s stereo 128 kbps in 1 s pieces, window 1024: "
           f"{wall:.3f} s, {CLIP_SECONDS / wall:.2f}x real time; equal to "
-          f"the one-shot encode at chunk 1024 ({len(one)} bytes); "
-          f"launches {launches}", flush=True)
+          f"the one-shot encode at chunk 1024 ({len(one)} bytes) and to "
+          f"the yardstick form; launches {launches}", flush=True)
 
     cut = 30 * rate
     enc1 = StreamEncoder(cfg_of(), "cuda", window=1024)
@@ -1244,15 +1308,17 @@ CORPUS_BATCHES = (1, 2, 4, 8, 16)
 
 
 def group_split(ctx, group, kw):
-    """One corpus group's wall split into the per-lane analysis
-    (Layer3SegmentEncoder._analyze_chunk), the rate loops (loop.outer_loop)
-    and the rest, each timed between synchronizes; and the device kernels
-    and copies of each stage, counted by torch.profiler over a replay of
-    that stage's calls, and of the whole group."""
+    """One corpus group's wall split into the analysis
+    (Layer3SegmentEncoder.analysis: one replay of the batched analysis a
+    segment), the rate loops (loop.outer_loop, with the final encode's
+    emission replayed after its last iteration) and the rest, each timed
+    between synchronizes; and the device kernels and copies of each stage,
+    counted by torch.profiler over a rerun of that stage's calls, and of
+    the whole group."""
     torch, loop = ctx["torch"], ctx["loop"]
     from mp3tpu_torch.models.layer3 import Layer3SegmentEncoder as Enc
     from mp3tpu_torch.parallel.corpus import encode_corpus_batched
-    real = {"analysis": Enc._analyze_chunk, "rate loop": loop.outer_loop}
+    real = {"analysis": Enc.analysis, "rate loop": loop.outer_loop}
     secs = dict.fromkeys(real, 0.0)
     calls = {k: [] for k in real}
 
@@ -1270,14 +1336,14 @@ def group_split(ctx, group, kw):
     def encode():
         return encode_corpus_batched(group, kw, "cuda", batch=len(group))
 
-    Enc._analyze_chunk, loop.outer_loop = timed("analysis"), timed("rate loop")
+    Enc.analysis, loop.outer_loop = timed("analysis"), timed("rate loop")
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         encode()
         wall = time.perf_counter() - t0
     finally:
-        Enc._analyze_chunk = real["analysis"]
+        Enc.analysis = real["analysis"]
         loop.outer_loop = real["rate loop"]
     kernels = {}
     for key, fn in real.items():
@@ -1287,14 +1353,15 @@ def group_split(ctx, group, kw):
     print(f"corpus group of {len(group)} clips ({2 * len(group)} lanes): "
           f"wall {wall:.4f} s with a synchronize around each stage call; "
           f"analysis {secs['analysis']:.4f} s in "
-          f"{len(calls['analysis'])} per-lane calls "
-          f"({secs['analysis'] / wall:.1%}), rate loop "
+          f"{len(calls['analysis'])} calls of all lanes "
+          f"({secs['analysis'] / wall:.1%}), rate loop and emission "
           f"{secs['rate loop']:.4f} s in {len(calls['rate loop'])} calls "
           f"({secs['rate loop'] / wall:.1%}), the rest "
           f"{wall - secs['analysis'] - secs['rate loop']:.4f} s; device "
           f"kernels and copies (torch.profiler): analysis "
-          f"{kernels['analysis']}, rate loop {kernels['rate loop']}, whole "
-          f"group {kernels['whole group']}", flush=True)
+          f"{kernels['analysis']}, rate loop and emission "
+          f"{kernels['rate loop']}, whole group {kernels['whole group']}",
+          flush=True)
 
 
 def phase_corpus(ctx, line, cfg_of):
@@ -1339,13 +1406,25 @@ def phase_corpus(ctx, line, cfg_of):
               f"K3 launches {counts['search']} in {groups} groups "
               f"({counts['search'] / groups:.1f} a group), bits_at "
               f"{counts['bits_at']}, loop-exit syncs {counts['syncs']}, "
-              f"rate-loop graph captures {counts['captures']} and replays "
-              f"{counts['replays']} on {line}",
+              f"graph captures and replays by stage {stage_pairs(counts)} "
+              f"on {line}",
               flush=True)
     launches = counts_of[CORPUS_BATCHES[-1]]
+    print_captures(ctx, "after the corpus sweep")
 
     for batch in (1, CORPUS_BATCHES[-1]):
         group_split(ctx, clips[:batch], kw)
+    batch = CORPUS_BATCHES[-1]
+    outs, forms = form_runs(
+        ctx, lambda: encode_corpus_batched(clips, kw, "cuda",
+                                           batch=batch)[0],
+        f"corpus at lane batch {batch}", line, audio)
+    # form_runs held every clip's yardstick stream to the package's, and
+    # those are the sweep's
+    if outs != first_of[batch]:
+        fail(f"corpus at lane batch {batch}: other bytes than the sweep's")
+    analysis_check(ctx, *corpus_analysis_args(ctx, clips[:batch], kw),
+                   f"a corpus group of {batch} ({2 * batch} lanes)")
 
     # the eight stereo 44.1 kHz 128 kbps quality fixtures as one group
     golden = os.path.join(ROOT, "tests", "golden")
@@ -1397,7 +1476,44 @@ def phase_corpus(ctx, line, cfg_of):
     return dict(launches=launches, max_abs_err=err, ms=k_dev,
                 plain_ms=p_dev, bound_ms=b_ms, bound_by=b_by,
                 search_max_abs_err=s_err, baseline_max_abs_err=b_err,
-                search=k3, batch2_outs=first_of[2])
+                search=k3, batch2_outs=first_of[2], forms=forms)
+
+
+def corpus_analysis_args(ctx, group, kw):
+    """(encoder, (blocks_h4, fsm_init)) of the first analysis a corpus
+    group makes, recorded at Layer3SegmentEncoder.analysis."""
+    from mp3tpu_torch.models.layer3 import Layer3SegmentEncoder as Enc
+    from mp3tpu_torch.parallel.corpus import encode_corpus_batched
+    real, seen = Enc.analysis, []
+
+    def record(self, blocks_h4, fsm_init):
+        if not seen:
+            seen.append((self, (blocks_h4.clone(), fsm_init.clone())))
+        return real(self, blocks_h4, fsm_init)
+
+    Enc.analysis = record
+    try:
+        encode_corpus_batched(group, kw, "cuda", batch=len(group))
+    finally:
+        Enc.analysis = real
+    return seen[0]
+
+
+def print_captures(ctx, when):
+    """The captured graphs held now: by stage and key, the capture ms,
+    and torch.cuda.memory_reserved."""
+    from mp3tpu_torch.models import layer3
+    torch, loop = ctx["torch"], ctx["loop"]
+    rows = [f"analysis {tuple(e.inputs['blocks_h4'].shape)} "
+            f"{1e3 * e.capture_s['analysis']:.1f}"
+            for e in layer3.GRAPHS.entries.values()]
+    rows += [f"{name if isinstance(name, str) else name[0]} "
+             f"{e.inputs['xr'].shape[0]} lanes {1e3 * t:.1f}"
+             for e in loop.GRAPHS.entries.values()
+             for name, t in e.capture_s.items()]
+    print(f"captured graphs {when} (stage, key, capture ms): "
+          f"{'; '.join(rows)}; torch.cuda.memory_reserved "
+          f"{torch.cuda.memory_reserved() / 2**20:.1f} MiB", flush=True)
 
 
 def free_port():
@@ -1431,6 +1547,7 @@ def sharded_rank(rank, world, url, out):
     if not torch.cuda.is_available():
         fail("sharded rank: no CUDA device")
     from mp3tpu_torch.config import EncoderConfig
+    from mp3tpu_torch.ops import graphs as G
     from mp3tpu_torch.ops import loop
     from mp3tpu_torch.parallel.clip import encode_layer3_sharded
     from mp3tpu_torch.parallel.corpus import init_distributed
@@ -1448,11 +1565,13 @@ def sharded_rank(rank, world, url, out):
 
         encode()
         dist.barrier()
-        loop.graph_counts.update(captures=0, replays=0)
+        G.reset_counts()
         t0 = time.perf_counter()
         data = encode()
         wall = time.perf_counter() - t0
-        graphs = dict(loop.graph_counts)
+        graphs = {**G.totals(), "by_stage": G.by_stage()}
+        with yardstick_form():
+            yardstick_same = encode() == data
         _, err, s_err, b_err = path_batch_check(
             dict(torch=torch, loop=loop), encode,
             sharded_lanes(2 * -(-len(pcm) // 1152), world),
@@ -1464,7 +1583,8 @@ def sharded_rank(rank, world, url, out):
     with open(out + ".json", "w") as f:
         json.dump({"wall_s": wall, "max_abs_err": err,
                    "search_max_abs_err": s_err,
-                   "baseline_max_abs_err": b_err, "graphs": graphs}, f)
+                   "baseline_max_abs_err": b_err, "graphs": graphs,
+                   "yardstick_same": yardstick_same}, f)
 
 
 def phase_sharded(ctx, cfg_of, line):
@@ -1497,7 +1617,11 @@ def phase_sharded(ctx, cfg_of, line):
         t0 = time.perf_counter()
         streams[1] = encode_layer3_sharded(pcm, cfg_of(), "cuda")
         walls = {1: [time.perf_counter() - t0]}
-        launches = read_counts(ctx, "sharded path")
+        launches = read_counts(ctx, "sharded path", SHARDED_STAGES)
+        with yardstick_form():
+            if encode_layer3_sharded(pcm, cfg_of(), "cuda") != streams[1]:
+                fail("sharded world 1: the batched lanes with the emission "
+                     "replayed and the yardstick form give other bytes")
         n_sh = len(profile_once(
             lambda: encode_layer3_sharded(pcm, cfg_of(), "cuda"))[0])
         _, err, s_err, b_err = path_batch_check(
@@ -1538,9 +1662,13 @@ def phase_sharded(ctx, cfg_of, line):
         with open(out + ".json") as f:
             res = json.load(f)
         walls[2].append(res["wall_s"])
-        if res["graphs"]["replays"] <= 0:
-            fail(f"sharded world 2: a rank's timed encode replayed the rate "
-                 f"loop's graphs no time ({res['graphs']})")
+        by_stage = res["graphs"]["by_stage"]
+        if any(by_stage[st][1] <= 0 for st in SHARDED_STAGES):
+            fail(f"sharded world 2: a rank's timed encode replayed the "
+                 f"{SHARDED_STAGES} graphs no time ({res['graphs']})")
+        if not res["yardstick_same"]:
+            fail("sharded world 2: a rank's batched lanes with the emission "
+                 "replayed and its yardstick form gave other bytes")
         replays.append(res["graphs"])
         errs.append(res["max_abs_err"])
         s_errs.append(res["search_max_abs_err"])
@@ -1590,10 +1718,11 @@ def phase_sharded(ctx, cfg_of, line):
               f"{line}", flush=True)
     print(f"sharded world 1: {n_sh} device kernels and copies per encode "
           f"(torch.profiler), one-shot at chunk {_chunk_size(G)}: "
-          f"{one_shot[_chunk_size(G)][2]}; rate-loop graph captures and "
-          f"replays of the timed encode: world 1 {launches['captures']} / "
-          f"{launches['replays']}, world 2 by rank "
-          f"{[(r['captures'], r['replays']) for r in replays]}", flush=True)
+          f"{one_shot[_chunk_size(G)][2]}; graph captures and replays of "
+          f"the timed encode by stage: world 1 "
+          f"{stage_pairs(launches)}, "
+          f"world 2 by rank {[r['by_stage'] for r in replays]}; each run's "
+          f"yardstick form gives its bytes", flush=True)
     return dict(launches=launches, max_abs_err=max(errs),
                 search_max_abs_err=max(s_errs),
                 baseline_max_abs_err=max(b_errs))
@@ -1601,11 +1730,12 @@ def phase_sharded(ctx, cfg_of, line):
 
 def phase_trace(ctx, pcm, cfg_of, main_out):
     """Phase 12a: runtime.profiling.trace around one bench encode; the
-    trace must hold every named span and one search_kernel event per K3
+    trace must hold every named span (less those a replay covers:
+    REPLAY_COVERS) and one search_kernel event per K3
     launch (and as many bits_at_kernel events as bits_at launches: none;
     asked up to 3 times: the profiler now and then records no device
     event in a window)."""
-    from mp3tpu_torch.runtime.profiling import SPANS, trace
+    from mp3tpu_torch.runtime.profiling import REPLAY_COVERS, SPANS, trace
     from mp3tpu_torch.tools.trace_stages import span_breakdown
     with tempfile.TemporaryDirectory() as tmp:
         for attempt in range(3):
@@ -1632,7 +1762,9 @@ def phase_trace(ctx, pcm, cfg_of, main_out):
                  "launch")
     if out != main_out:
         fail("the traced encode gave other bytes than phase 5's")
-    missing = [n for n in SPANS if bd["spans"][n]["count"] == 0]
+    covered = {n for names in REPLAY_COVERS.values() for n in names}
+    missing = [n for n in SPANS if bd["spans"][n]["count"] == 0
+               and n not in covered]
     if missing:
         fail(f"the trace lacks the spans {missing}")
     print(f"trace: trace.json of {size} bytes parsed in {parse_s:.2f} s; "
@@ -1870,8 +2002,12 @@ def phase_main(ctx, pcm, cfg, line):
 
     # the five ways: the functions swapped into loop, and the launch
     # counts that must be 0 / more than 0 after each; K3's evaluation
-    # counts are read with the rate loop op by op ("k3_eager")
-    op_by_op = ("captures", "replays")
+    # counts are read with the rate loop op by op ("k3_eager").  The
+    # analysis replays its graph on every way; the emission is the rate
+    # loop's continuation, op by op where the loop is.
+    op_by_op = tuple(f"{s}_{kind}" for s in ("prologue", "iteration",
+                                              "emission")
+                     for kind in ("captures", "replays"))
     ways = {"plain": (dict(plain_searches, _bits_at=plain_chain),
                       ("search", "bits_at", "hist_c1", "baseline")
                       + op_by_op, ()),
@@ -1885,7 +2021,7 @@ def phase_main(ctx, pcm, cfg, line):
             "k3_eager": (eager, ("bits_at", "hist_c1", "baseline")
                          + op_by_op, ("search",)),
             "k3": ({}, ("bits_at", "hist_c1", "baseline"),
-                   ("search", "replays"))}
+                   ("search", "iteration_replays", "emission_replays"))}
     label = {"plain": "plain", "k1": "K1 chain", "pr5": "the lockstep path",
              "baseline": "K3's first design",
              "k3_eager": "K3, the rate loop op by op",
@@ -2059,8 +2195,9 @@ def loop_equal(ctx, label, args, kwargs, times=1):
 
 
 def phase_graphs(ctx, pcm, cfg, line, main_out):
-    """Phase 5b: the main path with the rate loop as CUDA graphs (as the
-    package runs it) and op by op (loop.outer_loop_eager): captures from
+    """Phase 5b: the main path with the rate loop as CUDA graphs and op by
+    op (loop.outer_loop_eager), the analysis and the emission in their
+    yardstick forms in both (tools.yardstick_form): captures from
     an empty cache (capture time per key, torch.cuda.memory_reserved
     before and after), the counts of both (captures, replays, loop-exit
     syncs, K3 launches; the iterations of each outer_loop call), the same
@@ -2086,22 +2223,25 @@ def phase_graphs(ctx, pcm, cfg, line, main_out):
             k0, s0 = S.launches, loop.any_on_host.syncs
             out = forms[form](*args, **kwargs)
             kind = "final" if kwargs.get("qss_lo") is not None else "demand"
-            G = args[0].shape[0]
+            G = (args[0] if args else kwargs["xr"]).shape[0]
             calls[form].append((G, kind, S.launches - k0 - 1,
                                 loop.any_on_host.syncs - s0))
             if form == "eager" and (G, kind) not in batches:
                 batches[G, kind] = (
                     tuple(a.clone() if hasattr(a, "clone") else a
                           for a in args),
-                    {k: v if v is None else v.clone()
+                    {k: v.clone() if hasattr(v, "clone") else v
                      for k, v in kwargs.items()})
             return out
         return call
 
     def run(form, log=False):
+        # the analysis and emission in their yardstick forms, so that the
+        # two forms differ in the rate loop alone
         loop.outer_loop = logged(form) if log else forms[form]
         try:
-            return ctx["encode"](pcm, cfg, device="cuda")
+            with yardstick_form():
+                return ctx["encode"](pcm, cfg, device="cuda")
         finally:
             loop.outer_loop = graphed
 
@@ -2121,7 +2261,8 @@ def phase_graphs(ctx, pcm, cfg, line, main_out):
             reserved1 = torch.cuda.memory_reserved()
             keys = [(e.inputs["xr"].shape[0],
                      "final" if e.inputs["qss_lo"] is not None else "demand",
-                     e.capture_s) for e in loop.GRAPHS.entries.values()]
+                     sum(e.capture_s.values()))
+                    for e in loop.GRAPHS.entries.values()]
     for form, out in outs.items():
         if out != main_out:
             fail(f"main path with the rate loop {name[form]}: other bytes "
@@ -2226,6 +2367,258 @@ def phase_graphs(ctx, pcm, cfg, line, main_out):
                 reserved=(reserved0, reserved1), **res)
 
 
+#: phase 5c times the package and the yardstick form in this many ABBA
+#: turns (2 runs each), and so does phase 10 at lane batch 16
+SEGMENT_TURNS = 3
+#: the spans whose host dispatches and device events phases 5c and 10
+#: print for each form
+FORM_SPANS = ("encode_segment_fused", "analyze_demand_fused", "outer_loop",
+              "encode_final", "granule_payload", "compact_payload",
+              "pack_state")
+#: the most host dispatches a traced 60 s encode may make in the spans
+#: whose programs replay one graph a call: analyze_demand_fused's own
+#: and granule_payload's
+MAX_DISPATCHES = {"analyze_demand_fused": 100, "granule_payload": 32}
+
+
+def form_runs(ctx, run, label, line, audio_s, turns=SEGMENT_TURNS):
+    """run() as the package runs it ("graphs": the analysis, the rate loop
+    and the emission replay CUDA graphs) and in the yardstick form
+    ("yardstick", tools.yardstick_form: the analysis lane by lane, the
+    emission op by op, the rate loop as graphs): the counts of one run
+    each (launches, syncs, graph captures and replays by stage), equal
+    outputs, `turns` ABBA turns (median wall, real-time factor of audio_s
+    seconds), one profiled run each (device events, idle share) and one
+    traced run each (host dispatches and device events by span,
+    search_kernel events = search.launches).  Returns (the output,
+    {form: record})."""
+    import contextlib
+    torch = ctx["torch"]
+    from mp3tpu_torch.runtime.profiling import trace
+    from mp3tpu_torch.tools.trace_stages import span_breakdown
+    forms = {"graphs": contextlib.nullcontext, "yardstick": yardstick_form}
+
+    def go(form):
+        with forms[form]():
+            return run()
+
+    outs, counts = {}, {}
+    for form in forms:
+        reset_counts(ctx)
+        outs[form] = go(form)
+        torch.cuda.synchronize()
+        counts[form] = launch_counts(ctx)
+    if outs["graphs"] != outs["yardstick"]:
+        fail(f"{label}: the segment graphs and the yardstick form give "
+             f"other bytes")
+    times = {form: [] for form in forms}
+    for form in ("yardstick", "graphs", "graphs", "yardstick") * turns:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = go(form)
+        times[form].append(time.perf_counter() - t0)
+        if out != outs["graphs"]:
+            fail(f"{label}: a timed run ({form}) gave other bytes")
+    res = {}
+    for form in forms:
+        wall = statistics.median(times[form])
+        for _ in range(3):      # the profiler now and then records none
+            events, busy, pwall = profile_once(lambda: go(form))
+            if events:
+                break
+        else:
+            fail(f"{label}: torch.profiler recorded no device event "
+                 f"({form})")
+        with tempfile.TemporaryDirectory() as tmp:
+            for _ in range(3):
+                reset_counts(ctx)
+                with trace(tmp, "cuda"):
+                    t0 = time.perf_counter()
+                    go(form)
+                    traced = time.perf_counter() - t0
+                launches = launch_counts(ctx)
+                bd = span_breakdown(os.path.join(tmp, "trace.json"))
+                if bd["search_kernel_events"] == launches["search"]:
+                    break
+            else:
+                fail(f"{label}: the trace ({form}) never held one "
+                     f"search_kernel event per K3 launch")
+        spans = {n: {k: bd["spans"][n][k] for k in (
+            "count", "self_host_s", "host_dispatches",
+            "self_host_dispatches", "device_events", "self_device_events")}
+            for n in FORM_SPANS}
+        res[form] = dict(wall=wall, walls=times[form], rtf=audio_s / wall,
+                         events=len(events), busy=busy,
+                         idle=1.0 - busy / pwall,
+                         dispatches=bd["host_dispatches"],
+                         device_events=bd["device_events"],
+                         graph_launches=bd["graph_launches"],
+                         traced_wall=traced, spans=spans,
+                         counts=counts[form])
+        print(f"{label}, {form}: median wall {wall:.4f} s of {2 * turns} "
+              f"({', '.join(f'{t:.4f}' for t in times[form])} s), "
+              f"{audio_s / wall:.2f}x real time; counts {counts[form]}; one "
+              f"profiled run: {len(events)} device events, by category "
+              f"{events_by_cat(events)}, busy {busy:.4f} s of {pwall:.4f} s, "
+              f"idle share {1.0 - busy / pwall:.3f}; one traced run "
+              f"({traced:.4f} s): {bd['host_dispatches']} host dispatches "
+              f"({bd['graph_launches']} graph launches), "
+              f"{bd['device_events']} device events, search_kernel events "
+              f"{bd['search_kernel_events']} = search.launches "
+              f"{launches['search']}; on {line}", flush=True)
+        for n, r in spans.items():
+            print(f"  {label}, {form}, span {n}: {r['count']} x, self host "
+                  f"{r['self_host_s']:.4f} s, host dispatches "
+                  f"{r['host_dispatches']} (self "
+                  f"{r['self_host_dispatches']}), device events "
+                  f"{r['device_events']} (self {r['self_device_events']})",
+                  flush=True)
+    g, y = res["graphs"], res["yardstick"]
+    print(f"{label}: the segment graphs' wall {g['wall'] / y['wall']:.3f} of "
+          f"the yardstick form's (real-time factor {g['rtf'] / y['rtf']:.3f}"
+          f"x), host dispatches {g['dispatches']} against {y['dispatches']}, "
+          f"device events {g['device_events']} against "
+          f"{y['device_events']}, idle share {g['idle']:.3f} against "
+          f"{y['idle']:.3f}", flush=True)
+    return outs["graphs"], res
+
+
+def analysis_check(ctx, enc, args, label):
+    """enc.analysis (the captured batched analysis; two calls: a capture or
+    a replay, then a replay) against enc.analysis_eager (lane by lane) on
+    the same inputs, torch.equal on every output; then each product of
+    the analysis batched alone (lanes.PER_LANE less it, the rest one a
+    lane) in the batched analysis run op by op.  Fails on a difference of
+    the captured analysis, or where a product outside PER_LANE changes
+    the outputs when batched alone.  Returns the products whose batching
+    alone changes an output."""
+    torch = ctx["torch"]
+    from mp3tpu_torch.ops import lanes
+    ref = enc.analysis_eager(*args)
+    per_lane, changed = lanes.PER_LANE, {}
+    try:
+        for name in lanes.PRODUCTS:
+            lanes.PER_LANE = frozenset(lanes.PRODUCTS) - {name}
+            got = enc._analysis(*args)
+            bad = [k for k in ref if not torch.equal(got[k], ref[k])]
+            if bad:
+                changed[name] = bad
+    finally:
+        lanes.PER_LANE = per_lane
+    print(f"analysis on {label} (blocks {tuple(args[0].shape)}): products "
+          f"that change an output when batched alone (and the outputs): "
+          f"{changed or 'none'}; one a lane in the package: "
+          f"{sorted(per_lane)}", flush=True)
+    for i in range(2):
+        got = enc.analysis(*args)
+        bad = [k for k in ref if not torch.equal(got[k], ref[k])]
+        if got.keys() != ref.keys() or bad:
+            fail(f"the captured analysis != analysis_eager on {label} "
+                 f"(call {i + 1}): {bad or 'keys'}")
+    print(f"analysis on {label}: captured == analysis_eager (torch.equal, "
+          f"two calls: {', '.join(sorted(ref))})", flush=True)
+    if set(changed) - per_lane:
+        fail(f"batched products change the analysis on {label}: "
+             f"{sorted(set(changed) - per_lane)}")
+    return sorted(changed)
+
+
+def phase_segment_graphs(ctx, pcm, cfg, line, main_out):
+    """Phase 5c: the segment program's graphs on the main path, as the
+    package runs it, against the yardstick form: captures from empty
+    caches (capture ms by stage and key, torch.cuda.memory_reserved
+    before and after), the counts, the same bytes, ABBA turns, one
+    profiled and one traced encode each (form_runs), the trace's host
+    dispatches held to MAX_DISPATCHES; the captured analysis against
+    analysis_eager on the main path's own 512- and 4096-lane segments with
+    each product batched alone (analysis_check), and encode_final (the
+    emission replayed after the rate loop) against encode_final_eager on
+    the main path's own final encodes, torch.equal, two calls each."""
+    torch, loop = ctx["torch"], ctx["loop"]
+    from mp3tpu_torch.models import layer3
+    Enc = layer3.Layer3SegmentEncoder
+    real = {"analysis": Enc.analysis, "final": Enc.encode_final}
+    seen = {"analysis": {}, "final": {}}
+
+    def recorder(kind):
+        def call(self, *args, **kwargs):
+            key = tuple(args[0].shape)
+            if key not in seen[kind]:
+                seen[kind][key] = (self, tuple(
+                    a.clone() if hasattr(a, "clone") else a for a in args),
+                    {k: v.clone() if hasattr(v, "clone") else v
+                     for k, v in kwargs.items()})
+            return real[kind](self, *args, **kwargs)
+        return call
+
+    torch.cuda.synchronize()
+    layer3.GRAPHS.clear()
+    loop.GRAPHS.clear()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
+    reset_counts(ctx)
+    Enc.analysis, Enc.encode_final = recorder("analysis"), recorder("final")
+    try:
+        out = ctx["encode"](pcm, cfg, device="cuda")
+    finally:
+        Enc.analysis, Enc.encode_final = real["analysis"], real["final"]
+    torch.cuda.synchronize()
+    reserved1 = torch.cuda.memory_reserved()
+    first = launch_counts(ctx)
+    if out != main_out:
+        fail("main path, capturing the segment graphs: other bytes than "
+             "phase 5's")
+    captured = [("analysis", tuple(e.inputs["blocks_h4"].shape),
+                 e.capture_s["analysis"])
+                for e in layer3.GRAPHS.entries.values()]
+    captured += [(name if isinstance(name, str) else name[0],
+                  e.inputs["xr"].shape[0], s)
+                 for e in loop.GRAPHS.entries.values()
+                 for name, s in e.capture_s.items()]
+    print(f"segment graphs, captured from empty caches in one encode: "
+          f"counts {first}; capture ms by stage and key: "
+          f"{', '.join(f'{st} {k} {1e3 * t:.1f}' for st, k, t in captured)}"
+          f"; torch.cuda.memory_reserved {reserved0 / 2**20:.1f} MiB "
+          f"before the captures, {reserved1 / 2**20:.1f} MiB after",
+          flush=True)
+    for stage in ctx["graphs"].STAGES:
+        if first[f"{stage}_captures"] <= 0:
+            fail(f"the main path captured no {stage} graph: {first}")
+
+    changed = {}
+    for key, (enc, args, _) in sorted(seen["analysis"].items()):
+        lanes = key[0] * (key[1] - 4)
+        changed[key] = analysis_check(
+            ctx, enc, args, f"the main path's {lanes}-lane segment")
+    if sorted(k[1] - 4 for k in seen["analysis"]) != [256, 2048]:
+        fail(f"the main path's analysis inputs: {sorted(seen['analysis'])}")
+    for key, (enc, args, kwargs) in sorted(seen["final"].items()):
+        ref = enc.encode_final_eager(*args, **kwargs)
+        for i in range(2):
+            got = enc.encode_final(*args, **kwargs)
+            if any(not torch.equal(got[k], ref[k]) for k in ("side",
+                                                              "payload")):
+                fail(f"encode_final (emission replayed) != "
+                     f"encode_final_eager on the main path's {key[0]}-lane "
+                     f"final encode (call {i + 1})")
+    print(f"encode_final with the emission replayed after the rate loop == "
+          f"encode_final_eager (torch.equal on side and payload, two calls "
+          f"each) on the main path's final encodes "
+          f"{sorted(k[0] for k in seen['final'])} lanes", flush=True)
+
+    out, res = form_runs(ctx, lambda: ctx["encode"](pcm, cfg, device="cuda"),
+                         "main path", line, CLIP_SECONDS)
+    spans = res["graphs"]["spans"]
+    for name, most in MAX_DISPATCHES.items():
+        key = ("self_host_dispatches" if name == "analyze_demand_fused"
+               else "host_dispatches")
+        if spans[name][key] > most:
+            fail(f"main path as segment graphs: span {name} made "
+                 f"{spans[name][key]} host dispatches (at most {most})")
+    return dict(first=first, captured=captured,
+                reserved=(reserved0, reserved1), changed=changed, **res)
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -2248,6 +2641,7 @@ def main():
     from mp3tpu_torch.decoder.layer3 import snr_db
     from mp3tpu_torch.encoder import encode_layer3_fast
     from mp3tpu_torch.ops import bits_at as K
+    from mp3tpu_torch.ops import graphs
     from mp3tpu_torch.ops import hist_c1 as k1
     from mp3tpu_torch.ops import loop
     from mp3tpu_torch.ops import search as S
@@ -2258,7 +2652,7 @@ def main():
     kres = phase_kernel(k1, torch)
 
     ctx = dict(np=np, torch=torch, k1=k1, K=K, S=S, loop=loop,
-               EncoderConfig=EncoderConfig, mpeg=mpeg,
+               graphs=graphs, EncoderConfig=EncoderConfig, mpeg=mpeg,
                encode=encode_layer3_fast, decode_mp3=decode_mp3,
                snr_db=snr_db, read_wav=read_wav, make_signal=make_signal,
                streams={})
@@ -2286,6 +2680,10 @@ def main():
     t0 = time.perf_counter()
     phase_graphs(ctx, pcm, cfg_of(), line, main_res["out"])
     print(f"phase 5b the rate loop as CUDA graphs: "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    seg_res = phase_segment_graphs(ctx, pcm, cfg_of(), line, main_res["out"])
+    print(f"phase 5c the segment program as CUDA graphs: "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     phases = [("6 LSF", lambda: phase_lsf(ctx)),
@@ -2329,10 +2727,12 @@ def main():
                 "sharded": sharded["launches"][kernel]}
 
     for kernel in ("search", "baseline", "bits_at", "syncs", "captures",
-                   "replays"):
+                   "replays") + tuple(f"{s}_{kind}" for s in SEGMENT_STAGES
+                                      for kind in ("captures", "replays")):
         what = {"syncs": "loop-exit syncs per encode",
-                "captures": "rate-loop graph captures",
-                "replays": "rate-loop graph replays"}.get(kernel, "launches")
+                "captures": "segment program graph captures",
+                "replays": "segment program graph replays"}.get(
+                    kernel, "graphs" if "_" in kernel else "launches")
         print(f"{kernel} {what} by path: {by_path(kernel)}", flush=True)
 
     err, k_ms, p_ms, (b_ms, b_by) = kres[4096]

@@ -4,7 +4,18 @@
 (version, sampling_frequency): analysis + demand encode -> reservoir
 scan -> final encode + on-device emission and packing.  Its constant
 matrices and lookup tables are buffers, built from the port's ``tables`` or
-loaded from the JAX package's own numpy constants.
+loaded from the JAX package's own numpy constants; equal tables on one
+device are one set of tensors, shared by every encoder.
+
+On a CUDA device the program replays CUDA graphs, the port's
+counterpart of the JAX package's one compiled program
+(``ops/graphs.py``): the analysis of all lanes in one batch
+(``analysis``), the rate loop (``loop.outer_loop``) and, after the final
+rate loop, the emission and packing (``encode_final``).  The reservoir
+scan stays a host scan with one download, and the results one download
+(``encoder._Layer3Framing.fetch``).  ``analysis_eager`` (lane by lane)
+and ``encode_final_eager`` (emission op by op) are what the CPU runs and
+the card's yardstick.
 
 Quality deviations from the reference are those of the JAX package:
 true quantization range, psy outputs used for the granule they were
@@ -16,20 +27,38 @@ from torch import nn
 
 from ..tables import mpeg
 
-from ..ops import bits, dsp, loop, psy, resv
+from ..ops import bits, dsp, graphs, lanes, loop, psy, resv
 from ..runtime.profiling import span
 
 #: sfb -> scfsi band map (loop.c scfsi_band_long 0,6,11,16,21)
 BAND_OF_SFB = np.repeat(np.arange(4), np.diff(mpeg.SCFSI_BAND_LONG))
+#: the process's captured analyses (``graphs.GraphCache``; a stereo
+#: clip of one sample rate makes 2 keys, a corpus group 1 a segment width)
+GRAPHS = graphs.GraphCache(16)
 
 
-def _scfsi_flags(xr, ratio_l, ratio_s, block_type, ST):
-    """scfsi decision for one channel's granule batch (loop.c:615-720,
-    with the intended per-channel indexing).  xr (C, 576): granule pairs
-    are (2f, 2f+1).  Returns (C//2, 4) int32 flags."""
+def device_tables(device):
+    """The segment program's own tables on `device`: the scfsi band of
+    each long sfb, one-hot (21, 4) float32 and as indices (21,) int64
+    (``graphs.shared_tensors``)."""
+    return graphs.shared_tensors(dict(
+        scfsi_band_oh=(np.arange(4)[None, :] == BAND_OF_SFB[:, None])
+        .astype(np.float32), band_of_sfb=BAND_OF_SFB.astype(np.int64)),
+        device)
+
+
+def _scfsi_flags(xr, ratio_l, ratio_s, block_type, ST, LT):
+    """scfsi decision for each lane's granule batch (loop.c:615-720, with
+    the intended per-channel indexing).  xr (L, C, 576): granule pairs
+    are (2f, 2f+1).  Returns (L, C//2, 4) int32 flags; one lane may come
+    without its lane axis.  LT: the segment program's ``device_tables``."""
+    if xr.dim() == 2:
+        return _scfsi_flags(xr[None], ratio_l[None], ratio_s[None],
+                            block_type[None], ST, LT)[0]
     xr_abs = xr.abs()
-    xmin_l, _ = loop.calc_xmin(xr_abs, ratio_l, ratio_s, ST)
-    en_sfb = (xr_abs * xr_abs) @ ST["oh_l"]                 # (C, 21)
+    en_sfb = lanes.mm(xr_abs * xr_abs, ST["oh_l"], "scfsi_energy")
+    # the allowed distortion of loop.calc_xmin (long bands)
+    xmin_l = ratio_l * (en_sfb / ST["bw_l"])                # (L, C, 21)
     ln2 = float(np.log(2.0))
     en = torch.where(en_sfb > 0,
                      torch.trunc(torch.log(torch.clamp(en_sfb, min=1e-37))
@@ -38,18 +67,31 @@ def _scfsi_flags(xr, ratio_l, ratio_s, block_type, ST):
                      torch.trunc(torch.log(torch.clamp(xmin_l, min=1e-37))
                                  / ln2), 0.0)
     # reference scale: xr in int16 units; int(max|xr|) != 0
-    nonsilent = xr_abs.amax(dim=1) * 32768.0 >= 1.0
+    nonsilent = xr_abs.amax(dim=-1) * 32768.0 >= 1.0
     long_ok = block_type != 2
-    en0, en1 = en[0::2], en[1::2]
-    xm0, xm1 = xm[0::2], xm[1::2]
-    cond = (nonsilent[0::2] & nonsilent[1::2] & long_ok[0::2]
-            & long_ok[1::2] & ((en0 - en1).abs().sum(dim=1) < 100.0))
-    band_oh = torch.as_tensor(
-        (np.arange(4)[None, :] == BAND_OF_SFB[:, None]).astype(np.float32),
-        device=xr.device)                                   # (21, 4)
-    den = (en0 - en1).abs() @ band_oh
-    dxm = (xm0 - xm1).abs() @ band_oh
-    return (cond[:, None] & (den < 10.0) & (dxm < 10.0)).to(torch.int32)
+    en0, en1 = en[:, 0::2], en[:, 1::2]
+    xm0, xm1 = xm[:, 0::2], xm[:, 1::2]
+    cond = (nonsilent[:, 0::2] & nonsilent[:, 1::2] & long_ok[:, 0::2]
+            & long_ok[:, 1::2] & ((en0 - en1).abs().sum(dim=-1) < 100.0))
+    den = lanes.mm((en0 - en1).abs(), LT["scfsi_band_oh"], "scfsi_bands")
+    dxm = lanes.mm((xm0 - xm1).abs(), LT["scfsi_band_oh"], "scfsi_bands")
+    return (cond[..., None] & (den < 10.0) & (dxm < 10.0)).to(torch.int32)
+
+
+def _finite_guard(ana):
+    """NaN/Inf guard: a granule whose analysis went non-finite is
+    degraded to silence instead of poisoning the rate loop.  Returns the
+    guarded xr, pe, ratio_l, ratio_s and n_nonfinite ()."""
+    finite = (torch.isfinite(ana["xr"]).all(dim=1)
+              & torch.isfinite(ana["pe"])
+              & torch.isfinite(ana["ratio_l"]).all(dim=1)
+              & torch.isfinite(ana["ratio_s"]).flatten(1).all(dim=1))
+    return dict(xr=torch.where(finite[:, None], ana["xr"], 0.0),
+                pe=torch.where(finite, ana["pe"], 0.0),
+                ratio_l=torch.where(finite[:, None], ana["ratio_l"], 0.0),
+                ratio_s=torch.where(finite[:, None, None], ana["ratio_s"],
+                                    0.0),
+                n_nonfinite=(~finite).sum().to(torch.int32))
 
 
 def final_budgets(demand, budgets, n_real, nch, mode_gr):
@@ -114,7 +156,8 @@ class Layer3SegmentEncoder(nn.Module):
         self._groups[group] = list(tables)
 
     def tables(self, group):
-        """The `group` ("st", "psy", "dsp" or "bits") tables as a dict."""
+        """The `group` ("st", "psy", "dsp", "bits" or "l3") tables as a
+        dict."""
         return {k: getattr(self, f"{group}_{k}") for k in self._groups[group]}
 
     def load_numpy_constants(self, d, device=None):
@@ -129,6 +172,7 @@ class Layer3SegmentEncoder(nn.Module):
         self._register("psy", psy.device_tables(d, device))
         self._register("dsp", dsp.device_tables(d["dsp"], device))
         self._register("bits", bits.device_tables(device))
+        self._register("l3", device_tables(device))
         return self
 
     # ------------------------------------------------------------------
@@ -143,44 +187,106 @@ class Layer3SegmentEncoder(nn.Module):
                     fsm_state=p["fsm_state"])
 
     def spectrum(self, blocks_ext, block_type):
-        """Filterbank + MDCT of one channel's chunk (2 warmup + C blocks)
-        at its C block types: xr (C, 576)."""
+        """Filterbank + MDCT of each lane's chunk (L, 2 warmup + C, 576)
+        at its block types (L, C): xr (L, C, 576).  One lane may come
+        without its lane axis."""
+        if blocks_ext.dim() == 2:
+            return self.spectrum(blocks_ext[None], block_type[None])[0]
         DT = self.tables("dsp")
         scaled = blocks_ext / 32768.0
-        sb = dsp.subband_granules(scaled[2:], scaled[1, 64:], DT)
-        sb_prev = dsp.subband_granules(scaled[1][None], scaled[0, 64:],
-                                       DT)[0]
+        sb = dsp.subband_granules(scaled[:, 2:], scaled[:, 1, 64:], DT)
+        sb_prev = dsp.subband_granules(scaled[:, 1:2], scaled[:, 0, 64:],
+                                       DT)[:, 0]
         return dsp.mdct_granules(sb, sb_prev, block_type, DT)
+
+    def _analysis(self, blocks_h4, fsm_init):
+        """The analysis of a segment's lanes in one batch: psy, filterbank,
+        MDCT, the NaN/Inf guard and (MPEG-1) the scfsi flags.  It builds
+        no tensor from host data and reads none back, so that a CUDA
+        graph can capture it (``analysis``); its outputs equal
+        ``analysis_eager``'s."""
+        ST, LT = self.tables("st"), self.tables("l3")
+        L, S = blocks_h4.shape[0], blocks_h4.shape[1] - 4
+        blocks = blocks_h4.to(torch.float32)
+        p = psy.psycho_granules(blocks[:, 2:], blocks[:, :2],
+                                self.tables("psy"), warmup=2,
+                                fsm_init=fsm_init)
+        xr = self.spectrum(blocks[:, 2:], p["block_type"])  # (L, S, 576)
+        res = _finite_guard(dict(
+            xr=xr.reshape(L * S, 576), pe=p["pe"].reshape(-1),
+            ratio_l=p["ratio_l"].reshape(L * S, 21),
+            ratio_s=p["ratio_s"].reshape(L * S, 12, 3)))
+        res.update(block_type=p["block_type"].reshape(-1),
+                   fsm_state=p["fsm_state"])
+        if not ST["lsf"]:
+            # from the spectrum before the guard, as the per-lane form
+            res["scfsi"] = _scfsi_flags(xr, p["ratio_l"], p["ratio_s"],
+                                        p["block_type"], ST, LT)
+        return res
+
+    def analysis_eager(self, blocks_h4, fsm_init):
+        """``_analysis`` lane by lane, op by op: what the CPU runs, and on
+        the card the yardstick of the captured analysis."""
+        ST, LT = self.tables("st"), self.tables("l3")
+        nch = blocks_h4.shape[0]
+        blocks = blocks_h4.to(torch.float32)
+        anas = [self._analyze_chunk(blocks[ch, 2:], blocks[ch, :2],
+                                    fsm_init[ch]) for ch in range(nch)]
+        fsm_state = torch.stack([a.pop("fsm_state") for a in anas])
+        res = _finite_guard({k: torch.cat([a[k] for a in anas])
+                             for k in ("xr", "pe", "ratio_l", "ratio_s")})
+        res.update(block_type=torch.cat([a["block_type"] for a in anas]),
+                   fsm_state=fsm_state)
+        if not ST["lsf"]:
+            res["scfsi"] = torch.stack([
+                _scfsi_flags(a["xr"], a["ratio_l"], a["ratio_s"],
+                             a["block_type"], ST, LT) for a in anas])
+        return res
+
+    def analysis(self, blocks_h4, fsm_init):
+        """The analysis of a segment: blocks_h4 (nch, 4+S, 576)
+        int16-valued (rows 0:2 psy halo, rows 2:4 warmup granules),
+        fsm_init (nch,) int32.  Returns xr (nch*S, 576), pe, ratio_l,
+        ratio_s, block_type (rows lane-major), fsm_state (nch,),
+        n_nonfinite () and for MPEG-1 scfsi (nch, S//2, 4).
+
+        On a CUDA tensor ``_analysis`` replays a CUDA graph captured on
+        its key's first call (``GRAPHS``: the inputs' layout and the
+        tables' identity; stage "analysis"), and the caller gets clones
+        of its static outputs; a capture or replay error raises.  On any
+        other device it is ``analysis_eager``."""
+        if blocks_h4.device.type != "cuda":
+            return self.analysis_eager(blocks_h4, fsm_init)
+        dev = blocks_h4.device
+        inputs = dict(blocks_h4=blocks_h4, fsm_init=fsm_init)
+        return graphs.on_stream(
+            dev, lambda: self._run_analysis(inputs, graphs.cuda_graph(dev)),
+            lambda entry: {k: v.clone()
+                           for k, v in entry.outputs["analysis"].items()})
+
+    def _run_analysis(self, inputs, record):
+        """``analysis``'s host side (``graphs.run`` of ``_analysis``) on the
+        current stream: (entry, the entries the cache dropped)."""
+        tables = tuple(self.tables(g) for g in ("st", "psy", "dsp", "l3"))
+        return graphs.run(
+            GRAPHS, graphs.key_of(inputs, *tables), "analysis", inputs,
+            lambda i: self._analysis(i["blocks_h4"], i["fsm_init"]), record,
+            refs=tables)
 
     @span("analyze_demand_fused")
     def analyze_demand_fused(self, blocks_h4, fsm_init):
         """Analysis + unconstrained (4095-bit) demand encode of a segment.
 
         blocks_h4 (nch, 4+S, 576) int16-valued; rows 0:2 psy halo, rows
-        2:4 warmup granules.  fsm_init (nch,) int.  Returns xr (nch*S,
+        2:4 warmup granules.  fsm_init (nch,) int32.  Returns xr (nch*S,
         576) and its rate-loop inputs, pe, p23 (demand), qss (warm lower
         bound for the final encode), fsm_state, n_nonfinite, and for
         MPEG-1 the scfsi flags with the demand granule-0 scalefactors."""
         ST = self.tables("st")
         nch = blocks_h4.shape[0]
         S = blocks_h4.shape[1] - 4
-        blocks = blocks_h4.to(torch.float32)
-        anas = [self._analyze_chunk(blocks[ch, 2:], blocks[ch, :2],
-                                    fsm_init[ch]) for ch in range(nch)]
-        fsm_state = torch.stack([a.pop("fsm_state") for a in anas])
-        ana = {k: torch.cat([a[k] for a in anas]) for k in anas[0]}
-        # NaN/Inf guard: a granule whose analysis went non-finite is
-        # degraded to silence instead of poisoning the rate loop
-        finite = (torch.isfinite(ana["xr"]).all(dim=1)
-                  & torch.isfinite(ana["pe"])
-                  & torch.isfinite(ana["ratio_l"]).all(dim=1)
-                  & torch.isfinite(ana["ratio_s"]).flatten(1).all(dim=1))
-        ana["xr"] = torch.where(finite[:, None], ana["xr"], 0.0)
-        ana["pe"] = torch.where(finite, ana["pe"], 0.0)
-        ana["ratio_l"] = torch.where(finite[:, None], ana["ratio_l"], 0.0)
-        ana["ratio_s"] = torch.where(finite[:, None, None], ana["ratio_s"],
-                                     0.0)
-        budget = torch.full((nch * S,), 4095.0, device=blocks.device)
+        ana = self.analysis(blocks_h4, fsm_init)
+        budget = torch.full((nch * S,), 4095.0, device=blocks_h4.device)
         out = loop.outer_loop(ana["xr"], budget, ana["ratio_l"],
                               ana["ratio_s"],
                               ana["block_type"] != mpeg.NORM_TYPE,
@@ -189,15 +295,52 @@ class Layer3SegmentEncoder(nn.Module):
             xr=ana["xr"], ratio_l=ana["ratio_l"], ratio_s=ana["ratio_s"],
             block_type=ana["block_type"], pe=ana["pe"],
             p23=out["part2_3_length"].to(torch.int32),
-            qss=out["qss0"].to(torch.float32), fsm_state=fsm_state,
-            n_nonfinite=(~finite).sum().to(torch.int32))
+            qss=out["qss0"].to(torch.float32), fsm_state=ana["fsm_state"],
+            n_nonfinite=ana["n_nonfinite"])
         if not ST["lsf"]:
-            res["scfsi"] = torch.stack([
-                _scfsi_flags(a["xr"], a["ratio_l"], a["ratio_s"],
-                             a["block_type"], ST) for a in anas])
+            res["scfsi"] = ana["scfsi"]
             res["sf_fix"] = out["sf_l"].reshape(nch, S, 21)[:, 0::2] \
                 .to(torch.int8)
         return res
+
+    def _final_args(self, xr, ratio_l, ratio_s, block_type, budget, scfsi,
+                    sf_fix, nch, qss_lo):
+        """The final encode's rate-loop arguments by name (``loop._inputs``):
+        scfsi (nch, C//2, 4) + sf_fix (nch, C//2, 21) become the fixed
+        and skipped bands' masks (MPEG-1 only)."""
+        is_short_block = block_type != mpeg.NORM_TYPE
+        mask = vals = skipm = None
+        if scfsi is not None and sf_fix is not None and \
+                not self.tables("st")["lsf"]:
+            N = xr.shape[0]
+            C = N // nch
+            band_idx = self.tables("l3")["band_of_sfb"]
+            band = scfsi.reshape(nch, C // 2, 4).bool()[:, :, band_idx]
+            mask = band.repeat_interleave(2, dim=1).reshape(N, 21)
+            vals = sf_fix.reshape(nch, C // 2, 21) \
+                .repeat_interleave(2, dim=1).reshape(N, 21)
+            odd = (torch.arange(C, device=xr.device) % 2) == 1
+            skipm = mask & odd.repeat(nch)[:, None]
+        return loop._inputs(xr, budget, ratio_l, ratio_s, is_short_block,
+                            block_type, mask, vals, skipm, qss_lo)
+
+    def _emission(self, out, inputs, payload_words, flat_cap):
+        """Emit and pack the final rate loop's outputs `out` (its inputs
+        by name): the signed spectrum, ``granule_payload``, with flat_cap
+        ``compact_payload``, and ``pack_state``.  Returns dict(side,
+        payload).  Capture-safe: the continuation of the rate loop's
+        graphs on the card (``encode_final``)."""
+        ST = self.tables("st")
+        xr, block_type = inputs["xr"], inputs["block_type"]
+        is_short = inputs["is_short_block"] & (block_type == 2)
+        ix_signed = torch.where((xr < 0) & (out["ix"] > 0), -out["ix"],
+                                out["ix"])
+        payload, nbits = bits.granule_payload(
+            out, ix_signed, is_short, ST, self.tables("bits"),
+            payload_words, skip_mask=inputs["sf_skip_mask"])
+        if flat_cap is not None:
+            payload = bits.compact_payload(payload, nbits, flat_cap)
+        return dict(side=pack_state(out, block_type), payload=payload)
 
     @span("encode_final")
     def encode_final(self, xr, ratio_l, ratio_s, block_type, budget,
@@ -210,33 +353,54 @@ class Layer3SegmentEncoder(nn.Module):
         those bands to the demand values, granule 1 skips sending them.
         MPEG-2 LSF has no scfsi: both are ignored there.  Returns
         dict(side (N, 19) int16, payload: (N, payload_words) rows or, with
-        flat_cap, the compacted (flat_cap,) buffer)."""
-        ST = self.tables("st")
-        is_short_block = block_type != mpeg.NORM_TYPE
-        is_short = is_short_block & (block_type == 2)
-        mask = vals = skipm = None
-        if scfsi is not None and sf_fix is not None and not ST["lsf"]:
-            N = xr.shape[0]
-            C = N // nch
-            band_idx = torch.as_tensor(BAND_OF_SFB, device=xr.device)
-            band = scfsi.reshape(nch, C // 2, 4).bool()[:, :, band_idx]
-            mask = band.repeat_interleave(2, dim=1).reshape(N, 21)
-            vals = sf_fix.reshape(nch, C // 2, 21) \
-                .repeat_interleave(2, dim=1).reshape(N, 21)
-            odd = (torch.arange(C, device=xr.device) % 2) == 1
-            skipm = mask & odd.repeat(nch)[:, None]
-        out = loop.outer_loop(xr, budget, ratio_l, ratio_s, is_short_block,
-                              block_type, ST, sf_fix_mask=mask,
-                              sf_fix_val=vals, sf_skip_mask=skipm,
-                              qss_lo=qss_lo)
-        ix_signed = torch.where((xr < 0) & (out["ix"] > 0), -out["ix"],
-                                out["ix"])
-        payload, nbits = bits.granule_payload(
-            out, ix_signed, is_short, ST, self.tables("bits"),
-            payload_words, skip_mask=skipm)
-        if flat_cap is not None:
-            payload = bits.compact_payload(payload, nbits, flat_cap)
-        return dict(side=pack_state(out, block_type), payload=payload)
+        flat_cap, the compacted (flat_cap,) buffer).
+
+        On a CUDA tensor the emission and packing (``_emission``) run as
+        the rate loop's continuation (``loop.Then``): one graph a key
+        (the loop's, payload_words, flat_cap, the emission tables'
+        identity; stage "emission") replayed after the loop's last
+        iteration, inside the span granule_payload.  On any other device
+        it is ``encode_final_eager``."""
+        if xr.device.type != "cuda":
+            return self._final_eager(
+                xr, ratio_l, ratio_s, block_type, budget, payload_words,
+                scfsi, sf_fix, nch, qss_lo, flat_cap)
+        return loop.outer_loop(ST=self.tables("st"),
+                               then=self._then(payload_words, flat_cap),
+                               **self._final_args(
+                                   xr, ratio_l, ratio_s, block_type, budget,
+                                   scfsi, sf_fix, nch, qss_lo))
+
+    def _then(self, payload_words, flat_cap):
+        """``_emission`` as the final rate loop's continuation: its key
+        (payload_words, flat_cap, the emission tables' identity) beside
+        the loop's own (lanes, masks, the rate's tables)."""
+        BT = self.tables("bits")
+        return loop.Then(
+            key=(payload_words, flat_cap,
+                 tuple((k, id(v)) for k, v in BT.items())),
+            fn=lambda out, inputs: self._emission(out, inputs,
+                                                  payload_words, flat_cap),
+            span="granule_payload")
+
+    @span("encode_final")
+    def encode_final_eager(self, xr, ratio_l, ratio_s, block_type, budget,
+                           payload_words=bits.PAYLOAD_WORDS, scfsi=None,
+                           sf_fix=None, nch=1, qss_lo=None, flat_cap=None):
+        """``encode_final`` with the emission and packing dispatched op by
+        op after the rate loop (which replays its own graphs on the
+        card): what the CPU runs, and on the card the yardstick of the
+        captured emission."""
+        return self._final_eager(xr, ratio_l, ratio_s, block_type, budget,
+                                 payload_words, scfsi, sf_fix, nch, qss_lo,
+                                 flat_cap)
+
+    def _final_eager(self, xr, ratio_l, ratio_s, block_type, budget,
+                     payload_words, scfsi, sf_fix, nch, qss_lo, flat_cap):
+        args = self._final_args(xr, ratio_l, ratio_s, block_type, budget,
+                                scfsi, sf_fix, nch, qss_lo)
+        out = loop.outer_loop(ST=self.tables("st"), **args)
+        return self._emission(out, args, payload_words, flat_cap)
 
     @span("encode_segment_fused")
     def forward(self, blocks_h4, fsm_init, size_in, payload_words, nch,

@@ -19,6 +19,7 @@ import torch
 from ..runtime.profiling import span
 from ..tables import mpeg
 from ..tables.huffman import HUFF
+from . import graphs
 
 PAYLOAD_WORDS = 128   # 4096 bits >= max part2_3_length (12-bit field)
 
@@ -49,8 +50,9 @@ def numpy_tables():
 
 
 def device_tables(device):
-    return {k: torch.as_tensor(v, device=device)
-            for k, v in numpy_tables().items()}
+    """``numpy_tables()`` on `device`; one set of tensors a device
+    (``graphs.shared_tensors``)."""
+    return graphs.shared_tensors(numpy_tables(), device)
 
 
 def scalefac_elements(sf_l, sf_s, compress, is_short, BT, skip_mask=None):

@@ -3,12 +3,14 @@ analysis and MDCT as batched float32 matmuls over the granule axis.
 
 The sliding 512-sample analysis windows are ``Tensor.unfold`` views;
 the JAX package built them from strided slices only to avoid slow
-gathers on the TPU.
+gathers on the TPU.  The Layer III functions work on a batch of lanes
+(a leading axis L), each product through ``lanes.mm``.
 """
 import numpy as np
 import torch
 
 from ..tables import dsp as T
+from . import graphs, lanes
 
 SIGN = np.ones((18, 32))
 SIGN[1::2, 1::2] = -1.0
@@ -57,56 +59,66 @@ def numpy_constants():
 
 
 def device_tables(c, device):
-    """float32 tensors on `device` from ``numpy_constants()``-shaped `c`."""
-    f = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,  # noqa
-                                  device=device)
-    return dict(enwindow_rev=f(c["enwindow_rev"]),
-                ana_filter_rev_t=f(np.asarray(c["ana_filter_rev"]).T),
-                basis_long=f(np.stack([c["basis_long"][b]
-                                       for b in (0, 1, 3)])),
-                basis_short=f(c["basis_short"]),
-                alias_t=f(np.asarray(c["alias"]).T),
-                sign=f(SIGN))
+    """float32 tensors on `device` from ``numpy_constants()``-shaped `c`;
+    equal constants on one device give the same tensors
+    (``graphs.shared_tensors``)."""
+    f = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    return graphs.shared_tensors(dict(
+        enwindow_rev=f(c["enwindow_rev"]),
+        ana_filter_rev_t=f(np.asarray(c["ana_filter_rev"]).T),
+        basis_long=f(np.stack([c["basis_long"][b] for b in (0, 1, 3)])),
+        basis_short=f(c["basis_short"]),
+        alias_t=f(np.asarray(c["alias"]).T),
+        sign=f(SIGN)), device)
 
 
 def polyphase(flat, DT):
-    """Polyphase analysis of a float32 sample stream whose first 512
-    samples are history: one (32,) subband vector per 32 new samples,
-    (len(flat) / 32 - 16, 32)."""
-    # W[t, j] = flat[32 (t + 1) + j]: the reference window z[t, 511 - j]
-    W = flat[32:].unfold(0, 512, 32)
-    v = W * DT["enwindow_rev"][None, :]
-    y = v.reshape(-1, 8, 64).sum(dim=1)
-    return y @ DT["ana_filter_rev_t"]
+    """Polyphase analysis of float32 sample streams (..., n) whose first
+    512 samples are history: one (32,) subband vector per 32 new
+    samples, (..., n / 32 - 16, 32).  A leading axis is a lane axis."""
+    # W[..., t, j] = flat[..., 32 (t + 1) + j]: the reference window
+    # z[t, 511 - j]
+    W = flat[..., 32:].unfold(-1, 512, 32)
+    v = W * DT["enwindow_rev"]
+    y = v.reshape(v.shape[:-1] + (8, 64)).sum(dim=-2)
+    if y.dim() == 2:
+        return y @ DT["ana_filter_rev_t"]
+    return lanes.mm(y, DT["ana_filter_rev_t"], "polyphase")
 
 
 def subband_granules(blocks, prev_tail, DT):
-    """Polyphase analysis for a batch of granules.
+    """Polyphase analysis for a batch of granules of each lane.
 
-    blocks (G, 576) scaled samples (x/32768); prev_tail (512,) the
-    samples preceding blocks[0].  Returns (G, 18, 32) subband samples.
-    """
-    G = blocks.shape[0]
+    blocks (L, G, 576) scaled samples (x/32768); prev_tail (L, 512) the
+    samples preceding blocks[:, 0].  Returns (L, G, 18, 32) subband
+    samples.  One lane may come without its lane axis."""
+    G = blocks.shape[-2]
     flat = torch.cat([prev_tail.to(torch.float32),
-                      blocks.reshape(-1).to(torch.float32)])
-    return polyphase(flat, DT).reshape(G, 18, 32)
+                      blocks.reshape(blocks.shape[:-2] + (-1,))
+                      .to(torch.float32)], dim=-1)
+    return polyphase(flat, DT).reshape(blocks.shape[:-2] + (G, 18, 32))
 
 
 def mdct_granules(sb, sb_prev_last, block_type, DT):
-    """Batched MDCT.  sb (G, 18, 32); sb_prev_last (18, 32) the granule
-    before sb[0]; block_type (G,).  Returns xr (G, 576)."""
-    G = sb.shape[0]
+    """Batched MDCT.  sb (L, G, 18, 32); sb_prev_last (L, 18, 32) the
+    granule before sb[:, 0]; block_type (L, G).  Returns xr (L, G, 576).
+    One lane may come without its lane axis."""
+    if sb.dim() == 3:
+        return mdct_granules(sb[None], sb_prev_last[None], block_type[None],
+                             DT)[0]
+    L, G = sb.shape[:2]
     sign = DT["sign"]
-    sbf = sb.to(torch.float32) * sign[None]
-    prevf = torch.cat([(sb_prev_last.to(torch.float32) * sign)[None],
-                       sbf[:-1]], dim=0)
-    x = torch.cat([prevf, sbf], dim=1).transpose(1, 2)  # (G, 32, 36)
-    outs = [x @ DT["basis_long"][i] for i in range(3)]
-    out_short = x @ DT["basis_short"]
-    bt = block_type[:, None, None]
+    sbf = sb.to(torch.float32) * sign
+    prevf = torch.cat([(sb_prev_last.to(torch.float32) * sign)[:, None],
+                       sbf[:, :-1]], dim=1)
+    x = torch.cat([prevf, sbf], dim=2).transpose(-1, -2)  # (L, G, 32, 36)
+    outs = [lanes.mm(x, DT["basis_long"][i], f"mdct_long{b}")
+            for i, b in enumerate((0, 1, 3))]
+    out_short = lanes.mm(x, DT["basis_short"], "mdct_short")
+    bt = block_type[..., None, None]
     out = torch.where(bt == 0, outs[0],
                       torch.where(bt == 1, outs[1],
                                   torch.where(bt == 3, outs[2], out_short)))
-    xr = out.reshape(G, 576)
-    xr_alias = xr @ DT["alias_t"]
-    return torch.where((block_type == 2)[:, None], xr, xr_alias)
+    xr = out.reshape(L, G, 576)
+    xr_alias = lanes.mm(xr, DT["alias_t"], "alias")
+    return torch.where((block_type == 2)[..., None], xr, xr_alias)

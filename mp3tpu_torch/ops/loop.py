@@ -28,26 +28,26 @@ while loop, updating the state in place) and ``_epilogue``.  On a CUDA
 tensor the prologue and the iteration are each captured once per key
 as a CUDA graph and replayed (the port's counterpart of the JAX
 package's compiled ``while_loop``; ``GRAPHS``, counted in
-``graph_counts``); ``outer_loop_eager`` dispatches the same functions op
-by op, and is what the CPU runs.
+``graph_counts``, machinery in ``ops/graphs.py``), and so is a
+continuation (``Then``: the final encode's emission and packing) that
+reads the loop's static tensors after its last iteration;
+``outer_loop_eager`` dispatches the same functions op by op, and is what
+the CPU runs.
 
 Bit arithmetic stays in int32/int64 and float32 bit totals, as in the
 JAX package; nothing here uses unsigned tensors.
 """
-import hashlib
-import threading
-import time
-from collections import OrderedDict
 from functools import lru_cache
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
 from ..tables import mpeg
-from ..runtime.profiling import span
+from ..runtime.profiling import scope, span
 from ..tables.huffman import ESC_TABLE_A, ESC_TABLE_B, FIRST_TABLE_FOR_MAX
 
-from . import bits_at, search
+from . import bits_at, graphs, search
 from .hist_c1 import hist_c1
 
 IXMAX = 8191 + 14  # table range limit (loop.c:588)
@@ -106,37 +106,33 @@ _INT_KEYS = ("sfb_l", "perm_short", "subdv", "first", "esc_a", "esc_b",
              "log2_tab")
 
 
-#: device_tables' dicts by the tables' contents and the device
-_DEVICE_TABLES = {}
-
-
-def _fingerprint(st):
-    h = hashlib.sha256()
-    for k in sorted(st):
-        a = np.ascontiguousarray(np.asarray(st[k]))
-        h.update(f"{k}:{a.dtype.str}:{a.shape}".encode())
-        h.update(a.tobytes())
-    return h.hexdigest()
-
-
 def device_tables(st, device):
     """Tensors on `device` for a ``static_tables`` (or ``jaxloop._static``)
     dict, plus the sample-rate independent lookup tables; the Python
     values r0_pairs_short and lsf ride along.
 
-    Equal tables on one device give the same tensors (no code writes
-    them): the captured rate loops are keyed by the tables' identity, so
-    that every encoder of a sample rate finds the graphs of the first."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    key = (_fingerprint(st), str(dev))
-    if key not in _DEVICE_TABLES:
-        _DEVICE_TABLES.setdefault(key, _device_tables(st, dev))
-    return dict(_DEVICE_TABLES[key])
+    Equal tables on one device give the same tensors
+    (``graphs.shared_tensors``): the captured rate loops are keyed by the
+    tables' identity, so that every encoder of a sample rate finds the
+    graphs of the first."""
+    return _with_values(graphs.shared_tensors(_numpy_tables(st), device),
+                        st)
 
 
 def _device_tables(st, device):
+    """``device_tables`` made anew: tensors of their own."""
+    return _with_values({k: torch.as_tensor(v, device=device)
+                         for k, v in _numpy_tables(st).items()}, st)
+
+
+def _with_values(tables, st):
+    tables.update(r0_pairs_short=int(st["r0_pairs_short"]),
+                  lsf=bool(st["lsf"]))
+    return tables
+
+
+def _numpy_tables(st):
+    """``device_tables``' arrays, each of its tensor's dtype."""
     arrays = dict(st)
     nr = mpeg.NR_OF_SFB_BLOCK
     arrays.update(subdv=mpeg.SUBDV_TABLE, first=FIRST_TABLE_FOR_MAX,
@@ -151,14 +147,11 @@ def _device_tables(st, device):
                   lsf_maxsfac=np.stack([mpeg.MAX_SFAC_TAB[0],
                                         mpeg.MAX_SFAC_TAB[2]]),
                   log2_tab=mpeg.LOG2_TAB)
-    out = {k: torch.as_tensor(np.asarray(arrays[k]), dtype=dt, device=device)
-           for keys, dt in ((_FLOAT_KEYS, torch.float32),
-                            (_INT_KEYS, torch.int64)) for k in keys}
+    out = {k: np.asarray(arrays[k], dt)
+           for keys, dt in ((_FLOAT_KEYS, np.float32),
+                            (_INT_KEYS, np.int64)) for k in keys}
     # the bits_at kernel's per-rate tables in one int32 pack
-    out["bits_at_tab"] = torch.as_tensor(bits_at.rate_tables(st["sfb_l"]),
-                                         device=device)
-    out["r0_pairs_short"] = int(st["r0_pairs_short"])
-    out["lsf"] = bool(st["lsf"])
+    out["bits_at_tab"] = np.asarray(bits_at.rate_tables(st["sfb_l"]))
     return out
 
 
@@ -751,15 +744,27 @@ def _epilogue(xr, best, qss0, block_type, is_short_block):
     return out
 
 
-def _eager(inputs, ST, max_iter):
-    """The three parts dispatched op by op."""
+class Then(NamedTuple):
+    """What runs on ``outer_loop``'s outputs in the same call:
+    ``fn(outputs, inputs)`` (the loop's inputs by name), a dict of
+    tensors, is returned in place of the outputs.  On the card it is
+    captured with the loop (one graph per loop key and `key`) and
+    replays inside the profiler span `span`."""
+    key: tuple
+    fn: Callable
+    span: str
+
+
+def _eager(inputs, ST, max_iter, then=None):
+    """The three parts, and `then`, dispatched op by op."""
     state, best = _prologue(ST=ST, **inputs)
     it = 0
     while it < max_iter and any_on_host(~state["done"]):
         _iteration(state, best, ST)
         it += 1
-    return _epilogue(inputs["xr"], best, state["qss0"], inputs["block_type"],
-                     inputs["is_short_block"])
+    out = _epilogue(inputs["xr"], best, state["qss0"], inputs["block_type"],
+                    inputs["is_short_block"])
+    return out if then is None else then.fn(out, inputs)
 
 
 # ---------------------------------------------------------------------------
@@ -769,98 +774,10 @@ def _eager(inputs, ST, max_iter):
 #: captured rate loops kept at once (a stereo clip of one sample rate
 #: makes 6 keys: 3 segment widths, each for the demand and final encode)
 GRAPH_CACHE_SIZE = 16
-#: graph captures and replays (each replay of a prologue or an iteration)
-graph_counts = dict(captures=0, replays=0)
-
-
-class GraphCache:
-    """At most `size` entries by key, the least recently used dropped
-    first.  An entry (``_Captured``) holds every tensor that its graphs
-    read, so no graph outlives what it reads."""
-
-    def __init__(self, size):
-        self.size = size
-        self.entries = OrderedDict()
-
-    def __len__(self):
-        return len(self.entries)
-
-    def get(self, key):
-        """The entry of `key` (now the most recent), or None."""
-        entry = self.entries.get(key)
-        if entry is not None:
-            self.entries.move_to_end(key)
-        return entry
-
-    def put(self, key, entry):
-        """Add `entry` as the most recent; returns the entries dropped."""
-        self.entries[key] = entry
-        self.entries.move_to_end(key)
-        dropped = []
-        while len(self.entries) > self.size:
-            dropped.append(self.entries.popitem(last=False)[1])
-        return dropped
-
-    def clear(self):
-        self.entries.clear()
-
-
-#: the process's captured rate loops
-GRAPHS = GraphCache(GRAPH_CACHE_SIZE)
-# one captured loop runs at a time: the entries' static tensors, the
-# loop stream and K3's counter are shared
-_GRAPH_LOCK = threading.Lock()
-
-
-def _launch_counts():
-    return search.launches, bits_at.bits_at.launches
-
-
-def _add_launches(n_search, n_bits_at):
-    search.launches += n_search
-    bits_at.bits_at.launches += n_bits_at
-
-
-class _Captured:
-    """One key's captured rate loop: the static inputs, state and best
-    (made by the eager warm-up, outside the graphs' memory pool), the
-    prologue and iteration graphs with the kernel launches each holds,
-    and the other tensors they read (`refs`: the rate's tables, K3's
-    tables and counter)."""
-
-    def __init__(self, inputs, state, best, refs):
-        self.inputs, self.state, self.best, self.refs = (inputs, state,
-                                                         best, refs)
-        self.graphs, self.held = {}, {}
-        self.capture_s = 0.0
-
-    def capture(self, name, fn, record):
-        """``record(fn)`` as graph `name`.  The kernel wrappers count a
-        launch as it is made; those made into the graph are taken back
-        out of their counts, and added again at each replay."""
-        before = _launch_counts()
-        t0 = time.perf_counter()
-        self.graphs[name] = record(fn)
-        self.capture_s += time.perf_counter() - t0
-        after = _launch_counts()
-        self.held[name] = [a - b for a, b in zip(after, before)]
-        _add_launches(*[b - a for a, b in zip(after, before)])
-        graph_counts["captures"] += 1
-
-    def replay(self, name):
-        self.graphs[name].replay()
-        _add_launches(*self.held[name])
-        graph_counts["replays"] += 1
-
-
-def _assign(state, best, new_state, new_best):
-    """Copy a prologue's results into the static state and best (the
-    inputs that it passed through are there already)."""
-    for k, v in new_state.items():
-        if v is not None and v is not state[k]:
-            state[k].copy_(v)
-    for k, v in new_best.items():
-        best[k].copy_(v)
+#: the process's captured rate loops (``graphs.GraphCache``)
+GRAPHS = graphs.GraphCache(GRAPH_CACHE_SIZE)
+#: graph captures and replays by stage (``graphs.graph_counts``)
+graph_counts = graphs.graph_counts
 
 
 def _graph_key(inputs, ST):
@@ -868,23 +785,47 @@ def _graph_key(inputs, ST):
     device (G among them) or its absence, and the rate's tables (their
     Python values and the identity of their tensors, which the entry
     keeps alive)."""
-    return (tuple(None if t is None else (t.dtype, tuple(t.shape), t.device)
-                  for t in inputs.values()),
-            bool(ST["lsf"]), int(ST["r0_pairs_short"]),
-            tuple((k, id(v)) for k, v in ST.items()
-                  if isinstance(v, torch.Tensor)))
+    return graphs.key_of(inputs, ST)
 
 
-def _run_captured(inputs, ST, max_iter, record, refs=()):
+def _static_outputs(entry):
+    """The epilogue's outputs over an entry's static state and inputs."""
+    inp = entry.inputs
+    return _epilogue(inp["xr"], entry.best, entry.state["qss0"],
+                     inp["block_type"], inp["is_short_block"])
+
+
+def _continue(entry, then, record):
+    """``then.fn`` of the loop's outputs as the entry's graph of stage
+    "emission" for ``then.key``: on first sight run eagerly (its results,
+    made outside the pool, are this call's and become the graph's static
+    outputs) and captured, else replayed inside the span ``then.span``.
+    Returns the static outputs."""
+    name = ("emission", then.key)
+    if name not in entry.graphs:
+        entry.refs += (then,)       # what its graph reads
+        out = entry.outputs[name] = then.fn(_static_outputs(entry),
+                                            entry.inputs)
+        entry.capture(name, lambda: graphs.assign(out, then.fn(
+            _static_outputs(entry), entry.inputs)), record, "emission")
+    else:
+        with scope(then.span):
+            entry.replay(name)
+    return entry.outputs[name]
+
+
+def _run_captured(inputs, ST, max_iter, record, refs=(), then=None):
     """The captured loop's host side, on the current stream.  On first
     sight of a key the prologue and the first iteration run eagerly (the
     warm-up: their results are this call's) on static copies of the
-    inputs, then ``record`` captures each of them (CUDA: ``_cuda_graph``);
-    otherwise the inputs are copied into the key's static inputs and
-    the prologue replays.  Then one iteration replays while ``jaxloop``'s
-    exit condition holds, read on the host (one sync each).  Returns
-    (entry, the entries the cache dropped); the entry's best and state
-    hold this call's results until the next call of its key."""
+    inputs, then ``record`` captures each of them (CUDA:
+    ``graphs.cuda_graph``); otherwise the inputs are copied into the
+    key's static inputs and the prologue replays.  Then one iteration
+    replays while ``jaxloop``'s exit condition holds, read on the host
+    (one sync each); then ``then`` (``_continue``), if given.  Returns
+    (entry, the entries the cache dropped, then's static outputs or
+    None); the entry's best and state hold this call's results until the
+    next call of its key."""
     key = _graph_key(inputs, ST)
     entry = GRAPHS.get(key)
     dropped = []
@@ -896,11 +837,12 @@ def _run_captured(inputs, ST, max_iter, record, refs=()):
         if it < max_iter and any_on_host(~state["done"]):
             _iteration(state, best, ST)
             it += 1
-        entry = _Captured(static, state, best, (dict(ST),) + tuple(refs))
+        entry = graphs.Captured(static, (dict(ST),) + tuple(refs), state,
+                                best)
         entry.capture("prologue", lambda: _assign(
-            state, best, *_prologue(ST=ST, **static)), record)
+            state, best, *_prologue(ST=ST, **static)), record, "prologue")
         entry.capture("iteration", lambda: _iteration(state, best, ST),
-                      record)
+                      record, "iteration")
         dropped = GRAPHS.put(key, entry)
     else:
         for k, t in entry.inputs.items():
@@ -911,58 +853,39 @@ def _run_captured(inputs, ST, max_iter, record, refs=()):
     while it < max_iter and any_on_host(~entry.state["done"]):
         entry.replay("iteration")
         it += 1
-    return entry, dropped
+    out = None if then is None else _continue(entry, then, record)
+    return entry, dropped, out
 
 
-@lru_cache(maxsize=None)
-def _loop_stream(device):
-    """The stream on which the captured rate loops of `device` warm up,
-    are captured and replay."""
-    return torch.cuda.Stream(device=device)
+def _assign(state, best, new_state, new_best):
+    """Copy a prologue's results into the static state and best (the
+    inputs that it passed through are there already)."""
+    graphs.assign(state, new_state)
+    graphs.assign(best, new_best)
 
 
-@lru_cache(maxsize=None)
-def _graph_pool(device):
-    """One memory pool for every rate-loop graph of `device`: no tensor
-    of the pool lives past its graph's run (what crosses replays is in
-    the entries' static tensors), and the graphs replay one at a time on
-    one stream, so they can share their temporaries."""
-    return torch.cuda.graph_pool_handle()
-
-
-def _cuda_graph(device):
-    """``record`` for ``_run_captured`` on `device`: fn() captured into a
-    CUDA graph on the loop stream, in the shared pool."""
-    def record(fn):
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=_graph_pool(device),
-                              stream=_loop_stream(device),
-                              capture_error_mode="thread_local"):
-            fn()
-        return graph
-    return record
-
-
-def _graphed(inputs, ST, max_iter):
-    """``outer_loop`` on a CUDA device: ``_run_captured`` on the loop
-    stream (which first waits for the caller's), then the epilogue on
-    the caller's stream on clones of best."""
+def _graphed(inputs, ST, max_iter, then=None):
+    """``outer_loop`` on a CUDA device: ``_run_captured`` on the graph
+    stream (which first waits for the caller's), then on the caller's
+    stream the epilogue on clones of best, or clones of then's
+    outputs."""
     dev = inputs["xr"].device
-    caller = torch.cuda.current_stream(dev)
-    with _GRAPH_LOCK:
-        stream = _loop_stream(dev)
-        stream.wait_stream(caller)
-        with torch.cuda.stream(stream):
-            entry, dropped = _run_captured(
-                inputs, ST, max_iter, _cuda_graph(dev),
-                search.device_buffers(dev))
-            for old in dropped:         # no dropped graph still runs
-                _loop_stream(old.inputs["xr"].device).synchronize()
-        caller.wait_stream(stream)
+
+    def body():
+        entry, dropped, out = _run_captured(
+            inputs, ST, max_iter, graphs.cuda_graph(dev),
+            search.device_buffers(dev), then)
+        return (entry, out), dropped
+
+    def keep(res):
+        entry, out = res
+        if out is not None:
+            return {k: v.clone() for k, v in out.items()}
         best = {k: v.clone() for k, v in entry.best.items()}
-        qss0 = entry.state["qss0"].clone()
-    return _epilogue(inputs["xr"], best, qss0, inputs["block_type"],
-                     inputs["is_short_block"])
+        return _epilogue(inputs["xr"], best, entry.state["qss0"].clone(),
+                         inputs["block_type"], inputs["is_short_block"])
+
+    return graphs.on_stream(dev, body, keep)
 
 
 def _inputs(xr, budget, ratio_l, ratio_s, is_short_block, block_type,
@@ -976,7 +899,7 @@ def _inputs(xr, budget, ratio_l, ratio_s, is_short_block, block_type,
 @span("outer_loop")
 def outer_loop(xr, budget, ratio_l, ratio_s, is_short_block, block_type,
                ST, max_iter=6, sf_fix_mask=None, sf_fix_val=None,
-               sf_skip_mask=None, qss_lo=None):
+               sf_skip_mask=None, qss_lo=None, then=None):
     """Distortion-control loop (loop.c:415-558), batched & masked.
 
     xr (G, 576) float32 signed spectrum; budget (G,) float32 max bits.
@@ -984,27 +907,32 @@ def outer_loop(xr, budget, ratio_l, ratio_s, is_short_block, block_type,
     FIXED (scfsi); sf_skip_mask (G, 21): fixed bands not transmitted.
     qss_lo: warm lower bound for the initial bisection.
     Returns dict of per-granule coding decisions (see jaxloop.outer_loop).
+    then: a ``Then`` continuation; the call returns ``then.fn(outputs,
+    inputs)`` in place of the outputs.
 
     On a CUDA tensor the prologue and every iteration replay CUDA graphs
-    captured on the key's first call (``GRAPHS``; a capture or replay
-    error raises); on any other device it is ``outer_loop_eager``."""
+    captured on the key's first call (``GRAPHS``), and so does `then`
+    after the last iteration, reading the loop's static tensors (stage
+    "emission"); a capture or replay error raises.  On any other device
+    it is ``outer_loop_eager``."""
     inputs = _inputs(xr, budget, ratio_l, ratio_s, is_short_block,
                      block_type, sf_fix_mask, sf_fix_val, sf_skip_mask,
                      qss_lo)
     if xr.device.type == "cuda":
-        return _graphed(inputs, ST, max_iter)
-    return _eager(inputs, ST, max_iter)
+        return _graphed(inputs, ST, max_iter, then)
+    return _eager(inputs, ST, max_iter, then)
 
 
 @span("outer_loop")
 def outer_loop_eager(xr, budget, ratio_l, ratio_s, is_short_block,
                      block_type, ST, max_iter=6, sf_fix_mask=None,
-                     sf_fix_val=None, sf_skip_mask=None, qss_lo=None):
-    """``outer_loop`` with the same prologue, iterations and epilogue
-    dispatched op by op on every device: what the CPU runs, and on the
-    card the yardstick of the captured loop.  A run whose searches are
-    swapped for other Python (the plain searches sync on the host) must
-    call this form: a graph replays kernels, not Python."""
+                     sf_fix_val=None, sf_skip_mask=None, qss_lo=None,
+                     then=None):
+    """``outer_loop`` with the same prologue, iterations, epilogue and
+    `then` dispatched op by op on every device: what the CPU runs, and on
+    the card the yardstick of the captured loop.  A run whose searches
+    are swapped for other Python (the plain searches sync on the host)
+    must call this form: a graph replays kernels, not Python."""
     return _eager(_inputs(xr, budget, ratio_l, ratio_s, is_short_block,
                           block_type, sf_fix_mask, sf_fix_val, sf_skip_mask,
-                          qss_lo), ST, max_iter)
+                          qss_lo), ST, max_iter, then)

@@ -6,6 +6,10 @@ conversion are constant matrices; the unpredictability measure uses
 complex products instead of atan2/cos/sin.  The block-type automaton
 is a prefix composition of 4-entry transition maps, computed with a
 log-step (doubling) scan on the device.
+
+Every function works on a batch of lanes (a leading axis L: the
+channels of a segment, or a corpus group's): one call, and one launch
+of each op, for all lanes; ``lanes.mm`` runs each product.
 """
 from functools import lru_cache
 
@@ -15,6 +19,7 @@ import torch
 from ..tables import mpeg
 from ..tables.psy import (CBANDS, CBANDS_S, SBMAX_L, SBMAX_S,
                           psy_params_for_sfreq)
+from . import graphs, lanes
 
 LN = mpeg.LN_TO_LOG10
 SWITCH_PE = 1800.0
@@ -76,9 +81,11 @@ def numpy_constants(sfreq_hz):
 
 
 def device_tables(c, device):
-    """float32 tensors on `device` from ``numpy_constants()``-shaped `c`."""
-    f = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,  # noqa
-                                  device=device)
+    """Tensors on `device` from ``numpy_constants()``-shaped `c`: the
+    float32 matrices, and the block-type automaton's two transition maps
+    and the short-derived lines' indices (int64).  Equal constants on one
+    device give the same tensors (``graphs.shared_tensors``)."""
+    f = lambda a: np.asarray(a, np.float32)  # noqa: E731
     M, P = c["psy_mats"], c["psy_mats"]["P"]
     out = dict(part_l=f(M["part_l"]), part_s=f(M["part_s"]),
                s3_t=f(np.asarray(M["s3"]).T),
@@ -91,31 +98,35 @@ def device_tables(c, device):
         out[f"dft_c{n}"] = f(c["dft"][n][0])
         out[f"dft_s{n}"] = f(c["dft"][n][1])
         out[f"hann{n}"] = f(c["hann"][n])
-    return out
+    out.update(fsm_attack=np.array(_M_ATTACK, np.int64),
+               fsm_calm=np.array(_M_CALM, np.int64),
+               short_lines=SHORT_LINES)
+    return graphs.shared_tensors(out, device)
 
 
 def _frames_long(blocks, halo2):
-    """(G, 1024) windows [tail 192 of g-2 | g-1 | head 256 of g]."""
-    allb = torch.cat([halo2, blocks], dim=0)
-    return torch.cat([allb[:-2, 384:], allb[1:-1, :], allb[2:, :256]], dim=1)
+    """(L, G, 1024) windows [tail 192 of g-2 | g-1 | head 256 of g]."""
+    allb = torch.cat([halo2, blocks], dim=1)
+    return torch.cat([allb[:, :-2, 384:], allb[:, 1:-1, :],
+                      allb[:, 2:, :256]], dim=2)
 
 
 def _frames_short(blocks, halo2):
-    """(G, 3, 256) short windows at offsets 256/384/512 of the savebuf."""
-    allb = torch.cat([halo2, blocks], dim=0)
-    base = torch.cat([allb[:-1], allb[1:]], dim=1)     # (G+1, 1152)
-    return torch.stack([base[1:, 64 + 128 * w: 64 + 128 * w + 256]
-                        for w in range(3)], dim=1)
+    """(L, G, 3, 256) short windows at offsets 256/384/512 of the
+    savebuf."""
+    allb = torch.cat([halo2, blocks], dim=1)
+    base = torch.cat([allb[:, :-1], allb[:, 1:]], dim=2)   # (L, G+1, 1152)
+    return torch.stack([base[:, 1:, 64 + 128 * w: 64 + 128 * w + 256]
+                        for w in range(3)], dim=2)
 
 
 def _spectrum(frames, n, PT):
-    re = frames @ PT[f"dft_c{n}"]
-    im = frames @ PT[f"dft_s{n}"]
+    re = lanes.mm(frames, PT[f"dft_c{n}"], f"dft_c{n}")
+    im = lanes.mm(frames, PT[f"dft_s{n}"], f"dft_s{n}")
     energy = re * re + im * im
     # energy floor with zero-phase convention (subs.c:67-80)
-    interior = torch.ones(n // 2 + 1, dtype=torch.bool, device=frames.device)
-    interior[0] = False
-    interior[n // 2] = False
+    line = torch.arange(n // 2 + 1, device=frames.device)
+    interior = (line > 0) & (line < n // 2)
     floored = (energy < 0.0005) & interior
     energy = torch.where(floored, 0.0005, energy)
     re = torch.where(floored, torch.sqrt(energy), re)
@@ -125,15 +136,16 @@ def _spectrum(frames, n, PT):
 
 _M_ATTACK = (2, 2, 2, 2)
 _M_CALM = (0, 0, 3, 0)
+#: the long line of each short-derived unpredictability value (lines
+#: 6..205 in steps of 4 take short line (k + 2) >> 2)
+SHORT_LINES = (np.arange(6, 206, 4) + 2) >> 2
 
 
-def fsm_maps(attack):
-    """Per-granule transition maps (G, 4) of the block-type automaton
-    over states 0=NORM, 2=SHORT, 3=STOP."""
-    m_attack = torch.tensor(_M_ATTACK, dtype=torch.int64,
-                            device=attack.device)
-    m_calm = torch.tensor(_M_CALM, dtype=torch.int64, device=attack.device)
-    return torch.where(attack[:, None], m_attack[None, :], m_calm[None, :])
+def fsm_maps(attack, PT):
+    """Per-granule transition maps (..., G, 4) of the block-type
+    automaton over states 0=NORM, 2=SHORT, 3=STOP, from the psy tables'
+    two maps."""
+    return torch.where(attack[..., None], PT["fsm_attack"], PT["fsm_calm"])
 
 
 def fsm_compose(a, b):
@@ -142,8 +154,9 @@ def fsm_compose(a, b):
 
 
 def fsm_prefix(maps):
-    """Inclusive prefix composition: out[g] = maps[g] . ... . maps[0],
-    by doubling -- log2(G) composition steps, no per-granule loop."""
+    """Inclusive prefix composition along axis 0: out[g] = maps[g] . ...
+    . maps[0], by doubling -- log2(G) composition steps, no per-granule
+    loop."""
     out = maps
     d = 1
     G = maps.shape[0]
@@ -153,15 +166,22 @@ def fsm_prefix(maps):
     return out
 
 
-def _fsm_blocktype(attack, init_state):
-    """Emitted block types (G,) and the final automaton state () for
-    an attack sequence, starting from init_state ()."""
-    prefix = fsm_prefix(fsm_maps(attack))
-    init = init_state.to(torch.int64).reshape(1)
-    pre = prefix[:, init][:, 0] if prefix.shape[0] else init[:0]
-    states = torch.cat([init, pre[:-1]])
+def _fsm_blocktype(attack, init_state, PT):
+    """Emitted block types and final automaton states of attack
+    sequences (L, G) from initial states (L,), every lane's prefix along
+    its granule axis at once; (G,) and () for one lane."""
+    if attack.dim() == 1:
+        emit, final = _fsm_blocktype(attack[None], init_state.reshape(1),
+                                     PT)
+        return emit[0], final[0]
+    prefix = fsm_prefix(fsm_maps(attack, PT).transpose(0, 1)) \
+        .transpose(0, 1)                                     # (L, G, 4)
+    init = init_state.to(torch.int64).reshape(-1, 1)         # (L, 1)
+    pre = torch.gather(prefix, 2, init[:, :, None].expand(
+        -1, prefix.shape[1], 1))[:, :, 0]                     # (L, G)
+    states = torch.cat([init, pre[:, :-1]], dim=1)
     emit = torch.where(attack, torch.where(states == 0, 1, 2), states)
-    return emit.to(torch.int32), pre[-1].to(torch.int32)
+    return emit.to(torch.int32), pre[:, -1].to(torch.int32)
 
 
 def _unpredictability(re0, im0, r0, re1, im1, r1, re2, im2, r2):
@@ -184,28 +204,37 @@ def _unpredictability(re0, im0, r0, re1, im1, r1, re2, im2, r2):
 
 
 def _shift(x, n):
-    """x delayed by n granules along axis 0 (zeros shifted in)."""
-    return torch.cat([torch.zeros_like(x[:n]), x[:-n]], dim=0)
+    """x (L, G, ...) delayed by n granules (zeros shifted in)."""
+    return torch.cat([torch.zeros_like(x[:, :n]), x[:, :-n]], dim=1)
 
 
 def psycho_granules(blocks, halo2, PT, warmup=0, fsm_init=None):
-    """Model-2 analysis for a batch of granules of one channel.
+    """Model-2 analysis for a batch of granules of each lane.
 
-    blocks (G, 576) raw PCM values (int16 range, as float); halo2 (2, 576)
-    the preceding blocks.  The first `warmup` granules are history only.
-    fsm_init: () int automaton state carried from the previous chunk
-    (None = NORM).  Returns pe, ratio_l (G', 21), ratio_s (G', 12, 3),
-    attack, block_type (emitted) and fsm_state (), G' = G - warmup.
+    blocks (L, G, 576) raw PCM values (int16 range, as float); halo2
+    (L, 2, 576) the preceding blocks; the first `warmup` granules are
+    history only.  fsm_init: (L,) int automaton states carried from the
+    previous chunk (None = NORM).  Returns pe (L, G'), ratio_l (L, G',
+    21), ratio_s (L, G', 12, 3), attack, block_type (emitted) and
+    fsm_state (L,), G' = G - warmup.  One lane may come without its lane
+    axis: blocks (G, 576), halo2 (2, 576), fsm_init (); so do its
+    results.  It builds no tensor from host data and reads none back, so
+    that a CUDA graph can capture it.
     """
+    if blocks.dim() == 2:
+        out = psycho_granules(blocks[None], halo2[None], PT, warmup,
+                              None if fsm_init is None
+                              else fsm_init.reshape(1))
+        return {k: v[0] for k, v in out.items()}
     blocks = blocks.to(torch.float32)
     halo2 = halo2.to(torch.float32)
     dev = blocks.device
+    L, G = blocks.shape[:2]
     frames_l = _frames_long(blocks, halo2) * PT["hann1024"]
-    re, im, energy = _spectrum(frames_l, 1024, PT)             # (G, 513)
+    re, im, energy = _spectrum(frames_l, 1024, PT)          # (L, G, 513)
     frames_s = _frames_short(blocks, halo2) * PT["hann256"]
-    re_s, im_s, energy_s = _spectrum(frames_s, 256, PT)        # (G, 3, 129)
+    re_s, im_s, energy_s = _spectrum(frames_s, 256, PT)     # (L, G, 3, 129)
 
-    G = blocks.shape[0]
     r = torch.sqrt(energy)
     # unpredictability, long lines 0..5 (two-granule history)
     cw = _unpredictability(re, im, r, _shift(re, 1), _shift(im, 1),
@@ -213,19 +242,20 @@ def psycho_granules(blocks, halo2, PT, warmup=0, fsm_init=None):
                            _shift(r, 2))
     # short-derived lines 6..205 (within-granule, 3 sub-blocks)
     rs = torch.sqrt(energy_s)
-    k = torch.as_tensor((np.arange(6, 206, 4) + 2) >> 2, device=dev)
+    k = PT["short_lines"]
     cws = _unpredictability(
-        re_s[:, 1, k], im_s[:, 1, k], rs[:, 1, k],
-        re_s[:, 0, k], im_s[:, 0, k], rs[:, 0, k],
-        re_s[:, 2, k], im_s[:, 2, k], rs[:, 2, k])
-    cw_full = torch.cat([cw[:, :6], cws.repeat_interleave(4, dim=1),
-                         torch.full((G, 513 - 206), 0.4, device=dev)], dim=1)
+        re_s[:, :, 1, k], im_s[:, :, 1, k], rs[:, :, 1, k],
+        re_s[:, :, 0, k], im_s[:, :, 0, k], rs[:, :, 0, k],
+        re_s[:, :, 2, k], im_s[:, :, 2, k], rs[:, :, 2, k])
+    cw_full = torch.cat([cw[..., :6], cws.repeat_interleave(4, dim=-1),
+                         torch.full((L, G, 513 - 206), 0.4, device=dev)],
+                        dim=-1)
 
     # partition energies and spreading
-    eb = energy @ PT["part_l"]                                  # (G, 63)
-    cbw = (cw_full * energy) @ PT["part_l"]
-    ecb = eb @ PT["s3_t"]
-    ctb = cbw @ PT["s3_t"]
+    eb = lanes.mm(energy, PT["part_l"], "partition_energy")  # (L, G, 63)
+    cbw = lanes.mm(cw_full * energy, PT["part_l"], "partition_tonality")
+    ecb = lanes.mm(eb, PT["s3_t"], "spread_energy")
+    ctb = lanes.mm(cbw, PT["s3_t"], "spread_tonality")
 
     # tonality -> SNR -> thresholds with pre-echo memory
     cbb = torch.where(
@@ -242,31 +272,31 @@ def psycho_granules(blocks, halo2, PT, warmup=0, fsm_init=None):
     # perceptual entropy (with the reference's clobbered numlines)
     pe = -(PT["numlines_pe"]
            * torch.clamp(torch.log((thr + 1.0) / (eb + 1.0)), max=0.0)
-           ).sum(dim=1)
+           ).sum(dim=-1)
 
     # long sfb ratios
-    en_l = eb @ PT["conv_l"]
-    thm_l = thr @ PT["conv_l"]
+    en_l = lanes.mm(eb, PT["conv_l"], "sfb_energy_l")
+    thm_l = lanes.mm(thr, PT["conv_l"], "sfb_threshold_l")
     ratio_l = torch.where(en_l != 0.0,
                           thm_l / torch.where(en_l == 0, 1.0, en_l), 0.0)
 
     # short sfb ratios
-    eb_s = energy_s @ PT["part_s"]                              # (G, 3, 63)
-    ecb_s = eb_s @ PT["s3_short_t"]
+    eb_s = lanes.mm(energy_s, PT["part_s"], "partition_energy_s")
+    ecb_s = lanes.mm(eb_s, PT["s3_short_t"], "spread_energy_s")
     nb_sv = ecb_s * PT["norm_l"] * torch.exp(PT["snr_s"] * LN)
     thr_s = torch.maximum(PT["qthr_s"], nb_sv)
-    en_s = eb_s @ PT["conv_s"]                                  # (G, 3, 12)
-    thm_s = thr_s @ PT["conv_s"]
+    en_s = lanes.mm(eb_s, PT["conv_s"], "sfb_energy_s")     # (L, G, 3, 12)
+    thm_s = lanes.mm(thr_s, PT["conv_s"], "sfb_threshold_s")
     ratio_s = torch.where(en_s != 0.0,
                           thm_s / torch.where(en_s == 0, 1.0, en_s), 0.0)
-    ratio_s = ratio_s.transpose(1, 2)                           # (G, 12, 3)
+    ratio_s = ratio_s.transpose(-1, -2)                     # (L, G, 12, 3)
 
     attack = pe >= SWITCH_PE
     if warmup:
-        pe, ratio_l, ratio_s, attack = (x[warmup:] for x in
+        pe, ratio_l, ratio_s, attack = (x[:, warmup:] for x in
                                         (pe, ratio_l, ratio_s, attack))
     if fsm_init is None:
-        fsm_init = torch.zeros((), dtype=torch.int32, device=dev)
-    block_type, fsm_state = _fsm_blocktype(attack, fsm_init)
+        fsm_init = torch.zeros(L, dtype=torch.int32, device=dev)
+    block_type, fsm_state = _fsm_blocktype(attack, fsm_init, PT)
     return dict(pe=pe, ratio_l=ratio_l, ratio_s=ratio_s, attack=attack,
                 block_type=block_type, fsm_state=fsm_state)

@@ -9,7 +9,10 @@ traffic between ranks.  The two sequential pieces are:
   - the block-type automaton: each rank composes its chunks' transition
     maps (``ops/psy.fsm_maps``/``fsm_compose``/``fsm_prefix``), the maps
     are all-gathered, and every rank composes the global prefix and its
-    chunks' initial states, so block types equal the sequential scan's;
+    chunks' initial states, so block types equal the sequential scan's
+    (the exchange sits between psy and the spectra, so this analysis is
+    not one captured program: on the card its chunks run as one batch of
+    lanes, op by op);
   - the bit reservoir: pe and demand are all-gathered and every rank
     runs the same native scan on the host.
 
@@ -31,38 +34,75 @@ from ..tables import mpeg
 from .sharding import all_gather_cat, make_mesh
 
 
-def _analyze(L3, blocks, halo4, mesh):
-    """This rank's chunks (Kl, nch, C, 576) and their halos (Kl, nch, 4,
-    576): psy, the global automaton, spectra and the demand encode.
-    Returns the rank's tensors, lane order (chunk, channel, granule)."""
-    enc, dev = L3.enc, L3.dev
-    Kl, nch, C = blocks.shape[:3]
-    PT, ST = enc.tables("psy"), enc.tables("st")
-    ext = torch.cat([halo4[:, :, 2:], blocks], dim=2)       # (Kl,nch,C+2,576)
-    ps = [[psy.psycho_granules(ext[k, ch], halo4[k, ch, :2], PT, warmup=2)
-           for ch in range(nch)] for k in range(Kl)]
-    attack = torch.stack([torch.stack([p["attack"] for p in row])
-                          for row in ps])                   # (Kl, nch, C)
-    maps = psy.fsm_prefix(psy.fsm_maps(attack.reshape(-1))
-                          .reshape(Kl * nch, C, 4).transpose(0, 1))[-1]
+def _initial_states(PT, attack, mesh, Kl, nch):
+    """The global automaton: each lane's maps (attack (Kl*nch, C), lanes
+    chunk-major) composed over its chunk, all-gathered, composed over
+    the chunks; returns this rank's chunks' initial states (Kl*nch,)."""
+    maps = psy.fsm_prefix(psy.fsm_maps(attack, PT).transpose(0, 1))[-1]
     allmaps = all_gather_cat(mesh, maps.reshape(Kl, nch, 4))  # (K, nch, 4)
     pref = psy.fsm_prefix(allmaps)
     inits = torch.cat([torch.zeros_like(pref[:1, :, 0]), pref[:-1, :, 0]])
-    mine = inits[mesh.get_local_rank("frames") * Kl:][:Kl]    # (Kl, nch)
-    bt = torch.stack([torch.stack([
-        psy._fsm_blocktype(attack[k, ch], mine[k, ch])[0]
-        for ch in range(nch)]) for k in range(Kl)])          # (Kl, nch, C)
-    xr = torch.stack([torch.stack([enc.spectrum(ext[k, ch], bt[k, ch])
-                                   for ch in range(nch)])
-                      for k in range(Kl)])                  # (Kl,nch,C,576)
+    return inits[mesh.get_local_rank("frames") * Kl:][:Kl].reshape(-1)
+
+
+def _lanes(enc, ext, halo, mesh, Kl, nch):
+    """psy, the global automaton, spectra and (MPEG-1) scfsi of the
+    rank's Kl*nch chunk lanes in one batch: ext (L, C+2, 576), halo (L,
+    2, 576).  Returns (L, C, ...) tensors."""
+    PT, ST = enc.tables("psy"), enc.tables("st")
+    p = psy.psycho_granules(ext, halo, PT, warmup=2)
+    init = _initial_states(PT, p["attack"], mesh, Kl, nch)
+    bt = psy._fsm_blocktype(p["attack"], init, PT)[0]
+    res = dict(xr=enc.spectrum(ext, bt), ratio_l=p["ratio_l"],
+               ratio_s=p["ratio_s"], block_type=bt, pe=p["pe"])
+    if not ST["lsf"]:
+        res["scfsi"] = _scfsi_flags(res["xr"], p["ratio_l"], p["ratio_s"],
+                                    bt, ST, enc.tables("l3"))
+    return res
+
+
+def _per_lane(enc, ext, halo, mesh, Kl, nch):
+    """``_lanes`` lane by lane: what the CPU runs, and on the card the
+    yardstick of the batched form."""
+    PT, ST = enc.tables("psy"), enc.tables("st")
+    L = ext.shape[0]
+    ps = [psy.psycho_granules(ext[i], halo[i], PT, warmup=2)
+          for i in range(L)]
+    attack = torch.stack([p["attack"] for p in ps])
+    init = _initial_states(PT, attack, mesh, Kl, nch)
+    bt = torch.stack([psy._fsm_blocktype(attack[i], init[i], PT)[0]
+                      for i in range(L)])
+    res = {k: torch.stack([p[k] for p in ps])
+           for k in ("ratio_l", "ratio_s", "pe")}
+    res.update(xr=torch.stack([enc.spectrum(ext[i], bt[i])
+                               for i in range(L)]), block_type=bt)
+    if not ST["lsf"]:
+        res["scfsi"] = torch.stack([_scfsi_flags(
+            res["xr"][i], res["ratio_l"][i], res["ratio_s"][i], bt[i], ST,
+            enc.tables("l3")) for i in range(L)])
+    return res
+
+
+def _analyze(L3, blocks, halo4, mesh):
+    """This rank's chunks (Kl, nch, C, 576) and their halos (Kl, nch, 4,
+    576): psy, the global automaton, spectra and the demand encode, the
+    Kl*nch lanes in one batch on a CUDA tensor (``_lanes``), lane by
+    lane on any other (``_per_lane``).  Returns the rank's tensors, lane
+    order (chunk, channel, granule)."""
+    enc, dev = L3.enc, L3.dev
+    Kl, nch, C = blocks.shape[:3]
+    ST = enc.tables("st")
+    ext = torch.cat([halo4[:, :, 2:], blocks], dim=2) \
+        .reshape(Kl * nch, C + 2, 576)
+    halo = halo4[:, :, :2].reshape(Kl * nch, 2, 576)
+    batch = _lanes if dev.type == "cuda" else _per_lane
+    a = batch(enc, ext, halo, mesh, Kl, nch)
     N = Kl * nch * C
-
-    def cat(key):
-        return torch.stack([torch.stack([p[key] for p in row]) for row in ps])
-
-    res = dict(xr=xr.reshape(N, 576), ratio_l=cat("ratio_l").reshape(N, 21),
-               ratio_s=cat("ratio_s").reshape(N, 12, 3),
-               block_type=bt.reshape(N), pe=cat("pe"))
+    res = dict(xr=a["xr"].reshape(N, 576),
+               ratio_l=a["ratio_l"].reshape(N, 21),
+               ratio_s=a["ratio_s"].reshape(N, 12, 3),
+               block_type=a["block_type"].reshape(N),
+               pe=a["pe"].reshape(Kl, nch, C))
     out = loop.outer_loop(res["xr"], torch.full((N,), 4095.0, device=dev),
                           res["ratio_l"], res["ratio_s"],
                           res["block_type"] != mpeg.NORM_TYPE,
@@ -71,13 +111,7 @@ def _analyze(L3, blocks, halo4, mesh):
     res["qss"] = out["qss0"].to(torch.float32)
     if not ST["lsf"]:
         # scfsi pairs never straddle chunks (C even)
-        xr4 = res["xr"].reshape(Kl * nch, C, 576)
-        rl = res["ratio_l"].reshape(Kl * nch, C, 21)
-        rs = res["ratio_s"].reshape(Kl * nch, C, 12, 3)
-        bt2 = bt.reshape(Kl * nch, C)
-        res["scfsi"] = torch.stack([_scfsi_flags(xr4[i], rl[i], rs[i],
-                                                 bt2[i], ST)
-                                    for i in range(Kl * nch)])
+        res["scfsi"] = a["scfsi"]
         res["sf_fix"] = out["sf_l"].reshape(Kl * nch, C, 21)[:, 0::2] \
             .to(torch.int8)
     return res

@@ -28,6 +28,10 @@ import torch
 SPANS = ("encode_segment_fused", "analyze_demand_fused", "encode_final",
          "pack_state", "outer_loop", "scan_budgets", "granule_payload",
          "compact_payload", "fetch", "native assembly")
+#: on a CUDA device the emission and packing replay one graph inside the
+#: span granule_payload (``ops/graphs.py``): the spans of the programs it
+#: covers then show only where it is captured or runs op by op
+REPLAY_COVERS = {"granule_payload": ("compact_payload", "pack_state")}
 
 
 class Profiler:
@@ -83,17 +87,24 @@ def from_env():
     return Profiler() if os.environ.get("MP3TPU_PROFILE") else _Null()
 
 
+@contextlib.contextmanager
+def scope(name):
+    """While a torch.profiler runs, a ``record_function`` scope `name`
+    (one of ``SPANS``) around the block; otherwise nothing, so that an
+    encode outside a trace touches no profiler machinery."""
+    if not torch.autograd._profiler_enabled():
+        yield
+        return
+    with torch.profiler.record_function(name):
+        yield
+
+
 def span(name):
-    """Decorator: while a torch.profiler runs, run the function inside a
-    ``record_function`` scope `name` (one of ``SPANS``); otherwise call
-    it as it is, so that an encode outside a trace touches no profiler
-    machinery."""
+    """Decorator: the function runs inside ``scope(name)``."""
     def wrap(fn):
         @functools.wraps(fn)
         def run(*args, **kwargs):
-            if not torch.autograd._profiler_enabled():
-                return fn(*args, **kwargs)
-            with torch.profiler.record_function(name):
+            with scope(name):
                 return fn(*args, **kwargs)
         return run
     return wrap

@@ -17,8 +17,11 @@
 Each runs on the card unless ``--device cpu`` is given (without a card
 ``--device cuda`` exits non-zero; there is no fall back to the CPU),
 prints its report as JSON on stdout and writes a file only to a path it
-is given.  ``signals`` holds the benchmark scripts' signals.
+is given.  ``signals`` holds the benchmark scripts' signals;
+``yardstick_form`` swaps in the segment program's op-by-op forms, for
+comparisons and counts that a replayed CUDA graph hides.
 """
+import contextlib
 import math
 import subprocess
 import sys
@@ -107,3 +110,32 @@ def profile_once(fn):
             busy_us += e - max(s, end)
             end = e
     return events, busy_us / 1e6, wall
+
+
+@contextlib.contextmanager
+def yardstick_form(rate_loop_eager=False):
+    """Within the block the segment program runs its yardstick forms: the
+    analysis lane by lane (``Layer3SegmentEncoder.analysis_eager``, the
+    multi-rank path's ``clip._per_lane``) and the emission op by op
+    (``encode_final_eager``), the rate loop still as CUDA graphs on the
+    card (the form before the analysis and emission were captured);
+    with `rate_loop_eager` the rate loop op by op too
+    (``loop.outer_loop_eager``), so that no graph replays.  For
+    measurement only: a replay runs no Python and dispatches no aten op
+    that a counter or a swapped function could see."""
+    from ..models.layer3 import Layer3SegmentEncoder as Enc
+    from ..ops import loop
+    from ..parallel import clip
+    swaps = [(Enc, "analysis", Enc.analysis_eager),
+             (Enc, "encode_final", Enc.encode_final_eager),
+             (clip, "_lanes", clip._per_lane)]
+    if rate_loop_eager:
+        swaps.append((loop, "outer_loop", loop.outer_loop_eager))
+    real = [(obj, name, getattr(obj, name)) for obj, name, _ in swaps]
+    try:
+        for obj, name, fn in swaps:
+            setattr(obj, name, fn)
+        yield
+    finally:
+        for obj, name, fn in real:
+            setattr(obj, name, fn)

@@ -8,9 +8,10 @@ CUDA activity (device kernels and copies, busy and idle share of the
 measured wall), then once more under
 ``torch.utils.flop_counter.FlopCounterMode``, which counts the matmul
 FLOPs (psy DFT, filterbank, MDCT, the rate loop's contractions) in
-place of the JAX tool's XLA cost analysis; that encode runs the rate
-loop eagerly (``loop.outer_loop_eager``), since the counter sees no op
-of a replayed CUDA graph.
+place of the JAX tool's XLA cost analysis; that encode runs the segment
+program op by op (``tools.yardstick_form(rate_loop_eager=True)``), since
+the counter sees no op of a replayed CUDA graph.  The measured run's
+CUDA graph captures and replays are reported by stage.
 
     python -m mp3tpu_torch.tools.profile_encode [--device cuda|cpu]
         [--seconds 60] [out.json]
@@ -28,10 +29,11 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from ..config import EncoderConfig
 from ..encoder import encode_layer3_fast
-from ..ops import loop
+from ..ops import graphs
 from ..runtime.profiling import Profiler
 from ..tables import mpeg
-from . import FP32_OPS_PER_S, describe, device_or_exit, profile_once, sync
+from . import (FP32_OPS_PER_S, describe, device_or_exit, profile_once, sync,
+               yardstick_form)
 from .signals import make_signal
 
 
@@ -60,22 +62,20 @@ def run(seconds, device):
         got["wall"] = time.perf_counter() - t0
 
     events = busy = None
+    graphs.reset_counts()
     if dev.type == "cuda":
         events, busy, _ = profile_once(measured)
         events = len(events)
     else:
         measured()
     wall = got["wall"]
+    by_stage = graphs.by_stage()
 
     # a replayed CUDA graph runs no aten op that the counter could see:
-    # the counted encode runs the rate loop op by op (the same arithmetic)
-    graphed = loop.outer_loop
-    loop.outer_loop = loop.outer_loop_eager
-    try:
-        with FlopCounterMode(display=False) as counter:
-            encode()
-    finally:
-        loop.outer_loop = graphed
+    # the counted encode runs op by op (the same arithmetic)
+    with yardstick_form(rate_loop_eager=True), \
+            FlopCounterMode(display=False) as counter:
+        encode()
     flops = int(counter.get_total_flops())
     on_card = dev.type == "cuda"
     return {
@@ -101,6 +101,7 @@ def run(seconds, device):
             "the tensor cores (TF32 is off); None off the card.  The encode "
             "is a branch-heavy rate search, launch-bound on the host, so "
             "x_realtime is the meaningful metric"),
+        "graphs_by_stage": by_stage,
         "device_events": events,
         "device_busy_s": busy,
         "idle_share": 1.0 - busy / wall if on_card else None,

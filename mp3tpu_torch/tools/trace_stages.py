@@ -34,7 +34,7 @@ from ..config import EncoderConfig
 from ..encoder import (PAYLOAD_WORDS, RELAX_DELTA, _Layer3Framing,
                        _plan_segments, encode_layer3_fast)
 from ..models.layer3 import final_budgets
-from ..ops import resv
+from ..ops import graphs, resv
 from ..runtime.profiling import SPANS, trace
 from ..tables import mpeg
 from . import DEVICE_CATS, describe, device_or_exit, profile_once, sync
@@ -299,11 +299,13 @@ def run(seconds, device, runs=5, trace_dir=None):
     out = encode()
     warmup_s = time.perf_counter() - t0
     e2e = []
+    graphs.reset_counts()
     for _ in range(runs):
         t0 = time.perf_counter()
         encode()
         e2e.append(time.perf_counter() - t0)
     e2e_s = statistics.median(e2e)
+    by_stage = graphs.by_stage()
 
     times, stage_device, plan, G = isolated_stages(_Layer3Framing(cfg(), dev),
                                                    pcm, dev)
@@ -315,6 +317,7 @@ def run(seconds, device, runs=5, trace_dir=None):
         "e2e_median_s": e2e_s,
         "e2e_runs_s": e2e,
         "e2e_x_realtime": seconds / e2e_s,
+        "graphs_by_stage": by_stage,
         "link": link_figures(dev) if dev.type == "cuda" else None,
         "stage_isolated_s": times,
         "stage_device": stage_device,
@@ -328,7 +331,9 @@ def run(seconds, device, runs=5, trace_dir=None):
                  "segments, not one segment, compares with e2e; link "
                  "figures are host clock, median of 5 (None on the CPU); "
                  "device events and busy time from torch.profiler (None "
-                 "on the CPU)"),
+                 "on the CPU); graphs_by_stage: CUDA graph (captures, "
+                 "replays) by stage over the timed encodes (none on the "
+                 "CPU)"),
     }
     if trace_dir:
         with trace(trace_dir, dev):

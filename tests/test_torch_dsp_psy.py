@@ -58,11 +58,12 @@ def test_constants_equal_jax():
 
 def test_fsm_prefix_equals_serial_automaton():
     rng = np.random.RandomState(3)
+    PT = psy.device_tables(psy.numpy_constants(44100.0), "cpu")
     for G in (1, 2, 5, 64, 77):
         attack = rng.rand(G) < 0.3
         for init in (0, 2, 3):
             emit, final = psy._fsm_blocktype(torch.tensor(attack),
-                                             torch.tensor(init))
+                                             torch.tensor(init), PT)
             state, want = init, []
             for a in attack:
                 want.append((1 if state == 0 else 2) if a else state)

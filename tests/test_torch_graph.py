@@ -28,6 +28,7 @@ from torch.utils._pytree import tree_leaves
 
 from mp3tpu.ops import jaxloop
 from mp3tpu.tables import mpeg
+from mp3tpu_torch.ops import graphs as G
 from mp3tpu_torch.ops import loop, search
 from mp3tpu_torch.tools import trace_stages
 from test_torch_loop import _graft_example, _match_share, _mixed_blocks_example
@@ -193,16 +194,17 @@ def _perturbed(d):
 @pytest.fixture
 def graphs(monkeypatch):
     """An empty graph cache of its own, and zeroed graph counts."""
-    cache = loop.GraphCache(loop.GRAPH_CACHE_SIZE)
+    cache = G.GraphCache(loop.GRAPH_CACHE_SIZE)
     monkeypatch.setattr(loop, "GRAPHS", cache)
-    monkeypatch.setattr(loop, "graph_counts", dict(captures=0, replays=0))
+    monkeypatch.setattr(G, "graph_counts", {
+        s: dict(captures=0, replays=0) for s in G.STAGES})
     return cache
 
 
 def _run(inputs, ST):
     """``_run_captured`` with the stand-in capture, to outer_loop's
     outputs."""
-    entry, _ = loop._run_captured(inputs, ST, 6, _stand_in)
+    entry, _, _ = loop._run_captured(inputs, ST, 6, _stand_in)
     best = {k: v.clone() for k, v in entry.best.items()}
     return loop._epilogue(inputs["xr"], best, entry.state["qss0"].clone(),
                           inputs["block_type"], inputs["is_short_block"])
@@ -231,8 +233,10 @@ def test_captured_loop_equals_eager_and_jax(graphs, name, example, version):
         for k in ref:
             assert torch.equal(got[k], ref[k]), k
         outs.append(got)
-    assert len(graphs) == 1 and loop.graph_counts["captures"] == 2
-    assert loop.graph_counts["replays"] >= 2
+    assert len(graphs) == 1 and G.totals()["captures"] == 2
+    assert G.by_stage()["prologue"] == (1, 2)
+    assert G.by_stage()["iteration"][0] == 1
+    assert G.totals()["replays"] >= 2
     for k in outs[0]:
         assert torch.equal(outs[0][k], outs[2][k]), k
 
@@ -259,12 +263,11 @@ def test_outer_loop_on_the_cpu_is_the_eager_loop(graphs):
     ref = loop.outer_loop_eager(ST=ST, **inputs)
     for k in ref:
         assert torch.equal(got[k], ref[k]), k
-    assert len(graphs) == 0 and loop.graph_counts == dict(captures=0,
-                                                          replays=0)
+    assert len(graphs) == 0 and G.totals() == dict(captures=0, replays=0)
 
 
 def test_cache_keeps_its_size_least_recent_first():
-    cache = loop.GraphCache(3)
+    cache = G.GraphCache(3)
     for k in "abcd":
         dropped = cache.put(k, k.upper())
     assert dropped == ["A"] and len(cache) == 3
@@ -289,20 +292,20 @@ def _small_batch(G, seed):
 def test_cache_holds_what_its_graphs_read(monkeypatch, graphs):
     """An entry keeps the rate's tables and its state alive after the
     caller dropped them, and lets them go when the cache drops it."""
-    monkeypatch.setattr(loop, "GRAPHS", loop.GraphCache(2))
+    monkeypatch.setattr(loop, "GRAPHS", G.GraphCache(2))
     # tables of their own (device_tables would share the process's)
     ST = loop._device_tables(loop.static_tables(mpeg.MPEG1, 1), "cpu")
     table = weakref.ref(ST["oh_l"])
-    entry, _ = loop._run_captured(_inputs(_small_batch(8, 0)), ST, 6,
-                                  _stand_in)
+    entry, _, _ = loop._run_captured(_inputs(_small_batch(8, 0)), ST, 6,
+                                     _stand_in)
     state = weakref.ref(entry.state["xr75p"])
     assert entry.refs[0]["oh_l"] is ST["oh_l"]
     del ST, entry
     gc.collect()
     assert table() is not None and state() is not None
     ST2 = _tables(mpeg.MPEG1)
-    for G in (12, 16):
-        loop._run_captured(_inputs(_small_batch(G, 1)), ST2, 6, _stand_in)
+    for n in (12, 16):
+        loop._run_captured(_inputs(_small_batch(n, 1)), ST2, 6, _stand_in)
     gc.collect()
     assert len(loop.GRAPHS) == 2
     assert table() is None and state() is None
@@ -336,7 +339,8 @@ def test_equal_tables_are_one_set_of_tensors():
 def test_replays_count_the_launches_their_graph_holds(monkeypatch):
     """A capture takes the launches made into it back out of the
     wrappers' counts; each replay adds them again."""
-    monkeypatch.setattr(loop, "graph_counts", dict(captures=0, replays=0))
+    monkeypatch.setattr(G, "graph_counts", {
+        s: dict(captures=0, replays=0) for s in G.STAGES})
     monkeypatch.setattr(search, "launches", 10)
 
     def launch_twice():
@@ -346,13 +350,14 @@ def test_replays_count_the_launches_their_graph_holds(monkeypatch):
         fn()                              # a capture makes the calls
         return SimpleNamespace(replay=lambda: None)
 
-    entry = loop._Captured({}, {}, {}, ())
-    entry.capture("iteration", launch_twice, record)
+    entry = G.Captured({}, ())
+    entry.capture("iteration", launch_twice, record, "iteration")
     assert search.launches == 10 and entry.held["iteration"] == [2, 0]
     for n in (1, 2):
         entry.replay("iteration")
         assert search.launches == 10 + 2 * n
-    assert loop.graph_counts == dict(captures=1, replays=2)
+    assert G.totals() == dict(captures=1, replays=2)
+    assert G.by_stage()["iteration"] == (1, 2)
 
 
 def test_span_breakdown_counts_dispatches_and_graph_kernels(tmp_path):

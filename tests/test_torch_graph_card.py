@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from mp3tpu_torch.ops import graphs as G
 from mp3tpu_torch.ops import loop, search
 from mp3tpu_torch.tables import mpeg
 
@@ -33,9 +34,10 @@ def card():
 @pytest.fixture
 def graphs(monkeypatch, card):
     """An empty graph cache of its own, and zeroed graph counts."""
-    cache = loop.GraphCache(loop.GRAPH_CACHE_SIZE)
+    cache = G.GraphCache(loop.GRAPH_CACHE_SIZE)
     monkeypatch.setattr(loop, "GRAPHS", cache)
-    monkeypatch.setattr(loop, "graph_counts", dict(captures=0, replays=0))
+    monkeypatch.setattr(G, "graph_counts", {
+        s: dict(captures=0, replays=0) for s in G.STAGES})
     yield cache
     torch.cuda.synchronize()
 
@@ -76,11 +78,11 @@ def _counted(fn, *args, **kwargs):
     """fn's outputs and the K3 launches, loop-exit syncs and graph
     captures and replays it made."""
     before = (search.launches, loop.any_on_host.syncs,
-              loop.graph_counts["captures"], loop.graph_counts["replays"])
+              G.totals()["captures"], G.totals()["replays"])
     out = fn(*args, **kwargs)
     torch.cuda.synchronize()
     after = (search.launches, loop.any_on_host.syncs,
-             loop.graph_counts["captures"], loop.graph_counts["replays"])
+             G.totals()["captures"], G.totals()["replays"])
     return out, [a - b for a, b in zip(after, before)]
 
 
