@@ -7,9 +7,10 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 Phases, each printing its own lines; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi); no CUDA -> exit 1;
-  2. build both kernel libraries, K1 (mp3tpu_torch/csrc/hist_c1.cu) and
-     bits_at with K3 (csrc/bits_at.cu, with -Xptxas -v, whose report is
-     printed), one nvcc process each, started together; timed;
+  2. build the three kernel libraries, K1 (mp3tpu_torch/csrc/hist_c1.cu),
+     bits_at with K3 (csrc/bits_at.cu) and K4 (csrc/resv_scan.cu), the
+     last two with -Xptxas -v, whose reports are printed, one nvcc
+     process each, started together; timed;
   3. K1 against its plain PyTorch version on the card, bit for bit, on
      random quantized batches at G = 512, 4096 (the main path's segment
      widths) and 4099, then both timed: device time per call from
@@ -38,6 +39,14 @@ Phases, each printing its own lines; any failure exits non-zero:
      counts against those K3 runs, the plain search's device time, call
      time and bits_at launches, beside the bound (the larger of the
      bytes' and the operations' time) and each design's share of it;
+  3d. K4, the reservoir scan in one launch, against its plain version
+     (the native host scan): torch.equal on every budget and carried
+     level, on the main path's own four scans (captured at
+     resv.scan_budgets' entry) and on random batches (padded holes in one
+     row and in a row a clip, resv_max 0, LSF, odd mean_bits, 1 to 32
+     clips); timed on the main path's 512- and 4096-lane segments and a
+     corpus group of 16 (device time, call time, the host scan it
+     replaced with its download and upload), beside the bound;
   4. the 15 quality fixtures of tests/test_fast_encoder.py through the
      quality tool (mp3tpu_torch.tools.quality, encode_layer3_fast on
      "cuda"): frame grid and the reference encoder's decoded-SNR bars
@@ -52,18 +61,24 @@ Phases, each printing its own lines; any failure exits non-zero:
      these with loop.outer_loop_eager (a replayed graph calls no Python),
      then as the package runs it (K3, the rate loop as CUDA graphs), each
      with the launch counts reset before and read after (each swap must
-     show in them); the six streams must be equal byte for byte, K3's
-     launches and the loop-exit syncs equal op by op and as graphs, and
-     K3's evaluation counts must give the lockstep path's bits_at
-     launches.
+     show in them); the six streams must be equal byte for byte, the
+     iterations counted equal op by op and as graphs (which launch K3 in
+     all 6 unrolled iterations and read no exit on the host), and K3's
+     evaluation counts must give the lockstep path's bits_at launches;
+     then the host's waits of one warm encode by kind (loop exit, scan
+     copy, fetch) against torch's own count of synchronizing operations
+     (torch.cuda.set_sync_debug_mode): 0, 0 and 1.
      Then the lockstep path and the package in 5 ABBA turns (10 timed runs
      each), one encode of each under torch.profiler (device kernels,
      copies and memsets by category, device idle share), and the
      searches' kernel's device time summed over one encode, K3 and the
      baseline in turns; the stream must sit on the frame grid and its
      first 10 s must decode within 1 dB of the CPU path's 10 s encode;
-  5b. the rate loop as CUDA graphs (loop.outer_loop on the card) against
-     op by op (loop.outer_loop_eager) on the main path, the analysis and
+  5b. the rate loop as CUDA graphs (loop.outer_loop on the card: the
+     prologue and 6 iterations unrolled, one replay each) against the
+     iteration replayed one at a time with the exit read on the host
+     (loop.outer_loop_stepwise) and op by op (loop.outer_loop_eager) on
+     the main path, the analysis and
      the emission in their yardstick forms in both
      (mp3tpu_torch.tools.yardstick_form): captures from an
      empty cache (capture time per key, torch.cuda.memory_reserved before
@@ -78,31 +93,32 @@ Phases, each printing its own lines; any failure exits non-zero:
      and on random MPEG-1 and LSF demand and final batches at G = 4096
      and 32,768, each new key called twice (its capture, then replays);
   5c. the segment program as the package runs it on the card (the
-     analysis of all lanes in one batch, the rate loop, and the emission
-     and packing after the final rate loop, each replaying CUDA graphs)
-     against the yardstick form (the analysis lane by lane and the
-     emission op by op, the rate loop as graphs): captures from empty
-     caches (capture ms by stage and key, torch.cuda.memory_reserved
-     before and after); the captured analysis against the lane-by-lane
-     one, torch.equal on every output, on the main path's own 512- and
-     4096-lane segments, two calls each, and each product of the
+     analysis of all lanes in one batch, the rate loop, K4 and the
+     emission and packing after the final rate loop, each replaying CUDA
+     graphs or launching, with one wait an encode) against the
+     yardstick form (the analysis lane by lane and the emission op by op,
+     the rate loop as graphs): captures from empty caches (capture ms by
+     stage and key, torch.cuda.memory_reserved before and after); the
+     captured analysis against the lane-by-lane one, torch.equal on
+     every output, on the main path's own 512- and 4096-lane segments,
+     two calls each, and each product of the
      analysis batched alone (which change an output); encode_final with
      the emission replayed against encode_final_eager on the main path's
      own final encodes; then both forms: the same bytes, counts (launches,
-     syncs, captures and replays by stage), 3 ABBA turns (real-time
+     waits, captures and replays by stage), 3 ABBA turns (real-time
      factor), one profiled encode each (device events, idle share) and
      one traced encode each (host dispatches and device events by span;
      analyze_demand_fused's own dispatches at most 100, granule_payload's
      at most 32);
   6. MPEG-2 LSF: the three 0.5 s mono cases of tests/test_lsf.py, then a
-     60 s stereo 24 kHz 64 kbps clip (launches and syncs counted), interior
+     60 s stereo 24 kHz 64 kbps clip (launches and waits counted), interior
      frames on the grid, the yardstick form's bytes, first 10 s within
      1 dB of the CPU path;
   7. streaming: the bench clip in 1 s pieces through StreamEncoder at
      window 1024 (launches counted, timed) must equal the one-shot
      encode at chunk 1024 byte for byte, and the stream in the yardstick
      form, and so must a run checkpointed at 30 s, pickled and resumed in
-     a fresh encoder;
+     a fresh encoder; one wait a window;
   8. Layers I/II: the six fixtures of tests/test_layer12_fast.py and its
      CRC case, then a 60 s stereo 44.1 kHz Layer II 192 kbps clip (frame
      grid, timed, first 10 s within 0.5 dB of the CPU path);
@@ -124,14 +140,16 @@ Phases, each printing its own lines; any failure exits non-zero:
      and within 0.5 dB of its one-shot encode; K3 (each width) and the
      baseline against the plain search on the first 32,768-lane stepsize
      search of a group of 16, timed as in phase 3c, and bits_at against
-     its plain chain at its first stepsize, timed;
+     its plain chain at its first stepsize, timed; one wait a group;
+
   11. multi-device: dryrun_multichip(1) on an NCCL mesh, then the 60 s
      clip through encode_layer3_sharded at world size 1 (NCCL, this
      process) and 2 (gloo, two processes of this script run with
      --sharded-rank, both computing on cuda:0): equal length, equal block
      types and first-10 s SNR within 0.5 dB of the one-shot encode at the
      same chunk, both ranks' bytes equal, each run's bytes those of its
-     yardstick form; timed, kernels counted; K3
+     yardstick form; timed,
+     kernels counted, the host scan kept; K3
      against the plain search on each run's own first stepsize search
      (9,216 lanes at world size 1, 4,608 on each rank at 2) and bits_at
      against its plain chain at three stepsizes of that batch;
@@ -159,17 +177,25 @@ Phases, each printing its own lines; any failure exits non-zero:
      groups of two); then each tool with its defaults in 3 fresh
      processes from an empty temporary directory, each JSON line
      printed, and per tool the three values with their median, min and
-     max beside the card's name and power limit.
+     max beside the card's name and power limit;
+  14. encode_corpus with 3 worker threads from empty graph caches on a
+     mixed corpus (stereo 128 kbps clips of several lengths at 44.1 and
+     48 kHz, so that threads capture several keys at once): every stream
+     equal to its own encode_layer3_fast, the wall against one worker.
 On every path (main, LSF, stream, corpus, sharded) K3 must launch, the
 segment program's CUDA graphs must replay (the analysis, the rate loop
 and the emission; the sharded path's analysis, which holds an exchange
 between ranks, runs its lanes as one batch op by op), and the rate loop
-must launch bits_at and the baseline no time; the launches, loop-exit
-syncs and graph captures and replays by stage per path are printed.
+must launch bits_at and the baseline no time; every path but the
+sharded one (which keeps its host scan, as the JAX package does) must
+launch K4 and make no loop-exit sync and no scan copy; the launches,
+the host's waits by kind and graph captures and replays by stage per
+path are printed.
 Its last lines are a JSON object describing the kernels and then
 {"ok": true, "device": {...}}.  It imports nothing of JAX and nothing of
 the JAX package.
 """
+import contextlib
 import json
 import os
 import pickle
@@ -922,6 +948,217 @@ def phase_search(ctx, main_searches):
                 baseline_max_abs_err=max(base_errs), main=main)
 
 
+#: NVIDIA H100 SXM, data sheet: float64 outside the tensor cores
+FP64_OPS_PER_S = 34e12
+#: phase 3d's random K4 batches: seed, clips, frames, nch, mode_gr,
+#: mean_bits, resv_max, the valid flags (None: every frame real; "holes":
+#: one row for every clip; "rows": a row a clip)
+K4_CASES = [(0, 1, 1024, 2, 2, 3344, 4088, "holes"),
+            (1, 1, 3000, 1, 1, 1080, 2040, "holes"),
+            (2, 3, 431, 2, 2, 3081, 4088, "rows"),
+            (3, 16, 431, 2, 2, 3344, 4088, None),
+            (4, 32, 431, 2, 2, 3344, 4088, None),
+            (5, 4, 300, 2, 2, 3080, 0, "holes"),
+            (6, 2, 500, 2, 1, 1331, 2040, "rows")]
+
+
+def capture_scans(ctx, run):
+    """Every resv.scan_budgets call that run() makes, recorded at the
+    function's entry (Layer3SegmentEncoder.forward looks it up at each
+    call): [(args, kwargs)], tensors cloned."""
+    R = ctx["R"]
+    real, seen = R.scan_budgets, []
+
+    def record(*args, **kwargs):
+        seen.append((tuple(a.clone() if hasattr(a, "clone") else a
+                           for a in args),
+                     {k: v.clone() if hasattr(v, "clone") else v
+                      for k, v in kwargs.items()}))
+        return real(*args, **kwargs)
+
+    R.scan_budgets = record
+    try:
+        run()
+    finally:
+        R.scan_budgets = real
+    return seen
+
+
+#: the dependent int32 operations on the reservoir level's path through
+#: one granule of csrc/resv_scan.cu's carry loop, counted from below: the
+#: multiply of 6*size, the three of the division by 10 (a high multiply,
+#: a shift and the sign's add), the min with more_bits, the subtraction of
+#: over, its max with 0, the two adds into the budget, the min with 4095,
+#: the compare with the demand, the select of used, its max with 0 and the
+#: level's update; and per frame, the odd-mean add, the clamp to resv_max,
+#: the rounding to a multiple of 8 and the padded frame's select
+K4_CHAIN_OPS_GRANULE, K4_CHAIN_OPS_FRAME = 13, 4
+#: cycles from one dependent integer operation to the next on an SM: the
+#: fixed-latency pipe's 4 of Volta and later (Jia et al., "Dissecting the
+#: NVIDIA Volta GPU Architecture via Microbenchmarking", 2018); not
+#: measured on the card
+INT_LATENCY_CYCLES = 4
+#: the H100 SXM's boost clock, the fastest an SM walks the chain
+SM_CLOCK_HZ = 1.98e9
+
+
+def k4_chain_bound(pe):
+    """The floor of K4's design, whose one thread a clip walks the carry
+    in order: a clip's F*R granules and F frames of dependent operations
+    at INT_LATENCY_CYCLES each, at the boost clock (the clips of a batch
+    run in parallel blocks).  Milliseconds."""
+    _, F, R = pe.shape
+    ops = F * R * K4_CHAIN_OPS_GRANULE + F * K4_CHAIN_OPS_FRAME
+    return ops * INT_LATENCY_CYCLES / SM_CLOCK_HZ * 1e3
+
+
+def k4_bound(pe, demand, valid, size0):
+    """K4's bound: pe, demand, the valid flags and the levels read once,
+    the budgets and levels written once; per granule two float64
+    operations (the multiply and the subtraction of more_bits) and the
+    carry's 14 int32 operations (csrc/resv_scan.cu) as operations at the
+    card's peak rates.  A bound of any design: k4_chain_bound is that of
+    a design that walks the carry in order."""
+    n = pe.numel()
+    moved = nbytes(pe, demand, size0) + (0 if valid is None
+                                          else nbytes(valid)) \
+        + 4 * n + 4 * size0.numel()
+    t_bytes = moved / HBM_BYTES_PER_S
+    t_ops = 2 * n / FP64_OPS_PER_S + 14 * n / INT32_OPS_PER_S
+    if t_bytes >= t_ops:
+        return t_bytes * 1e3, "bytes"
+    return t_ops * 1e3, "operations"
+
+
+def k4_check(ctx, label, pe, demand, valid, size0, args):
+    """K4 (resv._launch) against the host scan (resv's plain form) on
+    (B, F, R) device tensors, torch.equal on every budget and level;
+    returns the max abs error (0)."""
+    torch, R = ctx["torch"], ctx["R"]
+    got_b, got_s = R._launch(pe, demand, valid, size0, *args)
+    torch.cuda.synchronize()
+    want_b, want_s = [], []
+    for b in range(pe.shape[0]):
+        v = None if valid is None else (valid if valid.dim() == 1
+                                        else valid[b]).cpu()
+        wb, ws = R.scan_budgets(pe[b].cpu(), demand[b].cpu(),
+                                int(size0[b]), *args, valid=v)
+        want_b.append(wb)
+        want_s.append(ws)
+    want_b, want_s = torch.stack(want_b), torch.stack(want_s)
+    err = max(int((got_b.cpu() - want_b).abs().max()) if want_b.numel()
+              else 0, int((got_s.cpu() - want_s).abs().max()))
+    if not (torch.equal(got_b.cpu(), want_b)
+            and torch.equal(got_s.cpu(), want_s)):
+        fail(f"K4 != the host scan on {label} (max abs error {err})")
+    return err
+
+
+def k4_timed(ctx, label, pe, demand, valid, size0, args):
+    """K4's device time a launch (torch.profiler over 20 launches, else
+    CUDA events behind a sleep), its call time, the host scan's wall on
+    the same device tensors (download, the plain scan on the CPU, upload:
+    the path K4 replaced), the bound and the chain's bound; printed, and
+    returned as a dict."""
+    torch, R = ctx["torch"], ctx["R"]
+    dev = pe.device
+
+    def k4():
+        return R._launch(pe, demand, valid, size0, *args)
+
+    def host():
+        for b in range(pe.shape[0]):
+            v = None if valid is None else (valid if valid.dim() == 1
+                                            else valid[b]).cpu()
+            bud, size = R.scan_budgets(pe[b].cpu(), demand[b].cpu(),
+                                       int(size0[b]), *args, valid=v)
+            bud.to(dev), size.to(dev)
+
+    k4()
+    count, ms = kernel_events(lambda: [k4() for _ in range(20)],
+                              ("resv_scan_kernel",))["resv_scan_kernel"]
+    dev_ms = ms / 20 if count == 20 else queued_ms(k4)
+    c_ms = call_ms(k4)
+    host()
+    walls = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    p_ms = statistics.median(walls)
+    b_ms, b_by = k4_bound(pe, demand, valid, size0)
+    c_bound = k4_chain_bound(pe)
+    B, F, Rg = pe.shape
+    print(f"K4 on {label} ({B} clips x {F} frames x {Rg} granules): device "
+          f"{dev_ms:.4f} ms a launch ({count} of 20 events in the profiler "
+          f"window), {dev_ms * 1e6 / (F * Rg):.1f} ns a granule of the "
+          f"carry chain; call {c_ms:.4f} ms; the host scan with its download "
+          f"and upload {p_ms:.4f} ms (host clock, median of 10); bound "
+          f"{b_ms:.6f} ms ({b_by}), K4 at {b_ms / dev_ms:.4%} of it; the "
+          f"chain's bound {c_bound:.6f} ms ({K4_CHAIN_OPS_GRANULE} dependent "
+          f"operations a granule, {K4_CHAIN_OPS_FRAME} a frame, "
+          f"{INT_LATENCY_CYCLES} cycles each at {SM_CLOCK_HZ / 1e9} GHz), K4 "
+          f"at {c_bound / dev_ms:.2%} of it", flush=True)
+    return dict(ms=dev_ms, call_ms=c_ms, plain_ms=p_ms, bound_ms=b_ms,
+                bound_by=b_by, chain_bound_ms=c_bound,
+                ns_per_granule=dev_ms * 1e6 / (F * Rg))
+
+
+def phase_resv(ctx, pcm, cfg):
+    """Phase 3d: K4 against the host scan on the main path's own scans and
+    on K4_CASES, and timed on the main path's 512- and 4096-lane segments
+    and on a corpus group of 16; returns the 4096-lane timing with the
+    largest error."""
+    np, torch = ctx["np"], ctx["torch"]
+    seen = capture_scans(ctx, lambda: ctx["encode"](pcm, cfg,
+                                                   device="cuda"))
+    if len(seen) != 4:
+        fail(f"the main path made {len(seen)} scans, expected 4")
+    errs, main = [], {}
+    for i, (a, kw) in enumerate(seen):
+        pe, demand = a[0][None].contiguous(), a[1][None].contiguous()
+        size0 = ctx["R"]._level(a[2], pe.device, 1)
+        args, valid = a[3:], kw.get("valid")
+        lanes = pe.shape[1] * pe.shape[2]
+        errs.append(k4_check(ctx, f"the main path's scan {i + 1} ({lanes} "
+                             f"lanes)", pe, demand, valid, size0, args))
+        main.setdefault(lanes, (pe, demand, valid, size0, args))
+    print(f"K4 == the host scan on the main path's {len(seen)} scans "
+          f"(every budget and level)", flush=True)
+    for seed, B, F, nch, gr, mean_bits, resv_max, vkind in K4_CASES:
+        rng = np.random.RandomState(seed)
+        R = nch * gr
+        pe = rng.uniform(0, 3000, (B, F, R)).astype(np.float32)
+        pe[rng.rand(B, F, R) < 0.2] = 0.0
+        demand = rng.randint(0, 4096, (B, F, R)).astype(np.int32)
+        size0 = (rng.randint(0, max(resv_max, 8) + 1, B) // 8 * 8) \
+            .astype(np.int32)
+        valid = (None if vkind is None else rng.rand(F) < 0.8
+                 if vkind == "holes" else rng.rand(B, F) < 0.8)
+        dev = [None if x is None else torch.as_tensor(x, device="cuda")
+               for x in (pe, demand, valid, size0)]
+        errs.append(k4_check(
+            ctx, f"random case {seed}", *dev,
+            (mean_bits, resv_max, gr, nch, 28)))
+    print(f"K4 == the host scan on {len(K4_CASES)} random batches (1 to 32 "
+          f"clips, padded holes, resv_max 0, LSF, odd mean_bits)",
+          flush=True)
+    timed = {lanes: k4_timed(ctx, f"the main path's {lanes}-lane segment",
+                             *main[lanes]) for lanes in sorted(main)}
+    rng = np.random.RandomState(16)
+    pe = torch.as_tensor(rng.uniform(0, 3000, (16, 431, 4))
+                         .astype(np.float32), device="cuda")
+    demand = torch.as_tensor(rng.randint(0, 4096, (16, 431, 4))
+                             .astype(np.int32), device="cuda")
+    size0 = torch.zeros(16, dtype=torch.int32, device="cuda")
+    timed["corpus"] = k4_timed(ctx, "a corpus group of 16 (10 s clips)",
+                               pe, demand, None, size0,
+                               (3344, 4088, 2, 2, 28))
+    return dict(timed[4096], max_abs_err=max(errs), by_width=timed)
+
+
 def check_grid(out, kbps, rate, nsamples):
     fsize = (144000 * kbps) // rate
     nframes = -(-nsamples // 1152)
@@ -989,7 +1226,12 @@ def reset_counts(ctx):
     ctx["S"].baseline_launches = 0
     ctx["K"].bits_at.launches = 0
     ctx["k1"].hist_c1.launches = 0
+    ctx["R"].launches = 0
+    ctx["R"].host_scans = 0
+    ctx["E"].fetches = 0
+    ctx["E"].retry_fetches = 0
     ctx["loop"].any_on_host.syncs = 0
+    ctx["loop"].reset_iterations()
     ctx["graphs"].reset_counts()
     ctx["torch"].cuda.synchronize()
 
@@ -1006,17 +1248,39 @@ def stage_pairs(counts):
             for s in SEGMENT_STAGES}
 
 
+#: the host's waits on the card by kind, as launch_counts names them:
+#: the rate loop's exit read on the host, the download of a host scan's
+#: inputs, the download of results
+WAITS = {"syncs": "loop exit", "scan_copies": "scan copy",
+         "fetches": "fetch"}
+
+
 def launch_counts(ctx):
-    """{kernel: launches, "syncs": loop-exit host syncs, "captures" and
-    "replays": the segment program's CUDA graph captures and replays, and
-    each stage's ("<stage>_captures", "<stage>_replays": analysis,
-    prologue, iteration, emission)} since reset_counts."""
+    """{kernel: launches ("resv_scan": K4), "syncs": loop-exit host syncs,
+    "scan_copies": host scans of the card's results, "fetches": result
+    downloads ("retry_fetches": those of settle's rare retries),
+    "iterations": the rate loops' live iterations (read on
+    the device's sum), "captures" and "replays": the segment program's
+    CUDA graph captures and replays, and each stage's
+    ("<stage>_captures", "<stage>_replays": analysis, prologue, iteration,
+    emission)} since reset_counts."""
+    torch = ctx["torch"]
     return {"search": ctx["S"].launches, "bits_at": ctx["K"].bits_at.launches,
             "hist_c1": ctx["k1"].hist_c1.launches,
             "baseline": ctx["S"].baseline_launches,
+            "resv_scan": ctx["R"].launches,
             "syncs": ctx["loop"].any_on_host.syncs,
+            "scan_copies": ctx["R"].host_scans,
+            "fetches": ctx["E"].fetches,
+            "retry_fetches": ctx["E"].retry_fetches,
+            "iterations": ctx["loop"].iterations(torch.device("cuda")),
             **ctx["graphs"].totals(),
             **graph_count_keys(ctx["graphs"].by_stage())}
+
+
+def waits_of(counts):
+    """{kind: n} of the host's waits in launch_counts' counts."""
+    return {WAITS[k]: counts[k] for k in WAITS}
 
 
 #: the captured stages that every path replays: the one-shot, LSF,
@@ -1027,10 +1291,11 @@ SEGMENT_STAGES = ("analysis", "prologue", "iteration", "emission")
 SHARDED_STAGES = ("prologue", "iteration", "emission")
 
 
-def read_counts(ctx, path, stages=SEGMENT_STAGES):
+def read_counts(ctx, path, stages=SEGMENT_STAGES, k4=True):
     """launch_counts; fails unless the path launched K3 and replayed the
     graphs of each of `stages`, and its rate loop launched bits_at and
-    the baseline no time."""
+    the baseline no time; with `k4` (every path but the sharded one),
+    unless it launched K4 and made no loop-exit sync and no scan copy."""
     counts = launch_counts(ctx)
     if counts["search"] <= 0:
         fail(f"the {path} launched K3 no time")
@@ -1040,7 +1305,55 @@ def read_counts(ctx, path, stages=SEGMENT_STAGES):
     for kernel in ("bits_at", "baseline"):
         if counts[kernel]:
             fail(f"the {path} launched {kernel} {counts[kernel]} times")
+    if k4 and (counts["resv_scan"] <= 0 or counts["syncs"]
+               or counts["scan_copies"]):
+        fail(f"the {path}: K4 launches {counts['resv_scan']}, loop-exit "
+             f"syncs {counts['syncs']}, scan copies {counts['scan_copies']}"
+             f" (expected > 0, 0, 0)")
     return counts
+
+
+def torch_waits(ctx, fn):
+    """fn()'s result and the synchronizing CUDA operations torch counts
+    in it (torch.cuda.set_sync_debug_mode("warn")): {"file:line": n} of
+    the Python lines that made them."""
+    import collections
+    import warnings
+    torch = ctx["torch"]
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    where = collections.Counter(
+        f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in caught
+        if "synchronizing CUDA operation" in str(w.message))
+    return out, dict(where)
+
+
+def waits_check(ctx, path, fn, fetches, stages=SEGMENT_STAGES):
+    """fn() once more, its keys captured, with the counts reset before and
+    read after (read_counts' checks) and under torch's sync debug mode:
+    fails unless it fetched `fetches` times besides settle's retries'
+    fetches, and torch counts as many synchronizing operations as the
+    port's counters (loop exits, scan copies, fetches) -- no hidden wait,
+    in a retry too.  Returns (out, counts, where)."""
+    reset_counts(ctx)
+    out, where = torch_waits(ctx, fn)
+    counts = read_counts(ctx, path, stages)
+    waits = waits_of(counts)
+    print(f"{path}, host waits of one warm run by kind {waits} "
+          f"({counts['retry_fetches']} of settle's retries); torch's "
+          f"synchronizing operations {sum(where.values())} by line "
+          f"{where}", flush=True)
+    if counts["fetches"] - counts["retry_fetches"] != fetches or \
+            sum(where.values()) != sum(waits.values()):
+        fail(f"{path}: {counts['fetches']} fetches (expected {fetches}), "
+             f"waits {waits}, torch's count {where}")
+    return out, counts, where
 
 
 def phase_lsf(ctx):
@@ -1080,6 +1393,10 @@ def phase_lsf(ctx):
         if encode(pcm, cfg, device="cuda") != out:
             fail("LSF 60 s: the segment graphs and the yardstick form give "
                  "other bytes")
+    warm_out, launches["warm"], _ = waits_check(
+        ctx, "LSF path", lambda: encode(pcm, cfg, device="cuda"), 1)
+    if warm_out != out:
+        fail("LSF 60 s: the warm encode gave other bytes")
     print(f"LSF 60 s stereo 24 kHz 64 kbps: {len(out)} bytes, interior "
           f"frames on the {fsize}-byte grid, {wall:.3f} s (first run): "
           f"{CLIP_SECONDS / wall:.2f}x real time; launches {launches}; the "
@@ -1131,12 +1448,27 @@ def phase_stream(ctx, pcm, cfg_of):
     with yardstick_form():
         enc = StreamEncoder(cfg_of(), "cuda", window=1024)
         if run(enc, 0, len(pcm)) + enc.finish() != streamed:
-            fail("stream: the segment graphs and the yardstick form give "
-                 "other bytes")
+            fail("stream: the package and the yardstick form give other "
+                 "bytes")
+    from mp3tpu_torch.encoder import _plan_segments
+    ws = 1024 * 576
+    rem = len(pcm) % ws
+    windows = len(pcm) // ws + (len(_plan_segments(
+        2 * -(-rem // 1152), (1024,))) if rem else 0)
+
+    def warm():
+        enc = StreamEncoder(cfg_of(), "cuda", window=1024)
+        return run(enc, 0, len(pcm)) + enc.finish()
+
+    warm_out, launches["warm"], _ = waits_check(ctx, "streaming path", warm,
+                                                windows)
+    if warm_out != streamed:
+        fail("stream: the warm run gave other bytes")
     print(f"stream: 60 s stereo 128 kbps in 1 s pieces, window 1024: "
           f"{wall:.3f} s, {CLIP_SECONDS / wall:.2f}x real time; equal to "
           f"the one-shot encode at chunk 1024 ({len(one)} bytes) and to "
-          f"the yardstick form; launches {launches}", flush=True)
+          f"the yardstick form; launches {launches}; "
+          f"{windows} windows", flush=True)
 
     cut = 30 * rate
     enc1 = StreamEncoder(cfg_of(), "cuda", window=1024)
@@ -1423,6 +1755,12 @@ def phase_corpus(ctx, line, cfg_of):
     # those are the sweep's
     if outs != first_of[batch]:
         fail(f"corpus at lane batch {batch}: other bytes than the sweep's")
+    warm_out, launches["warm"], _ = waits_check(
+        ctx, f"corpus at lane batch {batch}",
+        lambda: encode_corpus_batched(clips, kw, "cuda", batch=batch)[0],
+        -(-CORPUS_CLIPS // batch))
+    if warm_out != outs:
+        fail(f"corpus at lane batch {batch}: the warm run gave other bytes")
     analysis_check(ctx, *corpus_analysis_args(ctx, clips[:batch], kw),
                    f"a corpus group of {batch} ({2 * batch} lanes)")
 
@@ -1477,6 +1815,60 @@ def phase_corpus(ctx, line, cfg_of):
                 plain_ms=p_dev, bound_ms=b_ms, bound_by=b_by,
                 search_max_abs_err=s_err, baseline_max_abs_err=b_err,
                 search=k3, batch2_outs=first_of[2], forms=forms)
+
+
+#: phase 14: the mixed corpus of encode_corpus's worker threads,
+#: (seconds, rate) of stereo 128 kbps clips: segment widths of 256,
+#: 1024 and 2048 granules at two rates, 4 analysis and 8 rate-loop keys
+C1_CLIPS = ((3.0, 44100), (7.0, 44100), (12.0, 44100), (4.0, 48000),
+            (9.0, 48000), (15.0, 48000))
+
+
+def phase_threaded_corpus(ctx, line):
+    """Phase 14: encode_corpus with 3 worker threads from empty graph
+    caches on C1_CLIPS, so that the threads capture several keys at once:
+    every stream must equal its own encode_layer3_fast; then the wall
+    with 3 workers against 1, warm, in turns 1, 3, 3, 1."""
+    torch, loop, mpeg = ctx["torch"], ctx["loop"], ctx["mpeg"]
+    from mp3tpu_torch.models import layer3
+    from mp3tpu_torch.parallel.corpus import encode_corpus
+    kw = dict(layer=3, mode=mpeg.MODE_STEREO, bitrate_kbps=128)
+    clips = [(make_signal(sec, rate), rate) for sec, rate in C1_CLIPS]
+    audio = sum(sec for sec, _ in C1_CLIPS)
+    torch.cuda.synchronize()
+    loop.GRAPHS.clear()
+    layer3.GRAPHS.clear()
+    reset_counts(ctx)
+    t0 = time.perf_counter()
+    outs, _ = encode_corpus(clips, kw, "cuda", workers=3)
+    cold = time.perf_counter() - t0
+    counts = launch_counts(ctx)
+    ones = [ctx["encode"](pcm, ctx["EncoderConfig"](sample_rate_hz=rate,
+                                                    **kw), device="cuda")
+            for pcm, rate in clips]
+    bad = [i for i, (a, b) in enumerate(zip(outs, ones)) if a != b]
+    if bad or len(outs) != len(clips):
+        fail(f"encode_corpus with 3 workers: clips {bad} differ from their "
+             f"own encode_layer3_fast")
+    walls = {1: [], 3: []}
+    for workers in (1, 3, 3, 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, _ = encode_corpus(clips, kw, "cuda", workers=workers)
+        walls[workers].append(time.perf_counter() - t0)
+        if got != ones:
+            fail(f"encode_corpus with {workers} workers, warm: other bytes")
+    w1, w3 = statistics.mean(walls[1]), statistics.mean(walls[3])
+    print(f"threaded corpus: {len(clips)} stereo 128 kbps clips "
+          f"({', '.join(f'{sec:.0f} s at {rate}' for sec, rate in C1_CLIPS)}"
+          f" Hz) with 3 workers from empty graph caches: {cold:.3f} s, "
+          f"captures by stage {stage_pairs(counts)}; every stream equal to "
+          f"its own encode_layer3_fast; warm, in turns: 1 worker "
+          f"{', '.join(f'{w:.4f}' for w in walls[1])} s, 3 workers "
+          f"{', '.join(f'{w:.4f}' for w in walls[3])} s (means "
+          f"{audio / w1:.2f}x and {audio / w3:.2f}x real time, 3 workers at "
+          f"{w3 / w1:.3f} of 1's wall) on {line}", flush=True)
+    return dict(cold_s=cold, walls=walls, counts=counts)
 
 
 def corpus_analysis_args(ctx, group, kw):
@@ -1617,11 +2009,19 @@ def phase_sharded(ctx, cfg_of, line):
         t0 = time.perf_counter()
         streams[1] = encode_layer3_sharded(pcm, cfg_of(), "cuda")
         walls = {1: [time.perf_counter() - t0]}
-        launches = read_counts(ctx, "sharded path", SHARDED_STAGES)
+        launches = read_counts(ctx, "sharded path", SHARDED_STAGES, k4=False)
         with yardstick_form():
             if encode_layer3_sharded(pcm, cfg_of(), "cuda") != streams[1]:
                 fail("sharded world 1: the batched lanes with the emission "
                      "replayed and the yardstick form give other bytes")
+        reset_counts(ctx)
+        _, where = torch_waits(ctx, lambda: encode_layer3_sharded(
+            pcm, cfg_of(), "cuda"))
+        launches["warm"] = read_counts(ctx, "sharded path", SHARDED_STAGES,
+                                       k4=False)
+        print(f"sharded world 1, host waits of one warm encode by kind "
+              f"{waits_of(launches['warm'])}; torch's synchronizing "
+              f"operations {sum(where.values())} by line {where}", flush=True)
         n_sh = len(profile_once(
             lambda: encode_layer3_sharded(pcm, cfg_of(), "cuda"))[0])
         _, err, s_err, b_err = path_batch_check(
@@ -1737,6 +2137,7 @@ def phase_trace(ctx, pcm, cfg_of, main_out):
     event in a window)."""
     from mp3tpu_torch.runtime.profiling import REPLAY_COVERS, SPANS, trace
     from mp3tpu_torch.tools.trace_stages import span_breakdown
+    ctx["encode"](pcm, cfg_of(), device="cuda")     # its keys captured
     with tempfile.TemporaryDirectory() as tmp:
         for attempt in range(3):
             reset_counts(ctx)
@@ -1947,11 +2348,12 @@ def phase_bench(main_out, corpus_outs, line):
                   f"{max(values)} on {line}", flush=True)
 
 
-def phase_build(k1, K):
-    """Phase 2: build both kernel libraries, one nvcc process each,
-    started together; prints bits_at.cu's -Xptxas -v report (its two
-    kernels, bits_at_kernel and K3's search_kernel)."""
-    jobs = ((k1, ()), (K, ("-Xptxas", "-v")))
+def phase_build(k1, K, R):
+    """Phase 2: build the three kernel libraries, one nvcc process each,
+    started together; prints the -Xptxas -v reports of bits_at.cu (its
+    kernels: bits_at_kernel, K3's search_kernel and search_baseline) and
+    of resv_scan.cu (K4)."""
+    jobs = ((k1, ()), (K, ("-Xptxas", "-v")), (R, ("-Xptxas", "-v")))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(jobs)) as pool:
         futures = [pool.submit(mod.build, True, extra) for mod, extra in jobs]
@@ -1961,9 +2363,10 @@ def phase_build(k1, K):
         print(f"build: {os.path.relpath(mod.LIBRARY, ROOT)} from "
               f"{os.path.relpath(mod.SOURCE, ROOT)} (nvcc "
               f"{' '.join(list(mod.NVCC_FLAGS) + list(extra))})", flush=True)
-    print(f"build: both libraries in {wall:.2f} s", flush=True)
-    print("build: ptxas report for bits_at.cu:\n" + logs[1].strip(),
-          flush=True)
+    print(f"build: the three libraries in {wall:.2f} s", flush=True)
+    for (mod, _), log in list(zip(jobs, logs))[1:]:
+        print(f"build: ptxas report for {os.path.basename(mod.SOURCE)}:\n"
+              + log.strip(), flush=True)
 
 
 def phase_main(ctx, pcm, cfg, line):
@@ -2090,21 +2493,29 @@ def phase_main(ctx, pcm, cfg, line):
           f"with the rate loop op by op and K3 with it as CUDA graphs: "
           f"the same {len(out)} bytes", flush=True)
     for way in ("plain", "k1", "pr5", "baseline", "k3_eager"):
-        print(f"main path ({label[way]}): launches and loop-exit syncs per "
-              f"encode {counts[way]}", flush=True)
-    for k in ("search", "syncs"):
-        if launches[k] != counts["k3_eager"][k]:
-            fail(f"main path: {k} {launches[k]} with the rate loop as CUDA "
-                 f"graphs, {counts['k3_eager'][k]} op by op")
+        print(f"main path ({label[way]}): launches and waits per encode "
+              f"{counts[way]}", flush=True)
+    # the graphs run all 6 iterations of each of the 2 rate loops a
+    # segment, launching K3 in each, and read no exit on the host
+    e, calls = counts["k3_eager"], 2 * len(plan)
+    if (launches["iterations"], launches["syncs"], launches["search"]) != \
+            (e["iterations"], 0, 7 * calls) or \
+            e["search"] != calls + e["iterations"]:
+        fail(f"main path: as CUDA graphs {launches}, op by op {e}")
     print(f"main path (K3, the rate loop as CUDA graphs, first run): "
           f"{first_s:.3f} s; launches and "
-          f"loop-exit syncs per encode {launches}; {len(evals)} searches, "
+          f"waits per encode {launches}; {len(evals)} searches, "
           f"{lockstep} lockstep evaluations (= the lockstep path's bits_at "
           f"launches), "
           f"{per_granule} granule evaluations as the plain schedule counts "
           f"them, {ran} run by K3; {len(plan)} segments "
-          f"{[(n_pad * 2) for _, _, n_pad in plan]} lanes (each adds 2 syncs: "
-          f"scan input, result download)", flush=True)
+          f"{[(n_pad * 2) for _, _, n_pad in plan]} lanes; "
+          f"{launches['iterations']} live iterations in {calls} rate loops "
+          f"(op by op: {e['search']} K3 launches, {e['syncs']} loop-exit "
+          f"syncs)", flush=True)
+    out_w, warm, where = waits_check(ctx, "main path", lambda: run("k3"), 1)
+    if out_w != out:
+        fail("main path: the warm encode gave other bytes")
 
     times = {"pr5": [], "k3": []}
     for way in ("pr5", "k3", "k3", "pr5") * TURNS:
@@ -2141,20 +2552,25 @@ def phase_main(ctx, pcm, cfg, line):
     # K3's device time summed over one encode, and its first design's with
     # the baseline swapped in, in turns
     k3_ms = {"k3": [], "baseline": []}
+    # the baseline way runs the rate loop op by op (49 launches), K3 as
+    # graphs (all 6 iterations of each call: 56)
+    n_launches = {"k3": launches["search"],
+                  "baseline": counts["baseline"]["baseline"]}
     for way in ("baseline", "k3", "k3", "baseline"):
         name = "search_kernel(" if way == "k3" else "search_baseline("
         for _ in range(3):      # until the window holds every launch
             count, ms = kernel_events(lambda: run(way), (name,))[name]
-            if count == launches["search"]:
+            if count == n_launches[way]:
                 break
         else:
             print(f"  (main path, {label[way]}: the profiler recorded "
-                  f"{count} of {launches['search']} {name} events)",
+                  f"{count} of {n_launches[way]} {name} events)",
                   flush=True)
             ms = None
         k3_ms[way].append(ms)
     print(f"main path, the searches' kernel summed over one encode "
-          f"(torch.profiler, {launches['search']} launches; turns baseline, "
+          f"(torch.profiler, {n_launches['k3']} launches as graphs, "
+          f"{n_launches['baseline']} op by op; turns baseline, "
           f"K3, K3, baseline): K3 {' / '.join(map(str, k3_ms['k3']))} ms, "
           f"K3's first design {' / '.join(map(str, k3_ms['baseline']))} ms",
           flush=True)
@@ -2172,7 +2588,7 @@ def phase_main(ctx, pcm, cfg, line):
             fail(f"first-10 s SNR {g:.2f} dB is more than 1 dB below the "
                  f"CPU path's {c:.2f} dB")
     return dict(launches=launches, by_way=counts, out=out,
-                k3_encode_ms=k3_ms)
+                k3_encode_ms=k3_ms, warm=warm, torch_waits=where)
 
 
 #: phase 5b times the rate loop op by op and as CUDA graphs in this many
@@ -2212,19 +2628,24 @@ def phase_graphs(ctx, pcm, cfg, line, main_out):
     from mp3tpu_torch.tools.trace_stages import span_breakdown
     from test_torch_graph_card import loop_batch
     graphed, eager = loop.outer_loop, loop.outer_loop_eager
-    forms = {"graphs": graphed, "eager": eager}
-    name = {"graphs": "as CUDA graphs", "eager": "op by op"}
-    calls, batches = {"graphs": [], "eager": []}, {}
+    forms = {"graphs": graphed, "stepwise": loop.outer_loop_stepwise,
+             "eager": eager}
+    name = {"graphs": "as CUDA graphs",
+            "stepwise": "as CUDA graphs an iteration at a time",
+            "eager": "op by op"}
+    calls, batches = {form: [] for form in forms}, {}
+    acc = loop.iterations_on(torch.device("cuda"))
 
     def logged(form):
-        """forms[form], logging each call's lanes, kind, iterations and
-        syncs (and cloning the first call of each lane count and kind)."""
+        """forms[form], logging each call's lanes, kind, live iterations,
+        K3 launches and loop-exit syncs (and cloning the first call of
+        each lane count and kind)."""
         def call(*args, **kwargs):
-            k0, s0 = S.launches, loop.any_on_host.syncs
+            k0, s0, i0 = S.launches, loop.any_on_host.syncs, int(acc)
             out = forms[form](*args, **kwargs)
             kind = "final" if kwargs.get("qss_lo") is not None else "demand"
             G = (args[0] if args else kwargs["xr"]).shape[0]
-            calls[form].append((G, kind, S.launches - k0 - 1,
+            calls[form].append((G, kind, int(acc) - i0, S.launches - k0,
                                 loop.any_on_host.syncs - s0))
             if form == "eager" and (G, kind) not in batches:
                 batches[G, kind] = (
@@ -2252,7 +2673,7 @@ def phase_graphs(ctx, pcm, cfg, line, main_out):
     reserved0 = torch.cuda.memory_reserved()
     counts = {}
     outs = {}
-    for form in ("graphs", "eager"):
+    for form in forms:
         reset_counts(ctx)
         outs[form] = run(form, log=True)
         torch.cuda.synchronize()
@@ -2267,29 +2688,45 @@ def phase_graphs(ctx, pcm, cfg, line, main_out):
         if out != main_out:
             fail(f"main path with the rate loop {name[form]}: other bytes "
                  f"than phase 5's")
-    g, e = counts["graphs"], counts["eager"]
-    if (g["search"], g["syncs"]) != (e["search"], e["syncs"]) or \
-            [c[2:] for c in calls["graphs"]] != \
-            [c[2:] for c in calls["eager"]]:
-        fail(f"the rate loop as CUDA graphs {g}, {calls['graphs']}; op by "
-             f"op {e}, {calls['eager']}")
-    if g["captures"] != 2 * len(keys) or g["replays"] <= 0 or \
+    g, w, e = counts["graphs"], counts["stepwise"], counts["eager"]
+    # every form: the same lanes, kinds and live iterations call by call;
+    # the graphs launch K3 in all 6 iterations and never sync, the
+    # stepwise form and op by op once a live iteration and as often
+    if len({tuple(c[:3] for c in calls[f]) for f in forms}) != 1 or \
+            any(c[3:] != (7, 0) for c in calls["graphs"]) or \
+            any(c[3] != 1 + c[2] for f in ("stepwise", "eager")
+                for c in calls[f]) or \
+            [c[4] for c in calls["stepwise"]] != \
+            [c[4] for c in calls["eager"]]:
+        fail(f"the rate loop's calls: as CUDA graphs {calls['graphs']}; an "
+             f"iteration at a time {calls['stepwise']}; op by op "
+             f"{calls['eager']}")
+    # from an empty cache: a key's first call captures, the others replay
+    replays = len(calls["graphs"]) - len(keys)
+    if g["captures"] != 2 * len(keys) or w["captures"] != 2 * len(keys) or \
+            (g["prologue_replays"], g["iteration_replays"]) != (replays,
+                                                               replays) or \
             e["captures"] or e["replays"]:
-        fail(f"graph counts: as CUDA graphs {g}, op by op {e}, "
-             f"{len(keys)} keys")
-    print(f"rate loop as CUDA graphs: the same {len(main_out)} bytes as op "
-          f"by op; counts {g} (op by op {e}); {len(keys)} keys captured: "
+        fail(f"graph counts: as CUDA graphs {g}, an iteration at a time "
+             f"{w}, op by op {e}, {len(keys)} keys")
+    print(f"rate loop as CUDA graphs: the same {len(main_out)} bytes as an "
+          f"iteration at a time and op by op; counts {g} (an iteration at a "
+          f"time {w}; op by op {e}); {len(keys)} keys captured: "
           f"{', '.join(f'{G} lanes {kind} {s * 1e3:.1f} ms' for G, kind, s in keys)}"
           f" (two captures each); torch.cuda.memory_reserved "
           f"{reserved0 / 2**20:.1f} MiB before the captures, "
           f"{reserved1 / 2**20:.1f} MiB after", flush=True)
-    print(f"outer_loop calls of one encode (lanes, kind, iterations, "
-          f"loop-exit syncs): {calls['graphs']}; iterations "
-          f"{sum(c[2] for c in calls['graphs'])} in {len(calls['graphs'])} "
-          f"calls", flush=True)
+    for form in forms:
+        print(f"outer_loop calls of one encode {name[form]} (lanes, kind, "
+              f"live iterations, K3 launches, loop-exit syncs): "
+              f"{calls[form]}; live iterations "
+              f"{sum(c[2] for c in calls[form])} in {len(calls[form])} "
+              f"calls, iteration replays {counts[form]['iteration_replays']}",
+              flush=True)
 
-    times = {"eager": [], "graphs": []}
-    for form in ("eager", "graphs", "graphs", "eager") * GRAPH_TURNS:
+    times = {form: [] for form in forms}
+    for form in ("eager", "stepwise", "graphs", "graphs", "stepwise",
+                 "eager") * GRAPH_TURNS:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = run(form)
@@ -2297,7 +2734,7 @@ def phase_graphs(ctx, pcm, cfg, line, main_out):
         if out != main_out:
             fail(f"a timed encode (rate loop {name[form]}) gave other bytes")
     res = {}
-    for form in ("eager", "graphs"):
+    for form in forms:
         wall = statistics.median(times[form])
         for _ in range(3):      # the profiler now and then records none
             events, busy, pwall = profile_once(lambda: run(form))
@@ -2322,7 +2759,8 @@ def phase_graphs(ctx, pcm, cfg, line, main_out):
         res[form] = dict(rtf=CLIP_SECONDS / wall, wall=wall,
                          dispatches=span["host_dispatches"],
                          span_events=span["device_events"],
-                         events=len(events), idle=1.0 - busy / pwall)
+                         events=len(events), busy=busy,
+                         idle=1.0 - busy / pwall)
         print(f"main path, rate loop {name[form]}: median wall {wall:.3f} s "
               f"of {2 * GRAPH_TURNS} ({', '.join(f'{t:.3f}' for t in times[form])}"
               f" s), {CLIP_SECONDS / wall:.2f}x real time; one profiled "
@@ -2338,9 +2776,18 @@ def phase_graphs(ctx, pcm, cfg, line, main_out):
               f"{bd['search_kernel_events']} = search.launches "
               f"{launches['search']}, {bd['unlinked_events']} unlinked; on "
               f"{line}", flush=True)
-    if res["graphs"]["dispatches"] >= res["eager"]["dispatches"]:
-        fail(f"the rate loop as CUDA graphs made {res['graphs']['dispatches']}"
-             f" host dispatches, op by op {res['eager']['dispatches']}")
+    g, w = res["graphs"], res["stepwise"]
+    print(f"rate loop unrolled against an iteration at a time: wall "
+          f"{g['wall'] / w['wall']:.3f} of it, outer_loop spans' host "
+          f"dispatches {g['dispatches']} against {w['dispatches']}, their "
+          f"device events {g['span_events']} against {w['span_events']} "
+          f"({g['span_events'] / w['span_events'] - 1:+.1%}), device busy "
+          f"{g['busy']:.4f} s against {w['busy']:.4f} s "
+          f"({g['busy'] / w['busy'] - 1:+.1%}) on {line}", flush=True)
+    for other in ("stepwise", "eager"):
+        if g["dispatches"] >= res[other]["dispatches"]:
+            fail(f"the rate loop as CUDA graphs made {g['dispatches']} host "
+                 f"dispatches, {name[other]} {res[other]['dispatches']}")
 
     for (G, kind), (args, kwargs) in sorted(batches.items()):
         loop_equal(ctx, f"the main path's first {G}-lane {kind} batch", args,
@@ -2383,16 +2830,16 @@ MAX_DISPATCHES = {"analyze_demand_fused": 100, "granule_payload": 32}
 
 def form_runs(ctx, run, label, line, audio_s, turns=SEGMENT_TURNS):
     """run() as the package runs it ("graphs": the analysis, the rate loop
-    and the emission replay CUDA graphs) and in the yardstick form
-    ("yardstick", tools.yardstick_form: the analysis lane by lane, the
-    emission op by op, the rate loop as graphs): the counts of one run
-    each (launches, syncs, graph captures and replays by stage), equal
-    outputs, `turns` ABBA turns (median wall, real-time factor of audio_s
-    seconds), one profiled run each (device events, idle share) and one
-    traced run each (host dispatches and device events by span,
-    search_kernel events = search.launches).  Returns (the output,
+    and the emission replay CUDA graphs, the scan is K4, one wait) and
+    in the yardstick form ("yardstick", tools.yardstick_form: the
+    analysis lane by lane, the emission op by op, the rate loop as
+    graphs): the counts of one run each (launches, waits, graph captures
+    and replays by stage), equal outputs, `turns` turns in the order
+    yardstick, graphs, graphs, yardstick (median wall, real-time factor
+    of audio_s seconds), one profiled run each (device events, idle
+    share) and one traced run each (host dispatches and device events by
+    span, search_kernel events = search.launches).  Returns (the output,
     {form: record})."""
-    import contextlib
     torch = ctx["torch"]
     from mp3tpu_torch.runtime.profiling import trace
     from mp3tpu_torch.tools.trace_stages import span_breakdown
@@ -2408,9 +2855,9 @@ def form_runs(ctx, run, label, line, audio_s, turns=SEGMENT_TURNS):
         outs[form] = go(form)
         torch.cuda.synchronize()
         counts[form] = launch_counts(ctx)
-    if outs["graphs"] != outs["yardstick"]:
-        fail(f"{label}: the segment graphs and the yardstick form give "
-             f"other bytes")
+    if outs["yardstick"] != outs["graphs"]:
+        fail(f"{label}: the package and the yardstick form give other "
+             f"bytes")
     times = {form: [] for form in forms}
     for form in ("yardstick", "graphs", "graphs", "yardstick") * turns:
         torch.cuda.synchronize()
@@ -2474,12 +2921,15 @@ def form_runs(ctx, run, label, line, audio_s, turns=SEGMENT_TURNS):
                   f"{r['device_events']} (self {r['self_device_events']})",
                   flush=True)
     g, y = res["graphs"], res["yardstick"]
-    print(f"{label}: the segment graphs' wall {g['wall'] / y['wall']:.3f} of "
-          f"the yardstick form's (real-time factor {g['rtf'] / y['rtf']:.3f}"
-          f"x), host dispatches {g['dispatches']} against {y['dispatches']}, "
-          f"device events {g['device_events']} against "
-          f"{y['device_events']}, idle share {g['idle']:.3f} against "
-          f"{y['idle']:.3f}", flush=True)
+    print(f"{label}: the package's wall {g['wall'] / y['wall']:.3f} of "
+          f"the yardstick form's (real-time factor "
+          f"{g['rtf'] / y['rtf']:.3f}x), host dispatches "
+          f"{g['dispatches']} against {y['dispatches']}, device events "
+          f"{g['device_events']} against {y['device_events']}, device "
+          f"busy {g['busy']:.4f} s against {y['busy']:.4f} s, idle "
+          f"share {g['idle']:.3f} against {y['idle']:.3f}; waits "
+          f"{waits_of(g['counts'])} against {waits_of(y['counts'])}",
+          flush=True)
     return outs["graphs"], res
 
 
@@ -2639,19 +3089,21 @@ def main():
     from mp3tpu_torch.config import EncoderConfig
     from mp3tpu_torch.decoder import decode_mp3
     from mp3tpu_torch.decoder.layer3 import snr_db
+    from mp3tpu_torch import encoder as E
     from mp3tpu_torch.encoder import encode_layer3_fast
     from mp3tpu_torch.ops import bits_at as K
     from mp3tpu_torch.ops import graphs
     from mp3tpu_torch.ops import hist_c1 as k1
     from mp3tpu_torch.ops import loop
+    from mp3tpu_torch.ops import resv as R
     from mp3tpu_torch.ops import search as S
     from mp3tpu_torch.runtime.wav import read_wav
     from mp3tpu_torch.tables import mpeg
 
-    phase_build(k1, K)
+    phase_build(k1, K, R)
     kres = phase_kernel(k1, torch)
 
-    ctx = dict(np=np, torch=torch, k1=k1, K=K, S=S, loop=loop,
+    ctx = dict(np=np, torch=torch, k1=k1, K=K, S=S, R=R, E=E, loop=loop,
                graphs=graphs, EncoderConfig=EncoderConfig, mpeg=mpeg,
                encode=encode_layer3_fast, decode_mp3=decode_mp3,
                snr_db=snr_db, read_wav=read_wav, make_signal=make_signal,
@@ -2671,6 +3123,9 @@ def main():
     t0 = time.perf_counter()
     sres = phase_search(ctx, main_searches)
     print(f"phase 3c K3: {time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    rres = phase_resv(ctx, pcm, cfg_of())
+    print(f"phase 3d K4: {time.perf_counter() - t0:.2f} s", flush=True)
     t0 = time.perf_counter()
     phase_quality()
     print(f"phase 4 quality: {time.perf_counter() - t0:.2f} s", flush=True)
@@ -2696,7 +3151,10 @@ def main():
                                                    main_res["out"])),
               ("13 benchmark tools", lambda: phase_bench(
                   main_res["out"], counts["10 corpus"]["batch2_outs"],
-                  line))]
+                  line)),
+              # last: it empties the graph caches
+              ("14 threaded corpus",
+               lambda: phase_threaded_corpus(ctx, line))]
     counts = {}
     for name, run in phases:
         t0 = time.perf_counter()
@@ -2720,20 +3178,28 @@ def main():
 
     launches = main_res["launches"]
 
-    def by_path(kernel):
-        return {"main": launches[kernel], "lsf": counts["6 LSF"][kernel],
-                "stream": counts["7 streaming"][kernel],
-                "corpus": corpus["launches"][kernel],
-                "sharded": sharded["launches"][kernel]}
+    def by_path(kernel, warm=False):
+        runs = {"main": main_res["warm"] if warm else launches,
+                "lsf": counts["6 LSF"], "stream": counts["7 streaming"],
+                "corpus": corpus["launches"], "sharded": sharded["launches"]}
+        return {path: (c["warm"] if warm and path != "main" else c)[kernel]
+                for path, c in runs.items()}
 
-    for kernel in ("search", "baseline", "bits_at", "syncs", "captures",
-                   "replays") + tuple(f"{s}_{kind}" for s in SEGMENT_STAGES
-                                      for kind in ("captures", "replays")):
-        what = {"syncs": "loop-exit syncs per encode",
+    for kernel in ("search", "baseline", "bits_at", "resv_scan",
+                   "iterations", "captures", "replays") + tuple(
+                       f"{s}_{kind}" for s in SEGMENT_STAGES
+                       for kind in ("captures", "replays")):
+        what = {"iterations": "live rate-loop iterations per encode",
                 "captures": "segment program graph captures",
                 "replays": "segment program graph replays"}.get(
-                    kernel, "graphs" if "_" in kernel else "launches")
-        print(f"{kernel} {what} by path: {by_path(kernel)}", flush=True)
+                    kernel, "graphs" if "_" in kernel and kernel !=
+                    "resv_scan" else "launches")
+        print(f"{kernel} {what} by path (first run): {by_path(kernel)}",
+              flush=True)
+    for kind, name in WAITS.items():
+        print(f"host waits by path, {name} (one warm run: an encode, the "
+              f"stream's 60 s, the corpus's 2 groups): "
+              f"{by_path(kind, warm=True)}", flush=True)
 
     err, k_ms, p_ms, (b_ms, b_by) = kres[4096]
     print(json.dumps({"kernels": [
@@ -2768,6 +3234,18 @@ def main():
          "library_ms": None, "launches_by_path": by_path("search"),
          "width": sres["width"], "runs": sres["runs"], "evals": sres["evals"],
          "encode_ms": main_res["k3_encode_ms"]["k3"]},
+        {"name": "resv_scan", "route": "cuda",
+         "source": "mp3tpu_torch/csrc/resv_scan.cu",
+         "replaces": "mp3tpu/ops/jaxresv.py:29-72",
+         "launches": launches["resv_scan"],
+         "max_abs_err": rres["max_abs_err"], "ms": rres["ms"],
+         "plain_ms": rres["plain_ms"], "bound_ms": rres["bound_ms"],
+         "bound_by": rres["bound_by"], "library_ms": None,
+         "launches_by_path": by_path("resv_scan"),
+         "chain_bound_ms": rres["chain_bound_ms"],
+         "ns_per_granule": rres["ns_per_granule"],
+         "ms_by_width": {str(k): v["ms"]
+                         for k, v in rres["by_width"].items()}},
         {"name": "search_baseline", "route": "cuda",
          "source": "mp3tpu_torch/csrc/bits_at.cu",
          "replaces": "mp3tpu/ops/jaxloop.py:528-613",

@@ -4,16 +4,25 @@ Layer III, one shot (``encode_layer3_fast``): the PCM is cut into
 super-chunk segments (``_plan_segments``); each segment runs one
 ``Layer3SegmentEncoder`` call -- analysis + demand encode -> reservoir
 scan -> final encode + packing -- with the block-type automaton state
-and the reservoir level carried from segment to segment; the side table
-and the compacted payload come to the host in one copy; then the
-reservoir guard validates the realized part2_3_length chain (clamp +
-re-encode on the rare overdraw) and the native assembler
-(csrc/mp3bits.cpp) writes the stream.  MPEG-1 (32/44.1/48 kHz) and
-MPEG-2 LSF (16/22.05/24 kHz).
+and the reservoir level carried from segment to segment as device
+tensors.  Every segment is queued before the first download, as the
+JAX package's one program chain is (``mp3tpu/encoder.py:206-225``):
+on the card the host waits once an encode, when the side tables and
+compacted payloads of all segments come to the host in one copy
+(``_Layer3Framing.fetch``).  Then the reservoir guard validates the
+realized part2_3_length chain (clamp + re-encode on the rare overdraw)
+and the native assembler (csrc/mp3bits.cpp) writes the stream.  MPEG-1
+(32/44.1/48 kHz) and MPEG-2 LSF (16/22.05/24 kHz).
 
 Layer III, streaming (``StreamEncoder``, ``encode_layer3_stream``): the
-same segment program window by window, with the carried state made
-explicit, so that it checkpoints to a small picklable dict.
+same segment program window by window (one wait a window), with the
+carried state made explicit, so that it checkpoints to a small
+picklable dict.
+
+``fetches`` counts the host's waits for results (``fetch``), of which
+``retry_fetches`` came from ``settle``'s rare retries; the rate loop's
+exit syncs are ``ops/loop.any_on_host.syncs`` and the host scans'
+downloads ``ops/resv.host_scans``.
 
 Layers I/II (``encode_layer12_fast``, ``encode_layer12_stream``):
 analysis and quantization on the device (``ops/layer12.py``), bit
@@ -48,6 +57,29 @@ CHUNK_BUCKETS = (64, 128, 256)
 RELAX_DELTA = 28
 #: initial payload row width in 32-bit words
 PAYLOAD_WORDS = 96
+
+#: downloads of results that the host waited for (``_Layer3Framing.fetch``
+#: and the multi-rank path's)
+fetches = 0
+#: of ``fetches``, those of ``settle``'s rare retries (a wider payload row
+#: or a guard clamp): one of the scan's targets and demands, and one for
+#: each re-encode
+retry_fetches = 0
+
+
+def pinned(shape, dtype, dev):
+    """A zeroed host tensor to fill (``.numpy()``) and ``upload``: pinned
+    for a CUDA device, so that its upload does not wait for the stream.
+    It may be dropped as soon as the upload is queued: PyTorch's caching
+    host allocator records an event on the copy's stream and reuses the
+    block only once that event has completed."""
+    return torch.zeros(shape, dtype=dtype, pin_memory=dev.type == "cuda")
+
+
+def upload(host, dev):
+    """`host` (from ``pinned``) on `dev`, its copy queued on the current
+    stream; on the CPU, `host` itself."""
+    return host.to(dev, non_blocking=True)
 
 
 def _plan_segments(G, buckets=SUPER_BUCKETS):
@@ -167,32 +199,45 @@ class _Layer3Framing:
                                       self.resv_max, self.nch * n_pad)
 
     def segment(self, blocks_h4, fsm, size, pw, n_real, delta):
-        """Run the segment program on (nch, 4 + n_pad, 576) int16 blocks."""
+        """Queue the segment program on (nch, 4 + n_pad, 576) int16
+        blocks, a tensor from ``pinned``; fsm and size, the
+        carry, may be device tensors.  Returns its outputs on the device;
+        nothing waits on the host once the graphs are captured."""
         n_pad = blocks_h4.shape[1] - 4
-        return self.enc(torch.as_tensor(blocks_h4, device=self.dev), fsm,
-                        size, pw, self.nch, self.cap(n_pad), n_real,
-                        self.mean_bits, self.resv_max, self.mode_gr, delta)
+        return self.enc(upload(blocks_h4, self.dev), fsm, size, pw,
+                        self.nch, self.cap(n_pad), n_real, self.mean_bits,
+                        self.resv_max, self.mode_gr, delta)
 
     @span("fetch")
-    def fetch(self, h, keys=None):
-        """One device -> host copy of a segment's results: by default the
-        side table (int16), the compacted payload (uint32), n_nonfinite
-        (int) and, for MPEG-1, the scfsi flags."""
-        if keys is None:
-            keys = ["side", "payload", "n_nonfinite"] + \
-                (["scfsi"] if "scfsi" in h else [])
+    def fetch(self, hs, keys=None):
+        """One device -> host copy of the results of the segments `hs` (a
+        list of segment outputs), the host's one wait for them: by
+        default each one's side table (int16), compacted payload
+        (uint32), n_nonfinite (int) and, for MPEG-1, scfsi flags.
+        Returns a list of dicts of numpy values."""
+        global fetches
+        fetches += 1
+        want = [keys if keys is not None else
+                ["side", "payload", "n_nonfinite"]
+                + (["scfsi"] if "scfsi" in h else []) for h in hs]
         flat = torch.cat([h[k].reshape(-1).to(torch.int32)
-                          for k in keys]).cpu().numpy()
-        out, pos = {}, 0
-        for k in keys:
-            n = h[k].numel()
-            out[k] = flat[pos:pos + n].reshape(h[k].shape)
-            pos += n
-        out["side"] = out["side"].astype(np.int16)
-        out["payload"] = out["payload"].view(np.uint32)
-        if "n_nonfinite" in out:
-            out["n_nonfinite"] = int(out["n_nonfinite"])
-        return out
+                          for h, ks in zip(hs, want)
+                          for k in ks]).cpu().numpy()
+        outs, pos = [], 0
+        for h, ks in zip(hs, want):
+            out = {}
+            for k in ks:
+                n = h[k].numel()
+                out[k] = flat[pos:pos + n].reshape(h[k].shape)
+                pos += n
+            if "side" in out:
+                out["side"] = out["side"].astype(np.int16)
+            if "payload" in out:
+                out["payload"] = out["payload"].view(np.uint32)
+            if "n_nonfinite" in out:
+                out["n_nonfinite"] = int(out["n_nonfinite"])
+            outs.append(out)
+        return outs
 
     def scfsi_frames(self, plan, got):
         """(nch, F, 4) scfsi flags of the real frames (zeros for LSF)."""
@@ -226,28 +271,35 @@ class _Layer3Framing:
                                  [o["payload"] for o in outs], nch))
 
         def scan_tensors():
-            """The scan's (target, demand), real granules only."""
+            """The scan's (target, demand), real granules only: one
+            fetch."""
+            global retry_fetches
+            retry_fetches += 1
+            got = self.fetch(segs, ("target", "demand"))
             return tuple(
-                np.concatenate([s[k][:, :n_real].cpu().numpy()
-                                for (_, n_real, _), s in zip(plan, segs)],
+                np.concatenate([g[k][:, :n_real]
+                                for (_, n_real, _), g in zip(plan, got)],
                                axis=1).astype(np.int64)
                 for k in ("target", "demand"))
 
         def run_final(pw, target, demand):
-            outs = []
+            global retry_fetches
+            retry_fetches += 1
+            hs = []
             for (pos, n_real, n_pad), s in zip(plan, segs):
-                bh = np.full((nch, n_pad), 4095.0, np.float32)
+                bh = pinned(nch * n_pad, torch.float32, self.dev)
                 t = target[:, pos: pos + n_real]
                 d = demand[:, pos: pos + n_real]
-                bh[:, :n_real] = np.where(t < d, t, 4095)
-                h = self.enc.encode_final(
+                bh.numpy().reshape(nch, n_pad)[:] = 4095.0
+                bh.numpy().reshape(nch, n_pad)[:, :n_real] = \
+                    np.where(t < d, t, 4095)
+                hs.append(self.enc.encode_final(
                     s["xr"], s["ratio_l"], s["ratio_s"], s["block_type"],
-                    torch.as_tensor(bh.reshape(-1), device=self.dev),
+                    upload(bh, self.dev),
                     payload_words=pw, scfsi=s.get("scfsi"),
                     sf_fix=s.get("sf_fix"), nch=nch, qss_lo=s["qss"],
-                    flat_cap=self.cap(n_pad))
-                outs.append(self.fetch(h, ("side", "payload")))
-            return assemble(outs)
+                    flat_cap=self.cap(n_pad)))
+            return assemble(self.fetch(hs, ("side", "payload")))
 
         side, payload = assemble(got)
         p23 = side[:, :, 0].astype(np.int64)
@@ -317,20 +369,22 @@ def encode_layer3_fast(pcm, cfg: EncoderConfig, device, chunk=None,
     blocks = pcm.reshape(nch, G, 576)
     plan = _plan_segments(G, (chunk,) if chunk else SUPER_BUCKETS)
 
-    # ---- one segment program per plan entry, state carried across
-    segs, got = [], []
+    # ---- one segment program per plan entry, state carried across on
+    # the device; every segment queued, then one download
+    segs = []
     fsm = torch.zeros(nch, dtype=torch.int32, device=L3.dev)
     size = 0
     with prof.stage("segments (device)"):
         for pos, n_real, n_pad in plan:
-            bl = np.zeros((nch, 4 + n_pad, 576), np.int16)
+            host = pinned((nch, 4 + n_pad, 576), torch.int16, L3.dev)
+            bl = host.numpy()
             if pos:
                 bl[:, :4] = blocks[:, pos - 4: pos]
             bl[:, 4:4 + n_real] = blocks[:, pos: pos + n_real]
-            h = L3.segment(bl, fsm, size, pw, n_real, delta)
+            h = L3.segment(host, fsm, size, pw, n_real, delta)
             fsm, size = h["fsm_state"], h["size"]
             segs.append(h)
-            got.append(L3.fetch(h))
+        got = L3.fetch(segs)
 
     side, payload, p23, retries, _ = L3.settle(plan, segs, got, pw, nframes,
                                                prof)
@@ -376,7 +430,8 @@ class StreamEncoder:
         self.fsm = torch.zeros(self.nch, dtype=torch.int32,
                                device=self.L3.dev)
         self.halo4 = np.zeros((self.nch, 4, 576), np.int16)
-        self.scan_size = 0        # the budget scan's level
+        # the budget scan's level: on the device once a window has run
+        self.scan_size = 0
         self.real_size = 0        # the realized chain (guard + assembler)
         self.buf = np.zeros((self.nch, 0), np.int16)
 
@@ -414,7 +469,8 @@ class StreamEncoder:
 
     def checkpoint(self):
         """A small dict of numpy and Python values; ``resume`` continues
-        the stream from it with byte-identical output."""
+        the stream from it with byte-identical output.  Reading the
+        device's carry waits for the stream's queued work."""
         return dict(fsm=self.fsm.cpu().numpy(), halo4=self.halo4.copy(),
                     scan_size=int(self.scan_size),
                     real_size=int(self.real_size), buf=self.buf.copy(),
@@ -438,15 +494,16 @@ class StreamEncoder:
         n_pad = (G if G == self.window
                  else _plan_segments(G, self.rem_buckets)[0][2])
         blocks = pcm_w.reshape(nch, G, 576)
-        bl = np.zeros((nch, 4 + n_pad, 576), np.int16)
+        host = pinned((nch, 4 + n_pad, 576), torch.int16, L3.dev)
+        bl = host.numpy()
         bl[:, :4] = self.halo4
         bl[:, 4:4 + G] = blocks
         # the same segment program as the one-shot path, so stream and
-        # one-shot bytes agree by construction
+        # one-shot bytes agree by construction; the window's one wait
         with prof.stage("stream segment (device)"):
-            h = L3.segment(bl, self.fsm, self.scan_size, PAYLOAD_WORDS, G,
+            h = L3.segment(host, self.fsm, self.scan_size, PAYLOAD_WORDS, G,
                            RELAX_DELTA)
-            got = L3.fetch(h)
+            got, = L3.fetch([h])
         self.fsm, self.scan_size = h["fsm_state"], h["size"]
         self.halo4 = blocks[:, -4:] if G >= 4 else np.concatenate(
             [self.halo4[:, G - 4:], blocks], axis=1)

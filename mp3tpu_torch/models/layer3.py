@@ -11,8 +11,11 @@ On a CUDA device the program replays CUDA graphs, the port's
 counterpart of the JAX package's one compiled program
 (``ops/graphs.py``): the analysis of all lanes in one batch
 (``analysis``), the rate loop (``loop.outer_loop``) and, after the final
-rate loop, the emission and packing (``encode_final``).  The reservoir
-scan stays a host scan with one download, and the results one download
+rate loop, the emission and packing (``encode_final``); between the two
+rate loops the reservoir scan is one K4 launch (``ops/resv.py``), with
+the carried level in and out as a device tensor.  So a segment queues
+all its work without a wait on the host, and the encode functions fetch the
+results of every queued segment in one download
 (``encoder._Layer3Framing.fetch``).  ``analysis_eager`` (lane by lane)
 and ``encode_final_eager`` (emission op by op) are what the CPU runs and
 the card's yardstick.
@@ -410,7 +413,9 @@ class Layer3SegmentEncoder(nn.Module):
         Padded frames past n_real are masked out of the scan and their
         budget rows stay at 4095.  The carry, fsm_init (nch,) and size_in
         (), may be tensors or numpy values (such as the carry a JAX
-        segment returned)."""
+        segment returned); it comes back as tensors on the device,
+        fsm_state (nch,) and size () int32, and on a CUDA device nothing
+        in the call waits on the host once its graphs are captured."""
         dev = blocks_h4.device
         fsm_init = torch.as_tensor(fsm_init, dtype=torch.int32, device=dev)
         ana = self.analyze_demand_fused(blocks_h4, fsm_init)

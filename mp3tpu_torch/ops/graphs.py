@@ -4,9 +4,9 @@ The JAX package compiles each segment program with ``jax.jit``; that is
 this module's counterpart, so it has no JAX original.  On a CUDA device
 three parts of ``Layer3SegmentEncoder`` replay graphs captured once per
 key: the analysis (``models/layer3.py``, one graph), the rate loop
-(``ops/loop.py``: its prologue and its iteration) and, after the final
-rate loop, the emission and packing (a continuation of the loop's
-entry).  ``graph_counts`` counts captures and replays by stage
+(``ops/loop.py``: its prologue and its iterations, unrolled) and, after
+the final rate loop, the emission and packing (a continuation of the
+loop's entry).  ``graph_counts`` counts captures and replays by stage
 (``STAGES``).
 
 Every graph of a device is captured into one memory pool and replays on

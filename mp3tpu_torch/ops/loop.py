@@ -17,22 +17,33 @@ if the plain searches are given a CUDA tensor).  ``count_all``'s
 one-hot factorization is not ported.
 
 Each ``lax.while_loop`` of the JAX package whose exit is
-``jnp.any(...)`` and that is not inside a K3 launch (``outer_loop``'s
-own, and the plain searches' walks) is a Python loop whose condition is
-read on the host -- one device sync per step on CUDA, counted in
-``any_on_host.syncs``.
+``jnp.any(...)`` and that is not inside a K3 launch or a graph (the
+plain searches' walks, and ``outer_loop``'s own when it runs op by op)
+is a Python loop whose condition is read on the host -- one device sync
+per step on CUDA, counted in ``any_on_host.syncs``.
 
 ``outer_loop`` is three functions over one state: ``_prologue`` (up to
 and with the initial stepsize search), ``_iteration`` (one step of the
 while loop, updating the state in place) and ``_epilogue``.  On a CUDA
-tensor the prologue and the iteration are each captured once per key
-as a CUDA graph and replayed (the port's counterpart of the JAX
-package's compiled ``while_loop``; ``GRAPHS``, counted in
-``graph_counts``, machinery in ``ops/graphs.py``), and so is a
-continuation (``Then``: the final encode's emission and packing) that
-reads the loop's static tensors after its last iteration;
-``outer_loop_eager`` dispatches the same functions op by op, and is what
-the CPU runs.
+tensor the prologue and ``max_iter`` iterations unrolled
+(``_iterations``) are each captured once per key as a CUDA graph and
+replayed, one replay each a call with no exit read on the host (the
+port's counterpart of the JAX package's compiled ``while_loop``;
+``GRAPHS``, counted in ``graph_counts``, machinery in
+``ops/graphs.py``), and so is a continuation (``Then``: the final
+encode's emission and packing) that reads the loop's static tensors
+after the last iteration; ``outer_loop_eager`` dispatches the same
+functions op by op with the host exit, and is what the CPU runs.
+
+Unrolling is exact: an iteration writes ``best`` only where ``upd =
+~done`` holds, and ``done`` only grows, so once every lane is done an
+iteration leaves ``best`` and ``qss0`` -- all that the epilogue and the
+emission read -- as they were.  The state it still writes (``qss_prev``
+unmasked, the start of the next walk; the rest under ``upd`` or only
+growing) reaches ``best`` only through ``upd``, so it too changes no
+output.  ``iterations_on(device)`` sums, on the device, the iterations
+in which some lane was live (``state["iters"]``): the count of
+``jaxloop``'s ``iter_cond``, read after the encode's fetch.
 
 Bit arithmetic stays in int32/int64 and float32 bit totals, as in the
 JAX package; nothing here uses unsigned tensors.
@@ -516,7 +527,8 @@ def _sfb_gain(amp, oh):
 
 #: the state entries that ``_iteration`` updates in place (besides best)
 LOOP_STATE = ("xr_a", "xr75", "xr75p", "xmin_l", "xmin_s", "sf_l", "sf_s",
-              "preflag", "qss_prev", "done", "filling", "fill_rounds")
+              "preflag", "qss_prev", "done", "filling", "fill_rounds",
+              "iters")
 
 
 def _sbc(state, sf_l, sf_s, preflag, ST):
@@ -577,7 +589,8 @@ def _prologue(xr, budget, ratio_l, ratio_s, is_short_block, block_type, ST,
                  xr_a=xr_abs, xr75=xr75, xr75p=xr75p, xmin_l=xmin_l,
                  xmin_s=xmin_s, sf_l=sf_l, sf_s=zeros(12, 3),
                  preflag=zeros(), qss_prev=qss_init.clone(), done=done,
-                 filling=done.clone(), fill_rounds=zeros())
+                 filling=done.clone(), fill_rounds=zeros(),
+                 iters=torch.zeros((), dtype=torch.int32, device=dev))
     best = dict(ix=zeros(576), qss=qanf, bits=budget * 0, part2=zeros(),
                 compress=zeros(), sf_l=sf_l.clone(), sf_s=zeros(12, 3),
                 preflag=zeros(), used=zeros(), count1=zeros(),
@@ -603,6 +616,8 @@ def _iteration(state, best, ST):
     fill_rounds = state["fill_rounds"]
     oh_l, oh_s, oh_sp = ST["oh_l"], ST["oh_s"], ST["oh_s_perm"]
     G = budget.shape[0]
+    # the iterations jaxloop's iter_cond lets run: some lane is live
+    iters = state["iters"] + (~done).any().to(torch.int32)
 
     compress, part2, overflow = _sbc(state, sf_l, sf_s, preflag, ST)
     huff = torch.clamp(budget - part2, min=0.0)
@@ -718,11 +733,19 @@ def _iteration(state, best, ST):
     new = dict(xr_a=xr_a, xr75=xr75, xr75p=xr75p, xmin_l=xmin_l,
                xmin_s=xmin_s, sf_l=sf_l, sf_s=sf_s, preflag=preflag,
                qss_prev=qss, done=done, filling=filling,
-               fill_rounds=fill_rounds_next)
+               fill_rounds=fill_rounds_next, iters=iters)
     for k in LOOP_STATE:
         state[k].copy_(new[k])
     for k, v in new_best.items():
         best[k].copy_(v)
+
+
+def _iterations(state, best, ST, max_iter):
+    """``max_iter`` iterations with no exit: the loop as its graph runs
+    it.  Past the iteration that leaves every lane done they change
+    nothing that the epilogue reads (see the module's note)."""
+    for _ in range(max_iter):
+        _iteration(state, best, ST)
 
 
 def _epilogue(xr, best, qss0, block_type, is_short_block):
@@ -756,12 +779,15 @@ class Then(NamedTuple):
 
 
 def _eager(inputs, ST, max_iter, then=None):
-    """The three parts, and `then`, dispatched op by op."""
+    """The three parts, and `then`, dispatched op by op; the iterations
+    stop where ``jaxloop``'s exit condition, read on the host, stops
+    them."""
     state, best = _prologue(ST=ST, **inputs)
     it = 0
     while it < max_iter and any_on_host(~state["done"]):
         _iteration(state, best, ST)
         it += 1
+    iterations_on(inputs["xr"].device).add_(state["iters"])
     out = _epilogue(inputs["xr"], best, state["qss0"], inputs["block_type"],
                     inputs["is_short_block"])
     return out if then is None else then.fn(out, inputs)
@@ -778,6 +804,30 @@ GRAPH_CACHE_SIZE = 16
 GRAPHS = graphs.GraphCache(GRAPH_CACHE_SIZE)
 #: graph captures and replays by stage (``graphs.graph_counts``)
 graph_counts = graphs.graph_counts
+
+
+#: the iterations' sums by device (``iterations_on``)
+_ITERATIONS = {}
+
+
+def iterations_on(device):
+    """The iterations of every ``outer_loop`` call on `device` in which
+    some lane was live, summed on the device: an int64 () tensor that the
+    calls add to without a wait."""
+    dev = graphs.canonical_device(device)
+    if dev not in _ITERATIONS:
+        _ITERATIONS[dev] = torch.zeros((), dtype=torch.int64, device=dev)
+    return _ITERATIONS[dev]
+
+
+def iterations(device):
+    """``iterations_on(device)`` read on the host (a wait)."""
+    return int(iterations_on(device))
+
+
+def reset_iterations():
+    for acc in _ITERATIONS.values():
+        acc.zero_()
 
 
 def _graph_key(inputs, ST):
@@ -814,34 +864,43 @@ def _continue(entry, then, record):
     return entry.outputs[name]
 
 
-def _run_captured(inputs, ST, max_iter, record, refs=(), then=None):
+def _run_captured(inputs, ST, max_iter, record, refs=(), then=None,
+                  stepwise=False):
     """The captured loop's host side, on the current stream.  On first
-    sight of a key the prologue and the first iteration run eagerly (the
-    warm-up: their results are this call's) on static copies of the
-    inputs, then ``record`` captures each of them (CUDA:
-    ``graphs.cuda_graph``); otherwise the inputs are copied into the
-    key's static inputs and the prologue replays.  Then one iteration
-    replays while ``jaxloop``'s exit condition holds, read on the host
-    (one sync each); then ``then`` (``_continue``), if given.  Returns
-    (entry, the entries the cache dropped, then's static outputs or
-    None); the entry's best and state hold this call's results until the
-    next call of its key."""
-    key = _graph_key(inputs, ST)
+    sight of a key the prologue and ``max_iter`` iterations
+    (``_iterations``) run eagerly (the warm-up: their results are this
+    call's) on static copies of the inputs, then ``record`` captures each
+    of the two (CUDA: ``graphs.cuda_graph``); otherwise the inputs are
+    copied into the key's static inputs and the prologue and the
+    iterations replay, once each.  No exit is read on the host.  Then the
+    call's live iterations are added to ``iterations_on``, and ``then``
+    (``_continue``) runs, if given.  Returns (entry, the entries the
+    cache dropped, then's static outputs or None); the entry's best and
+    state hold this call's results until the next call of its key.
+
+    `stepwise` captures one iteration instead and replays it while
+    ``jaxloop``'s exit condition, read on the host after each replay (one
+    sync each), holds: the form before the exit moved to the card, kept
+    as the yardstick of ``outer_loop_stepwise``."""
+    key = (_graph_key(inputs, ST), "stepwise" if stepwise else max_iter)
     entry = GRAPHS.get(key)
     dropped = []
+    it = 0
     if entry is None:
         static = {k: None if v is None else v.clone()
                   for k, v in inputs.items()}
         state, best = _prologue(ST=ST, **static)
-        it = 0
-        if it < max_iter and any_on_host(~state["done"]):
+        if not stepwise:
+            _iterations(state, best, ST, max_iter)
+        elif it < max_iter and any_on_host(~state["done"]):
             _iteration(state, best, ST)
             it += 1
         entry = graphs.Captured(static, (dict(ST),) + tuple(refs), state,
                                 best)
         entry.capture("prologue", lambda: _assign(
             state, best, *_prologue(ST=ST, **static)), record, "prologue")
-        entry.capture("iteration", lambda: _iteration(state, best, ST),
+        n = 1 if stepwise else max_iter
+        entry.capture("iteration", lambda: _iterations(state, best, ST, n),
                       record, "iteration")
         dropped = GRAPHS.put(key, entry)
     else:
@@ -849,10 +908,12 @@ def _run_captured(inputs, ST, max_iter, record, refs=(), then=None):
             if t is not None:
                 t.copy_(inputs[k])
         entry.replay("prologue")
-        it = 0
-    while it < max_iter and any_on_host(~entry.state["done"]):
+        if not stepwise:
+            entry.replay("iteration")
+    while stepwise and it < max_iter and any_on_host(~entry.state["done"]):
         entry.replay("iteration")
         it += 1
+    iterations_on(inputs["xr"].device).add_(entry.state["iters"])
     out = None if then is None else _continue(entry, then, record)
     return entry, dropped, out
 
@@ -864,7 +925,7 @@ def _assign(state, best, new_state, new_best):
     graphs.assign(best, new_best)
 
 
-def _graphed(inputs, ST, max_iter, then=None):
+def _graphed(inputs, ST, max_iter, then=None, stepwise=False):
     """``outer_loop`` on a CUDA device: ``_run_captured`` on the graph
     stream (which first waits for the caller's), then on the caller's
     stream the epilogue on clones of best, or clones of then's
@@ -874,7 +935,7 @@ def _graphed(inputs, ST, max_iter, then=None):
     def body():
         entry, dropped, out = _run_captured(
             inputs, ST, max_iter, graphs.cuda_graph(dev),
-            search.device_buffers(dev), then)
+            search.device_buffers(dev), then, stepwise)
         return (entry, out), dropped
 
     def keep(res):
@@ -910,16 +971,36 @@ def outer_loop(xr, budget, ratio_l, ratio_s, is_short_block, block_type,
     then: a ``Then`` continuation; the call returns ``then.fn(outputs,
     inputs)`` in place of the outputs.
 
-    On a CUDA tensor the prologue and every iteration replay CUDA graphs
-    captured on the key's first call (``GRAPHS``), and so does `then`
-    after the last iteration, reading the loop's static tensors (stage
-    "emission"); a capture or replay error raises.  On any other device
-    it is ``outer_loop_eager``."""
+    On a CUDA tensor the prologue and the `max_iter` iterations, unrolled,
+    replay one CUDA graph each, captured on the key's first call
+    (``GRAPHS``), and so does `then` after the last iteration, reading
+    the loop's static tensors (stage "emission"); nothing waits on the
+    host, and a capture or replay error raises.  On any other device it
+    is ``outer_loop_eager``."""
     inputs = _inputs(xr, budget, ratio_l, ratio_s, is_short_block,
                      block_type, sf_fix_mask, sf_fix_val, sf_skip_mask,
                      qss_lo)
     if xr.device.type == "cuda":
         return _graphed(inputs, ST, max_iter, then)
+    return _eager(inputs, ST, max_iter, then)
+
+
+@span("outer_loop")
+def outer_loop_stepwise(xr, budget, ratio_l, ratio_s, is_short_block,
+                        block_type, ST, max_iter=6, sf_fix_mask=None,
+                        sf_fix_val=None, sf_skip_mask=None, qss_lo=None,
+                        then=None):
+    """``outer_loop`` with its graphs replayed an iteration at a time and
+    the exit read on the host after each replay (one sync each, counted
+    in ``any_on_host.syncs``): the form before the exit moved to the
+    card, whose outputs the unrolled form equals.  For comparison only
+    (tests/test_torch_graph_card.py, chip_smoke.py's phase 5b); on any
+    device but CUDA it is ``outer_loop_eager``."""
+    inputs = _inputs(xr, budget, ratio_l, ratio_s, is_short_block,
+                     block_type, sf_fix_mask, sf_fix_val, sf_skip_mask,
+                     qss_lo)
+    if xr.device.type == "cuda":
+        return _graphed(inputs, ST, max_iter, then, stepwise=True)
     return _eager(inputs, ST, max_iter, then)
 
 

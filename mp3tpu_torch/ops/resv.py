@@ -1,17 +1,64 @@
 """Bit-reservoir budget scan (port of mp3tpu/ops/jaxresv.py).
 
-The scan is serial over frames with a one-integer carry, so it runs on
-the host through the shared native scan
-(``runtime.bitstream.resv_scan``, reservoir.c:101-134 policy),
-which tests/test_jaxresv.py holds equal to the JAX scan.  On a CUDA
-device this costs one device->host copy of (pe, demand) per segment.
-pe enters the scan as float64.
+The scan is serial over frames with a one-integer carry.  On a CUDA
+tensor it is K4, one launch of ``resv_scan_kernel`` (``csrc/resv_scan.cu``,
+built with ``nvcc`` on first use into ``mp3tpu_torch/build/``): one
+block a clip, and nothing comes back to the host -- the budgets and the
+carried level stay on the device, so the segment program queues its
+final encode behind the scan as the JAX package's one program chain
+does (``jaxresv.py:6-10``).  On a CPU tensor it runs its plain version,
+the native host scan (``runtime.bitstream.resv_scan``, reservoir.c:101-134
+policy), which tests/test_jaxresv.py holds equal to the JAX scan; pe
+enters it as float64, and K4 widens pe to double as it does.  There is
+no fallback between the two: a CUDA tensor never reaches the host scan,
+and a build or launch error raises.
+
+``launches`` counts K4's launches.  ``host_scans`` counts the scans that
+ran on the host on results the card made, each behind a download: the
+multi-rank path's (``parallel/clip.py``), which scans on the host as
+the JAX package's does.
 """
+import ctypes
+import os
+from functools import lru_cache
+
 import numpy as np
 import torch
 
 from ..runtime.bitstream import resv_scan
 from ..runtime.profiling import span
+from . import cuda_build
+
+SOURCE = os.path.join(cuda_build.CSRC, "resv_scan.cu")
+LIBRARY = os.path.join(cuda_build.BUILD_DIR, "libresv_scan.so")
+#: no FMA contraction: trunc(pe*3.1 - mean) rounds twice, as on the host
+NVCC_FLAGS = cuda_build.NVCC_FLAGS + ["-fmad=false"]
+#: the granules of a frame K4 takes at most (csrc/resv_scan.cu kTile)
+MAX_GRANULES_A_FRAME = 2048
+
+#: K4's launches
+launches = 0
+#: host scans of the card's results (each waits for a download)
+host_scans = 0
+
+
+def build(force=False, extra_flags=()):
+    """Compile csrc/resv_scan.cu into build/libresv_scan.so (if the
+    library is missing or older than the source); returns nvcc's
+    output."""
+    return cuda_build.build(SOURCE, LIBRARY, NVCC_FLAGS + list(extra_flags),
+                            force)
+
+
+@lru_cache(maxsize=None)
+def _library():
+    build()
+    lib = ctypes.CDLL(LIBRARY)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.mp3_resv_scan.restype = i32
+    lib.mp3_resv_scan.argtypes = [ptr, ptr, ptr, i32, ptr] + [i32] * 7 + \
+        [ptr] * 3
+    return lib
 
 
 def granule_major(x, nch, mode_gr):
@@ -42,20 +89,12 @@ def _native(pe, demand, size, mean_bits, resv_max, mode_gr, nch, delta):
         .reshape(F, mode_gr * nch), size
 
 
-@span("scan_budgets")
-def scan_budgets(pe, demand, size0, mean_bits, resv_max, mode_gr, nch,
-                 delta, valid=None):
-    """pe, demand: (F, R) granule-major float/int tensors; size0: the
-    carried reservoir level (int or 0-d tensor); valid: optional (F,)
-    bool -- False frames are bucket padding and leave the level as it
-    was.  Returns (budgets (F, R) int32 on pe's device, size_out int)."""
-    dev = pe.device
-    pe_h = pe.detach().to("cpu", torch.float64).numpy()
-    dm_h = demand.detach().to("cpu", torch.int64).numpy()
-    F = pe_h.shape[0]
-    ok = (np.ones(F, bool) if valid is None
-          else valid.detach().to("cpu").numpy().astype(bool))
-    size = int(size0)
+def _plain(pe, demand, size, ok, mean_bits, resv_max, mode_gr, nch, delta):
+    """One clip's scan on the host: pe (F, R) float64, demand (F, R)
+    int64 numpy, ok (F,) bool; returns (budgets (F, R) int64, size_out).
+    A padded frame is scanned from the carried level, which it then
+    leaves untouched."""
+    F = pe.shape[0]
     budgets = np.zeros((F, mode_gr * nch), np.int64)
     f = 0
     while f < F:
@@ -63,34 +102,132 @@ def scan_budgets(pe, demand, size0, mean_bits, resv_max, mode_gr, nch,
             e = f
             while e < F and ok[e]:
                 e += 1
-            budgets[f:e], size = _native(pe_h[f:e], dm_h[f:e], size,
+            budgets[f:e], size = _native(pe[f:e], demand[f:e], size,
                                          mean_bits, resv_max, mode_gr, nch,
                                          delta)
         else:
-            # a padded frame is scanned from the carried level, which it
-            # then leaves untouched
             e = f + 1
-            budgets[f:e], _ = _native(pe_h[f:e], dm_h[f:e], size, mean_bits,
+            budgets[f:e], _ = _native(pe[f:e], demand[f:e], size, mean_bits,
                                       resv_max, mode_gr, nch, delta)
         f = e
-    return torch.as_tensor(budgets, dtype=torch.int32, device=dev), size
+    return budgets, size
+
+
+def _check_k4(pe, demand, valid, size0, mode_gr, nch):
+    B, F, R = pe.shape
+    dev = pe.device
+    if R != mode_gr * nch or R > MAX_GRANULES_A_FRAME:
+        raise ValueError(f"resv_scan: {R} granules a frame for mode_gr "
+                         f"{mode_gr}, nch {nch}")
+    for name, t, dtype, shape in (("pe", pe, torch.float32, (B, F, R)),
+                                  ("demand", demand, torch.int32, (B, F, R)),
+                                  ("size0", size0, torch.int32, (B,))):
+        cuda_build.check("resv_scan", name, t, dtype, shape, dev)
+    if valid is not None:
+        shape = (F,) if valid.dim() == 1 else (B, F)
+        cuda_build.check("resv_scan", "valid", valid, torch.bool, shape, dev)
+
+
+def _launch(pe, demand, valid, size0, mean_bits, resv_max, mode_gr, nch,
+            delta):
+    """K4 over B clips on the current stream: pe (B, F, R) float32,
+    demand (B, F, R) int32, valid None, (F,) or (B, F) bool, size0 (B,)
+    int32, all on one CUDA device.  Returns (budgets (B, F, R) int32,
+    size_out (B,) int32) on it."""
+    global launches
+    _check_k4(pe, demand, valid, size0, mode_gr, nch)
+    B, F, R = pe.shape
+    dev = pe.device
+    budgets = torch.empty((B, F, R), dtype=torch.int32, device=dev)
+    size_out = torch.empty(B, dtype=torch.int32, device=dev)
+    if B:
+        stride = 0 if valid is None or valid.dim() == 1 else F
+        lib = _library()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.mp3_resv_scan(
+                pe.data_ptr(), demand.data_ptr(),
+                None if valid is None else valid.data_ptr(), stride,
+                size0.data_ptr(), B, F, nch, mode_gr, int(mean_bits),
+                int(resv_max), int(delta), budgets.data_ptr(),
+                size_out.data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError(f"resv_scan: kernel launch failed, CUDA "
+                               f"error {err}")
+        launches += 1
+    return budgets, size_out
+
+
+def _level(size, dev, B=None):
+    """A carried level (int, numpy value or tensor) as int32 on `dev`:
+    () or, with B, (B,).  A Python value is filled in on the device, not
+    uploaded (an upload from pageable memory would wait for the
+    stream)."""
+    shape = () if B is None else (B,)
+    if isinstance(size, torch.Tensor):
+        return size.to(dev, torch.int32).reshape(shape)
+    if np.ndim(size):
+        return torch.as_tensor(np.asarray(size), dtype=torch.int32,
+                               device=dev).reshape(shape)
+    return torch.full(shape, int(size), dtype=torch.int32, device=dev)
+
+
+@span("scan_budgets")
+def scan_budgets(pe, demand, size0, mean_bits, resv_max, mode_gr, nch,
+                 delta, valid=None):
+    """pe, demand: (F, R) granule-major float32/int tensors; size0: the
+    carried reservoir level (int, numpy value or 0-d tensor); valid:
+    optional (F,) bool -- False frames are bucket padding and leave the
+    level as it was.  Returns (budgets (F, R) int32, size_out () int32),
+    both on pe's device: on a CUDA tensor from one K4 launch, with no
+    wait on the host; on a CPU tensor from the native scan."""
+    dev = pe.device
+    if dev.type == "cuda":
+        bud, size = _launch(pe.contiguous()[None],
+                            demand.to(torch.int32).contiguous()[None],
+                            None if valid is None else valid.to(torch.bool),
+                            _level(size0, dev, 1), mean_bits, resv_max,
+                            mode_gr, nch, delta)
+        return bud[0], size[0]
+    if dev.type != "cpu":
+        raise ValueError(f"scan_budgets: unsupported device {dev}")
+    pe_h = pe.detach().to(torch.float64).numpy()
+    dm_h = demand.detach().to(torch.int64).numpy()
+    F = pe_h.shape[0]
+    ok = (np.ones(F, bool) if valid is None
+          else valid.detach().numpy().astype(bool))
+    budgets, size = _plain(pe_h, dm_h, int(size0), ok, mean_bits, resv_max,
+                           mode_gr, nch, delta)
+    return (torch.as_tensor(budgets, dtype=torch.int32),
+            torch.tensor(size, dtype=torch.int32))
 
 
 def scan_budgets_batched(pe, demand, size0, mean_bits, resv_max, mode_gr,
                          nch, delta):
     """Clip-batched scan of the corpus path: pe, demand (B, F, R)
-    granule-major tensors, size0 (B,) carried levels.  One copy of the
-    inputs to the host, then B native scans.  Returns (budgets (B, F, R)
-    int32, size_out (B,) int32), both on pe's device."""
+    granule-major tensors, size0 (B,) carried levels.  Returns (budgets
+    (B, F, R) int32, size_out (B,) int32), both on pe's device: one K4
+    launch for the B clips on a CUDA tensor, B native scans on a CPU
+    tensor."""
     dev = pe.device
-    pe_h = pe.detach().to("cpu", torch.float64).numpy()
-    dm_h = demand.detach().to("cpu", torch.int64).numpy()
-    s0 = torch.as_tensor(size0).to("cpu", torch.int64).numpy()
+    B = pe.shape[0]
+    if dev.type == "cuda":
+        return _launch(pe.contiguous(), demand.to(torch.int32).contiguous(),
+                       None,
+                       _level(size0, dev, B), mean_bits, resv_max, mode_gr,
+                       nch, delta)
+    if dev.type != "cpu":
+        raise ValueError(f"scan_budgets_batched: unsupported device {dev}")
+    pe_h = pe.detach().to(torch.float64).numpy()
+    dm_h = demand.detach().to(torch.int64).numpy()
+    s0 = torch.as_tensor(size0).to(torch.int64).numpy()
     budgets = np.zeros(pe_h.shape, np.int64)
-    sizes = np.zeros(len(s0), np.int64)
-    for b in range(len(s0)):
-        budgets[b], sizes[b] = _native(pe_h[b], dm_h[b], int(s0[b]),
-                                       mean_bits, resv_max, mode_gr, nch,
-                                       delta)
-    return (torch.as_tensor(budgets, dtype=torch.int32, device=dev),
-            torch.as_tensor(sizes, dtype=torch.int32, device=dev))
+    sizes = np.zeros(B, np.int64)
+    ok = np.ones(pe_h.shape[1], bool)
+    for b in range(B):
+        budgets[b], sizes[b] = _plain(pe_h[b], dm_h[b], int(s0[b]), ok,
+                                      mean_bits, resv_max, mode_gr, nch,
+                                      delta)
+    return (torch.as_tensor(budgets, dtype=torch.int32),
+            torch.as_tensor(sizes, dtype=torch.int32))
+

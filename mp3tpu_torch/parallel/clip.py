@@ -14,7 +14,9 @@ traffic between ranks.  The two sequential pieces are:
     not one captured program: on the card its chunks run as one batch of
     lanes, op by op);
   - the bit reservoir: pe and demand are all-gathered and every rank
-    runs the same native scan on the host.
+    runs the same native scan on the host, as the JAX package does
+    (``mp3tpu/parallel/clip.py:260-263``), behind one download counted
+    in ``resv.host_scans``.
 
 The final encode emits full ``PAYLOAD_WORDS`` rows; side and payload are
 all-gathered, and every rank runs the guard and the native assembler and
@@ -24,9 +26,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import encoder
 from ..encoder import RELAX_DELTA, _chunk_size, _Layer3Framing
 from ..models.layer3 import _scfsi_flags
-from ..ops import bits, loop, psy
+from ..ops import bits, loop, psy, resv
 from ..runtime import profiling
 from ..runtime.bitstream import (NativeAssembler, guard_clamp, resv_guard,
                                  resv_scan)
@@ -154,6 +157,7 @@ def encode_layer3_sharded(pcm, cfg, device, mesh=None, chunk=None,
 
     with prof.stage("sharded analysis + demand"):
         ana = _analyze(L3, mine(grid), mine(halo4), mesh)
+        resv.host_scans += 1
         pe = all_gather_cat(mesh, ana["pe"]).cpu().numpy()
         p23 = all_gather_cat(mesh, ana["p23"]).cpu().numpy()
         if mode_gr == 2:
@@ -188,6 +192,7 @@ def encode_layer3_sharded(pcm, cfg, device, mesh=None, chunk=None,
             side = all_gather_cat(mesh, h["side"].reshape(Kl, nch, C, 19))
             payload = all_gather_cat(
                 mesh, h["payload"].to(torch.int32).reshape(Kl, nch, C, -1))
+        encoder.fetches += 1
         return to_grid(side.cpu().numpy()), \
             to_grid(payload.cpu().numpy()).view(np.uint32)
 

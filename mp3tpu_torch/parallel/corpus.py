@@ -5,8 +5,9 @@ Clips are independent, so a corpus is data parallel at two levels:
   - on one device, ``encode_corpus_batched`` stacks B clips as B*nch
     channel lanes of one ``Layer3SegmentEncoder``: each launch of the
     analysis' shared stages and of the rate loop covers the whole group,
-    the B reservoir scans run in one host pass, and guard and assembly
-    stay per clip;
+    the B reservoir scans are one K4 launch (``resv.scan_budgets_batched``),
+    the group's segments are all queued before its one download, and
+    guard and assembly stay per clip;
   - across processes, ``init_distributed`` joins a ``torch.distributed``
     group and ``local_share`` gives each process a contiguous share of
     the clip list; nothing else crosses processes.
@@ -22,7 +23,7 @@ import torch
 
 from ..config import EncoderConfig
 from ..encoder import (PAYLOAD_WORDS, RELAX_DELTA, _Layer3Framing,
-                       _plan_segments, encode_layer3_fast)
+                       _plan_segments, encode_layer3_fast, pinned, upload)
 from ..ops import bits, resv
 from ..runtime import profiling
 from ..runtime.bitstream import NativeAssembler
@@ -80,8 +81,9 @@ def _plan_budgets_corpus(pes, p23s, plan, B, nch, mode_gr, mean_bits,
             .reshape(B, F, mode_gr * nch)
 
     bud, _ = resv.scan_budgets_batched(
-        gm(pe), gm(demand), torch.zeros(B, dtype=torch.int32), mean_bits,
-        resv_max, mode_gr, nch, delta)
+        gm(pe), gm(demand), torch.zeros(B, dtype=torch.int32,
+                                        device=pe.device),
+        mean_bits, resv_max, mode_gr, nch, delta)
     budg = bud.reshape(B, F, mode_gr, nch).permute(0, 3, 1, 2) \
         .reshape(B, nch, F * mode_gr)
     target = torch.minimum(demand, budg)
@@ -127,8 +129,9 @@ def _clip_records(b, G, nch, plan, segs, got, target, demand):
 
 
 def _encode_group(L3, cfg, framed, delta, pw, prof):
-    """One group of B clips through the segment program as B*nch lanes;
-    returns the clips' streams."""
+    """One group of B clips through the segment program as B*nch lanes:
+    the analyses, the batched scan and the final encodes queued, then
+    the group's one download; returns the clips' streams."""
     B, nch, mode_gr, dev = len(framed), L3.nch, L3.mode_gr, L3.dev
     L = B * nch
     G_max = max(nf for _, nf in framed) * mode_gr
@@ -142,19 +145,19 @@ def _encode_group(L3, cfg, framed, delta, pw, prof):
     fsm = torch.zeros(L, dtype=torch.int32, device=dev)
     with prof.stage("corpus analysis + demand (device)"):
         for pos, n_real, n_pad in plan:
-            bl = np.zeros((L, 4 + n_pad, 576), np.int16)
+            host = pinned((L, 4 + n_pad, 576), torch.int16, dev)
+            bl = host.numpy()
             if pos:
                 bl[:, :4] = blocks[:, pos - 4: pos]
             bl[:, 4:4 + n_real] = blocks[:, pos: pos + n_real]
-            a = L3.enc.analyze_demand_fused(torch.as_tensor(bl, device=dev),
-                                            fsm)
+            a = L3.enc.analyze_demand_fused(upload(host, dev), fsm)
             fsm = a["fsm_state"]
             segs.append(a)
-    with prof.stage("corpus reservoir scans (host)"):
+    with prof.stage("corpus reservoir scans"):
         rows, target, demand = _plan_budgets_corpus(
             [a["pe"] for a in segs], [a["p23"] for a in segs], plan, B, nch,
             mode_gr, L3.mean_bits, L3.resv_max, delta)
-    got = []
+    hs = []
     with prof.stage("corpus final encode + pack (device)"):
         for (pos, n_real, n_pad), a, row in zip(plan, segs, rows):
             cap = bits.payload_cap_words(
@@ -166,7 +169,8 @@ def _encode_group(L3, cfg, framed, delta, pw, prof):
                 sf_fix=a.get("sf_fix"), nch=L, qss_lo=a["qss"],
                 flat_cap=cap)
             h.update((k, a[k]) for k in ("scfsi", "n_nonfinite") if k in a)
-            got.append(L3.fetch(h))
+            hs.append(h)
+        got = L3.fetch(hs)
 
     outs = []
     for b, (_, nf) in enumerate(framed):
@@ -217,7 +221,7 @@ def encode_corpus(clips, cfg_kwargs, device, encode=None, workers=3):
     returns (outputs in corpus order, stats dict).  cfg_kwargs:
     ``EncoderConfig`` keyword arguments (the rate comes from the clip).
     workers > 1 runs clips on a thread pool, so that one clip's host
-    stages (framing, reservoir scan, native assembly) overlap another
+    stages (framing, guard, native assembly) overlap another
     clip's device work."""
     encode = encode if encode is not None else encode_layer3_fast
 

@@ -262,7 +262,7 @@ def isolated_stages(L3, pcm, dev):
     h = final(0)
 
     def download(i):
-        L3.fetch(h, ("side", "payload"))
+        L3.fetch([h], ("side", "payload"))
 
     stages = {
         "analyze_demand_fused (1st segment, incl upload)": demand,

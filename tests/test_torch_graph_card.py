@@ -1,10 +1,12 @@
 """The rate loop as CUDA graphs on the card: ``loop.outer_loop`` (its
-prologue and iterations captured on a key's first call and replayed)
-against ``loop.outer_loop_eager`` (the same functions op by op), equal on
-every output, with the same K3 launches and loop-exit syncs, the launches
-made inside graphs counted at each replay; and a capture of a loop whose
-searches were swapped for the plain ones (which read the device on the
-host) raises.
+prologue and its ``max_iter`` iterations, unrolled, captured on a key's
+first call and replayed once each a call) against
+``loop.outer_loop_eager`` (the same functions op by op, with the exit
+read on the host), equal on every output and on the live iterations
+counted, with no loop-exit sync and a K3 launch in every unrolled
+iteration, the launches made inside graphs counted at each replay; and
+a capture of a loop whose searches were swapped for the plain ones
+(which read the device on the host) raises.
 
 A CUDA graph has no CPU mode, so these tests carry the `cuda` marker and
 skip without a card.  This file imports no jax; run it on the card
@@ -75,15 +77,18 @@ def loop_batch(card, G, version, seed, final):
 
 
 def _counted(fn, *args, **kwargs):
-    """fn's outputs and the K3 launches, loop-exit syncs and graph
-    captures and replays it made."""
-    before = (search.launches, loop.any_on_host.syncs,
-              G.totals()["captures"], G.totals()["replays"])
+    """fn's outputs and the K3 launches, loop-exit syncs, graph captures
+    and replays and live iterations it made."""
+    acc = loop.iterations_on(torch.device("cuda"))
+
+    def now():
+        return (search.launches, loop.any_on_host.syncs,
+                G.totals()["captures"], G.totals()["replays"], int(acc))
+
+    before = now()
     out = fn(*args, **kwargs)
     torch.cuda.synchronize()
-    after = (search.launches, loop.any_on_host.syncs,
-             G.totals()["captures"], G.totals()["replays"])
-    return out, [a - b for a, b in zip(after, before)]
+    return out, [a - b for a, b in zip(now(), before)]
 
 
 def _assert_equal(got, ref):
@@ -98,27 +103,54 @@ def _assert_equal(got, ref):
                          ids=["mpeg1", "lsf"])
 @pytest.mark.parametrize("G", [512, 4096])
 def test_graphs_equal_eager_and_count_alike(graphs, card, G, version, final):
-    """The first call (warm-up, two captures, replays from the second
-    iteration), a second (every part replayed) and a call on another
-    batch of the key: each equal to outer_loop_eager on every output,
-    with its K3 launches and loop-exit syncs."""
+    """The first call (the warm-up runs all 6 iterations, then two
+    captures), a second (both graphs replayed once) and a call on another
+    batch of the key: each equal to outer_loop_eager on every output and
+    on the live iterations counted on the device, with 1 + 6 K3 launches
+    and no loop-exit sync where the eager loop reads its exit on the
+    host once an iteration."""
     args, kwargs = loop_batch(card, G, version, G + final, final)
     other, other_kw = loop_batch(card, G, version, G + final + 7, final)
-    ref, (k3, syncs, _, _) = _counted(loop.outer_loop_eager, *args,
-                                      **kwargs)
-    iterations = k3 - 1
+    ref, (k3, syncs, _, _, iterations) = _counted(loop.outer_loop_eager,
+                                                  *args, **kwargs)
+    assert k3 == 1 + iterations and syncs >= iterations > 0
     got, counts = _counted(loop.outer_loop, *args, **kwargs)
     _assert_equal(got, ref)
-    assert counts == [k3, syncs, 2, iterations - 1]
+    assert counts == [7, 0, 2, 0, iterations]
     got, counts = _counted(loop.outer_loop, *args, **kwargs)
     _assert_equal(got, ref)
-    assert counts == [k3, syncs, 0, 1 + iterations]
-    ref2, (k3, syncs, _, _) = _counted(loop.outer_loop_eager, *other,
-                                       **other_kw)
+    assert counts == [7, 0, 0, 2, iterations]
+    ref2, (_, _, _, _, iterations2) = _counted(loop.outer_loop_eager,
+                                               *other, **other_kw)
     got2, counts = _counted(loop.outer_loop, *other, **other_kw)
     _assert_equal(got2, ref2)
-    assert counts == [k3, syncs, 0, k3]
+    assert counts == [7, 0, 0, 2, iterations2]
     assert len(graphs) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("final", [False, True], ids=["demand", "final"])
+@pytest.mark.parametrize("version", [mpeg.MPEG1, mpeg.MPEG2_LSF],
+                         ids=["mpeg1", "lsf"])
+@pytest.mark.parametrize("G", [512, 4096])
+def test_unrolled_equals_the_stepwise_replay(graphs, card, G, version,
+                                             final):
+    """The unrolled graphs (one replay of the 6 iterations, no exit read)
+    against the iteration replayed one at a time with the exit read on
+    the host after each (``outer_loop_stepwise``), over a capture call
+    and a replay call: equal on every output and on the live iterations;
+    the stepwise form syncs at least once an iteration and launches K3
+    once a live iteration, the unrolled form never syncs and launches it
+    in all 6."""
+    args, kwargs = loop_batch(card, G, version, G + final + 3, final)
+    for _ in range(2):
+        ref, (k3, syncs, _, _, iterations) = _counted(
+            loop.outer_loop_stepwise, *args, **kwargs)
+        got, counts = _counted(loop.outer_loop, *args, **kwargs)
+        _assert_equal(got, ref)
+        assert k3 == 1 + iterations and syncs >= iterations > 0
+        assert (counts[0], counts[1], counts[4]) == (7, 0, iterations)
+    assert len(graphs) == 2
 
 
 @pytest.mark.cuda
