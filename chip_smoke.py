@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent-tree DIR]
 
 Phases, each printing its own lines; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi); no CUDA -> exit 1;
@@ -39,14 +39,21 @@ Phases, each printing its own lines; any failure exits non-zero:
      counts against those K3 runs, the plain search's device time, call
      time and bits_at launches, beside the bound (the larger of the
      bytes' and the operations' time) and each design's share of it;
-  3d. K4, the reservoir scan in one launch, against its plain version
-     (the native host scan): torch.equal on every budget and carried
-     level, on the main path's own four scans (captured at
-     resv.scan_budgets' entry) and on random batches (padded holes in one
-     row and in a row a clip, resv_max 0, LSF, odd mean_bits, 1 to 32
-     clips); timed on the main path's 512- and 4096-lane segments and a
-     corpus group of 16 (device time, call time, the host scan it
-     replaced with its download and upload), beside the bound;
+  3d. K4, the reservoir scan (the chunk maps, then their composition and
+     the re-walk: two kernels a call), against its plain version (the
+     native host scan): torch.equal on every budget and carried level,
+     on the main path's own four scans (captured at resv.scan_budgets'
+     entry), on random batches (padded holes in one row and in a row a
+     clip, resv_max 0, LSF, odd mean_bits, 1 to 32 clips) and on edge
+     cases (size0 off the domain behind a leading padded run, holes
+     across chunk boundaries, resv_max 7 and 8, one frame, forced chunks
+     of 1, 2, 7, F and F + 1 frames, a negative size0 or delta); timed on
+     the main path's 512- and 4096-lane segments and a corpus group of 16
+     (device time with each kernel's share, call time, the host scan it
+     replaced with its download and upload), beside the bound and the
+     design's floor, and at forced chunks; with --parent-tree DIR (a
+     checkout of the parent commit) the parent's K4 in turns with this
+     one on the same inputs;
   4. the 15 quality fixtures of tests/test_fast_encoder.py through the
      quality tool (mp3tpu_torch.tools.quality, encode_layer3_fast on
      "cuda"): frame grid and the reference encoder's decoded-SNR bars
@@ -159,8 +166,9 @@ Phases, each printing its own lines; any failure exits non-zero:
      replayed graph covers (runtime.profiling.REPLAY_COVERS), its
      search_kernel and
      bits_at_kernel events equal search.launches and bits_at.launches of
-     that encode, the same bytes as phase 5; its device events by
-     category (kernels, copies, memsets) as span_breakdown reads them
+     that encode, and K4's resv_map_kernel and resv_walk_kernel events
+     number one or two a K4 call, the same bytes as phase 5; its device
+     events by category (kernels, copies, memsets) as span_breakdown reads them
      from trace.json must equal tools.device_events of the same window,
      beside the copy calls with no device event; per span
      its count, host wall and the device events launched inside it), the
@@ -960,6 +968,39 @@ K4_CASES = [(0, 1, 1024, 2, 2, 3344, 4088, "holes"),
             (4, 32, 431, 2, 2, 3344, 4088, None),
             (5, 4, 300, 2, 2, 3080, 0, "holes"),
             (6, 2, 500, 2, 1, 1331, 2040, "rows")]
+#: phase 3d's edge cases of the chunked design: seed, frames, nch,
+#: mode_gr, mean_bits, resv_max, delta, the clips' size0 (one clip each),
+#: the kinds of their valid rows (tests/test_torch_resv_card.py
+#: valid_flags: a leading padded run over several chunks, holes across the
+#: chunk boundaries, every frame padded, random holes), the chunk (None:
+#: the wrapper's pick): size0 off the domain (not a multiple of 8, above
+#: resv_max), LSF, resv_max 7 and 8, one frame, chunks of 1, 2, 7, F and
+#: F + 1 frames, a negative size0 or delta (the composing thread's own
+#: walks)
+K4_EDGES = [
+    (10, 1024, 2, 2, 3344, 4088, 28, (203, 5000, 0), ("lead", "lead",
+                                                        "straddle"), None),
+    (11, 431, 1, 1, 1080, 2040, 28, (203, 96), ("lead", "straddle"), None),
+    (12, 200, 2, 2, 3080, 7, 28, (0, 5), ("holes", "straddle"), None),
+    (13, 200, 2, 2, 3081, 8, 28, (8, 203), ("straddle", "lead"), None),
+    (14, 1, 2, 2, 3080, 4088, 28, (203, 0), ("lead", "all"), None),
+    (15, 100, 2, 2, 3080, 4088, 28, (5000,), ("none",), None),
+    (16, 150, 2, 2, 3344, 4088, 28, (2000, 203), ("holes", "lead"), 1),
+    (17, 150, 2, 2, 3344, 4088, 28, (2000, 203), ("straddle", "lead"), 2),
+    (18, 150, 2, 2, 3344, 4088, 28, (2000, 203), ("straddle", "lead"), 7),
+    (19, 150, 2, 2, 3344, 4088, 28, (2000, 203), ("holes", "lead"), 150),
+    (20, 150, 2, 2, 3344, 4088, 28, (2000, 203), ("holes", "lead"), 151),
+    (21, 120, 2, 2, 3080, 4088, 28, (-100000,), ("holes",), 3),
+    (22, 120, 2, 2, 3080, 4088, -40, (96,), ("holes",), None)]
+#: the chunks (frames) at which phase 3d times K4 besides its pick
+K4_CHUNKS = (2, 4, 7, 10, 16, 24, 32)
+#: K4's kernels (csrc/resv_scan.cu): the map build, then the composition
+#: and re-walk; PR 11's one-thread scan, the parent tree's
+K4_KERNELS = ("resv_map_kernel", "resv_walk_kernel")
+K4_PARENT_KERNEL = "resv_scan_kernel"
+#: a checkout of the parent commit (python3 chip_smoke.py --parent-tree
+#: DIR): phase 3d then times its K4 in turns with this tree's
+PARENT_TREE = None
 
 
 def capture_scans(ctx, run):
@@ -984,8 +1025,12 @@ def capture_scans(ctx, run):
     return seen
 
 
+#: the int32 operations of one granule step of the carry (the granule's
+#: budget and the level's update, csrc/resv_scan.cu budget_of and
+#: level_after), which every design does at least once a granule
+K4_OPS_GRANULE = 14
 #: the dependent int32 operations on the reservoir level's path through
-#: one granule of csrc/resv_scan.cu's carry loop, counted from below: the
+#: one granule of csrc/resv_scan.cu's walks, counted from below: the
 #: multiply of 6*size, the three of the division by 10 (a high multiply,
 #: a shift and the sign's add), the min with more_bits, the subtraction of
 #: over, its max with 0, the two adds into the budget, the min with 4095,
@@ -998,44 +1043,64 @@ K4_CHAIN_OPS_GRANULE, K4_CHAIN_OPS_FRAME = 13, 4
 #: NVIDIA Volta GPU Architecture via Microbenchmarking", 2018); not
 #: measured on the card
 INT_LATENCY_CYCLES = 4
+#: cycles of one step of the composition: a dependent shared-memory load
+#: (19 cycles on Volta, the same paper) and the compare and select that
+#: take the next state; not measured on the card
+K4_LOOKUP_CYCLES = 19 + 2 * INT_LATENCY_CYCLES
 #: the H100 SXM's boost clock, the fastest an SM walks the chain
 SM_CLOCK_HZ = 1.98e9
 
 
-def k4_chain_bound(pe):
-    """The floor of K4's design, whose one thread a clip walks the carry
-    in order: a clip's F*R granules and F frames of dependent operations
-    at INT_LATENCY_CYCLES each, at the boost clock (the clips of a batch
-    run in parallel blocks).  Milliseconds."""
-    _, F, R = pe.shape
-    ops = F * R * K4_CHAIN_OPS_GRANULE + F * K4_CHAIN_OPS_FRAME
-    return ops * INT_LATENCY_CYCLES / SM_CLOCK_HZ * 1e3
+def k4_floor(R, pe, resv_max, chunk):
+    """The floor of K4's design (csrc/resv_scan.cu) on (B, F, R) inputs at
+    `chunk` frames a chunk, in ms: the larger of (a) its own operations --
+    the map build's granule steps (the first chunk from one state, the
+    others but the last from each of the S + 1) and the re-walk's, each
+    K4_OPS_GRANULE int32 operations, at the card's peak int32 rate -- and
+    (b) its critical path -- a map-build walk and a re-walk of C*R
+    granules and C frames of dependent operations, INT_LATENCY_CYCLES
+    each, and the composition's K - 1 lookups, K4_LOOKUP_CYCLES each, at
+    the boost clock.  Returns (floor, operations' time, path's time)."""
+    B, F, Rg = pe.shape
+    K = max(1, -(-F // chunk))
+    steps = B * Rg * F
+    walks = 1
+    if K > 1:
+        steps += B * Rg * chunk * (1 + (K - 2) * R.states(resv_max))
+        walks = 2
+    ops_ms = steps * K4_OPS_GRANULE / INT32_OPS_PER_S * 1e3
+    frames = min(chunk, F)
+    cycles = walks * frames * (Rg * K4_CHAIN_OPS_GRANULE
+                               + K4_CHAIN_OPS_FRAME) * INT_LATENCY_CYCLES \
+        + (K - 1) * K4_LOOKUP_CYCLES
+    path_ms = cycles / SM_CLOCK_HZ * 1e3
+    return max(ops_ms, path_ms), ops_ms, path_ms
 
 
 def k4_bound(pe, demand, valid, size0):
     """K4's bound: pe, demand, the valid flags and the levels read once,
     the budgets and levels written once; per granule two float64
-    operations (the multiply and the subtraction of more_bits) and the
-    carry's 14 int32 operations (csrc/resv_scan.cu) as operations at the
-    card's peak rates.  A bound of any design: k4_chain_bound is that of
-    a design that walks the carry in order."""
+    operations (the multiply and the subtraction of more_bits) and one
+    granule step (K4_OPS_GRANULE int32 operations) as operations at the
+    card's peak rates.  A bound of any design: k4_floor is that of the
+    chunked design."""
     n = pe.numel()
     moved = nbytes(pe, demand, size0) + (0 if valid is None
                                           else nbytes(valid)) \
         + 4 * n + 4 * size0.numel()
     t_bytes = moved / HBM_BYTES_PER_S
-    t_ops = 2 * n / FP64_OPS_PER_S + 14 * n / INT32_OPS_PER_S
+    t_ops = 2 * n / FP64_OPS_PER_S + K4_OPS_GRANULE * n / INT32_OPS_PER_S
     if t_bytes >= t_ops:
         return t_bytes * 1e3, "bytes"
     return t_ops * 1e3, "operations"
 
 
-def k4_check(ctx, label, pe, demand, valid, size0, args):
-    """K4 (resv._launch) against the host scan (resv's plain form) on
-    (B, F, R) device tensors, torch.equal on every budget and level;
-    returns the max abs error (0)."""
+def k4_check(ctx, label, pe, demand, valid, size0, args, chunk=None):
+    """K4 (resv._launch, at `chunk` or its pick) against the host scan
+    (resv's plain form) on (B, F, R) device tensors, torch.equal on every
+    budget and level; returns the max abs error (0)."""
     torch, R = ctx["torch"], ctx["R"]
-    got_b, got_s = R._launch(pe, demand, valid, size0, *args)
+    got_b, got_s = R._launch(pe, demand, valid, size0, *args, _chunk=chunk)
     torch.cuda.synchronize()
     want_b, want_s = [], []
     for b in range(pe.shape[0]):
@@ -1054,17 +1119,102 @@ def k4_check(ctx, label, pe, demand, valid, size0, args):
     return err
 
 
-def k4_timed(ctx, label, pe, demand, valid, size0, args):
-    """K4's device time a launch (torch.profiler over 20 launches, else
-    CUDA events behind a sleep), its call time, the host scan's wall on
-    the same device tensors (download, the plain scan on the CPU, upload:
-    the path K4 replaced), the bound and the chain's bound; printed, and
-    returned as a dict."""
+def k4_series(calls, reps=20, tries=3):
+    """One torch.profiler window over `reps` calls of each fn of `calls`
+    [(fn, names)] in turn, each call launching one kernel of each of its
+    `names`, in order: [{name: mean device ms a call}] a fn.  A window
+    that misses or misplaces an event is asked again, up to `tries` times
+    (None if every window did)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    every = {n for _, names in calls for n in names}
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for fn, _ in calls:
+                for _ in range(reps):
+                    fn()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if getattr(e, "device_type", None) == DeviceType.CUDA
+                         and any(n in e.name for n in every)),
+                        key=lambda e: e.time_range.start)
+        want = [n for _, names in calls for _ in range(reps) for n in names]
+        if len(events) != len(want) or not all(
+                n in e.name for n, e in zip(want, events)):
+            continue
+        out, it = [], iter(events)
+        for _, names in calls:
+            ms = dict.fromkeys(names, 0.0)
+            for _ in range(reps):
+                for n in names:
+                    ms[n] += next(it).time_range.elapsed_us() / 1e3
+            out.append({n: v / reps for n, v in ms.items()})
+        return out
+    return None
+
+
+def k4_kernels(F, chunk):
+    """The kernels one K4 call launches at `chunk` frames a chunk."""
+    return K4_KERNELS if F > chunk else K4_KERNELS[1:]
+
+
+def parent_library(R):
+    """The parent tree's K4 (PR 11's resv_scan_kernel, one thread a clip)
+    built from its csrc/resv_scan.cu into build/, loaded with ctypes; None
+    without --parent-tree."""
+    import ctypes
+    if PARENT_TREE is None:
+        return None
+    from mp3tpu_torch.ops import cuda_build
+    src = os.path.join(PARENT_TREE, "mp3tpu_torch", "csrc", "resv_scan.cu")
+    lib_path = os.path.join(cuda_build.BUILD_DIR, "libresv_scan_parent.so")
+    cuda_build.build(src, lib_path, R.NVCC_FLAGS, True)
+    lib = ctypes.CDLL(lib_path)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.mp3_resv_scan.restype = i32
+    lib.mp3_resv_scan.argtypes = [ptr, ptr, ptr, i32, ptr] + [i32] * 7 + \
+        [ptr] * 3
+    return lib
+
+
+def parent_k4(ctx, lib, pe, demand, valid, size0, args):
+    """The parent's K4 on the same inputs: (budgets, size_out)."""
+    torch = ctx["torch"]
+    B, F, Rg = pe.shape
+    bud = torch.empty((B, F, Rg), dtype=torch.int32, device=pe.device)
+    size = torch.empty(B, dtype=torch.int32, device=pe.device)
+    stride = 0 if valid is None or valid.dim() == 1 else F
+    mean_bits, resv_max, mode_gr, nch, delta = args
+    err = lib.mp3_resv_scan(
+        pe.data_ptr(), demand.data_ptr(),
+        None if valid is None else valid.data_ptr(), stride,
+        size0.data_ptr(), B, F, nch, mode_gr, mean_bits, resv_max, delta,
+        bud.data_ptr(), size.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    if err:
+        fail(f"the parent's K4 failed to launch: CUDA error {err}")
+    return bud, size
+
+
+def k4_timed(ctx, label, pe, demand, valid, size0, args, parent=None):
+    """K4's device time a call (both kernels' events summed; torch.profiler
+    over 20 calls, else CUDA events behind a sleep), each kernel's share,
+    its call time, the host scan's wall on the same device tensors
+    (download, the plain scan on the CPU, upload: the path K4 replaced),
+    the bound and the design's floor; at forced chunks (K4_CHUNKS); and
+    with `parent` (the parent tree's library) its K4 and this one in
+    turns, parent, this, this, parent; all in one profiler window.
+    Printed, and returned as a dict."""
     torch, R = ctx["torch"], ctx["R"]
     dev = pe.device
+    B, F, Rg = pe.shape
+    resv_max = args[1]
+    chunk = R.chunk_frames(B, F, Rg, resv_max)
 
-    def k4():
-        return R._launch(pe, demand, valid, size0, *args)
+    def k4(c=None):
+        return lambda: R._launch(pe, demand, valid, size0, *args, _chunk=c)
 
     def host():
         for b in range(pe.shape[0]):
@@ -1074,11 +1224,38 @@ def k4_timed(ctx, label, pe, demand, valid, size0, args):
                                        int(size0[b]), *args, valid=v)
             bud.to(dev), size.to(dev)
 
-    k4()
-    count, ms = kernel_events(lambda: [k4() for _ in range(20)],
-                              ("resv_scan_kernel",))["resv_scan_kernel"]
-    dev_ms = ms / 20 if count == 20 else queued_ms(k4)
-    c_ms = call_ms(k4)
+    names = k4_kernels(F, chunk)
+    chunks = [c for c in K4_CHUNKS if c < F and c != chunk
+              and 2 * R.map_words(F, c, resv_max) <= R.MAP_SMEM_BYTES]
+    calls = [(k4(), names)] + [(k4(c), k4_kernels(F, c)) for c in chunks]
+    if parent is not None:
+        def old():
+            return parent_k4(ctx, parent, pe, demand, valid, size0, args)
+        got, want = old(), k4()()
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                              want[1])):
+            fail(f"the parent's K4 != this K4 on {label}")
+        calls += [(old, (K4_PARENT_KERNEL,)), (k4(), names), (k4(), names),
+                  (old, (K4_PARENT_KERNEL,))]
+    for fn, _ in calls:
+        fn()
+    # one profiler window for every timing of this input (the profiler
+    # loses more events the more windows a process opens); else CUDA
+    # events around each fn's calls queued behind a sleep
+    series = k4_series(calls)
+    if series:
+        how = "torch.profiler, kernels' device time summed"
+        ms = [sum(r.values()) for r in series]
+        by_kernel = series[0]
+    else:
+        how = "CUDA events behind a sleep, the kernels' gaps included"
+        ms = [queued_ms(fn) for fn, _ in calls]
+        by_kernel = None
+        if None in ms:
+            fail(f"K4 on {label}: neither the profiler nor CUDA events "
+                 f"timed it")
+    dev_ms = ms[0]
+    c_ms = call_ms(k4())
     host()
     walls = []
     for _ in range(10):
@@ -1089,29 +1266,55 @@ def k4_timed(ctx, label, pe, demand, valid, size0, args):
         walls.append((time.perf_counter() - t0) * 1e3)
     p_ms = statistics.median(walls)
     b_ms, b_by = k4_bound(pe, demand, valid, size0)
-    c_bound = k4_chain_bound(pe)
-    B, F, Rg = pe.shape
-    print(f"K4 on {label} ({B} clips x {F} frames x {Rg} granules): device "
-          f"{dev_ms:.4f} ms a launch ({count} of 20 events in the profiler "
-          f"window), {dev_ms * 1e6 / (F * Rg):.1f} ns a granule of the "
-          f"carry chain; call {c_ms:.4f} ms; the host scan with its download "
-          f"and upload {p_ms:.4f} ms (host clock, median of 10); bound "
-          f"{b_ms:.6f} ms ({b_by}), K4 at {b_ms / dev_ms:.4%} of it; the "
-          f"chain's bound {c_bound:.6f} ms ({K4_CHAIN_OPS_GRANULE} dependent "
-          f"operations a granule, {K4_CHAIN_OPS_FRAME} a frame, "
-          f"{INT_LATENCY_CYCLES} cycles each at {SM_CLOCK_HZ / 1e9} GHz), K4 "
-          f"at {c_bound / dev_ms:.2%} of it", flush=True)
-    return dict(ms=dev_ms, call_ms=c_ms, plain_ms=p_ms, bound_ms=b_ms,
-                bound_by=b_by, chain_bound_ms=c_bound,
-                ns_per_granule=dev_ms * 1e6 / (F * Rg))
+    f_ms, f_ops, f_path = k4_floor(R, pe, resv_max, chunk)
+    K = max(1, -(-F // chunk))
+    shares = "not split" if by_kernel is None \
+        else ", ".join(f"{n} {v:.4f} ms ({v / dev_ms:.1%})"
+                       for n, v in by_kernel.items())
+    print(f"K4 on {label} ({B} clips x {F} frames x {Rg} granules, chunk "
+          f"{chunk} frames, {K} chunks, {len(names)} kernels a call): device "
+          f"{dev_ms:.4f} ms a call ({how}; {shares}), "
+          f"{dev_ms * 1e6 / (F * Rg):.2f} ns a granule of a clip; call "
+          f"{c_ms:.4f} ms; the host scan with its download and upload "
+          f"{p_ms:.4f} ms (host clock, median of 10); bound {b_ms:.6f} ms "
+          f"({b_by}), K4 at {b_ms / dev_ms:.4%} of it; the design's floor "
+          f"{f_ms:.6f} ms (its operations {f_ops:.6f} ms: "
+          f"{K4_OPS_GRANULE} int32 a granule step at the peak int32 rate; "
+          f"its critical path {f_path:.6f} ms: {K4_CHAIN_OPS_GRANULE} "
+          f"dependent operations a granule and {K4_CHAIN_OPS_FRAME} a frame "
+          f"at {INT_LATENCY_CYCLES} cycles, {K4_LOOKUP_CYCLES} cycles a "
+          f"lookup, at {SM_CLOCK_HZ / 1e9} GHz), K4 at {f_ms / dev_ms:.2%} "
+          f"of it", flush=True)
+    out = dict(ms=dev_ms, call_ms=c_ms, plain_ms=p_ms, bound_ms=b_ms,
+               bound_by=b_by, floor_ms=f_ms, floor_ops_ms=f_ops,
+               floor_path_ms=f_path, chunk=chunk, chunks=K,
+               kernel_ms=by_kernel, ns_per_granule=dev_ms * 1e6 / (F * Rg))
+    out["ms_by_chunk"] = dict(zip(map(str, [chunk] + chunks),
+                                  ms[:1 + len(chunks)]))
+    print(f"K4 on {label} by chunk (frames: device ms a call, the pick "
+          f"{chunk}): {out['ms_by_chunk']}", flush=True)
+    if parent is not None:
+        old_ms = [ms[-4], ms[-1]]
+        new_ms = ms[-3:-1]
+        out["parent_ms"] = statistics.mean(old_ms)
+        out["turns_ms"] = {"parent": old_ms, "this": new_ms}
+        print(f"K4 on {label} in turns with the parent's (parent, this, "
+              f"this, parent; 20 calls each, device ms a call): parent "
+              f"{old_ms[0]:.4f} / {old_ms[1]:.4f}, this {new_ms[0]:.4f} / "
+              f"{new_ms[1]:.4f}: this at "
+              f"{statistics.mean(new_ms) / out['parent_ms']:.4f} of the "
+              f"parent's", flush=True)
+    return out
 
 
 def phase_resv(ctx, pcm, cfg):
-    """Phase 3d: K4 against the host scan on the main path's own scans and
-    on K4_CASES, and timed on the main path's 512- and 4096-lane segments
-    and on a corpus group of 16; returns the 4096-lane timing with the
+    """Phase 3d: K4 against the host scan on the main path's own scans, on
+    K4_CASES and on K4_EDGES, and timed on the main path's 512- and
+    4096-lane segments and on a corpus group of 16 (with the parent's K4
+    in turns, given --parent-tree); returns the 4096-lane timing with the
     largest error."""
-    np, torch = ctx["np"], ctx["torch"]
+    np, torch, R = ctx["np"], ctx["torch"], ctx["R"]
+    from test_torch_resv_card import valid_flags
     seen = capture_scans(ctx, lambda: ctx["encode"](pcm, cfg,
                                                    device="cuda"))
     if len(seen) != 4:
@@ -1119,7 +1322,7 @@ def phase_resv(ctx, pcm, cfg):
     errs, main = [], {}
     for i, (a, kw) in enumerate(seen):
         pe, demand = a[0][None].contiguous(), a[1][None].contiguous()
-        size0 = ctx["R"]._level(a[2], pe.device, 1)
+        size0 = R._level(a[2], pe.device, 1)
         args, valid = a[3:], kw.get("valid")
         lanes = pe.shape[1] * pe.shape[2]
         errs.append(k4_check(ctx, f"the main path's scan {i + 1} ({lanes} "
@@ -1129,10 +1332,10 @@ def phase_resv(ctx, pcm, cfg):
           f"(every budget and level)", flush=True)
     for seed, B, F, nch, gr, mean_bits, resv_max, vkind in K4_CASES:
         rng = np.random.RandomState(seed)
-        R = nch * gr
-        pe = rng.uniform(0, 3000, (B, F, R)).astype(np.float32)
-        pe[rng.rand(B, F, R) < 0.2] = 0.0
-        demand = rng.randint(0, 4096, (B, F, R)).astype(np.int32)
+        Rg = nch * gr
+        pe = rng.uniform(0, 3000, (B, F, Rg)).astype(np.float32)
+        pe[rng.rand(B, F, Rg) < 0.2] = 0.0
+        demand = rng.randint(0, 4096, (B, F, Rg)).astype(np.int32)
         size0 = (rng.randint(0, max(resv_max, 8) + 1, B) // 8 * 8) \
             .astype(np.int32)
         valid = (None if vkind is None else rng.rand(F) < 0.8
@@ -1145,8 +1348,28 @@ def phase_resv(ctx, pcm, cfg):
     print(f"K4 == the host scan on {len(K4_CASES)} random batches (1 to 32 "
           f"clips, padded holes, resv_max 0, LSF, odd mean_bits)",
           flush=True)
+    for (seed, F, nch, gr, mean_bits, resv_max, delta, s0, kinds,
+         chunk) in K4_EDGES:
+        rng = np.random.RandomState(seed)
+        B, Rg = len(s0), nch * gr
+        pe = rng.uniform(0, 3000, (B, F, Rg)).astype(np.float32)
+        pe[rng.rand(B, F, Rg) < 0.2] = 0.0
+        demand = rng.randint(0, 4096, (B, F, Rg)).astype(np.int32)
+        C = chunk or R.chunk_frames(B, F, Rg, resv_max)
+        valid = np.stack([valid_flags(k, rng, F, C) for k in kinds])
+        dev = [torch.as_tensor(x, device="cuda") for x in
+               (pe, demand, valid, np.array(s0, np.int32))]
+        errs.append(k4_check(ctx, f"edge case {seed}", *dev,
+                             (mean_bits, resv_max, gr, nch, delta), chunk))
+    print(f"K4 == the host scan on {len(K4_EDGES)} edge cases (size0 off "
+          f"the domain behind a leading padded run, holes across chunk "
+          f"boundaries, every frame padded, resv_max 7 and 8, LSF, one "
+          f"frame, chunks of 1, 2, 7, F and F + 1 frames, a negative size0 "
+          f"or delta)", flush=True)
+    parent = parent_library(R)
     timed = {lanes: k4_timed(ctx, f"the main path's {lanes}-lane segment",
-                             *main[lanes]) for lanes in sorted(main)}
+                             *main[lanes], parent=parent)
+             for lanes in sorted(main)}
     rng = np.random.RandomState(16)
     pe = torch.as_tensor(rng.uniform(0, 3000, (16, 431, 4))
                          .astype(np.float32), device="cuda")
@@ -1155,7 +1378,7 @@ def phase_resv(ctx, pcm, cfg):
     size0 = torch.zeros(16, dtype=torch.int32, device="cuda")
     timed["corpus"] = k4_timed(ctx, "a corpus group of 16 (10 s clips)",
                                pe, demand, None, size0,
-                               (3344, 4088, 2, 2, 28))
+                               (3344, 4088, 2, 2, 28), parent=parent)
     return dict(timed[4096], max_abs_err=max(errs), by_width=timed)
 
 
@@ -2131,10 +2354,11 @@ def phase_sharded(ctx, cfg_of, line):
 def phase_trace(ctx, pcm, cfg_of, main_out):
     """Phase 12a: runtime.profiling.trace around one bench encode; the
     trace must hold every named span (less those a replay covers:
-    REPLAY_COVERS) and one search_kernel event per K3
-    launch (and as many bits_at_kernel events as bits_at launches: none;
-    asked up to 3 times: the profiler now and then records no device
-    event in a window)."""
+    REPLAY_COVERS), one search_kernel event per K3
+    launch (and as many bits_at_kernel events as bits_at launches: none)
+    and one or two K4 kernel events per K4 call (the map build and the
+    walk; the walk alone for one chunk); asked up to 3 times: the
+    profiler now and then records no device event in a window."""
     from mp3tpu_torch.runtime.profiling import REPLAY_COVERS, SPANS, trace
     from mp3tpu_torch.tools.trace_stages import span_breakdown
     ctx["encode"](pcm, cfg_of(), device="cuda")     # its keys captured
@@ -2152,15 +2376,18 @@ def phase_trace(ctx, pcm, cfg_of, main_out):
             bd = span_breakdown(path)
             parse_s = time.perf_counter() - t0
             if (bd["search_kernel_events"], bd["bits_at_kernel_events"]) \
-                    == (launches["search"], launches["bits_at"]):
+                    == (launches["search"], launches["bits_at"]) and \
+                    launches["resv_scan"] <= bd["resv_kernel_events"] \
+                    <= 2 * launches["resv_scan"]:
                 break
             print(f"trace attempt {attempt + 1}: "
                   f"{bd['search_kernel_events']} search_kernel and "
                   f"{bd['bits_at_kernel_events']} bits_at_kernel events "
+                  f"and {bd['resv_kernel_events']} K4 kernel events "
                   f"against launches {launches}; asking again", flush=True)
         else:
             fail("the trace never held one search_kernel event per K3 "
-                 "launch")
+                 "launch and one or two K4 kernel events per K4 call")
     if out != main_out:
         fail("the traced encode gave other bytes than phase 5's")
     covered = {n for names in REPLAY_COVERS.values() for n in names}
@@ -2175,7 +2402,9 @@ def phase_trace(ctx, pcm, cfg_of, main_out):
           f"call in the trace; search_kernel events "
           f"{bd['search_kernel_events']} = search.launches "
           f"{launches['search']}, bits_at_kernel events "
-          f"{bd['bits_at_kernel_events']}; loop-exit syncs "
+          f"{bd['bits_at_kernel_events']}; K4's resv_map_kernel and "
+          f"resv_walk_kernel events {bd['resv_kernel_events']} for "
+          f"resv.launches {launches['resv_scan']}; loop-exit syncs "
           f"{launches['syncs']}",
           flush=True)
     # the trace's count and profile_once's count the same events in one
@@ -3242,10 +3471,13 @@ def main():
          "plain_ms": rres["plain_ms"], "bound_ms": rres["bound_ms"],
          "bound_by": rres["bound_by"], "library_ms": None,
          "launches_by_path": by_path("resv_scan"),
-         "chain_bound_ms": rres["chain_bound_ms"],
+         "design_floor_ms": rres["floor_ms"],
+         "kernel_ms": rres["kernel_ms"], "chunk": rres["chunk"],
          "ns_per_granule": rres["ns_per_granule"],
          "ms_by_width": {str(k): v["ms"]
-                         for k, v in rres["by_width"].items()}},
+                         for k, v in rres["by_width"].items()},
+         "parent_ms_by_width": {str(k): v.get("parent_ms")
+                                for k, v in rres["by_width"].items()}},
         {"name": "search_baseline", "route": "cuda",
          "source": "mp3tpu_torch/csrc/bits_at.cu",
          "replaces": "mp3tpu/ops/jaxloop.py:528-613",
@@ -3272,4 +3504,6 @@ if __name__ == "__main__":
         sharded_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
                      sys.argv[5])
     else:
+        if sys.argv[1:2] == ["--parent-tree"]:
+            PARENT_TREE = os.path.abspath(sys.argv[2])
         main()

@@ -1,11 +1,13 @@
 """Bit-reservoir budget scan (port of mp3tpu/ops/jaxresv.py).
 
 The scan is serial over frames with a one-integer carry.  On a CUDA
-tensor it is K4, one launch of ``resv_scan_kernel`` (``csrc/resv_scan.cu``,
-built with ``nvcc`` on first use into ``mp3tpu_torch/build/``): one
-block a clip, and nothing comes back to the host -- the budgets and the
-carried level stay on the device, so the segment program queues its
-final encode behind the scan as the JAX package's one program chain
+tensor it is K4 (``csrc/resv_scan.cu``, built with ``nvcc`` on first use
+into ``mp3tpu_torch/build/``): ``resv_map_kernel`` maps each chunk of
+``chunk_frames`` frames from every level a frame can end at, in
+parallel, and ``resv_walk_kernel`` composes the maps and re-walks the
+chunks from their starts.  Nothing comes back to the host -- the budgets
+and the carried level stay on the device, so the segment program queues
+its final encode behind the scan as the JAX package's one program chain
 does (``jaxresv.py:6-10``).  On a CPU tensor it runs its plain version,
 the native host scan (``runtime.bitstream.resv_scan``, reservoir.c:101-134
 policy), which tests/test_jaxresv.py holds equal to the JAX scan; pe
@@ -13,12 +15,14 @@ enters it as float64, and K4 widens pe to double as it does.  There is
 no fallback between the two: a CUDA tensor never reaches the host scan,
 and a build or launch error raises.
 
-``launches`` counts K4's launches.  ``host_scans`` counts the scans that
+``launches`` counts K4's calls (one a wrapper call, two kernels or, for
+a single chunk, one).  ``host_scans`` counts the scans that
 ran on the host on results the card made, each behind a download: the
 multi-rank path's (``parallel/clip.py``), which scans on the host as
 the JAX package's does.
 """
 import ctypes
+import math
 import os
 from functools import lru_cache
 
@@ -35,6 +39,13 @@ LIBRARY = os.path.join(cuda_build.BUILD_DIR, "libresv_scan.so")
 NVCC_FLAGS = cuda_build.NVCC_FLAGS + ["-fmad=false"]
 #: the granules of a frame K4 takes at most (csrc/resv_scan.cu kTile)
 MAX_GRANULES_A_FRAME = 2048
+#: SMs of an H100, which the map build's blocks should fill
+SMS = 132
+#: a map's states at most, and a clip's chunks at most: one thread each
+#: (kMaxStates, kMaxChunks)
+MAX_STATES = MAX_CHUNKS = 1024
+#: the shared memory the walk block keeps a clip's maps in (kMapSmem)
+MAP_SMEM_BYTES = 196608
 
 #: K4's launches
 launches = 0
@@ -56,9 +67,52 @@ def _library():
     lib = ctypes.CDLL(LIBRARY)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.mp3_resv_scan.restype = i32
-    lib.mp3_resv_scan.argtypes = [ptr, ptr, ptr, i32, ptr] + [i32] * 7 + \
-        [ptr] * 3
+    lib.mp3_resv_scan.argtypes = [ptr, ptr, ptr, i32, ptr] + [i32] * 9 + \
+        [ptr] * 4
     return lib
+
+
+def states(resv_max):
+    """The states of a chunk's map: the levels 8*s in [0, resv_max] a
+    frame can end at, and one for "still size0"."""
+    return max(resv_max, 0) // 8 + 2
+
+
+def map_words(F, chunk, resv_max):
+    """uint16 map entries a clip: (K - 1) maps (the last chunk needs
+    none), rounded up to 16 bytes."""
+    K = max(1, -(-F // chunk))
+    return -(-(K - 1) * states(resv_max) // 8) * 8
+
+
+def state_groups(B, F, chunk, resv_max):
+    """The blocks among which the map build splits a chunk's states: as
+    few as fill the SMs with B*(K-1) chunks' blocks, each at least a
+    warp."""
+    maps = B * (max(1, -(-F // chunk)) - 1)
+    if not maps:
+        return 1
+    return max(1, min(-(-SMS // maps), -(-states(resv_max) // 32)))
+
+
+def chunk_frames(B, F, R, resv_max):
+    """K4's chunk, in frames, for B clips of F frames of R granules.
+
+    The walks are C*R granules long, the composition K = ceil(F/C)
+    dependent lookups; C ~ sqrt(F/(3R)) balances the two on one clip,
+    and a batch of clips, whose map build is bound by its operations
+    (state_groups spreads it over the SMs), takes sqrt(B) times fewer
+    lookups (phase 3d of chip_smoke.py times K4 at other chunks).  K is
+    held to what the walk block's shared memory and threads take; one
+    chunk (the walk alone) where a map would need more than MAX_STATES
+    states."""
+    S1 = states(resv_max)
+    if F <= 1 or S1 > MAX_STATES:
+        return max(F, 1)
+    k_max = min(MAX_CHUNKS, 1 + MAP_SMEM_BYTES // 2 // S1)
+    C = max(1, math.ceil(math.sqrt(F / (3 * R) * math.sqrt(B))),
+            -(-F // k_max))
+    return min(C, F)
 
 
 def granule_major(x, nch, mode_gr):
@@ -129,11 +183,13 @@ def _check_k4(pe, demand, valid, size0, mode_gr, nch):
 
 
 def _launch(pe, demand, valid, size0, mean_bits, resv_max, mode_gr, nch,
-            delta):
+            delta, _chunk=None):
     """K4 over B clips on the current stream: pe (B, F, R) float32,
     demand (B, F, R) int32, valid None, (F,) or (B, F) bool, size0 (B,)
     int32, all on one CUDA device.  Returns (budgets (B, F, R) int32,
-    size_out (B,) int32) on it."""
+    size_out (B,) int32) on it.  The maps' workspace comes from the
+    caching allocator on the same stream.  `_chunk` forces the chunk
+    (tests and measurements; every chunk gives the same result)."""
     global launches
     _check_k4(pe, demand, valid, size0, mode_gr, nch)
     B, F, R = pe.shape
@@ -142,6 +198,9 @@ def _launch(pe, demand, valid, size0, mean_bits, resv_max, mode_gr, nch,
     size_out = torch.empty(B, dtype=torch.int32, device=dev)
     if B:
         stride = 0 if valid is None or valid.dim() == 1 else F
+        chunk = _chunk or chunk_frames(B, F, R, resv_max)
+        maps = torch.empty(B * map_words(F, chunk, resv_max),
+                           dtype=torch.int16, device=dev)
         lib = _library()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
@@ -149,8 +208,9 @@ def _launch(pe, demand, valid, size0, mean_bits, resv_max, mode_gr, nch,
                 pe.data_ptr(), demand.data_ptr(),
                 None if valid is None else valid.data_ptr(), stride,
                 size0.data_ptr(), B, F, nch, mode_gr, int(mean_bits),
-                int(resv_max), int(delta), budgets.data_ptr(),
-                size_out.data_ptr(), stream)
+                int(resv_max), int(delta), int(chunk),
+                state_groups(B, F, chunk, resv_max), maps.data_ptr(),
+                budgets.data_ptr(), size_out.data_ptr(), stream)
         if err != 0:
             raise RuntimeError(f"resv_scan: kernel launch failed, CUDA "
                                f"error {err}")

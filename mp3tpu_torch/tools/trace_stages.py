@@ -133,8 +133,9 @@ def span_breakdown(path, names=SPANS):
     "device_s": their summed time, "unlinked_events": device events whose
     launching call the trace does not hold, "copy_calls_without_event":
     copy and memset calls with no device event in the trace,
-    "bits_at_kernel_events", "search_kernel_events": the device events of
-    the bits_at and K3 kernels}."""
+    "bits_at_kernel_events", "search_kernel_events",
+    "resv_kernel_events": the device events of the bits_at and K3 kernels
+    and of K4's two}."""
     with open(path) as f:
         events = [e for e in json.load(f)["traceEvents"]
                   if e.get("ph") == "X"]
@@ -211,7 +212,10 @@ def span_breakdown(path, names=SPANS):
             "bits_at_kernel_events": sum(
                 "bits_at_kernel(" in e["name"] for e in device),
             "search_kernel_events": sum(
-                "search_kernel(" in e["name"] for e in device)}
+                "search_kernel(" in e["name"] for e in device),
+            "resv_kernel_events": sum(
+                "resv_map_kernel<" in e["name"]
+                or "resv_walk_kernel<" in e["name"] for e in device)}
 
 
 def isolated_stages(L3, pcm, dev):

@@ -95,7 +95,8 @@ def test_span_breakdown_attributes_device_events(tmp_path):
         x("kernel", "(anonymous namespace)::bits_at_kernel(float4 const*)",
           70, 4, correlation=3),
         x("gpu_memcpy", "Memcpy DtoH", 260, 10, correlation=4),
-        x("kernel", "after", 410, 1, correlation=5),
+        x("kernel", "void (anonymous namespace)::resv_walk_kernel<4>("
+          "float const*)", 410, 1, correlation=5),
         x("kernel", "orphan", 500, 1, correlation=99),
         x("gpu_user_annotation", "encode_segment_fused", 50, 250,
           correlation=7),
@@ -118,6 +119,7 @@ def test_span_breakdown_attributes_device_events(tmp_path):
                                           "gpu_memset": 0}
     assert bd["copy_calls_without_event"] == 1
     assert bd["bits_at_kernel_events"] == 2
+    assert bd["resv_kernel_events"] == 1
     assert bd["spans"]["fetch"]["count"] == 0
 
 
