@@ -72,9 +72,13 @@ Phases, each printing its own lines; any failure exits non-zero:
      iterations counted equal op by op and as graphs (which launch K3 in
      all 6 unrolled iterations and read no exit on the host), and K3's
      evaluation counts must give the lockstep path's bits_at launches;
-     then the host's waits of one warm encode by kind (loop exit, scan
-     copy, fetch) against torch's own count of synchronizing operations
-     (torch.cuda.set_sync_debug_mode): 0, 0 and 1.
+     then 3 warm encodes timed before torch's GPU trace is turned on and
+     3 after (it stays on: what its callbacks cost), and the host's waits
+     of one warm encode by kind (loop exit, scan copy, fetch) against
+     torch's own count of synchronizing operations
+     (mp3tpu_torch.tools.host_waits: torch.cuda.set_sync_debug_mode's
+     warnings and the GPU trace's event, stream and device
+     synchronizations): 0, 0 and 1.
      Then the lockstep path and the package in 5 ABBA turns (10 timed runs
      each), one encode of each under torch.profiler (device kernels,
      copies and memsets by category, device idle share), and the
@@ -148,6 +152,12 @@ Phases, each printing its own lines; any failure exits non-zero:
      baseline against the plain search on the first 32,768-lane stepsize
      search of a group of 16, timed as in phase 3c, and bits_at against
      its plain chain at its first stepsize, timed; one wait a group;
+     the group lookahead (encode_corpus_batched(lookahead=)) at 0 (the
+     groups in order) and 3 (the default) on bench_corpus's 20 clips at
+     lane batch 2 and on the 32 at lane batch 16: every clip's bytes the
+     sweep's, one wait a group, torch.cuda.max_memory_allocated of a run,
+     3 turns of 0, 3, 3, 0 (median wall, aggregate real-time factor) and
+     one profiled run of each (device events, idle share);
 
   11. multi-device: dryrun_multichip(1) on an NCCL mesh, then the 60 s
      clip through encode_layer3_sharded at world size 1 (NCCL, this
@@ -180,12 +190,14 @@ Phases, each printing its own lines; any failure exits non-zero:
   13. the benchmark tools (mp3tpu_torch.tools.bench and bench_corpus, the
      port's bench.py and bench_corpus.py): in this process bench.run on
      the 60 s clip (its timed stream must be phase 5's) and
-     bench_corpus.run on 20 clips x 10 s at lane batch 2 (each stream on
+     bench_corpus.run on 20 clips x 10 s at lane batch 2 and its group
+     lookahead of 3, which is printed (each stream on
      the frame grid and equal to phase 10's at lane batch 2: the same
      groups of two); then each tool with its defaults in 3 fresh
      processes from an empty temporary directory, each JSON line
      printed, and per tool the three values with their median, min and
-     max beside the card's name and power limit;
+     max beside the card's name and power limit; with --parent-tree DIR
+     the parent's tools as well, in turns parent, this, this, parent;
   14. encode_corpus with 3 worker threads from empty graph caches on a
      mixed corpus (stereo 128 kbps clips of several lengths at 44.1 and
      48 kHz, so that threads capture several keys at once): every stream
@@ -219,7 +231,8 @@ sys.path.insert(0, ROOT)
 
 from mp3tpu_torch.tools import (DEVICE_CATS,  # noqa: E402
                                 FP32_OPS_PER_S, HBM_BYTES_PER_S,
-                                device_events, profile_once, yardstick_form)
+                                device_events, gpu_trace_on, host_waits,
+                                profile_once, yardstick_form)
 from mp3tpu_torch.tools.signals import make_signal  # noqa: E402
 
 CLIP_SECONDS = 60.0
@@ -1163,12 +1176,18 @@ def k4_kernels(F, chunk):
 def parent_library(R):
     """The parent tree's K4 (PR 11's resv_scan_kernel, one thread a clip)
     built from its csrc/resv_scan.cu into build/, loaded with ctypes; None
-    without --parent-tree."""
+    without --parent-tree, or when the parent's source is this tree's
+    (there is no other K4 to time)."""
     import ctypes
     if PARENT_TREE is None:
         return None
     from mp3tpu_torch.ops import cuda_build
     src = os.path.join(PARENT_TREE, "mp3tpu_torch", "csrc", "resv_scan.cu")
+    with open(src, "rb") as f, open(R.SOURCE, "rb") as g:
+        if f.read() == g.read():
+            print("K4: the parent tree's csrc/resv_scan.cu is this tree's; "
+                  "no parent K4 is timed", flush=True)
+            return None
     lib_path = os.path.join(cuda_build.BUILD_DIR, "libresv_scan_parent.so")
     cuda_build.build(src, lib_path, R.NVCC_FLAGS, True)
     lib = ctypes.CDLL(lib_path)
@@ -1537,33 +1556,22 @@ def read_counts(ctx, path, stages=SEGMENT_STAGES, k4=True):
 
 
 def torch_waits(ctx, fn):
-    """fn()'s result and the synchronizing CUDA operations torch counts
-    in it (torch.cuda.set_sync_debug_mode("warn")): {"file:line": n} of
-    the Python lines that made them."""
-    import collections
-    import warnings
-    torch = ctx["torch"]
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            out = fn()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    where = collections.Counter(
-        f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in caught
-        if "synchronizing CUDA operation" in str(w.message))
-    return out, dict(where)
+    """fn()'s result and the synchronizing CUDA operations torch reports
+    in it (mp3tpu_torch.tools.host_waits: what torch.cuda's sync debug
+    mode "warn" warns about, and the event, stream and device
+    synchronizations of torch's GPU trace, which the debug mode does not
+    see): {"file:line kind": n} of the Python lines that made them."""
+    return host_waits(fn, ROOT)
 
 
 def waits_check(ctx, path, fn, fetches, stages=SEGMENT_STAGES):
     """fn() once more, its keys captured, with the counts reset before and
-    read after (read_counts' checks) and under torch's sync debug mode:
-    fails unless it fetched `fetches` times besides settle's retries'
-    fetches, and torch counts as many synchronizing operations as the
-    port's counters (loop exits, scan copies, fetches) -- no hidden wait,
-    in a retry too.  Returns (out, counts, where)."""
+    read after (read_counts' checks) and under torch_waits: fails unless
+    it fetched `fetches` times besides settle's retries' fetches, and
+    torch counts as many synchronizing operations (event, stream and
+    device synchronizations included) as the port's counters (loop exits,
+    scan copies, fetches) -- no hidden wait, in a retry too.  Returns
+    (out, counts, where)."""
     reset_counts(ctx)
     out, where = torch_waits(ctx, fn)
     counts = read_counts(ctx, path, stages)
@@ -1919,6 +1927,87 @@ def group_split(ctx, group, kw):
           flush=True)
 
 
+#: phase 10 compares the corpus's group lookaheads 0 (each group collected
+#: before the next is queued) and 3 (encode_corpus_batched's default, the
+#: JAX package's) in this many turns of 0, 3, 3, 0
+LOOKAHEADS = (0, 3)
+LOOKAHEAD_TURNS = 3
+
+
+def lookahead_runs(ctx, clips, batch, label, line, want):
+    """encode_corpus_batched on `clips` at lane batch `batch` at each of
+    LOOKAHEADS: one warm run each under waits_check (one wait a group, no
+    hidden wait), its torch.cuda.max_memory_allocated, LOOKAHEAD_TURNS
+    turns (median wall, aggregate real-time factor) and one profiled run
+    each (device events, idle share); every run's streams must be `want`,
+    clip for clip.  Returns {lookahead: record}."""
+    torch = ctx["torch"]
+    from mp3tpu_torch.parallel.corpus import encode_corpus_batched
+    from mp3tpu_torch.tools.corpus_sweep import CORPUS_CFG
+    audio = sum(max(pcm.shape) / rate for pcm, rate in clips)
+    groups = -(-len(clips) // batch)
+
+    def go(lookahead):
+        outs = encode_corpus_batched(clips, CORPUS_CFG, "cuda", batch=batch,
+                                     lookahead=lookahead)[0]
+        if outs != want:
+            bad = [i for i, (a, b) in enumerate(zip(outs, want)) if a != b]
+            fail(f"{label}, lookahead {lookahead}: clips {bad} differ from "
+                 f"the sweep's streams")
+        return outs
+
+    res = {}
+    for la in LOOKAHEADS:
+        _, counts, _ = waits_check(ctx, f"{label}, lookahead {la}",
+                                   lambda: go(la), groups)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        go(la)
+        torch.cuda.synchronize()
+        res[la] = dict(walls=[], waits=waits_of(counts), base=base,
+                       peak=torch.cuda.max_memory_allocated())
+    for la in (LOOKAHEADS + LOOKAHEADS[::-1]) * LOOKAHEAD_TURNS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        go(la)
+        res[la]["walls"].append(time.perf_counter() - t0)
+    for la in LOOKAHEADS:
+        for _ in range(3):      # the profiler now and then records none
+            events, busy, pwall = profile_once(lambda: go(la))
+            if events:
+                break
+        else:
+            fail(f"{label}, lookahead {la}: torch.profiler recorded no "
+                 f"device event")
+        r = res[la]
+        wall = statistics.median(r["walls"])
+        r.update(wall=wall, rtf=audio / wall, events=len(events), busy=busy,
+                 pwall=pwall, idle=1.0 - busy / pwall,
+                 idle_median=1.0 - busy / wall)
+        print(f"{label}, lookahead {la}: median wall {wall:.4f} s of "
+              f"{len(r['walls'])} ({', '.join(f'{t:.4f}' for t in r['walls'])}"
+              f" s), {audio / wall:.2f}x real time; waits of a warm run "
+              f"{r['waits']} in {groups} groups; max_memory_allocated "
+              f"{r['peak'] / 2**20:.1f} MiB ({r['base'] / 2**20:.1f} MiB "
+              f"allocated before); one profiled run: {len(events)} device "
+              f"events, by category {events_by_cat(events)}, busy "
+              f"{busy:.4f} s of {pwall:.4f} s, idle share "
+              f"{1.0 - busy / pwall:.3f} (against the unprofiled median "
+              f"wall: {1.0 - busy / wall:.3f}); on {line}", flush=True)
+    a, b = (res[la] for la in LOOKAHEADS)
+    print(f"{label}: lookahead {LOOKAHEADS[1]} against {LOOKAHEADS[0]}: "
+          f"wall {b['wall'] / a['wall']:.3f} of it (real-time factor "
+          f"{b['rtf']:.2f}x against {a['rtf']:.2f}x), idle share "
+          f"{b['idle']:.3f} against {a['idle']:.3f} of the profiled run "
+          f"({b['idle_median']:.3f} against {a['idle_median']:.3f} of the "
+          f"median wall), device events "
+          f"{b['events']} against {a['events']}, max_memory_allocated "
+          f"{b['peak'] / 2**20:.1f} against {a['peak'] / 2**20:.1f} MiB; "
+          f"every clip's bytes the sweep's at both", flush=True)
+    return res
+
+
 def phase_corpus(ctx, line, cfg_of):
     """Phase 10: encode_corpus_batched on the card; returns the launches
     of one 32-clip encode at lane batch 16, bits_at's numbers on the
@@ -1966,6 +2055,19 @@ def phase_corpus(ctx, line, cfg_of):
               flush=True)
     launches = counts_of[CORPUS_BATCHES[-1]]
     print_captures(ctx, "after the corpus sweep")
+
+    # the group lookahead against the groups in order: bench_corpus's
+    # corpus and lane batch, and the whole corpus at the widest batch
+    n_clips, _, b_batch = BENCH_CORPUS
+    pipelined = {
+        "bench_corpus": lookahead_runs(
+            ctx, clips[:n_clips], b_batch,
+            f"corpus of {n_clips} at lane batch {b_batch}", line,
+            first_of[b_batch][:n_clips]),
+        "widest": lookahead_runs(
+            ctx, clips, CORPUS_BATCHES[-1],
+            f"corpus of {CORPUS_CLIPS} at lane batch {CORPUS_BATCHES[-1]}",
+            line, first_of[CORPUS_BATCHES[-1]])}
 
     for batch in (1, CORPUS_BATCHES[-1]):
         group_split(ctx, clips[:batch], kw)
@@ -2037,7 +2139,8 @@ def phase_corpus(ctx, line, cfg_of):
     return dict(launches=launches, max_abs_err=err, ms=k_dev,
                 plain_ms=p_dev, bound_ms=b_ms, bound_by=b_by,
                 search_max_abs_err=s_err, baseline_max_abs_err=b_err,
-                search=k3, batch2_outs=first_of[2], forms=forms)
+                search=k3, batch2_outs=first_of[2], forms=forms,
+                pipelined=pipelined)
 
 
 #: phase 14: the mixed corpus of encode_corpus's worker threads,
@@ -2547,34 +2650,50 @@ def phase_bench(main_out, corpus_outs, line):
         if o != corpus_outs[i]:
             fail(f"bench_corpus: clip {i}'s stream is not phase 10's at "
                  f"lane batch {batch}")
-    print(f"bench_corpus in process: {json.dumps(record)}; its {n_clips} "
+    print(f"bench_corpus in process, at lookahead "
+          f"{bench_corpus.LOOKAHEAD}: {json.dumps(record)}; its {n_clips} "
           f"streams are phase 10's at lane batch {batch}", flush=True)
 
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    # with --parent-tree, the parent's tools too, in turns parent, this,
+    # this, parent from the same empty directory
+    trees = {"this": ROOT}
+    order = ("this",) * FRESH_RUNS
+    if PARENT_TREE:
+        trees["parent"] = PARENT_TREE
+        order = ("parent", "this", "this", "parent") * FRESH_RUNS
     with tempfile.TemporaryDirectory() as cwd:
         for tool in BENCH_KEYS:
-            values = []
-            for i in range(FRESH_RUNS):
+            values = {tree: [] for tree in trees}
+            for i, tree in enumerate(order):
                 t0 = time.perf_counter()
                 res = subprocess.run(
                     [sys.executable, "-m", f"mp3tpu_torch.tools.{tool}"],
-                    cwd=cwd, env=env, capture_output=True, text=True,
-                    timeout=600)
+                    cwd=cwd, env=dict(os.environ, PYTHONPATH=trees[tree]),
+                    capture_output=True, text=True, timeout=600)
                 wall = time.perf_counter() - t0
                 if res.returncode != 0:
-                    fail(f"{tool} in a fresh process: exit "
+                    fail(f"{tool} ({tree}) in a fresh process: exit "
                          f"{res.returncode}\n{res.stderr[-3000:]}")
                 record = bench_record(tool, json.loads(res.stdout),
                                       f"fresh process {i + 1}")
-                values.append(record["value"])
-                print(f"{tool}, fresh process {i + 1} ({wall:.2f} s with "
-                      f"its start): {res.stdout.strip()}", flush=True)
+                values[tree].append(record["value"])
+                at = (f", lookahead {bench_corpus.LOOKAHEAD}"
+                      if tool == "bench_corpus" and tree == "this" else "")
+                print(f"{tool}, fresh process {i + 1} ({tree} tree, "
+                      f"{wall:.2f} s with its start{at}): "
+                      f"{res.stdout.strip()}", flush=True)
             if os.listdir(cwd):
                 fail(f"{tool} wrote {os.listdir(cwd)} into its cwd")
-            print(f"{tool} with its defaults in {FRESH_RUNS} fresh "
-                  f"processes: values {values} x_realtime, median "
-                  f"{statistics.median(values)}, min {min(values)}, max "
-                  f"{max(values)} on {line}", flush=True)
+            for tree, v in values.items():
+                print(f"{tool} with its defaults in {len(v)} fresh "
+                      f"processes ({tree} tree): values {v} x_realtime, "
+                      f"median {statistics.median(v)}, min {min(v)}, max "
+                      f"{max(v)} on {line}", flush=True)
+            if PARENT_TREE:
+                this, parent = (statistics.median(values[t])
+                                for t in ("this", "parent"))
+                print(f"{tool}: this tree's median {this / parent:.3f} of "
+                      f"the parent's, in turns", flush=True)
 
 
 def phase_build(k1, K, R):
@@ -2742,6 +2861,24 @@ def phase_main(ctx, pcm, cfg, line):
           f"{launches['iterations']} live iterations in {calls} rate loops "
           f"(op by op: {e['search']} K3 launches, {e['syncs']} loop-exit "
           f"syncs)", flush=True)
+    # what torch's GPU trace, on for the rest of the process from the
+    # first wait check, costs a warm encode: 3 runs before, 3 after
+    walls = {}
+    for when in ("before", "after"):
+        if when == "after" and not gpu_trace_on():
+            fail("torch's GPU trace was on before phase 5's wait check")
+        walls[when] = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run("k3")
+            walls[when].append(time.perf_counter() - t0)
+    print(f"main path, warm encodes before torch's GPU trace is on "
+          f"{', '.join(f'{t:.4f}' for t in walls['before'])} s, with it on "
+          f"{', '.join(f'{t:.4f}' for t in walls['after'])} s (medians "
+          f"{statistics.median(walls['before']):.4f} / "
+          f"{statistics.median(walls['after']):.4f} s); it stays on",
+          flush=True)
     out_w, warm, where = waits_check(ctx, "main path", lambda: run("k3"), 1)
     if out_w != out:
         fail("main path: the warm encode gave other bytes")

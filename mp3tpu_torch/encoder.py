@@ -6,10 +6,13 @@ super-chunk segments (``_plan_segments``); each segment runs one
 scan -> final encode + packing -- with the block-type automaton state
 and the reservoir level carried from segment to segment as device
 tensors.  Every segment is queued before the first download, as the
-JAX package's one program chain is (``mp3tpu/encoder.py:206-225``):
-on the card the host waits once an encode, when the side tables and
-compacted payloads of all segments come to the host in one copy
-(``_Layer3Framing.fetch``).  Then the reservoir guard validates the
+JAX package's one program chain is (``mp3tpu/encoder.py:206-225``).
+Each segment's side table and compacted payload start for the host as
+soon as the segment is queued (``_Layer3Framing.fetch_async``: a copy
+into pinned memory on the copy stream, the JAX package's per-segment
+``pool.submit(jax.device_get, ...)``, ``mp3tpu/encoder.py:352-356``),
+and on the card the host waits once an encode, on the last segment's
+copy (``Download.wait``).  Then the reservoir guard validates the
 realized part2_3_length chain (clamp + re-encode on the rare overdraw)
 and the native assembler (csrc/mp3bits.cpp) writes the stream.  MPEG-1
 (32/44.1/48 kHz) and MPEG-2 LSF (16/22.05/24 kHz).
@@ -19,7 +22,7 @@ same segment program window by window (one wait a window), with the
 carried state made explicit, so that it checkpoints to a small
 picklable dict.
 
-``fetches`` counts the host's waits for results (``fetch``), of which
+``fetches`` counts the host's waits for results (``Download.wait``), of which
 ``retry_fetches`` came from ``settle``'s rare retries; the rate loop's
 exit syncs are ``ops/loop.any_on_host.syncs`` and the host scans'
 downloads ``ops/resv.host_scans``.
@@ -30,6 +33,9 @@ allocation on the host (``runtime.alloc12``), native packing.
 
 Every entry point takes an explicit ``device``.
 """
+import math
+import threading
+
 import numpy as np
 import torch
 
@@ -58,8 +64,8 @@ RELAX_DELTA = 28
 #: initial payload row width in 32-bit words
 PAYLOAD_WORDS = 96
 
-#: downloads of results that the host waited for (``_Layer3Framing.fetch``
-#: and the multi-rank path's)
+#: downloads of results that the host waited for (``Download.wait``: one
+#: a wait, however many downloads it reads; and the multi-rank path's)
 fetches = 0
 #: of ``fetches``, those of ``settle``'s rare retries (a wider payload row
 #: or a guard clamp): one of the scan's targets and demands, and one for
@@ -80,6 +86,77 @@ def upload(host, dev):
     """`host` (from ``pinned``) on `dev`, its copy queued on the current
     stream; on the CPU, `host` itself."""
     return host.to(dev, non_blocking=True)
+
+
+#: each CUDA device's copy stream (``copy_stream``)
+_COPY_STREAMS = {}
+_COPY_LOCK = threading.Lock()
+
+
+def copy_stream(dev):
+    """The stream on which results of `dev` are copied to the host: one
+    a device, made on first use, so that its copies complete in the order
+    in which they were queued, from every thread."""
+    with _COPY_LOCK:
+        if dev not in _COPY_STREAMS:
+            _COPY_STREAMS[dev] = torch.cuda.Stream(device=dev)
+        return _COPY_STREAMS[dev]
+
+
+class Download:
+    """A queued copy of segment results to the host (``fetch_async``):
+    the int32 host tensor it fills and, on the card, the event recorded on
+    the copy stream after the copy (on the CPU the copy is made at once,
+    and ``done`` is None).  ``layout`` holds each segment's (key, shape)
+    pairs in the order of the flat tensor."""
+
+    def __init__(self, layout, host, done):
+        self.layout, self.host, self.done = layout, host, done
+
+    @span("fetch")
+    def wait(self, earlier=()):
+        """The host's one wait for this download and the `earlier` ones,
+        queued before it on the same copy stream: this one's event is
+        synchronized (the stream runs its copies in order, so the earlier
+        ones are done then) and one fetch is counted.  Returns the dicts
+        of numpy values of every segment of `earlier` and then of this
+        one, as ``_Layer3Framing.fetch`` does.
+
+        A pinned buffer read before its copy has run gives stale bytes
+        and no error, so an earlier download whose event has not
+        completed raises instead."""
+        global fetches
+        fetches += 1
+        if self.done is not None:
+            self.done.synchronize()
+        outs = []
+        for d in (*earlier, self):
+            if d.done is not None and not d.done.query():
+                raise RuntimeError("a download was read before its copy "
+                                   "completed")
+            outs += d.read()
+        return outs
+
+    def read(self):
+        """The segments' dicts of numpy values: views of the host tensor,
+        the side table as int16, the payload as uint32 and n_nonfinite as
+        an int.  Call it once the copy has completed (``wait``)."""
+        flat = self.host.numpy()
+        outs, pos = [], 0
+        for layout in self.layout:
+            out = {}
+            for k, shape in layout:
+                n = math.prod(shape)
+                out[k] = flat[pos:pos + n].reshape(shape)
+                pos += n
+            if "side" in out:
+                out["side"] = out["side"].astype(np.int16)
+            if "payload" in out:
+                out["payload"] = out["payload"].view(np.uint32)
+            if "n_nonfinite" in out:
+                out["n_nonfinite"] = int(out["n_nonfinite"])
+            outs.append(out)
+        return outs
 
 
 def _plan_segments(G, buckets=SUPER_BUCKETS):
@@ -208,36 +285,51 @@ class _Layer3Framing:
                         self.nch, self.cap(n_pad), n_real, self.mean_bits,
                         self.resv_max, self.mode_gr, delta)
 
-    @span("fetch")
-    def fetch(self, hs, keys=None):
-        """One device -> host copy of the results of the segments `hs` (a
-        list of segment outputs), the host's one wait for them: by
-        default each one's side table (int16), compacted payload
-        (uint32), n_nonfinite (int) and, for MPEG-1, scfsi flags.
-        Returns a list of dicts of numpy values."""
-        global fetches
-        fetches += 1
+    def fetch_async(self, hs, keys=None):
+        """Queue one device -> host copy of the results of the segments `hs`
+        (a list of segment outputs): by default each one's side table
+        (int16), compacted payload (uint32), n_nonfinite (int) and, for
+        MPEG-1, scfsi flags.  Returns a ``Download``, whose ``wait()`` is
+        the host's wait for them.
+
+        The values go into one int32 tensor on the caller's stream.  On the
+        card it is copied into a pinned host tensor on the copy stream
+        (``copy_stream``), which first waits for the caller's stream; an
+        event recorded after the copy marks it done.  Nothing here waits
+        on the host.
+
+        Buffer lifetime across streams: the copy reads the flat tensor on
+        the copy stream after this call has dropped it, so it is marked as
+        in use there (``record_stream``), and the caching allocator gives
+        its block to no later kernel of the caller's stream before the
+        copy has run.  The pinned tensor is the download's; the caching
+        host allocator keeps its block from reuse until the copy's event
+        has completed.  The segment tensors themselves are read on the
+        caller's stream only."""
         want = [keys if keys is not None else
                 ["side", "payload", "n_nonfinite"]
                 + (["scfsi"] if "scfsi" in h else []) for h in hs]
+        layout = [[(k, tuple(h[k].shape)) for k in ks]
+                  for h, ks in zip(hs, want)]
         flat = torch.cat([h[k].reshape(-1).to(torch.int32)
-                          for h, ks in zip(hs, want)
-                          for k in ks]).cpu().numpy()
-        outs, pos = [], 0
-        for h, ks in zip(hs, want):
-            out = {}
-            for k in ks:
-                n = h[k].numel()
-                out[k] = flat[pos:pos + n].reshape(h[k].shape)
-                pos += n
-            if "side" in out:
-                out["side"] = out["side"].astype(np.int16)
-            if "payload" in out:
-                out["payload"] = out["payload"].view(np.uint32)
-            if "n_nonfinite" in out:
-                out["n_nonfinite"] = int(out["n_nonfinite"])
-            outs.append(out)
-        return outs
+                          for h, ks in zip(hs, want) for k in ks])
+        if flat.device.type != "cuda":
+            return Download(layout, flat, None)
+        stream = copy_stream(flat.device)
+        stream.wait_stream(torch.cuda.current_stream(flat.device))
+        host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+        with torch.cuda.stream(stream):
+            host.copy_(flat, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(stream)
+        flat.record_stream(stream)
+        return Download(layout, host, done)
+
+    def fetch(self, hs, keys=None):
+        """``fetch_async(hs, keys).wait()``: the results of the segments
+        `hs` as a list of dicts of numpy values, the host's one wait for
+        them."""
+        return self.fetch_async(hs, keys).wait()
 
     def scfsi_frames(self, plan, got):
         """(nch, F, 4) scfsi flags of the real frames (zeros for LSF)."""
@@ -370,8 +462,9 @@ def encode_layer3_fast(pcm, cfg: EncoderConfig, device, chunk=None,
     plan = _plan_segments(G, (chunk,) if chunk else SUPER_BUCKETS)
 
     # ---- one segment program per plan entry, state carried across on
-    # the device; every segment queued, then one download
-    segs = []
+    # the device; each segment's download queued behind it, then one wait
+    # on the last: the copy stream completes its copies in order
+    segs, downloads = [], []
     fsm = torch.zeros(nch, dtype=torch.int32, device=L3.dev)
     size = 0
     with prof.stage("segments (device)"):
@@ -384,7 +477,8 @@ def encode_layer3_fast(pcm, cfg: EncoderConfig, device, chunk=None,
             h = L3.segment(host, fsm, size, pw, n_real, delta)
             fsm, size = h["fsm_state"], h["size"]
             segs.append(h)
-        got = L3.fetch(segs)
+            downloads.append(L3.fetch_async([h]))
+        got = downloads[-1].wait(earlier=downloads[:-1])
 
     side, payload, p23, retries, _ = L3.settle(plan, segs, got, pw, nframes,
                                                prof)

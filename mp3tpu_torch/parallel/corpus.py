@@ -12,9 +12,18 @@ Clips are independent, so a corpus is data parallel at two levels:
     group and ``local_share`` gives each process a contiguous share of
     the clip list; nothing else crosses processes.
 
-Groups run in order: the device work of one group and the host assembly
-of the previous one are not overlapped.
+Groups are pipelined as in the JAX package (its loop at
+``mp3tpu/parallel/corpus.py:305-316``): ``dispatch_group`` queues a
+group's device chain and its download (``_Layer3Framing.fetch_async``,
+a copy into pinned memory with an event where the JAX package hands
+``jax.device_get`` to a thread), and up to `lookahead` groups are in
+flight before ``collect_group`` waits for the oldest and runs its
+guard, retries and assembly on the host, while the card works on the
+groups queued behind it.  ``lookahead=0`` runs the groups strictly in
+order, each collected before the next is framed.
 """
+import collections
+import numbers
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -128,10 +137,21 @@ def _clip_records(b, G, nch, plan, segs, got, target, demand):
     return cplan, csegs, cgot
 
 
-def _encode_group(L3, cfg, framed, delta, pw, prof):
-    """One group of B clips through the segment program as B*nch lanes:
-    the analyses, the batched scan and the final encodes queued, then
-    the group's one download; returns the clips' streams."""
+def dispatch_group(L3, framed, delta, pw, prof):
+    """Queue one group of B clips through the segment program as B*nch
+    lanes: the block uploads, the analyses, the batched scan, the final
+    encodes, then the group's one download.  Nothing waits on the host.
+    framed: each clip's (pcm, nframes) from ``L3.frame``.  Returns what
+    ``collect_group`` needs: (framed, plan, segment tensors, target,
+    demand, the queued ``Download``).
+
+    The group's device tensors stay alive, and unchanged, while later
+    groups are queued and replayed: ``settle``'s retries read ``segs``
+    and the scan's target and demand.  None of them is a graph's static
+    buffer, which a later replay of the same key would overwrite: the
+    analysis and the rate loop with its emission hand back clones
+    (``models/layer3.py`` ``analysis``, ``ops/loop.py`` ``_graphed``),
+    and K4 and ``_plan_budgets_corpus`` make fresh tensors."""
     B, nch, mode_gr, dev = len(framed), L3.nch, L3.mode_gr, L3.dev
     L = B * nch
     G_max = max(nf for _, nf in framed) * mode_gr
@@ -170,12 +190,22 @@ def _encode_group(L3, cfg, framed, delta, pw, prof):
                 flat_cap=cap)
             h.update((k, a[k]) for k in ("scfsi", "n_nonfinite") if k in a)
             hs.append(h)
-        got = L3.fetch(hs)
+        download = L3.fetch_async(hs)
+    return framed, plan, segs, target, demand, download
 
+
+def collect_group(L3, cfg, group, pw, prof):
+    """The host's side of a group that ``dispatch_group`` queued: the one
+    wait for its download, then for each clip the guard and its rare
+    retries (``settle``: a retry's final encodes and fetch queue behind
+    the groups in flight, which costs a wait but gives the in-order
+    bytes) and the native assembly.  Returns the clips' streams."""
+    framed, plan, segs, target, demand, download = group
+    got = download.wait()
     outs = []
     for b, (_, nf) in enumerate(framed):
-        cplan, csegs, cgot = _clip_records(b, nf * mode_gr, nch, plan, segs,
-                                           got, target, demand)
+        cplan, csegs, cgot = _clip_records(b, nf * L3.mode_gr, L3.nch, plan,
+                                           segs, got, target, demand)
         side, payload, _, _, _ = L3.settle(cplan, csegs, cgot, pw, nf, prof)
         with prof.stage("native assembly"):
             asm = NativeAssembler(cfg, L3.sfb_s)
@@ -185,17 +215,27 @@ def _encode_group(L3, cfg, framed, delta, pw, prof):
 
 
 def encode_corpus_batched(clips, cfg_kwargs, device, batch=8, prof=None,
-                          delta=RELAX_DELTA, pw=PAYLOAD_WORDS):
+                          delta=RELAX_DELTA, pw=PAYLOAD_WORDS, lookahead=3):
     """Encode many independent same-rate Layer III clips on `device` by
     stacking `batch` clips at a time as extra channel lanes of one
     segment program.
 
     clips: list of (pcm int16, sample_rate_hz); all rates must match.
     cfg_kwargs: ``EncoderConfig`` keyword arguments shared by every clip.
-    delta, pw: as in ``encode_layer3_fast``.  A clip whose realized bits
-    overdraw the reservoir is re-encoded alone at clamped budgets; a
-    clip shorter than its group is trimmed to its own frames.
-    Returns (outputs, stats) like ``encode_corpus``."""
+    delta, pw: as in ``encode_layer3_fast``.  lookahead: the groups kept
+    in flight (queued, their downloads pending) before the host collects
+    the oldest, as the JAX package's ``MP3TPU_CORPUS_LOOKAHEAD`` (default
+    3); 0 collects each group before the next is queued.  Every lookahead
+    gives the same bytes.  Up to lookahead + 1 groups' segment tensors
+    are alive at once.  A clip whose realized bits overdraw the reservoir
+    is re-encoded alone at clamped budgets; a clip shorter than its
+    group is trimmed to its own frames.
+    Returns (outputs in corpus order, stats) like ``encode_corpus``; the
+    wall ends with every stream on the host."""
+    if isinstance(lookahead, bool) or \
+            not isinstance(lookahead, numbers.Integral) or lookahead < 0:
+        raise ValueError(f"lookahead must be an integer >= 0, not "
+                         f"{lookahead!r}")
     prof = prof if prof is not None else profiling.from_env()
     t0 = time.perf_counter()
     rate = clips[0][1]
@@ -204,12 +244,17 @@ def encode_corpus_batched(clips, cfg_kwargs, device, batch=8, prof=None,
     cfg = EncoderConfig(sample_rate_hz=rate, **cfg_kwargs)
     L3 = _Layer3Framing(cfg, device)
     outputs, audio_s = [], 0.0
+    pending = collections.deque()
     for g0 in range(0, len(clips), batch):
         framed = []
         for pcm, _ in clips[g0:g0 + batch]:
             audio_s += max(np.atleast_2d(pcm).shape) / rate
             framed.append(L3.frame(pcm))
-        outputs += _encode_group(L3, cfg, framed, delta, pw, prof)
+        pending.append(dispatch_group(L3, framed, delta, pw, prof))
+        if len(pending) > lookahead:
+            outputs += collect_group(L3, cfg, pending.popleft(), pw, prof)
+    while pending:
+        outputs += collect_group(L3, cfg, pending.popleft(), pw, prof)
     wall = time.perf_counter() - t0
     return outputs, dict(clips=len(clips), audio_s=audio_s, wall_s=wall,
                          x_realtime=audio_s / wall if wall else 0.0)

@@ -19,13 +19,18 @@ Each runs on the card unless ``--device cpu`` is given (without a card
 prints its report as JSON on stdout and writes a file only to a path it
 is given.  ``signals`` holds the benchmark scripts' signals;
 ``yardstick_form`` swaps in the segment program's op-by-op forms, for
-comparisons and counts that a replayed CUDA graph hides.
+comparisons and counts that a replayed CUDA graph hides; ``host_waits``
+counts the host's waits on the card as torch sees them.
 """
+import collections
 import contextlib
 import math
+import os
 import subprocess
 import sys
+import threading
 import time
+import warnings
 
 import torch
 
@@ -139,3 +144,113 @@ def yardstick_form(rate_loop_eager=False):
     finally:
         for obj, name, fn in real:
             setattr(obj, name, fn)
+
+
+
+class _SyncLog:
+    """The synchronizations that torch reports while ``host_waits`` runs,
+    {"file:line kind": n}; ``counts`` is None when nothing counts, and
+    ``trace_on`` says whether the GPU trace reports to it."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.trace_on = False
+        self.counts = None
+        self.root = "."
+        self.last = {}              # thread -> its last report, unpaired
+
+    def note(self, source, kind):
+        """A report from `source` ("trace" or "warning") of a `kind` of
+        synchronization, made by the first line outside torch on the
+        stack (``_outside_torch``).  A blocking copy or
+        a stream synchronize is reported twice, a trace and, when the
+        operation returns, a warning, from the same thread and line: the
+        second report of such a pair is not counted again."""
+        f = _outside_torch(sys._getframe(1))
+        site = (f"{os.path.relpath(f.f_code.co_filename, self.root)}:"
+                f"{f.f_lineno}")
+        tid = threading.get_ident()
+        with self.lock:
+            if self.counts is None:
+                return
+            prev = self.last.pop(tid, None)
+            if prev is not None and prev == ("trace" if source == "warning"
+                                             else "warning", site):
+                return
+            self.counts[f"{site} {kind}"] += 1
+            self.last[tid] = (source, site)
+
+
+def _outside_torch(frame):
+    """The first frame from `frame` outwards whose code is not torch's,
+    the warnings module's or this module's: the line that asked torch for
+    the operation."""
+    inside = (os.path.dirname(torch.__file__) + os.sep,
+              warnings.__file__, __file__)
+    while frame.f_back is not None and \
+            frame.f_code.co_filename.startswith(inside):
+        frame = frame.f_back
+    return frame
+
+
+_SYNCS = _SyncLog()
+
+
+def gpu_trace_on():
+    """Turn torch's GPU trace on, as ``torch.cuda._sanitizer`` does, with
+    callbacks for event, stream and device synchronizations that report
+    to ``host_waits``; returns False if it was on already.  Once a
+    process: the trace cannot be turned off, and from then on each
+    allocation, free and event record of the CUDA caching allocator calls
+    into Python."""
+    import torch.cuda._gpu_trace as gpu_trace
+    with _SYNCS.lock:
+        if _SYNCS.trace_on:
+            return False
+        _SYNCS.trace_on = True
+
+    def report(kind):
+        def callback(*_):
+            _SYNCS.note("trace", kind)
+        return callback
+
+    torch._C._activate_gpu_trace()
+    gpu_trace.register_callback_for_event_synchronization(report("event"))
+    gpu_trace.register_callback_for_stream_synchronization(report("stream"))
+    gpu_trace.register_callback_for_device_synchronization(report("device"))
+    return True
+
+
+def host_waits(fn, root="."):
+    """fn()'s result and the host's waits on the card in it, as torch
+    reports them: {"file:line kind": n}, paths relative to `root`.  Two
+    reports are read.  ``torch.cuda.set_sync_debug_mode("warn")`` warns
+    about a synchronizing operation (a copy to the host, ``.item()``, a
+    stream synchronize; kind "warned" when only it reports one).  torch's
+    GPU trace reports event, stream and device synchronizations (kinds
+    "event", "stream", "device"), which the debug mode does not warn
+    about: ``CUDAEvent::synchronize`` never calls
+    ``warn_or_error_on_sync``.  An operation that both report counts
+    once.  The card is synchronized before fn runs, outside the count."""
+    gpu_trace_on()
+    torch.cuda.synchronize()
+
+    def on_warning(message, category, filename, lineno, file=None,
+                   line=None):
+        if "synchronizing CUDA operation" in str(message):
+            _SYNCS.note("warning", "warned")
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = on_warning
+        with _SYNCS.lock:
+            _SYNCS.counts, _SYNCS.root, _SYNCS.last = \
+                collections.Counter(), root, {}
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            with _SYNCS.lock:
+                counts, _SYNCS.counts = _SYNCS.counts, None
+    return out, dict(counts)

@@ -3,8 +3,10 @@
 The aggregate encode rate over many clips: the clips of
 ``bench_corpus.py`` (stereo 44.1 kHz, 128 kbps) through
 ``encode_corpus_batched``, `batch` clips at a time as the lanes of one
-segment program; one warm-up on the first group, then one timed encode
-of the whole corpus.
+segment program, at a group lookahead of 3 (``LOOKAHEAD``: three groups
+queued on the card while the host assembles the oldest, the default of
+``bench_corpus.py``'s JAX encode); one warm-up on the first group, then
+one timed encode of the whole corpus.
 
     python -m mp3tpu_torch.tools.bench_corpus [n_clips] [seconds] [batch]
         [--device cuda|cpu]
@@ -27,6 +29,10 @@ from . import describe, device_or_exit
 from .bench import BASELINE_RT
 from .corpus_sweep import CORPUS_CFG, corpus
 
+#: the corpus groups in flight (``encode_corpus_batched(lookahead=)``), the
+#: JAX package's default ``MP3TPU_CORPUS_LOOKAHEAD``
+LOOKAHEAD = 3
+
 
 def _check(outs):
     if min(map(len, outs)) <= 1000:
@@ -35,14 +41,16 @@ def _check(outs):
 
 
 def run(n_clips, seconds, batch, device):
-    """One warm-up group and one timed encode of the corpus on `device`;
-    returns (record, the timed encode's streams)."""
+    """One warm-up group and one timed encode of the corpus on `device`, at
+    a lookahead of ``LOOKAHEAD`` groups; returns (record, the timed
+    encode's streams)."""
     dev = torch.device(device)
     clips = corpus(n_clips, seconds)
     outs, _ = encode_corpus_batched(clips[:batch], CORPUS_CFG, dev,
-                                    batch=batch)
+                                    batch=batch, lookahead=LOOKAHEAD)
     _check(outs)
-    outs, stats = encode_corpus_batched(clips, CORPUS_CFG, dev, batch=batch)
+    outs, stats = encode_corpus_batched(clips, CORPUS_CFG, dev, batch=batch,
+                                        lookahead=LOOKAHEAD)
     _check(outs)
     rt = stats["x_realtime"]
     return {

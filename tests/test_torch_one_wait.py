@@ -3,15 +3,17 @@
 
 On the card the Layer III encode functions queue the whole segment chain -- the
 analysis and demand loop, the reservoir scan (K4), the final loop and
-emission -- and then wait once, at ``_Layer3Framing.fetch``, as the JAX
-package's one program chain does (``mp3tpu/encoder.py:206-225``).  The
-host cannot time a CPU run's waits, so these tests record the calls in
-order: ``encode_layer3_fast`` queues every segment, carrying the
-automaton state and the reservoir level as tensors from one segment's
-outputs to the next's inputs, before its one ``fetch``; ``_encode_group``
-queues every analysis, the batched scan and every final encode before
-the group's one ``fetch``; ``StreamEncoder`` fetches once a window; and
-the block uploads go through ``pinned`` buffers.
+emission -- and its downloads, and then wait once, at ``Download.wait``,
+as the JAX package's one program chain does
+(``mp3tpu/encoder.py:206-225``).  The host cannot time a CPU run's
+waits, so these tests record the calls in order: ``encode_layer3_fast``
+queues every segment, carrying the automaton state and the reservoir
+level as tensors from one segment's outputs to the next's inputs, and
+each segment's download behind it (``fetch_async``, as the JAX package's
+per-segment ``device_get``), before its one wait; ``dispatch_group``
+queues every analysis, the batched scan, every final encode and the
+group's download before the group's one wait; ``StreamEncoder`` fetches
+once a window; and the block uploads go through ``pinned`` buffers.
 """
 import numpy as np
 import pytest
@@ -37,8 +39,8 @@ def _cfg(rate=44100):
 @pytest.fixture
 def calls(monkeypatch):
     """A log of the encode functions' calls, in order: ("segment", the carry's
-    types), ("analysis",), ("scan",), ("final",) and ("fetch", segments
-    fetched)."""
+    types), ("analysis",), ("scan",), ("final",), ("queue", segments of a
+    queued download) and ("wait", segments read by the wait)."""
     log = []
 
     def wrap(owner, name, entry):
@@ -52,8 +54,11 @@ def calls(monkeypatch):
     wrap(encoder._Layer3Framing, "segment",
          lambda self, blocks, fsm, size, *a: ("segment", type(fsm),
                                               type(size)))
-    wrap(encoder._Layer3Framing, "fetch",
-         lambda self, hs, keys=None: ("fetch", len(hs)))
+    wrap(encoder._Layer3Framing, "fetch_async",
+         lambda self, hs, keys=None: ("queue", len(hs)))
+    wrap(encoder.Download, "wait",
+         lambda self, earlier=(): ("wait", sum(len(d.layout) for d in
+                                               (*earlier, self))))
     wrap(Layer3SegmentEncoder, "analyze_demand_fused",
          lambda *a, **k: ("analysis",))
     wrap(Layer3SegmentEncoder, "encode_final", lambda *a, **k: ("final",))
@@ -64,13 +69,13 @@ def calls(monkeypatch):
 def _top_level(calls):
     """The calls of the one-shot and stream encoders themselves (each
     segment call makes its analysis and final encode)."""
-    return [c for c in calls if c[0] in ("segment", "fetch")]
+    return [c for c in calls if c[0] in ("segment", "queue", "wait")]
 
 
 def test_one_shot_fetches_once_after_every_segment(calls):
-    """Three segments at chunk 64, the carry passed on as tensors: the
-    only fetch comes after the last segment is queued, and takes all
-    three."""
+    """Three segments at chunk 64, the carry passed on as tensors: each
+    segment's download is queued right behind it, and the only wait comes
+    after the last segment is queued, and reads all three."""
     prof = profiling.Profiler()
     f0, r0 = encoder.fetches, encoder.retry_fetches
     out = encoder.encode_layer3_fast(make_signal(2.0, 44100), _cfg(), "cpu",
@@ -79,7 +84,8 @@ def test_one_shot_fetches_once_after_every_segment(calls):
     assert encoder.retry_fetches == r0
     segments = [c for c in calls if c[0] == "segment"]
     assert len(segments) == prof.meta["segments"] == 3
-    assert _top_level(calls) == segments + [("fetch", 3)]
+    assert _top_level(calls) == [c for seg in segments
+                                 for c in (seg, ("queue", 1))] + [("wait", 3)]
     assert encoder.fetches - f0 == 1
     # the first segment starts from a fresh level, the others from the
     # tensors the segment before returned
@@ -90,7 +96,7 @@ def test_corpus_group_fetches_once_after_its_final_encodes(calls,
                                                            monkeypatch):
     """A group of two clips of unequal length in segments of 64 granules:
     every analysis, then the one batched scan, then every final encode,
-    then the group's one fetch."""
+    then the group's one download queued and waited for."""
     monkeypatch.setattr(corpus, "_plan_segments",
                         lambda G: encoder._plan_segments(G, (64,)))
     clips = [(make_signal(2.0, 44100), 44100),
@@ -102,19 +108,20 @@ def test_corpus_group_fetches_once_after_its_final_encodes(calls,
     n = sum(1 for c in calls if c[0] == "analysis")
     assert n == 3
     assert calls == [("analysis",)] * n + [("scan",)] + [("final",)] * n \
-        + [("fetch", n)]
+        + [("queue", n), ("wait", n)]
 
 
 def test_stream_fetches_once_a_window(calls):
-    """Windows of 64 granules: one fetch per window, each after its
-    segment; the scan's level is carried as a tensor and a checkpoint
-    reads it as an int."""
+    """Windows of 64 granules: one fetch per window (a download queued
+    and waited for), each after its segment; the scan's level is carried
+    as a tensor and a checkpoint reads it as an int."""
     pcm = make_signal(1.5, 44100)
     enc = encoder.StreamEncoder(_cfg(), "cpu", window=64)
     out = enc.feed(pcm[:44100])
     windows = [c for c in calls if c[0] == "segment"]
     assert len(windows) == 44100 // (64 * 576) and len(out) > 0
-    assert _top_level(calls) == [c for w in windows for c in (w, ("fetch", 1))]
+    assert _top_level(calls) == [c for w in windows
+                                 for c in (w, ("queue", 1), ("wait", 1))]
     assert isinstance(enc.scan_size, torch.Tensor)
     ckpt = enc.checkpoint()
     assert isinstance(ckpt["scan_size"], int)
@@ -134,10 +141,11 @@ def test_uploads_on_the_cpu_are_the_buffers():
 
 
 def test_settle_reads_the_scan_once_and_fetches_each_reencode(monkeypatch):
-    """A guard retry forced on one segment of a 1 s encode: ``settle``
-    reads every segment's target and demand in one fetch and each
-    re-encode's results in one more, both counted in ``retry_fetches``;
-    the bytes stay a valid stream of the same length."""
+    """A guard retry forced on one segment of a 1 s encode: after the
+    segments' own downloads (one queued a segment), ``settle`` reads
+    every segment's target and demand in one fetch and each re-encode's
+    results in one more, both counted in ``retry_fetches``; the bytes
+    stay a valid stream of the same length."""
     pcm, cfg = make_signal(1.0, 44100), _cfg()
     want = encoder.encode_layer3_fast(pcm, cfg, "cpu", chunk=64)
     real, calls = encoder.resv_guard, []
@@ -152,8 +160,8 @@ def test_settle_reads_the_scan_once_and_fetches_each_reencode(monkeypatch):
 
     monkeypatch.setattr(encoder, "resv_guard", guard)
     seen = []
-    real_fetch = encoder._Layer3Framing.fetch
-    monkeypatch.setattr(encoder._Layer3Framing, "fetch",
+    real_fetch = encoder._Layer3Framing.fetch_async
+    monkeypatch.setattr(encoder._Layer3Framing, "fetch_async",
                         lambda self, hs, keys=None: seen.append(
                             (len(hs), keys)) or real_fetch(self, hs, keys))
     f0, r0 = encoder.fetches, encoder.retry_fetches
@@ -161,7 +169,7 @@ def test_settle_reads_the_scan_once_and_fetches_each_reencode(monkeypatch):
     out = encoder.encode_layer3_fast(pcm, cfg, "cpu", chunk=64, prof=prof)
     assert prof.meta["guard_retries"] == 1
     n = prof.meta["segments"]
-    assert seen == [(n, None), (n, ("target", "demand")),
-                    (n, ("side", "payload"))]
+    assert seen == [(1, None)] * n + [(n, ("target", "demand")),
+                                      (n, ("side", "payload"))]
     assert (encoder.fetches - f0, encoder.retry_fetches - r0) == (3, 2)
     assert len(out) == len(want)

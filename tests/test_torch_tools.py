@@ -251,6 +251,7 @@ def test_corpus_sweep_tool_on_cpu(tmp_path, monkeypatch, capsys):
                                  "--runs", "1", "--single-seconds", "1"],
                   tmp_path / "cwd", monkeypatch, capsys)
     assert [r["lane_batch"] for r in report["sweep"]] == [1, 2]
+    assert report["lookahead_groups"] == 3
     for r in report["sweep"]:
         assert r["aggregate_x_realtime"] > 0 and len(r["walls_s"]) == 1
     assert report["best"] in report["sweep"]
