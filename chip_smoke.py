@@ -7,10 +7,11 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 Phases, each printing its own lines; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi); no CUDA -> exit 1;
-  2. build the three kernel libraries, K1 (mp3tpu_torch/csrc/hist_c1.cu),
-     bits_at with K3 (csrc/bits_at.cu) and K4 (csrc/resv_scan.cu), the
-     last two with -Xptxas -v, whose reports are printed, one nvcc
-     process each, started together; timed;
+  2. build the five kernel libraries, K1 (mp3tpu_torch/csrc/hist_c1.cu),
+     bits_at with K3 (csrc/bits_at.cu), K4 (csrc/resv_scan.cu), K5
+     (csrc/alloc12.cu) and K6 (csrc/pack12.cu), all but K1 with -Xptxas
+     -v, whose reports are printed, one nvcc process each, started
+     together; timed;
   3. K1 against its plain PyTorch version on the card, bit for bit, on
      random quantized batches at G = 512, 4096 (the main path's segment
      widths) and 4099, then both timed: device time per call from
@@ -130,9 +131,36 @@ Phases, each printing its own lines; any failure exits non-zero:
      encode at chunk 1024 byte for byte, and the stream in the yardstick
      form, and so must a run checkpointed at 30 s, pickled and resumed in
      a fresh encoder; one wait a window;
-  8. Layers I/II: the six fixtures of tests/test_layer12_fast.py and its
-     CRC case, then a 60 s stereo 44.1 kHz Layer II 192 kbps clip (frame
-     grid, timed, first 10 s within 0.5 dB of the CPU path);
+  8. Layers I/II, one chain queued on the card (the analysis, K5 -- the
+     joint decision and the greedy bit allocation, one warp a frame --,
+     the quantizers, the element marshalling, K6 -- each frame packed
+     with its CRC, one block a frame --, one download): the six fixtures
+     of tests/test_layer12_fast.py at their reference bars and the two
+     CRC fixtures decoding, each equal byte for byte to the host route it
+     replaced (l12_host_route: runtime/alloc12,
+     _marshal_layer12 with _crc_calc, pack_elements); K5 against its
+     plain version (runtime/alloc12's numpy code) on every output and its
+     greedy steps against the lockstep loop's rounds, on the CRC
+     fixtures', the bench signal's and the forced rows of
+     tests/test_torch_layer12_card.py (ties, +-inf, NaN, silent frames,
+     every subband to its top); K6 against its plain version on every
+     byte; then on the 60 s bench signal at Layer II 192 kbps and Layer
+     I 384 kbps stereo: K5 and K6 launched once each and no Layer III
+     kernel, each kernel timed (device time, call time, the plain
+     version's time) beside its bound (K5: its bytes or its design's
+     floor, the longest frame's greedy steps on the dependent path,
+     k5_bound; K6: its bytes), the host route and the card chain in 3
+     turns of host, card, card, host (walls, real-time factor), then the
+     same with every stage synchronized (each stage's wall, median of 6;
+     the host route's _crc_calc inside its _marshal_layer12), one
+     profiled encode of each (device events, idle share), one traced
+     encode of each (span_breakdown by runtime.profiling.SPANS_L12), and
+     the host's waits by torch's count: 1 an encode, one a window of
+     encode_layer12_stream; the same bytes as the host route at joint
+     stereo with the CRC on at both layers, at stereo with the CRC, and
+     at 24 kHz (LSF); psy model 1 (on the host) with 2 waits; the Layer
+     II stream on the frame grid, its first 10 s within 0.5 dB of the
+     CPU path;
   9. the command line: python -m mp3tpu_torch on a 10 s WAV and on raw
      PCM piped to stdin must write the library's bytes;
   10. corpus: 32 stereo 44.1 kHz 128 kbps clips x 10 s (bench_corpus.py's
@@ -205,8 +233,8 @@ Phases, each printing its own lines; any failure exits non-zero:
 On every path (main, LSF, stream, corpus, sharded) K3 must launch, the
 segment program's CUDA graphs must replay (the analysis, the rate loop
 and the emission; the sharded path's analysis, which holds an exchange
-between ranks, runs its lanes as one batch op by op), and the rate loop
-must launch bits_at and the baseline no time; every path but the
+between ranks, runs its lanes as one batch op by op), and none may
+launch bits_at, the baseline, K5 or K6; every path but the
 sharded one (which keeps its host scan, as the JAX package does) must
 launch K4 and make no loop-exit sync and no scan copy; the launches,
 the host's waits by kind and graph captures and replays by stage per
@@ -1470,6 +1498,8 @@ def reset_counts(ctx):
     ctx["k1"].hist_c1.launches = 0
     ctx["R"].launches = 0
     ctx["R"].host_scans = 0
+    ctx["A12"].launches = 0
+    ctx["P12"].launches = 0
     ctx["E"].fetches = 0
     ctx["E"].retry_fetches = 0
     ctx["loop"].any_on_host.syncs = 0
@@ -1498,7 +1528,8 @@ WAITS = {"syncs": "loop exit", "scan_copies": "scan copy",
 
 
 def launch_counts(ctx):
-    """{kernel: launches ("resv_scan": K4), "syncs": loop-exit host syncs,
+    """{kernel: launches ("resv_scan": K4, "alloc12": K5, "pack12": K6),
+    "syncs": loop-exit host syncs,
     "scan_copies": host scans of the card's results, "fetches": result
     downloads ("retry_fetches": those of settle's rare retries),
     "iterations": the rate loops' live iterations (read on
@@ -1511,6 +1542,7 @@ def launch_counts(ctx):
             "hist_c1": ctx["k1"].hist_c1.launches,
             "baseline": ctx["S"].baseline_launches,
             "resv_scan": ctx["R"].launches,
+            "alloc12": ctx["A12"].launches, "pack12": ctx["P12"].launches,
             "syncs": ctx["loop"].any_on_host.syncs,
             "scan_copies": ctx["R"].host_scans,
             "fetches": ctx["E"].fetches,
@@ -1535,16 +1567,17 @@ SHARDED_STAGES = ("prologue", "iteration", "emission")
 
 def read_counts(ctx, path, stages=SEGMENT_STAGES, k4=True):
     """launch_counts; fails unless the path launched K3 and replayed the
-    graphs of each of `stages`, and its rate loop launched bits_at and
-    the baseline no time; with `k4` (every path but the sharded one),
-    unless it launched K4 and made no loop-exit sync and no scan copy."""
+    graphs of each of `stages`, and it launched bits_at, the baseline and
+    the Layer I/II kernels (K5, K6) no time; with `k4` (every path but the
+    sharded one), unless it launched K4 and made no loop-exit sync and no
+    scan copy."""
     counts = launch_counts(ctx)
     if counts["search"] <= 0:
         fail(f"the {path} launched K3 no time")
     for stage in stages:
         if counts[f"{stage}_replays"] <= 0:
             fail(f"the {path} replayed the {stage} graphs no time: {counts}")
-    for kernel in ("bits_at", "baseline"):
+    for kernel in ("bits_at", "baseline", "alloc12", "pack12"):
         if counts[kernel]:
             fail(f"the {path} launched {kernel} {counts[kernel]} times")
     if k4 and (counts["resv_scan"] <= 0 or counts["syncs"]
@@ -1725,6 +1758,122 @@ L12_FIXTURES = [
     ("l1_sweep_j_256", 1, "j", 256, 44100),
 ]
 L12_DELAY = {1: 545, 2: 481}
+#: phase 8 times the host route and the card chain in this many turns of
+#: host, card, card, host (6 runs each), walls and stage splits apart
+L12_TURNS = 3
+#: phase 8's timed cells on the bench signal: (label, layer, kbps); stereo
+L12_CELLS = (("Layer II 192 kbps", 2, 192), ("Layer I 384 kbps", 1, 384))
+#: the card chain's stages and the host route's, as their Profiler stages
+#: and spans (runtime.profiling.SPANS_L12) name them, and the PCM's framing
+#: (encoder._layer12_frame) ahead of both
+L12_CARD_STAGES = ("framing", "analyze_frames", "greedy_allocation",
+                   "quantize_l{}", "_marshal_layer12", "pack_elements",
+                   "fetch")
+L12_HOST_STAGES = ("framing", "analyze_frames", "download", "joint_mode",
+                   "greedy_allocation", "quantize_l{}", "_marshal_layer12",
+                   "_crc_calc", "pack_elements")
+#: cycles of one dependent shuffle (__shfl_sync, __shfl_xor_sync), of one
+#: float64 add or compare, and of one shared-memory load (Volta's 19, as in
+#: K4_LOOKUP_CYCLES) on an SM; assumed, not measured on the card
+SHFL_CYCLES, FP64_LATENCY_CYCLES, SHARED_LOAD_CYCLES = 24, 8, 19
+#: cycles of K5's argmin in one greedy step (csrc/alloc12.cu): each lane's
+#: pick of its two candidates (the candidate's select, then `before`'s NaN
+#: tests, compare and select), 5 shuffle rounds (a shuffle and those 3
+#: dependent integer operations), and the exit test (a float64 compare)
+K5_ARGMIN_CYCLES = 4 * INT_LATENCY_CYCLES \
+    + 5 * (SHFL_CYCLES + 3 * INT_LATENCY_CYCLES) + FP64_LATENCY_CYCLES
+#: cycles of the winner lane's fit after the argmin, by layer.  Layer II:
+#: the select of the winning channel's ba, the load of the cost at cur + 1
+#: (the cost at cur and the SNR at cur + 1 load beside it), inc's subtract,
+#: the last add of the fit's sum and its compare; the sum's earlier adds
+#: read only the running sums and the step's selects and run beside the
+#: load.  Layer I: the selects of the winning channel and of inc and scale
+#: on `first`, then the sum's last 3 adds and its compare
+K5_FIT_CYCLES = {
+    2: INT_LATENCY_CYCLES + SHARED_LOAD_CYCLES + 3 * FP64_LATENCY_CYCLES,
+    1: 2 * INT_LATENCY_CYCLES + 4 * FP64_LATENCY_CYCLES}
+
+
+def k5_step_cycles(layer):
+    """Cycles of one greedy step on K5's dependent path: the argmin, the
+    winner's fit and the select of its ba, used and mnr on the fit (the new
+    mnr, -smr + the SNR at cur + 1, does not wait for the fit).  Off the
+    path: Layer I's limit (a shuffle and an add of mnr[0][0] at the step's
+    start, beside the argmin), the fit's broadcast and the running sums'
+    adds (only the next step's fit reads them, after its argmin)."""
+    return K5_ARGMIN_CYCLES + K5_FIT_CYCLES[layer] + INT_LATENCY_CYCLES
+
+
+@contextlib.contextmanager
+def l12_span(prof, name):
+    """``prof.stage(name)`` inside the trace span `name`."""
+    from mp3tpu_torch.runtime import profiling
+    with prof.stage(name), profiling.scope(name):
+        yield
+
+
+def l12_host_route(pcm, cfg, device, prof=None):
+    """The Layer I/II route that ``encoder.encode_layer12_fast``'s card
+    chain replaced, composed from the port's module functions as the
+    yardstick of phase 8 and of the tests: the framing, the analysis and
+    the quantizers on `device` (``encoder._layer12_frame``,
+    ``_layer12_analysis``, ``_layer12_quantize``); the joint decision and
+    the greedy allocation (``runtime/alloc12``), the marshalling
+    (``encoder._marshal_layer12``, with its per-frame ``_crc_calc``) and
+    the packing (``runtime.bitstream.pack_elements``) on the host, with a
+    download before each host stage.  The same bytes as the card chain."""
+    import numpy as np
+    import torch
+    from mp3tpu_torch import encoder as E
+    from mp3tpu_torch import resolve_device
+    from mp3tpu_torch.runtime import alloc12, profiling
+    from mp3tpu_torch.runtime.bitstream import pack_elements
+    from mp3tpu_torch.tables import mpeg
+    dev = resolve_device(device)
+    prof = prof if prof is not None else profiling.NULL
+    with prof.stage("framing"):
+        P, x = E._layer12_frame(pcm, cfg)
+    layer, nch, F = P.layer, P.nch, P.F
+    with prof.stage("analyze_frames"):
+        ana = E._layer12_analysis(x, P, dev)
+    with prof.stage("download"):
+        scalar = ana["scalar"].cpu().numpy()              # (nch, F, G, 32)
+        scfsi = ana["scfsi"].cpu().numpy() if layer == 2 else None
+        if cfg.psy_model == 1:
+            from mp3tpu_torch.numpy_ref.tonal import psycho_one_frames
+            snr = psycho_one_frames(x.astype(np.float64), layer, cfg,
+                                    ana["sb"].cpu().numpy())
+        else:
+            snr = ana["snr"].cpu().numpy().astype(np.float64)
+    smr = np.stack([snr[0], snr[nch - 1]], axis=1)        # (F, 2, 32)
+    scfsi_fc = (np.stack([scfsi[0], scfsi[nch - 1]], axis=1).astype(np.int64)
+                if layer == 2 else None)
+    with l12_span(prof, "joint_mode"):
+        if P.joint:
+            is_js, mode_ext, jsbound = alloc12.joint_mode(
+                smr, scfsi_fc, P.adb, layer, P.table, nch,
+                cfg.error_protection)
+            mode = np.where(is_js, mpeg.MODE_JOINT, mpeg.MODE_STEREO)
+        else:
+            mode = np.full(F, cfg.mode)
+            mode_ext = np.zeros(F, np.int64)
+            jsbound = np.full(F, P.sblimit if layer == 2 else 32)
+    with l12_span(prof, "greedy_allocation"):
+        ba, adb_left = alloc12.greedy_allocation(
+            smr, scfsi_fc, np.full(F, P.adb), jsbound, layer, P.table, nch,
+            cfg.error_protection)
+    with prof.stage(f"quantize_l{layer}"):
+        codes = E._layer12_quantize(ana, P, torch.as_tensor(jsbound,
+                                                            device=dev),
+                                    torch.as_tensor(ba, device=dev))
+    with prof.stage("download"):
+        codes = codes.cpu().numpy()                       # (nch, F, G, 12, 32)
+    with l12_span(prof, "_marshal_layer12"):
+        values, lengths = E._marshal_layer12(
+            cfg, layer, P.table, P.sblimit, nch, F, mode, mode_ext, jsbound,
+            ba, scfsi, scalar, codes, adb_left)
+    with l12_span(prof, "pack_elements"):
+        return pack_elements(values, lengths) + b"\x00"
 
 
 def l12_snr(np, orig, deco, d):
@@ -1734,21 +1883,317 @@ def l12_snr(np, orig, deco, d):
     return 10 * np.log10((o ** 2).sum() / max((err ** 2).sum(), 1e-30))
 
 
-def phase_layer12(ctx):
-    """Phase 8: Layers I/II on the card."""
-    np, torch, EncoderConfig, mpeg = (ctx["np"], ctx["torch"],
-                                      ctx["EncoderConfig"], ctx["mpeg"])
-    from mp3tpu_torch.decoder import layer12 as dec12
-    from mp3tpu_torch.encoder import encode_layer12_fast
+def l12_cfg(ctx, layer, mode, kbps, rate=44100, crc=False):
+    mpeg = ctx["mpeg"]
     modes = {"s": mpeg.MODE_STEREO, "j": mpeg.MODE_JOINT,
              "m": mpeg.MODE_MONO}
+    return ctx["EncoderConfig"](layer=layer, mode=modes[mode],
+                                bitrate_kbps=kbps, sample_rate_hz=rate,
+                                error_protection=crc)
+
+
+def l12_launches(ctx, path, run):
+    """run() with the counts reset before and read after; fails unless it
+    launched K5 and K6 once each and no Layer III kernel.  Returns
+    (run()'s result, the counts)."""
+    reset_counts(ctx)
+    out = run()
+    counts = launch_counts(ctx)
+    if (counts["alloc12"], counts["pack12"]) != (1, 1) or any(
+            counts[k] for k in ("search", "bits_at", "hist_c1", "baseline",
+                                "resv_scan", "replays")):
+        fail(f"{path}: launches {counts} (expected K5 1, K6 1, no Layer III "
+             f"kernel)")
+    return out, counts
+
+
+def l12_capture(ctx, run):
+    """run() with K5's and K6's wrappers recorded at their entry (the
+    encoder looks them up at each call): ([allocate args], [pack_frames
+    args])."""
+    A12, P12 = ctx["A12"], ctx["P12"]
+    real_a, real_p = A12.allocate, P12.pack_frames
+    seen_a, seen_p = [], []
+
+    def rec_a(*args):
+        seen_a.append(args)
+        return real_a(*args)
+
+    def rec_p(*args):
+        seen_p.append(args)
+        return real_p(*args)
+
+    A12.allocate, P12.pack_frames = rec_a, rec_p
+    try:
+        run()
+    finally:
+        A12.allocate, P12.pack_frames = real_a, real_p
+    return seen_a, seen_p
+
+
+def k5_check(ctx, label, args):
+    """K5 against its plain version on `args` (allocate's), torch.equal on
+    every output, and its greedy steps against the lockstep code's rounds
+    (the longest frame's steps + 1, counted by a line tracer); returns
+    (max abs error, the longest frame's steps)."""
+    torch, A12 = ctx["torch"], ctx["A12"]
+    from test_torch_layer12_card import lockstep_rounds
+    got = A12.allocate(*args)
+    torch.cuda.synchronize()
+    want = A12.allocate_plain(*args)
+    err = max(int((got[k].cpu().long() - want[k].long()).abs().max())
+              if want[k].numel() else 0 for k in A12.OUTPUTS)
+    bad = [k for k in A12.OUTPUTS if not torch.equal(got[k].cpu(), want[k])]
+    if bad:
+        fail(f"K5 != its plain version on {label} in {bad}")
+    smr, scf, layer, table, nch, sblimit, adb, ep, joint, mode = args
+    steps = int(got["steps"].max()) if smr.shape[0] else 0
+    kw = dict(layer=layer, table=table, nch=nch, adb=adb,
+              error_protection=ep)
+    rounds = lockstep_rounds(
+        smr.cpu().numpy(), None if scf is None else scf.cpu().numpy(), kw,
+        want["jsbound"].numpy().astype("int64"))
+    if steps + 1 != rounds:
+        fail(f"K5 on {label}: the longest frame's steps {steps} + 1 != the "
+             f"lockstep rounds {rounds}")
+    return err, steps
+
+
+def k5_bound(smr, scf, layer, steps):
+    """K5's least time (ms, "bytes" or "operations"): the larger of its
+    bytes (the SMR and scfsi read once; ba, adb_left, mode, mode_ext,
+    jsbound and steps written once) at the HBM rate and its design's
+    floor, the longest frame's greedy steps on the dependent path,
+    k5_step_cycles(layer) each at the boost clock."""
+    F = smr.shape[0]
+    moved = nbytes(smr) + (0 if scf is None else nbytes(scf)) + F * 69 * 4
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    floor = steps * k5_step_cycles(layer) / SM_CLOCK_HZ * 1e3
+    return (t_bytes, "bytes") if t_bytes >= floor else (floor, "operations")
+
+
+def k6_check(ctx, label, args):
+    """K6 against its plain version on `args` (pack_frames'), torch.equal
+    on the whole buffer and status 0; returns the max abs error."""
+    torch, P12 = ctx["torch"], ctx["P12"]
+    got = P12.pack_frames(*args)
+    torch.cuda.synchronize()
+    want = P12.pack_frames_plain(*args)
+    err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+    if not torch.equal(got, want):
+        fail(f"K6 != its plain version on {label} (max abs error {err})")
+    if P12.split(got)[0].tolist() != [0, 0]:
+        fail(f"K6 on {label}: status {P12.split(got)[0].tolist()}")
+    return err
+
+
+def k6_bound(values, lengths, frame_bytes):
+    """K6's bytes bound (ms): the rows read once, the frames and status
+    written once, at the HBM rate."""
+    F = values.shape[0]
+    moved = nbytes(values, lengths) + F * frame_bytes + 8
+    return moved / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def kernel_timed(ctx, fn, plain, plain_on_host):
+    """(device ms, call ms, plain ms) of one kernel wrapper call: device
+    time by torch.profiler (CUDA events behind a sleep where it records
+    none; the call time where neither does), the plain version's device
+    time, or its host wall (median of
+    3, its download included) when it runs on the host."""
+    torch = ctx["torch"]
+    k_call = call_ms(fn, reps=20)
+    k_dev = device_ms(fn) or queued_ms(fn) or k_call
+    if plain_on_host:
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plain()
+            times.append((time.perf_counter() - t0) * 1e3)
+        p_ms = statistics.median(times)
+    else:
+        p_ms = device_ms(plain, reps=3) or queued_ms(plain, reps=3) \
+            or call_ms(plain, reps=3)
+    return k_dev, k_call, p_ms
+
+
+class SyncStages:
+    """A Profiler whose stages synchronize the card before and after, so
+    that each stage's wall holds its device work (measurement only: it
+    adds waits)."""
+
+    def __init__(self, torch, Profiler):
+        self.torch, self.prof = torch, Profiler()
+        self.meta = self.prof.meta
+
+    @contextlib.contextmanager
+    def stage(self, name):
+        self.torch.cuda.synchronize()
+        with self.prof.stage(name):
+            yield
+            self.torch.cuda.synchronize()
+
+
+def l12_staged(ctx, route, pcm, cfg):
+    """One encode of `route` ("host": l12_host_route, "card":
+    encode_layer12_fast) under SyncStages: (bytes, synced wall s, {stage:
+    s}), the host route's _crc_calc calls timed by a wrapper of
+    numpy_ref.layer12._crc_calc (they run inside its _marshal_layer12)."""
+    torch, E = ctx["torch"], ctx["E"]
+    from mp3tpu_torch.numpy_ref import layer12 as ref12
+    from mp3tpu_torch.runtime.profiling import Profiler
+    fn = l12_host_route if route == "host" else E.encode_layer12_fast
+    prof = SyncStages(torch, Profiler)
+    real_crc, crc_s = ref12._crc_calc, [0.0]
+
+    def timed_crc(*a):
+        t0 = time.perf_counter()
+        try:
+            return real_crc(*a)
+        finally:
+            crc_s[0] += time.perf_counter() - t0
+
+    ref12._crc_calc = timed_crc
+    try:
+        t0 = time.perf_counter()
+        out = fn(pcm, cfg, "cuda", prof=prof)
+        wall = time.perf_counter() - t0
+    finally:
+        ref12._crc_calc = real_crc
+    stages = dict(prof.prof.stages)
+    if route == "host":
+        stages["_crc_calc"] = crc_s[0]
+    return out, wall, stages
+
+
+def l12_routes(ctx, pcm, cfg_of, label):
+    """The host route (l12_host_route) and the card chain
+    (encode_layer12_fast) on `pcm` in L12_TURNS turns of host, card, card,
+    host: the walls (median of 6, RTF), then the walls by stage
+    (l12_staged, median of 6 a stage), the same bytes every run.  Returns
+    ({route: {"wall": s, "walls": [s], "stages": {stage: s},
+    "synced_wall": s}}, the bytes)."""
+    torch, E = ctx["torch"], ctx["E"]
+    runs = {"host": l12_host_route, "card": E.encode_layer12_fast}
+    want = runs["card"](pcm, cfg_of(), "cuda")
+    if runs["host"](pcm, cfg_of(), "cuda") != want:
+        fail(f"{label}: the card chain and the host route give other bytes")
+    walls = {r: [] for r in runs}
+    stages = {r: {} for r in runs}
+    synced = {r: [] for r in runs}
+    for _ in range(L12_TURNS):
+        for route in ("host", "card", "card", "host"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = runs[route](pcm, cfg_of(), "cuda")
+            walls[route].append(time.perf_counter() - t0)
+            if out != want:
+                fail(f"{label}: the {route} route changed its bytes")
+    for _ in range(L12_TURNS):
+        for route in ("host", "card", "card", "host"):
+            out, wall, got = l12_staged(ctx, route, pcm, cfg_of())
+            synced[route].append(wall)
+            if out != want:
+                fail(f"{label}: the {route} route changed its bytes")
+            for k, v in got.items():
+                stages[route].setdefault(k, []).append(v)
+    res = {}
+    for route in runs:
+        res[route] = dict(
+            wall=statistics.median(walls[route]), walls=walls[route],
+            synced_wall=statistics.median(synced[route]),
+            stages={k: statistics.median(v)
+                    for k, v in stages[route].items()})
+    return res, want
+
+
+def l12_trace(ctx, pcm, cfg_of, label, want):
+    """One traced encode of each route: span_breakdown by the spans of
+    runtime.profiling.SPANS_L12, and the card chain's K5 and K6 kernel
+    events (one each)."""
+    E = ctx["E"]
+    from mp3tpu_torch.runtime.profiling import SPANS_L12, trace
+    from mp3tpu_torch.tools.trace_stages import span_breakdown
+    res = {}
+    for route, fn in (("host", l12_host_route),
+                      ("card", E.encode_layer12_fast)):
+        with tempfile.TemporaryDirectory() as tmp:
+            with trace(tmp, "cuda"):
+                t0 = time.perf_counter()
+                out = fn(pcm, cfg_of(), "cuda")
+                wall = time.perf_counter() - t0
+            bd = span_breakdown(os.path.join(tmp, "trace.json"), SPANS_L12)
+        if out != want:
+            fail(f"{label}: the traced {route} route gave other bytes")
+        res[route] = bd
+        print(f"{label}, {route} route traced: {wall:.4f} s, "
+              f"{bd['device_events']} device events "
+              f"({bd['device_s'] * 1e3:.3f} ms), host dispatches "
+              f"{bd['host_dispatches']}", flush=True)
+        for name in SPANS_L12:
+            r = bd["spans"][name]
+            if r["count"]:
+                print(f"  span {name}: {r['count']} x, host "
+                      f"{r['host_s'] * 1e3:.3f} ms ({r['host_s'] / wall:.1%}"
+                      f"), device events {r['device_events']}, device "
+                      f"{r['device_s'] * 1e3:.3f} ms, host dispatches "
+                      f"{r['host_dispatches']}", flush=True)
+    card = res["card"]["spans"]
+    for name in ("analyze_frames", "greedy_allocation", "_marshal_layer12",
+                 "pack_elements", "fetch"):
+        if card[name]["count"] != 1:
+            fail(f"{label}: the card chain's trace holds span {name} "
+                 f"{card[name]['count']} times")
+    for name in ("greedy_allocation", "pack_elements"):
+        if card[name]["self_device_events"] < 1:
+            fail(f"{label}: no device event under {name} in the trace")
+    return res
+
+
+def l12_waits(ctx, pcm, cfg_of, label):
+    """The host's waits of a warm card-chain encode (1) and of a stream
+    at 512 frames a window (one a window), by torch's count."""
+    E = ctx["E"]
+    E.encode_layer12_fast(pcm, cfg_of(), "cuda")
+    out, where = torch_waits(ctx, lambda: E.encode_layer12_fast(
+        pcm, cfg_of(), "cuda"))
+    if sum(where.values()) != 1:
+        fail(f"{label}: {sum(where.values())} host waits an encode "
+             f"(expected 1): {where}")
+    rate = 44100
+    pieces = [pcm[s:s + rate] for s in range(0, len(pcm), rate)]
+    spf = 384 if cfg_of().layer == 1 else 1152
+    windows = -(-(-(-len(pcm) // spf)) // 512)
+    streamed, swhere = torch_waits(ctx, lambda: b"".join(
+        E.encode_layer12_stream(iter(pieces), cfg_of(), "cuda")))
+    if streamed != out or sum(swhere.values()) != windows:
+        fail(f"{label} stream: equal {streamed == out}, waits "
+             f"{sum(swhere.values())} (expected {windows}): {swhere}")
+    print(f"{label}: host waits of a warm encode {where}; the stream in 1 s "
+          f"pieces at 512 frames a window equals the one-shot with "
+          f"{windows} waits, one a window", flush=True)
+    return windows
+
+
+def phase_layer12(ctx):
+    """Phase 8: Layers I/II on the card; returns the measurements."""
+    np, torch, E = ctx["np"], ctx["torch"], ctx["E"]
+    from mp3tpu_torch.decoder import layer12 as dec12
+    from mp3tpu_torch.encoder import encode_layer12_fast
     golden = os.path.join(ROOT, "tests", "golden")
     worst = None
+    k5_err = k6_err = 0
     for name, layer, mode, kbps, rate in L12_FIXTURES:
         pcm, _ = ctx["read_wav"](os.path.join(golden, f"{name}.wav"))
-        cfg = EncoderConfig(layer=layer, mode=modes[mode],
-                            bitrate_kbps=kbps, sample_rate_hz=rate)
+        if mode == "m":
+            pcm = pcm[:, :1]
+        cfg = l12_cfg(ctx, layer, mode, kbps, rate)
         out = encode_layer12_fast(pcm, cfg, "cuda")
+        if l12_host_route(pcm, l12_cfg(ctx, layer, mode, kbps, rate),
+                          "cuda") != out:
+            fail(f"{name}: the card chain and the host route give other "
+                 f"bytes")
         with open(os.path.join(golden, f"{name}.ref.mp{layer}"), "rb") as f:
             ref = f.read()
         if len(out) != len(ref) or out[:3] != ref[:3]:
@@ -1764,30 +2209,169 @@ def phase_layer12(ctx):
                      f"{s_r:.2f} dB")
             if worst is None or s_o - s_r < worst[0]:
                 worst = (s_o - s_r, name, c)
-    pcm, rate = ctx["read_wav"](os.path.join(golden,
-                                             "l2_noise_st_192_crc.wav"))
-    cfg = EncoderConfig(layer=2, mode=mpeg.MODE_STEREO, bitrate_kbps=192,
-                        sample_rate_hz=rate, error_protection=True)
-    dec, _ = dec12.decode(encode_layer12_fast(pcm, cfg, "cuda"))
-    if len(dec) < len(pcm) - 1152 or \
-            not l12_snr(np, pcm[:, 0], dec[:, 0], L12_DELAY[2]) > 0.0:
-        fail("Layer II CRC fixture does not decode")
+    for name, layer, kbps in (("l2_noise_st_192_crc", 2, 192),
+                              ("l1_noise_st_448_48k_crc", 1, 448)):
+        pcm, rate = ctx["read_wav"](os.path.join(golden, f"{name}.wav"))
+        cfg_of = (lambda layer=layer, kbps=kbps, rate=rate: l12_cfg(
+            ctx, layer, "s", kbps, rate, crc=True))
+        alloc_args, pack_args = l12_capture(
+            ctx, lambda: encode_layer12_fast(pcm, cfg_of(), "cuda"))
+        out = encode_layer12_fast(pcm, cfg_of(), "cuda")
+        if l12_host_route(pcm, cfg_of(), "cuda") != out:
+            fail(f"{name}: the card chain and the host route (pack_elements "
+                 f"with _crc_calc) give other bytes")
+        k5_err = max(k5_err, k5_check(ctx, name, alloc_args[0])[0])
+        k6_err = max(k6_err, k6_check(ctx, name, pack_args[0]))
+        dec, _ = dec12.decode(out)
+        if len(dec) < len(pcm) - 1152 or \
+                not l12_snr(np, pcm[:, 0], dec[:, 0], L12_DELAY[layer]) > 0.0:
+            fail(f"{name} does not decode")
     print(f"Layers I/II: 6 fixtures at the reference streams' length and "
           f"header, decoded SNR within 0.5 dB (worst {worst[0]:+.4f} dB, "
-          f"{worst[1]} ch{worst[2]}); CRC fixture decodes", flush=True)
+          f"{worst[1]} ch{worst[2]}); the CRC fixtures decode; the card "
+          f"chain gives the host route's bytes on all 8", flush=True)
+
+    # K5 on the forced rows of tests/test_torch_layer12_card.py
+    from test_torch_layer12_card import alloc_cases
+    for label, smr, scf, kw in alloc_cases():
+        args = (torch.as_tensor(smr, device="cuda"),
+                None if scf is None else torch.as_tensor(scf, device="cuda"),
+                kw["layer"], kw["table"], kw["nch"], kw["sblimit"],
+                kw["adb"], kw["error_protection"], kw["joint"], kw["mode"])
+        k5_err = max(k5_err, k5_check(ctx, label, args)[0])
+    print("K5 == its plain version on the forced rows of "
+          "tests/test_torch_layer12_card.py (ties, +-inf, NaN, silent "
+          "frames, every subband to its top) of 24 configurations",
+          flush=True)
 
     pcm = ctx["make_signal"](CLIP_SECONDS, 44100)
-    cfg = EncoderConfig(layer=2, mode=mpeg.MODE_STEREO, bitrate_kbps=192,
-                        sample_rate_hz=44100)
-    out = encode_layer12_fast(pcm, cfg, "cuda")             # warm-up
-    times = []
-    for _ in range(TIMED_RUNS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out_t = encode_layer12_fast(pcm, cfg, "cuda")
-        times.append(time.perf_counter() - t0)
-        if out_t != out:
-            fail("Layer II: two encodes of one clip differ")
+    res = dict(cells={})
+    for label, layer, kbps in L12_CELLS:
+        cfg_of = (lambda layer=layer, kbps=kbps: l12_cfg(ctx, layer, "s",
+                                                         kbps))
+        out, counts = l12_launches(
+            ctx, label, lambda: encode_layer12_fast(pcm, cfg_of(), "cuda"))
+        alloc_args, pack_args = l12_capture(
+            ctx, lambda: encode_layer12_fast(pcm, cfg_of(), "cuda"))
+        err5, steps = k5_check(ctx, label, alloc_args[0])
+        err6 = k6_check(ctx, label, pack_args[0])
+        k5_err, k6_err = max(k5_err, err5), max(k6_err, err6)
+        A12, P12 = ctx["A12"], ctx["P12"]
+        a5, a6 = alloc_args[0], pack_args[0]
+        k5_ms, k5_call, k5_plain = kernel_timed(
+            ctx, lambda: A12.allocate(*a5), lambda: A12.allocate_plain(*a5),
+            True)
+        k6_ms, k6_call, k6_plain = kernel_timed(
+            ctx, lambda: P12.pack_frames(*a6),
+            lambda: P12.pack_frames_plain(*a6), False)
+        b5, b5_by = k5_bound(a5[0], a5[1], layer, steps)
+        b6, b6_by = k6_bound(a6[0], a6[1], a6[2])
+        F, Ecols = a6[0].shape
+        clip = f"{label} {CLIP_SECONDS:g} s"
+        print(f"{clip}: K5 == plain, {a5[0].shape[0]} frames, longest "
+              f"frame {steps} greedy steps; device {k5_ms} ms, call "
+              f"{k5_call:.4f} ms, plain (numpy on the host with its "
+              f"download) {k5_plain:.3f} ms; bound {b5:.6f} ms ({b5_by}), "
+              f"at {b5 / k5_ms:.1%} of it", flush=True)
+        print(f"{clip}: K6 == plain, {F} frames x {Ecols} elements of "
+              f"{a6[2]} bytes; device {k6_ms} ms, call {k6_call:.4f} ms, "
+              f"plain (torch ops on the card) {k6_plain} ms; bound "
+              f"{b6:.6f} ms ({b6_by}), at {b6 / k6_ms:.1%} of it",
+              flush=True)
+        routes, want = l12_routes(ctx, pcm, cfg_of, label)
+        if want != out:
+            fail(f"{label}: the timed runs gave other bytes")
+        for route, r in routes.items():
+            names = [n.format(layer) for n in (
+                L12_CARD_STAGES if route == "card" else L12_HOST_STAGES)]
+            # _crc_calc runs inside _marshal_layer12
+            inside = sum(r["stages"].get(n, 0.0) for n in names
+                         if n != "_crc_calc")
+            r["outside_s"] = r["synced_wall"] - inside
+            print(f"{clip}, {route} route: median wall "
+                  f"{r['wall']:.4f} s of {2 * L12_TURNS} in turns "
+                  f"({CLIP_SECONDS / r['wall']:.2f}x real time; "
+                  f"{', '.join(f'{w:.4f}' for w in r['walls'])}); stages "
+                  f"synchronized (median of {2 * L12_TURNS}, the synced "
+                  f"wall {r['synced_wall']:.4f} s): " + ", ".join(
+                      f"{n} {r['stages'].get(n, 0.0) * 1e3:.3f} ms"
+                      for n in names)
+                  + f"; outside them {r['outside_s'] * 1e3:.3f} ms",
+                  flush=True)
+        events = {}
+        for route, fn in (("host", l12_host_route),
+                          ("card", encode_layer12_fast)):
+            ev, busy, wall = profile_once(lambda fn=fn: fn(pcm, cfg_of(),
+                                                           "cuda"))
+            events[route] = dict(events=events_by_cat(ev), busy_s=busy,
+                                 wall_s=wall, idle=1 - busy / wall)
+            print(f"{clip}, {route} route profiled: device events "
+                  f"{events[route]['events']}, busy {busy:.4f} s of "
+                  f"{wall:.4f} s (idle share {1 - busy / wall:.3f})",
+                  flush=True)
+        l12_trace(ctx, pcm, cfg_of, label, want)
+        windows = l12_waits(ctx, pcm, cfg_of, label)
+        res["cells"][label] = dict(
+            launches=counts, k5=dict(ms=k5_ms, call_ms=k5_call,
+                                     plain_ms=k5_plain, bound_ms=b5,
+                                     bound_by=b5_by, steps=steps),
+            k6=dict(ms=k6_ms, call_ms=k6_call, plain_ms=k6_plain,
+                    bound_ms=b6, bound_by=b6_by), routes=routes,
+            events=events, windows=windows)
+        if layer == 2:
+            res["out"] = out
+
+    # the bench signal at joint stereo with the CRC, both layers, and LSF
+    for layer, mode, kbps, rate, crc in ((2, "j", 192, 44100, True),
+                                         (1, "j", 384, 44100, True),
+                                         (2, "s", 192, 44100, True),
+                                         (2, "j", 96, 24000, False)):
+        x = pcm if rate == 44100 else ctx["make_signal"](CLIP_SECONDS, rate)
+        cfg_of = (lambda layer=layer, mode=mode, kbps=kbps, rate=rate,
+                  crc=crc: l12_cfg(ctx, layer, mode, kbps, rate, crc))
+        alloc_args, pack_args = l12_capture(
+            ctx, lambda: encode_layer12_fast(x, cfg_of(), "cuda"))
+        out = encode_layer12_fast(x, cfg_of(), "cuda")
+        if l12_host_route(x, cfg_of(), "cuda") != out:
+            fail(f"Layer {layer} {mode} {kbps} kbps {rate} Hz crc {crc}: the "
+                 f"card chain and the host route give other bytes")
+        label = f"Layer {layer} {rate} Hz {kbps} kbps {mode} crc {crc}"
+        k5_err = max(k5_err, k5_check(ctx, label, alloc_args[0])[0])
+        k6_err = max(k6_err, k6_check(ctx, label, pack_args[0]))
+        print(f"{label}, {CLIP_SECONDS:g} s: the card chain == the host "
+              f"route ({len(out)} bytes); K5 and K6 == plain", flush=True)
+        if crc:
+            # one run of each route by stage: what the CRC costs each
+            for route in ("host", "card"):
+                got, wall, st = l12_staged(ctx, route, x, cfg_of())
+                if got != out:
+                    fail(f"{label}: the staged {route} run gave other "
+                         f"bytes")
+                print(f"  {route} route, stages synchronized (one run, "
+                      f"{wall:.4f} s): " + ", ".join(
+                          f"{n} {v * 1e3:.3f} ms" for n, v in st.items()),
+                      flush=True)
+    # psy model 1 runs on the host: two waits
+    short = pcm[:int(2.0 * 44100)]
+
+    def psy1():
+        cfg = l12_cfg(ctx, 2, "s", 192)
+        cfg.psy_model = 1
+        return cfg
+
+    encode_layer12_fast(short, psy1(), "cuda")
+    out1, where = torch_waits(ctx, lambda: encode_layer12_fast(
+        short, psy1(), "cuda"))
+    if sum(where.values()) != 2 or \
+            out1 != l12_host_route(short, psy1(), "cuda"):
+        fail(f"psy model 1: waits {where} (expected 2) or other bytes than "
+             f"the host route")
+    print(f"psy model 1 (2 s): the host route's bytes, host waits {where}",
+          flush=True)
+
+    # the Layer II stream's quality against the CPU path, as before
+    cfg = l12_cfg(ctx, 2, "s", 192)
+    out = res["out"]
     fsize = int(1152 / 44.1 * 192 / 8)
     nframes = -(-len(pcm) // 1152)
     if len(out) != nframes * fsize + 1:
@@ -1795,7 +2379,6 @@ def phase_layer12(ctx):
     for f in range(nframes):
         if out[f * fsize] != 0xFF or (out[f * fsize + 1] & 0xF0) != 0xF0:
             fail(f"Layer II frame {f} off the grid")
-    wall = statistics.median(times)
     short = pcm[:int(10.0 * 44100)]
     out_cpu = encode_layer12_fast(short, cfg, "cpu")
     nf = -(-len(short) // 1152)
@@ -1805,16 +2388,16 @@ def phase_layer12(ctx):
              for c in range(2)]
     snr_c = [l12_snr(np, short[:, c], dec_c[:, c], L12_DELAY[2])
              for c in range(2)]
-    print(f"Layer II 60 s stereo 192 kbps: {wall:.3f} s median of "
-          f"{TIMED_RUNS} ({', '.join(f'{t:.3f}' for t in times)} s): "
-          f"{CLIP_SECONDS / wall:.2f}x real time; frame grid ok; first 10 s "
-          f"SNR cuda {snr_g} dB, cpu path {snr_c} dB", flush=True)
+    print(f"Layer II 60 s stereo 192 kbps: frame grid ok; first 10 s SNR "
+          f"cuda {snr_g} dB, cpu path {snr_c} dB", flush=True)
     for g, c in zip(snr_g, snr_c):
         if not np.isfinite(g) or g < c - 0.5:
             fail(f"Layer II first-10 s SNR {g:.2f} dB is more than 0.5 dB "
                  f"below the CPU path's {c:.2f} dB")
     ctx["streams"]["Layer II 60 s stereo 192 kbps"] = (
         out, pcm, 44100, fsize, 1152, dec12.decode)
+    res["k5_err"], res["k6_err"] = k5_err, k6_err
+    return res
 
 
 def phase_cli(ctx, pcm, cfg_of):
@@ -2696,12 +3279,13 @@ def phase_bench(main_out, corpus_outs, line):
                       f"the parent's, in turns", flush=True)
 
 
-def phase_build(k1, K, R):
-    """Phase 2: build the three kernel libraries, one nvcc process each,
+def phase_build(k1, K, R, A12, P12):
+    """Phase 2: build the five kernel libraries, one nvcc process each,
     started together; prints the -Xptxas -v reports of bits_at.cu (its
-    kernels: bits_at_kernel, K3's search_kernel and search_baseline) and
-    of resv_scan.cu (K4)."""
-    jobs = ((k1, ()), (K, ("-Xptxas", "-v")), (R, ("-Xptxas", "-v")))
+    kernels: bits_at_kernel, K3's search_kernel and search_baseline), of
+    resv_scan.cu (K4), alloc12.cu (K5) and pack12.cu (K6)."""
+    jobs = ((k1, ()), (K, ("-Xptxas", "-v")), (R, ("-Xptxas", "-v")),
+            (A12, ("-Xptxas", "-v")), (P12, ("-Xptxas", "-v")))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(jobs)) as pool:
         futures = [pool.submit(mod.build, True, extra) for mod, extra in jobs]
@@ -2711,7 +3295,7 @@ def phase_build(k1, K, R):
         print(f"build: {os.path.relpath(mod.LIBRARY, ROOT)} from "
               f"{os.path.relpath(mod.SOURCE, ROOT)} (nvcc "
               f"{' '.join(list(mod.NVCC_FLAGS) + list(extra))})", flush=True)
-    print(f"build: the three libraries in {wall:.2f} s", flush=True)
+    print(f"build: the {len(jobs)} libraries in {wall:.2f} s", flush=True)
     for (mod, _), log in list(zip(jobs, logs))[1:]:
         print(f"build: ptxas report for {os.path.basename(mod.SOURCE)}:\n"
               + log.strip(), flush=True)
@@ -3461,15 +4045,18 @@ def main():
     from mp3tpu_torch.ops import graphs
     from mp3tpu_torch.ops import hist_c1 as k1
     from mp3tpu_torch.ops import loop
+    from mp3tpu_torch.ops import alloc12 as A12
+    from mp3tpu_torch.ops import pack12 as P12
     from mp3tpu_torch.ops import resv as R
     from mp3tpu_torch.ops import search as S
     from mp3tpu_torch.runtime.wav import read_wav
     from mp3tpu_torch.tables import mpeg
 
-    phase_build(k1, K, R)
+    phase_build(k1, K, R, A12, P12)
     kres = phase_kernel(k1, torch)
 
     ctx = dict(np=np, torch=torch, k1=k1, K=K, S=S, R=R, E=E, loop=loop,
+               A12=A12, P12=P12,
                graphs=graphs, EncoderConfig=EncoderConfig, mpeg=mpeg,
                encode=encode_layer3_fast, decode_mp3=decode_mp3,
                snr_db=snr_db, read_wav=read_wav, make_signal=make_signal,
@@ -3551,8 +4138,8 @@ def main():
         return {path: (c["warm"] if warm and path != "main" else c)[kernel]
                 for path, c in runs.items()}
 
-    for kernel in ("search", "baseline", "bits_at", "resv_scan",
-                   "iterations", "captures", "replays") + tuple(
+    for kernel in ("search", "baseline", "bits_at", "resv_scan", "alloc12",
+                   "pack12", "iterations", "captures", "replays") + tuple(
                        f"{s}_{kind}" for s in SEGMENT_STAGES
                        for kind in ("captures", "replays")):
         what = {"iterations": "live rate-loop iterations per encode",
@@ -3566,6 +4153,26 @@ def main():
         print(f"host waits by path, {name} (one warm run: an encode, the "
               f"stream's 60 s, the corpus's 2 groups): "
               f"{by_path(kind, warm=True)}", flush=True)
+
+    l12 = counts["8 Layers I/II"]
+    l2, l1 = (l12["cells"][c[0]] for c in L12_CELLS)
+
+    def l12_row(name, key, source, replaces, err):
+        k, k1 = l2[key], l1[key]
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces,
+                "launches": l2["launches"][name], "max_abs_err": err,
+                "ms": k["ms"], "plain_ms": k["plain_ms"],
+                "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+                "library_ms": None, "launches_by_path": dict(
+                    by_path(name), layer2=l2["launches"][name],
+                    layer1=l1["launches"][name],
+                    layer2_stream=l2["windows"]),
+                "call_ms": k["call_ms"], "layer1_ms": k1["ms"],
+                "layer1_plain_ms": k1["plain_ms"],
+                "layer1_bound_ms": k1["bound_ms"],
+                **({"steps": k["steps"], "layer1_steps": k1["steps"]}
+                   if "steps" in k else {})}
 
     err, k_ms, p_ms, (b_ms, b_by) = kres[4096]
     print(json.dumps({"kernels": [
@@ -3627,7 +4234,11 @@ def main():
          "library_ms": None, "launches_by_path": dict(
              by_path("baseline"),
              main_swapped_in=main_res["by_way"]["baseline"]["baseline"]),
-         "encode_ms": main_res["k3_encode_ms"]["baseline"]}]}),
+         "encode_ms": main_res["k3_encode_ms"]["baseline"]},
+        l12_row("alloc12", "k5", "mp3tpu_torch/csrc/alloc12.cu",
+                "mp3tpu/runtime/alloc12.py:148", l12["k5_err"]),
+        l12_row("pack12", "k6", "mp3tpu_torch/csrc/pack12.cu",
+                "mp3tpu/runtime/bitstream.py:181", l12["k6_err"])]}),
           flush=True)
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)

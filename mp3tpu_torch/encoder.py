@@ -27,9 +27,13 @@ picklable dict.
 exit syncs are ``ops/loop.any_on_host.syncs`` and the host scans'
 downloads ``ops/resv.host_scans``.
 
-Layers I/II (``encode_layer12_fast``, ``encode_layer12_stream``):
-analysis and quantization on the device (``ops/layer12.py``), bit
-allocation on the host (``runtime.alloc12``), native packing.
+Layers I/II (``encode_layer12_fast``, ``encode_layer12_stream``): one
+chain queued on the device -- the analysis and the quantizers
+(``ops/layer12.py``), the bit allocation (K5, ``ops/alloc12.py``), the
+element marshalling (``marshal_frames``) and the frame packing with the
+CRC (K6, ``ops/pack12.py``) -- and one download an encode (a stream
+window).  ``_marshal_layer12``, the host marshalling it replaced, stays
+as the tests' reference.
 
 Every entry point takes an explicit ``device``.
 """
@@ -40,17 +44,18 @@ import numpy as np
 import torch
 
 from .config import EncoderConfig
-from .runtime import alloc12, profiling
+from .runtime import profiling
 from .runtime.profiling import span
-from .runtime.bitstream import (NativeAssembler, guard_clamp,
-                                pack_elements, resv_guard)
+from .runtime.bitstream import NativeAssembler, guard_clamp, resv_guard
 from .tables import layer12 as T12
 from .tables import mpeg
 
 from . import resolve_device
 from .models.layer3 import Layer3SegmentEncoder
+from .ops import alloc12 as A12
 from .ops import bits
 from .ops import layer12 as L12
+from .ops import pack12 as P12
 
 #: super-chunk buckets (granules per channel per segment), as in the
 #: JAX package, so that segments line up with it
@@ -101,6 +106,27 @@ def copy_stream(dev):
         if dev not in _COPY_STREAMS:
             _COPY_STREAMS[dev] = torch.cuda.Stream(device=dev)
         return _COPY_STREAMS[dev]
+
+
+def queue_download(flat):
+    """Queue the copy of the 1-d tensor `flat` to the host: on the card a
+    pinned host tensor filled on the copy stream (``copy_stream``), which
+    first waits for the caller's stream, and the event recorded after the
+    copy; on the CPU `flat` itself and None.  Nothing here waits on the
+    host.  `flat` is marked as in use on the copy stream
+    (``record_stream``), so that the caching allocator gives its block to
+    no later kernel of the caller's stream before the copy has run."""
+    if flat.device.type != "cuda":
+        return flat, None
+    stream = copy_stream(flat.device)
+    stream.wait_stream(torch.cuda.current_stream(flat.device))
+    host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+    with torch.cuda.stream(stream):
+        host.copy_(flat, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(stream)
+    flat.record_stream(stream)
+    return host, done
 
 
 class Download:
@@ -313,17 +339,7 @@ class _Layer3Framing:
                   for h, ks in zip(hs, want)]
         flat = torch.cat([h[k].reshape(-1).to(torch.int32)
                           for h, ks in zip(hs, want) for k in ks])
-        if flat.device.type != "cuda":
-            return Download(layout, flat, None)
-        stream = copy_stream(flat.device)
-        stream.wait_stream(torch.cuda.current_stream(flat.device))
-        host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
-        with torch.cuda.stream(stream):
-            host.copy_(flat, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(stream)
-        flat.record_stream(stream)
-        return Download(layout, host, done)
+        return Download(layout, *queue_download(flat))
 
     def fetch(self, hs, keys=None):
         """``fetch_async(hs, keys).wait()``: the results of the segments
@@ -640,95 +656,157 @@ def _frame_bytes(cfg):
     return spf, bits_per_slot, whole_spf
 
 
-def encode_layer12_fast(pcm, cfg: EncoderConfig, device):
-    """Layer I/II encode of int16 PCM on `device`: filterbank, psy model 2,
-    scale factors, scfsi and quantization on the device
-    (``ops/layer12.py``); psy model 1 (when configured), the exact greedy
-    bit allocation and the element marshalling on the host; native bit
-    packing.  The stream ends in one flush byte, as the JAX package's.
+class _Layer12Plan:
+    """The constants of a Layer I/II encode of F frames under `cfg`."""
+
+    def __init__(self, cfg, F):
+        self.layer, self.nch, self.F = cfg.layer, cfg.nchannels, F
+        self.spf, bits_per_slot, whole_spf = _frame_bytes(cfg)
+        self.adb = whole_spf * bits_per_slot            # a frame's bits
+        self.frame_bytes = self.adb // 8
+        self.joint = cfg.mode == mpeg.MODE_JOINT
+        sfreq_khz = mpeg.S_FREQ_KHZ[cfg.version][cfg.sampling_frequency]
+        self.sfreq_hz = float(sfreq_khz) * 1000.0
+        self.table, self.sblimit = T12.pick_table(
+            cfg.version, cfg.layer, cfg.bitrate_index,
+            cfg.sampling_frequency, self.nch, cfg.bitrate_kbps,
+            float(sfreq_khz))
+
+
+def _layer12_frame(pcm, cfg):
+    """(plan, PCM as (nch, F * spf) float32 padded to whole frames)."""
+    cfg.finalize()
+    if cfg.layer not in (1, 2):
+        raise ValueError("Layer I/II encodes take layer 1 or 2")
+    pcm = np.atleast_2d(np.asarray(pcm, np.float32))
+    if pcm.shape[0] > pcm.shape[1]:
+        pcm = pcm.T
+    if pcm.shape[0] != cfg.nchannels:
+        raise ValueError(f"pcm has {pcm.shape[0]} channels, config "
+                         f"{cfg.nchannels}")
+    spf = _frame_bytes(cfg)[0]
+    P = _Layer12Plan(cfg, int(np.ceil(pcm.shape[1] / spf)))
+    return P, np.pad(pcm, ((0, 0), (0, P.F * spf - pcm.shape[1])))
+
+
+def _to_device(arr, dtype, dev):
+    """A numpy array on `dev` through a pinned buffer: its upload is queued
+    and the host does not wait."""
+    host = pinned(arr.shape, dtype, dev)
+    host.numpy()[...] = arr
+    return upload(host, dev)
+
+
+def _layer12_analysis(pcm, P, dev):
+    """The PCM uploaded once and ``ops/layer12.analyze_frames`` on `dev`;
+    the Layer I filterbank reads the PCM delayed by 64 samples
+    (encode.c:221-246), made on the device."""
+    pcm_d = _to_device(pcm, torch.float32, dev)
+    fb = pcm_d if P.layer == 2 else torch.cat(
+        [torch.zeros((P.nch, 64), dtype=pcm_d.dtype, device=dev),
+         pcm_d[:, :-64]], dim=1)
+    return L12.analyze_frames(pcm_d, fb, P.layer, P.sblimit, P.nch, P.F,
+                              P.sfreq_hz)
+
+
+def _layer12_quantize(ana, P, jsbound, ba):
+    """The quantizers of every frame on the analysis' device: codes (nch,
+    F, G, 12, 32) of the subband samples at bit allocation `ba` (F, 2, 32);
+    above `jsbound` (F,) channel 0's lane carries the joint samples and
+    scales (encode.c:1245-1249, 1288-1291)."""
+    sb, sc = ana["sb"], ana["scalar"]
+    sb0, sc0 = sb[0], sc[0]
+    if P.joint and P.nch == 2:
+        js = torch.arange(32, device=sb.device)[None, :] >= \
+            jsbound.to(torch.int64)[:, None]                # (F, 32)
+        sb0 = torch.where(js[:, None, None, :], ana["j_sample"], sb0)
+        sc0 = torch.where(js[:, None, :], ana["j_scale"], sc0)
+
+    def quant(s, c, b):
+        return (L12.quantize_l1(s, c, b) if P.layer == 1
+                else L12.quantize_l2(s, c, b, P.table))
+
+    return torch.stack([quant(sb0, sc0, ba[:, 0])] + (
+        [quant(sb[1], sc[1], ba[:, 1])] if P.nch == 2 else []))
+
+
+def _layer12_back(ana, cfg, P, pcm, prof=profiling.NULL):
+    """The back half of a Layer I/II encode on the analysis' device: the
+    SMR in float64, K5 (the joint decision and the greedy allocation), the
+    quantizers with the joint samples above jsbound, ``marshal_frames`` and
+    K6.  Returns K6's buffer (``ops/pack12.split``), still on the device;
+    on a CPU tensor the plain versions run.  With psy model 1 the SMR is
+    computed on the host from the downloaded subband samples
+    (``numpy_ref.tonal.psycho_one_frames``) and uploaded: one more wait."""
+    dev = ana["sb"].device
+    layer, nch = P.layer, P.nch
+    if cfg.psy_model == 1:
+        from .numpy_ref.tonal import psycho_one_frames
+        snr = _to_device(psycho_one_frames(
+            pcm.astype(np.float64), layer, cfg, ana["sb"].cpu().numpy()),
+            torch.float64, dev)
+    else:
+        snr = ana["snr"].to(torch.float64)                # (nch, F, 32)
+    smr = torch.stack([snr[0], snr[nch - 1]], dim=1)     # (F, 2, 32)
+    scfsi = ana["scfsi"] if layer == 2 else None
+    scfsi_fc = (torch.stack([scfsi[0], scfsi[nch - 1]], dim=1)
+                .to(torch.int32) if layer == 2 else None)
+
+    with prof.stage("greedy_allocation"):
+        alloc = A12.allocate(smr.contiguous(), scfsi_fc, layer, P.table,
+                             nch, P.sblimit, P.adb, cfg.error_protection,
+                             P.joint, cfg.mode)
+    jsbound = alloc["jsbound"]
+
+    with prof.stage(f"quantize_l{layer}"):
+        codes = _layer12_quantize(ana, P, jsbound, alloc["ba"])
+
+    with prof.stage("_marshal_layer12"):
+        values, lengths, crc = L12.marshal_frames(
+            cfg, layer, P.table, P.sblimit, nch, alloc["mode"],
+            alloc["mode_ext"], jsbound, alloc["ba"], scfsi, ana["scalar"],
+            codes, alloc["adb_left"], P.adb)
+    with prof.stage("pack_elements"):
+        return P12.pack_frames(values, lengths, P.frame_bytes, crc)
+
+
+def _fetch_frames(buf):
+    """The host's one wait of a Layer I/II encode: K6's buffer downloaded
+    (``queue_download``, ``Download.wait``); raises if its status words
+    report a malformed frame.  Returns the frames' bytes."""
+    host, done = queue_download(buf)
+    got, = Download([[("buf", tuple(buf.shape))]], host, done).wait()
+    status, frames = P12.split(torch.from_numpy(got["buf"]))
+    P12.check_status(status)
+    return frames.numpy().tobytes()
+
+
+def encode_layer12_fast(pcm, cfg: EncoderConfig, device, prof=None):
+    """Layer I/II encode of int16 PCM on `device`, as one chain queued on
+    the device: the PCM uploaded once, the analysis (filterbank, psy model
+    2, scale factors, scfsi: ``ops/layer12.py``), K5 (the joint decision
+    and the greedy bit allocation, ``ops/alloc12.py``), the quantizers,
+    the element marshalling (``marshal_frames``) and K6 (every frame packed
+    into its fixed byte range with its CRC, ``ops/pack12.py``); then the
+    bytes and K6's status come back in one download.  On a CUDA device the
+    host waits once an encode with psy model 2, twice with psy model 1
+    (which runs on the host: the subband samples come back for it and its
+    SMR goes up).  On the CPU the same chain runs the kernels' plain
+    versions.  A frame that K6 finds malformed raises after the wait.
+    The stream ends in one flush byte, as the JAX package's.
 
     Float32 DSP and an FFT library's rounding instead of the reference's
     float32 split-radix can move allocation ties; streams stay valid and
     decoded quality equal."""
     dev = resolve_device(device)
-    cfg.finalize()
-    layer = cfg.layer
-    if layer not in (1, 2):
-        raise ValueError("encode_layer12_fast encodes Layers I/II only")
-    pcm = np.atleast_2d(np.asarray(pcm, np.float32))
-    if pcm.shape[0] > pcm.shape[1]:
-        pcm = pcm.T
-    nch = cfg.nchannels
-    if pcm.shape[0] != nch:
-        raise ValueError(f"pcm has {pcm.shape[0]} channels, config {nch}")
-    spf, bits_per_slot, whole_spf = _frame_bytes(cfg)
-    F = int(np.ceil(pcm.shape[1] / spf))
-    pcm = np.pad(pcm, ((0, 0), (0, F * spf - pcm.shape[1])))
-    joint = cfg.mode == mpeg.MODE_JOINT
-    sfreq_khz = mpeg.S_FREQ_KHZ[cfg.version][cfg.sampling_frequency]
-    table, sblimit = T12.pick_table(
-        cfg.version, layer, cfg.bitrate_index, cfg.sampling_frequency,
-        nch, cfg.bitrate_kbps, float(sfreq_khz))
-    adb = whole_spf * bits_per_slot
-
-    # the layer 1 filterbank stream is the PCM delayed by 64 samples
-    # (encode.c:221-246)
-    fb = (np.concatenate([np.zeros((nch, 64), pcm.dtype), pcm[:, :-64]],
-                         axis=1) if layer == 1 else pcm)
-    pcm_d = torch.as_tensor(pcm, device=dev)
-    ana = L12.analyze_frames(
-        pcm_d, pcm_d if layer == 2 else torch.as_tensor(fb, device=dev),
-        layer, sblimit, nch, F, float(sfreq_khz) * 1000.0)
-    scalar = ana["scalar"].cpu().numpy()                  # (nch, F, G, 32)
-    scfsi = ana["scfsi"].cpu().numpy() if layer == 2 else None
-    if cfg.psy_model == 1:
-        from .numpy_ref.tonal import psycho_one_frames
-        snr = psycho_one_frames(pcm.astype(np.float64), layer, cfg,
-                                ana["sb"].cpu().numpy())
-    else:
-        snr = ana["snr"].cpu().numpy().astype(np.float64)  # (nch, F, 32)
-
-    smr = np.stack([snr[0], snr[nch - 1]], axis=1)        # (F, 2, 32)
-    scfsi_fc = (np.stack([scfsi[0], scfsi[nch - 1]], axis=1).astype(np.int64)
-                if layer == 2 else None)
-
-    # joint mode decision + allocation (host, exact)
-    if joint:
-        is_js, mode_ext, jsbound = alloc12.joint_mode(
-            smr, scfsi_fc, adb, layer, table, nch, cfg.error_protection)
-        mode = np.where(is_js, mpeg.MODE_JOINT, mpeg.MODE_STEREO)
-    else:
-        mode = np.full(F, cfg.mode)
-        mode_ext = np.zeros(F, np.int64)
-        jsbound = np.full(F, sblimit if layer == 2 else 32)
-    ba, adb_left = alloc12.greedy_allocation(
-        smr, scfsi_fc, np.full(F, adb), jsbound, layer, table, nch,
-        cfg.error_protection)
-
-    # quantization on the device; above jsbound channel 0's lane carries
-    # the joint samples and scales (encode.c:1245-1249, 1288-1291)
-    sb, sc = ana["sb"], ana["scalar"]
-    sb0, sc0 = sb[0], sc[0]
-    if joint and nch == 2:
-        js = torch.as_tensor(np.arange(32)[None, :] >= jsbound[:, None],
-                             device=dev)                  # (F, 32)
-        sb0 = torch.where(js[:, None, None, :], ana["j_sample"], sb0)
-        sc0 = torch.where(js[:, None, :], ana["j_scale"], sc0)
-    ba_d = torch.as_tensor(ba, device=dev)
-
-    def quant(s, c, b):
-        return (L12.quantize_l1(s, c, b) if layer == 1
-                else L12.quantize_l2(s, c, b, table))
-
-    codes = [quant(sb0, sc0, ba_d[:, 0])]
-    if nch == 2:
-        codes.append(quant(sb[1], sc[1], ba_d[:, 1]))
-    codes = torch.stack(codes).cpu().numpy()              # (nch, F, G, 12, 32)
-
-    values, lengths = _marshal_layer12(cfg, layer, table, sblimit, nch, F,
-                                       mode, mode_ext, jsbound, ba, scfsi,
-                                       scalar, codes, adb_left)
-    return pack_elements(values, lengths) + b"\x00"
+    prof = prof if prof is not None else profiling.from_env()
+    with prof.stage("framing"):
+        P, pcm = _layer12_frame(pcm, cfg)
+    with prof.stage("analyze_frames"):
+        ana = _layer12_analysis(pcm, P, dev)
+    buf = _layer12_back(ana, cfg, P, pcm, prof)
+    with prof.stage("fetch"):
+        return _fetch_frames(buf) + b"\x00"
 
 
 def encode_layer12_stream(pcm_iter, cfg: EncoderConfig, device,

@@ -6,8 +6,11 @@ every analysis window at once, unpredictability from the two previous
 windows, partition sums and spreading as matmuls, the 32-subband SNR
 translation), scale factors, the Layer II scfsi classes and the
 a*x+b quantizers.  The JAX package computes all of this as plain XLA,
-so plain torch ops are its port; the greedy bit allocation stays on the
-host (``runtime.alloc12``).
+so plain torch ops are its port.  ``marshal_frames`` is the torch form of
+the JAX package's host marshalling (``encoder._marshal_layer12``), so
+that the whole Layer I/II chain stays on the device: the bit allocation
+between the analysis and the quantizers is K5 (``ops/alloc12.py``), the
+packing after the marshalling K6 (``ops/pack12.py``).
 
 Precision follows the JAX package as its tests run it: filterbank and
 psy in float32 (TF32 is off package-wide), scale factors and
@@ -19,6 +22,7 @@ import numpy as np
 import torch
 
 from ..numpy_ref import psy12 as psy12_ref
+from ..runtime.profiling import span
 from ..tables import layer12 as L
 from ..tables import mpeg
 
@@ -150,12 +154,15 @@ def psy_windows(stream, nframes, layer):
     if layer == 1:
         starts = 384 * f - 640
     else:
-        starts = (1152 * f[:, None] + torch.tensor([-480, 96], device=dev)
-                  [None, :]).reshape(-1)
+        # the window starts -480 and 96, made on the device: a list
+        # uploaded from pageable memory would wait for the stream
+        starts = (1152 * f[:, None] - 480
+                  + 576 * torch.arange(2, device=dev)[None, :]).reshape(-1)
     idx = pad + starts[:, None] + torch.arange(1024, device=dev)[None, :]
     return xp[idx.clamp(0, xp.shape[0] - 1)]
 
 
+@span("analyze_frames")
 def analyze_frames(pcm, fb_stream, layer, sblimit, nch, nframes, sfreq_hz):
     """Analysis of a whole clip: filterbank + psy + scale factors + scfsi
     (+ the joint-stereo combination).
@@ -199,6 +206,13 @@ def _table(name, device):
          "quant_b": L.QUANT_B, "quant_a_l1": L.QUANT_A_L1,
          "quant_b_l1": L.QUANT_B_L1,
          "scfsi_pattern": L.SCFSI_PATTERN}[name], device=device)
+
+
+@lru_cache(maxsize=None)
+def _alloc_table(table, key, device):
+    """``ALLOC[table][key]`` (int64, (32, 16) or (32,)) on `device`, made
+    once: an upload from pageable memory waits for the stream."""
+    return torch.as_tensor(np.asarray(L.ALLOC[table][key]), device=device)
 
 
 def scale_factors(sb, sblimit):
@@ -256,6 +270,7 @@ def _apply_quant(d, a, b, nbits):
     return v | torch.where(sig, torch.ones_like(nbits) << nbits, 0)
 
 
+@span("quantize_l1")
 def quantize_l1(sb, scalar, bit_alloc):
     """Layer I quantization (encode.c:1205-1259).  sb (F, 1, 12, 32);
     scalar (F, 1, 32); bit_alloc (F, 32).  Returns int64 codes
@@ -268,18 +283,18 @@ def quantize_l1(sb, scalar, bit_alloc):
                         _table("quant_b_l1", dev)[ba - 1], ba)
 
 
+@span("quantize_l2")
 def quantize_l2(sb, scalar, bit_alloc, table):
     """Layer II quantization (encode.c:1264-1321).  sb (F, 3, 12, 32);
     scalar (F, 3, 32); bit_alloc (F, 32).  Returns int64 codes
     (F, 3, 12, 32), junk where bit_alloc == 0."""
     dev = sb.device
-    alloc = L.ALLOC[table]
     d = sb.to(torch.float64) \
         / _table("multiple", dev)[scalar.to(torch.int64)][:, :, None, :]
     cols = torch.arange(32, device=dev)[None, :]
     ba = bit_alloc.to(torch.int64)
-    qnt = torch.as_tensor(alloc["quant"], device=dev)[cols, ba]  # (F, 32)
-    steps = torch.as_tensor(alloc["steps"], device=dev)[cols, ba]
+    qnt = _alloc_table(table, "quant", dev)[cols, ba]             # (F, 32)
+    steps = _alloc_table(table, "steps", dev)[cols, ba]
     a = _table("quant_a", dev)[qnt][:, None, None, :]
     b = _table("quant_b", dev)[qnt][:, None, None, :]
     # n: the smallest n with 2^n >= steps, minus 1 (encode.c:1299-1311);
@@ -287,3 +302,147 @@ def quantize_l2(sb, scalar, bit_alloc, table):
     nbits = (torch.ceil(torch.log2(steps.clamp(min=2).to(torch.float64)))
              .to(torch.int64) - 1)[:, None, None, :]
     return _apply_quant(d, a, b, nbits)
+
+
+def anc_slots(adb, layer, table, sblimit, nch, error_protection):
+    """The ancillary zero fill's 32-bit slots a frame of ``marshal_frames``
+    holds: the frame's bits less its fixed fields (header, CRC and the
+    smallest bit-allocation field, every subband at or above jsbound
+    sending one channel's), rounded up -- a bound on any frame's
+    ``adb_left``, so that the element layout is static."""
+    if layer == 1:
+        bbal = 4 * 32
+    else:
+        bbal = int(np.asarray(L.ALLOC[table]["nbal"])[:sblimit].sum())
+    rest = adb - 32 - (16 if error_protection else 0) - bbal
+    return max(0, -(-rest // 32))
+
+
+def _u32(v):
+    """int64 values' low 32 bits as int32 bit patterns."""
+    v = v & 0xFFFFFFFF
+    return (v - ((v >> 31) << 32)).to(torch.int32)
+
+
+@span("_marshal_layer12")
+def marshal_frames(cfg, layer, table, sblimit, nch, mode, mode_ext, jsbound,
+                   ba, scfsi, scalar, codes, adb_left, adb):
+    """The (value, length) elements of every frame, frame-major: the torch
+    counterpart of ``encoder._marshal_layer12`` (musicin.c:621-705),
+    vectorized over frames as it is.  Per frame: header, [CRC (16 zero
+    bits, for K6 to fill)], bit allocation (sb outer, ch inner), [scfsi,]
+    scale factors, samples, then ``anc_slots`` ancillary slots of zeros
+    (the last ones of length 0), so that E is fixed per (layer, nch,
+    table) and nothing is read back from the device.
+
+    mode, mode_ext, jsbound, adb_left (F,) and ba (F, 2, 32) integer
+    tensors; scfsi (nch, F, 32) or None; scalar (nch, F, G, 32); codes
+    (nch, F, G, 12, 32) int64; adb the frame's bits.  Returns (values,
+    lengths) (F, E) int32 (values as 32-bit patterns) on their device and
+    the CRC's element range (first, end) -- the bit allocation and the
+    scfsi -- or None without error protection."""
+    dev = ba.device
+    F = ba.shape[0]
+    i64 = torch.int64
+    sbs = torch.arange(32, device=dev)
+    js = sbs[None, :] >= jsbound.to(i64)[:, None]             # (F, 32)
+    active = (sbs < sblimit).to(i64)[None, :]                 # (1, 32)
+    ba = ba[:, :nch].to(i64)                                  # (F, nch, 32)
+    has = ba != 0
+
+    def full(val, k):
+        return torch.full((F, k), val, dtype=i64, device=dev)
+
+    # --- header word (encode.c:419-438)
+    hdr = (0xFFF << 20) | (cfg.version << 19) | ((4 - layer) << 17) \
+        | ((0 if cfg.error_protection else 1) << 16) \
+        | (cfg.bitrate_index << 12) | (cfg.sampling_frequency << 10) \
+        | (cfg.extension << 8) \
+        | (int(cfg.copyright) << 3) | (int(cfg.original) << 2) \
+        | cfg.emphasis
+    header = hdr | (mode.to(i64) << 6) | (mode_ext.to(i64) << 4)
+    blocks = [(header[:, None], full(32, 1))]
+    if cfg.error_protection:
+        blocks.append((full(0, 1), full(16, 1)))
+    crc_first = sum(v.shape[1] for v, _ in blocks)
+
+    # --- bit allocation: sb outer, ch inner
+    nbal = (torch.full((32,), 4, dtype=i64, device=dev) if layer == 1
+            else _alloc_table(table, "nbal", dev))
+    bal = (nbal[None, :] * active).expand(F, 32)
+    bal = torch.stack([bal] + ([torch.where(js, 0, bal)] if nch == 2
+                               else []), dim=2)           # (F, 32, nch)
+    blocks.append((ba.transpose(1, 2).reshape(F, -1), bal.reshape(F, -1)))
+
+    if layer == 2:
+        scf = scfsi.to(i64).permute(1, 2, 0)                   # (F, 32, nch)
+        hasT = has.transpose(1, 2)                             # (F, 32, nch)
+        blocks.append((scf.reshape(F, -1),
+                       torch.where(hasT, 2, 0).reshape(F, -1)))
+        crc_end = sum(v.shape[1] for v, _ in blocks)
+        # --- scale factors: 3 slots per (sb, ch)
+        s = scalar.to(i64).permute(1, 3, 0, 2)          # (F, 32, nch, 3)
+        fv = torch.stack([s[..., 0], torch.where(scf == 0, s[..., 1],
+                                                 s[..., 2]), s[..., 2]],
+                         dim=3)
+        fl = torch.stack([torch.where(hasT, 6, 0),
+                          torch.where(hasT & (scf != 2), 6, 0),
+                          torch.where(hasT & (scf == 0), 6, 0)], dim=3)
+        blocks.append((fv.reshape(F, -1), fl.reshape(F, -1)))
+        # --- samples: t(3) x triple(4) x sb x ch, 3 slots each
+        cols = sbs[None, None, :]
+        grp = _alloc_table(table, "group", dev)[cols, ba]      # (F, nch, 32)
+        nbits = _alloc_table(table, "bits", dev)[cols, ba]
+        y = _alloc_table(table, "steps", dev)[cols, ba]
+        c3 = codes.to(i64).permute(1, 2, 3, 4, 0) \
+            .reshape(F, 3, 4, 3, 32, nch)
+        s0, s1, s2 = c3[:, :, :, 0], c3[:, :, :, 1], c3[:, :, :, 2]
+
+        def lanes(x):           # (F, nch, 32) -> (F, 1, 1, 32, nch)
+            return x.transpose(1, 2)[:, None, None]
+
+        grouped = lanes((grp == 1) & has)
+        ungrouped = lanes((grp == 3) & has)
+        yl = lanes(y)
+        gval = s0 + s1 * yl + s2 * (yl * yl)
+        bl = lanes(nbits)
+        zero = torch.zeros_like(bl)
+        l0 = torch.where(lanes(has), bl, zero)
+        l12 = torch.where(ungrouped, bl, zero)
+        if nch == 2:
+            # above jsbound only channel 0's lane is sent
+            top = torch.stack([torch.zeros_like(js), js], dim=1)
+            top = lanes(top)
+            l0 = torch.where(top, 0, l0)
+            l12 = torch.where(top, 0, l12)
+        sval = torch.stack([torch.where(grouped, gval, s0), s1, s2], dim=5)
+        slen = torch.stack([l0, l12, l12], dim=5).expand(sval.shape)
+        blocks.append((sval.reshape(F, -1), slen.reshape(F, -1)))
+    else:
+        crc_end = sum(v.shape[1] for v, _ in blocks)
+        hasT = has.transpose(1, 2)                             # (F, 32, nch)
+        # --- layer 1 scale factors: 1 slot per (sb, ch)
+        blocks.append((scalar[:, :, 0].to(i64).permute(1, 2, 0)
+                       .reshape(F, -1),
+                       torch.where(hasT, 6, 0).reshape(F, -1)))
+        # --- samples: j(12) x sb x ch, ba+1 bits
+        c = codes.to(i64)[:, :, 0].permute(1, 2, 3, 0)  # (F, 12, 32, nch)
+        sl = torch.where(hasT, ba.transpose(1, 2) + 1, 0)       # (F, 32, nch)
+        if nch == 2:
+            sl = torch.stack([sl[..., 0], torch.where(js, 0, sl[..., 1])],
+                             dim=2)
+        blocks.append((c.reshape(F, -1),
+                       sl[:, None].expand(F, 12, 32, nch).reshape(F, -1)))
+
+    # --- ancillary zero fill, 32-bit slots
+    nslots = anc_slots(adb, layer, table, sblimit, nch, cfg.error_protection)
+    if nslots:
+        rem = adb_left.to(i64)[:, None] \
+            - 32 * torch.arange(nslots, device=dev)[None, :]
+        blocks.append((torch.zeros((F, nslots), dtype=i64, device=dev),
+                       rem.clamp(0, 32)))
+
+    values = torch.cat([_u32(v) for v, _ in blocks], dim=1)
+    lengths = torch.cat([n.to(torch.int32) for _, n in blocks], dim=1)
+    return (values, lengths,
+            (crc_first, crc_end) if cfg.error_protection else None)

@@ -28,6 +28,14 @@ import torch
 SPANS = ("encode_segment_fused", "analyze_demand_fused", "encode_final",
          "pack_state", "outer_loop", "scan_budgets", "granule_payload",
          "compact_payload", "fetch", "native assembly")
+#: the named program spans of a Layer I/II encode, in the JAX package's
+#: function names (``mp3tpu/encoder.py:729``): on the card chain the joint
+#: decision runs inside K5's launch, under ``greedy_allocation``, and
+#: ``joint_mode`` shows on the host route (``chip_smoke.l12_host_route``)
+#: only
+SPANS_L12 = ("analyze_frames", "joint_mode", "greedy_allocation",
+             "quantize_l1", "quantize_l2", "_marshal_layer12",
+             "pack_elements", "fetch")
 #: on a CUDA device the emission and packing replay one graph inside the
 #: span granule_payload (``ops/graphs.py``): the spans of the programs it
 #: covers then show only where it is captured or runs op by op

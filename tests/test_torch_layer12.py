@@ -203,7 +203,9 @@ def test_port_crc_stream_decodes(golden_dir):
 def test_marshal_layer12_equals_jax(golden_dir, monkeypatch, name, layer,
                                     mode, kbps, crc):
     """The port's element marshalling equals the JAX package's on the
-    arguments an encode gives it (joint stereo, CRC, mono)."""
+    arguments the host route (``chip_smoke.l12_host_route``, the
+    yardstick of the card chain) gives it (joint stereo, CRC, mono)."""
+    from chip_smoke import l12_host_route
     captured = []
     real = tencoder._marshal_layer12
 
@@ -215,8 +217,8 @@ def test_marshal_layer12_equals_jax(golden_dir, monkeypatch, name, layer,
     pcm, rate = read_wav(os.path.join(golden_dir, f"{name}.wav"))
     cfg = EncoderConfig(layer=layer, mode=mode, bitrate_kbps=kbps,
                         sample_rate_hz=rate, error_protection=crc)
-    tencoder.encode_layer12_fast(pcm if mode != mpeg.MODE_MONO
-                                 else pcm[:, :1], cfg, "cpu")
+    l12_host_route(pcm if mode != mpeg.MODE_MONO else pcm[:, :1], cfg,
+                   "cpu")
     args = captured[0]
     vr, lr = jencoder._marshal_layer12(*args)
     vg, lg = real(*args)

@@ -342,8 +342,7 @@ def test_native_assembler_stream_equal(monkeypatch):
     cfg = tconfig.EncoderConfig(layer=3, mode=t_mpeg.MODE_STEREO,
                                 bitrate_kbps=128, sample_rate_hz=44100)
     ours = tencoder.encode_layer3_fast(pcm, cfg, "cpu")
-    for name in ("NativeAssembler", "pack_elements", "resv_guard",
-                 "guard_clamp"):
+    for name in ("NativeAssembler", "resv_guard", "guard_clamp"):
         monkeypatch.setattr(tencoder, name, getattr(j_bitstream, name))
     monkeypatch.setattr(tresv, "resv_scan", j_bitstream.resv_scan)
     theirs = tencoder.encode_layer3_fast(pcm, cfg, "cpu")
