@@ -8,10 +8,10 @@ Run from the repository root on a machine with one NVIDIA GPU:
 Phases, each printing its own lines; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi); no CUDA -> exit 1;
   2. build the five kernel libraries, K1 (mp3tpu_torch/csrc/hist_c1.cu),
-     bits_at with K3 (csrc/bits_at.cu), K4 (csrc/resv_scan.cu), K5
-     (csrc/alloc12.cu) and K6 (csrc/pack12.cu), all but K1 with -Xptxas
-     -v, whose reports are printed, one nvcc process each, started
-     together; timed;
+     bits_at with K3 (csrc/bits_at.cu), K4 (csrc/resv_scan.cu), K5 with
+     its first design (csrc/alloc12.cu) and K6 (csrc/pack12.cu), all but
+     K1 with -Xptxas -v, whose reports are printed, one nvcc process
+     each, started together; timed;
   3. K1 against its plain PyTorch version on the card, bit for bit, on
      random quantized batches at G = 512, 4096 (the main path's segment
      widths) and 4099, then both timed: device time per call from
@@ -132,24 +132,32 @@ Phases, each printing its own lines; any failure exits non-zero:
      form, and so must a run checkpointed at 30 s, pickled and resumed in
      a fresh encoder; one wait a window;
   8. Layers I/II, one chain queued on the card (the analysis, K5 -- the
-     joint decision and the greedy bit allocation, one warp a frame --,
+     joint decision and the greedy bit allocation, one warp a frame, each
+     greedy step's argmin as ordered keys reduced with redux.sync --,
      the quantizers, the element marshalling, K6 -- each frame packed
      with its CRC, one block a frame --, one download): the six fixtures
      of tests/test_layer12_fast.py at their reference bars and the two
      CRC fixtures decoding, each equal byte for byte to the host route it
      replaced (l12_host_route: runtime/alloc12,
-     _marshal_layer12 with _crc_calc, pack_elements); K5 against its
-     plain version (runtime/alloc12's numpy code) on every output and its
-     greedy steps against the lockstep loop's rounds, on the CRC
-     fixtures', the bench signal's and the forced rows of
+     _marshal_layer12 with _crc_calc, pack_elements); K5 and its first
+     design (allocate_baseline) against their plain version
+     (runtime/alloc12's numpy code) on every output and their greedy
+     steps against the lockstep loop's rounds, on the CRC fixtures', the
+     bench signal's and the forced rows of
      tests/test_torch_layer12_card.py (ties, +-inf, NaN, silent frames,
-     every subband to its top); K6 against its plain version on every
-     byte; then on the 60 s bench signal at Layer II 192 kbps and Layer
-     I 384 kbps stereo: K5 and K6 launched once each and no Layer III
-     kernel, each kernel timed (device time, call time, the plain
-     version's time) beside its bound (K5: its bytes or its design's
-     floor, the longest frame's greedy steps on the dependent path,
-     k5_bound; K6: its bytes), the host route and the card chain in 3
+     every subband to its top, Layer I's limit); K6 against its plain
+     version on every byte; the -Xptxas -v lines of both designs (K5:
+     no stack frame, no spill) and the blocks each holds on an SM with
+     the waves of each cell; then on the 60 s bench signal at Layer II
+     192 kbps and Layer I 384 kbps stereo: K5 and K6 launched once each,
+     the first design and no Layer III kernel no time, the first design
+     and K5 timed in turns (first, K5, K5, first: device time) with their
+     call times, K6 timed (device time, call time), each beside the plain
+     version's time and its bound (K5: the largest of its bytes, its
+     design's dependent path a step times the longest frame's steps, and
+     the warp instructions of every frame's steps at the SMs' rates,
+     k5_bound, printed by term; K6: its bytes), the host route and
+     the card chain in 3
      turns of host, card, card, host (walls, real-time factor), then the
      same with every stage synchronized (each stage's wall, median of 6;
      the host route's _crc_calc inside its _marshal_layer12), one
@@ -234,7 +242,8 @@ On every path (main, LSF, stream, corpus, sharded) K3 must launch, the
 segment program's CUDA graphs must replay (the analysis, the rate loop
 and the emission; the sharded path's analysis, which holds an exchange
 between ranks, runs its lanes as one batch op by op), and none may
-launch bits_at, the baseline, K5 or K6; every path but the
+launch bits_at, the baseline, K5, K5's first design or K6; every path
+but the
 sharded one (which keeps its host scan, as the JAX package does) must
 launch K4 and make no loop-exit sync and no scan copy; the launches,
 the host's waits by kind and graph captures and replays by stage per
@@ -1090,6 +1099,8 @@ INT_LATENCY_CYCLES = 4
 K4_LOOKUP_CYCLES = 19 + 2 * INT_LATENCY_CYCLES
 #: the H100 SXM's boost clock, the fastest an SM walks the chain
 SM_CLOCK_HZ = 1.98e9
+#: the H100 SXM's SMs
+H100_SMS = 132
 
 
 def k4_floor(R, pe, resv_max, chunk):
@@ -1499,6 +1510,7 @@ def reset_counts(ctx):
     ctx["R"].launches = 0
     ctx["R"].host_scans = 0
     ctx["A12"].launches = 0
+    ctx["A12"].baseline_launches = 0
     ctx["P12"].launches = 0
     ctx["E"].fetches = 0
     ctx["E"].retry_fetches = 0
@@ -1528,7 +1540,8 @@ WAITS = {"syncs": "loop exit", "scan_copies": "scan copy",
 
 
 def launch_counts(ctx):
-    """{kernel: launches ("resv_scan": K4, "alloc12": K5, "pack12": K6),
+    """{kernel: launches ("resv_scan": K4, "alloc12": K5,
+    "alloc12_baseline": K5's first design, "pack12": K6),
     "syncs": loop-exit host syncs,
     "scan_copies": host scans of the card's results, "fetches": result
     downloads ("retry_fetches": those of settle's rare retries),
@@ -1542,7 +1555,9 @@ def launch_counts(ctx):
             "hist_c1": ctx["k1"].hist_c1.launches,
             "baseline": ctx["S"].baseline_launches,
             "resv_scan": ctx["R"].launches,
-            "alloc12": ctx["A12"].launches, "pack12": ctx["P12"].launches,
+            "alloc12": ctx["A12"].launches,
+            "alloc12_baseline": ctx["A12"].baseline_launches,
+            "pack12": ctx["P12"].launches,
             "syncs": ctx["loop"].any_on_host.syncs,
             "scan_copies": ctx["R"].host_scans,
             "fetches": ctx["E"].fetches,
@@ -1568,7 +1583,8 @@ SHARDED_STAGES = ("prologue", "iteration", "emission")
 def read_counts(ctx, path, stages=SEGMENT_STAGES, k4=True):
     """launch_counts; fails unless the path launched K3 and replayed the
     graphs of each of `stages`, and it launched bits_at, the baseline and
-    the Layer I/II kernels (K5, K6) no time; with `k4` (every path but the
+    the Layer I/II kernels (K5, its first design, K6) no time; with `k4`
+    (every path but the
     sharded one), unless it launched K4 and made no loop-exit sync and no
     scan copy."""
     counts = launch_counts(ctx)
@@ -1577,7 +1593,8 @@ def read_counts(ctx, path, stages=SEGMENT_STAGES, k4=True):
     for stage in stages:
         if counts[f"{stage}_replays"] <= 0:
             fail(f"the {path} replayed the {stage} graphs no time: {counts}")
-    for kernel in ("bits_at", "baseline", "alloc12", "pack12"):
+    for kernel in ("bits_at", "baseline", "alloc12", "alloc12_baseline",
+                   "pack12"):
         if counts[kernel]:
             fail(f"the {path} launched {kernel} {counts[kernel]} times")
     if k4 and (counts["resv_scan"] <= 0 or counts["syncs"]
@@ -1772,36 +1789,98 @@ L12_CARD_STAGES = ("framing", "analyze_frames", "greedy_allocation",
 L12_HOST_STAGES = ("framing", "analyze_frames", "download", "joint_mode",
                    "greedy_allocation", "quantize_l{}", "_marshal_layer12",
                    "_crc_calc", "pack_elements")
-#: cycles of one dependent shuffle (__shfl_sync, __shfl_xor_sync), of one
-#: float64 add or compare, and of one shared-memory load (Volta's 19, as in
-#: K4_LOOKUP_CYCLES) on an SM; assumed, not measured on the card
-SHFL_CYCLES, FP64_LATENCY_CYCLES, SHARED_LOAD_CYCLES = 24, 8, 19
-#: cycles of K5's argmin in one greedy step (csrc/alloc12.cu): each lane's
-#: pick of its two candidates (the candidate's select, then `before`'s NaN
-#: tests, compare and select), 5 shuffle rounds (a shuffle and those 3
-#: dependent integer operations), and the exit test (a float64 compare)
-K5_ARGMIN_CYCLES = 4 * INT_LATENCY_CYCLES \
-    + 5 * (SHFL_CYCLES + 3 * INT_LATENCY_CYCLES) + FP64_LATENCY_CYCLES
-#: cycles of the winner lane's fit after the argmin, by layer.  Layer II:
-#: the select of the winning channel's ba, the load of the cost at cur + 1
-#: (the cost at cur and the SNR at cur + 1 load beside it), inc's subtract,
-#: the last add of the fit's sum and its compare; the sum's earlier adds
-#: read only the running sums and the step's selects and run beside the
-#: load.  Layer I: the selects of the winning channel and of inc and scale
-#: on `first`, then the sum's last 3 adds and its compare
-K5_FIT_CYCLES = {
-    2: INT_LATENCY_CYCLES + SHARED_LOAD_CYCLES + 3 * FP64_LATENCY_CYCLES,
-    1: 2 * INT_LATENCY_CYCLES + 4 * FP64_LATENCY_CYCLES}
+#: cycles of one dependent redux.sync (__reduce_min_sync) and of one
+#: vote.ballot on an SM: a shuffle's 24 and an integer operation's;
+#: assumed, not measured on the card
+REDUX_CYCLES, VOTE_CYCLES = 24, INT_LATENCY_CYCLES
+#: K5's dependent path a greedy step (csrc/alloc12.cu walk): the lane's
+#: better key (a 64-bit compare, 2 integer operations, and its select),
+#: the high words' redux.sync and the move of its uniform result, the
+#: compare and select of the low words, their redux.sync and move, the
+#: ballot's compare, the ballot, __ffs (2), the winner's test and the
+#: select that commits its new key: 12 integer operations, 2 redux.sync
+#: and a ballot.  The step's price and new key, and the broadcast of the
+#: bits taken, run in every lane beside the reductions
+K5_PATH_CYCLES = 2 * REDUX_CYCLES + VOTE_CYCLES + 12 * INT_LATENCY_CYCLES
+#: the SASS opcodes of K5's loop by the pipe that runs them on an SM:
+#: 32-bit integer compare, select, logic, shift and bit counts; integer
+#: multiply-add and its moves; float64; shared loads; warp reduce;
+#: shuffle; anything else (branches, the warp's sync, special and uniform
+#: registers) takes a dispatch slot only
+SASS_PIPES = dict(
+    alu=("ISETP", "SEL", "LOP3", "SHF", "PLOP3", "LEA", "VOTE", "BREV",
+         "FLO", "IADD3", "IMNMX", "POPC", "PRMT"),
+    fma=("IMAD", "VIADD", "FSEL", "MOV"), fp64=("DADD", "DSETP", "DMUL"),
+    lds=("LDS",), redux=("REDUX",), shfl=("SHFL",))
+#: results an H100 SM completes a clock, by pipe (the CUDA C++ Programming
+#: Guide's throughput table for compute capability 9.0: 32-bit integer
+#: compare, select, logic and shift 64; integer multiply-add 64; float64
+#: add 64; shuffle 32; warp reduce 16; a shared load a warp a clock;
+#: assumed, not measured on the card), and the warp instructions its 4
+#: schedulers dispatch a clock
+SM_RESULTS_PER_CLOCK = dict(alu=64, fma=64, fp64=64, lds=32, redux=16,
+                            shfl=32)
+SM_DISPATCH_PER_CLOCK = 4
 
 
-def k5_step_cycles(layer):
-    """Cycles of one greedy step on K5's dependent path: the argmin, the
-    winner's fit and the select of its ba, used and mnr on the fit (the new
-    mnr, -smr + the SNR at cur + 1, does not wait for the fit).  Off the
-    path: Layer I's limit (a shuffle and an add of mnr[0][0] at the step's
-    start, beside the argmin), the fit's broadcast and the running sums'
-    adds (only the next step's fit reads them, after its argmin)."""
-    return K5_ARGMIN_CYCLES + K5_FIT_CYCLES[layer] + INT_LATENCY_CYCLES
+def sass_loop(text, kernel):
+    """[(address, instruction)] of `kernel`'s smallest loop that holds two
+    REDUX.MIN (K5's walk without the copy's second key) in cuobjdump -sass
+    output, without the instructions that a forward branch skips around a
+    shuffle from lane 0 (Layer I's limit, recomputed only on the steps that
+    move lane 0's channel-0 allocation)."""
+    import re
+    body = next(f for f in text.split("Function : ")[1:]
+                if kernel in f.split("\n", 1)[0])
+    code = [(int(a, 16), i.strip()) for a, i in re.findall(
+        r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+    loops = []
+    for addr, ins in code:
+        m = re.search(r"BRA (?:!?U?P\d+, )?0x([0-9a-f]+)", ins)
+        if m and int(m.group(1), 16) < addr:
+            loop = [c for c in code if int(m.group(1), 16) <= c[0] <= addr]
+            if sum("REDUX.MIN" in i for _, i in loop) == 2:
+                loops.append(loop)
+    loop = min(loops, key=len)
+    for addr, ins in loop:
+        m = re.search(r"BRA (?:!?P\d+, )?0x([0-9a-f]+)", ins)
+        if not m or int(m.group(1), 16) <= addr:
+            continue
+        skipped = [c for c in loop if addr < c[0] < int(m.group(1), 16)]
+        if any(re.search(r"SHFL\.IDX \S+ \S+ \S+ RZ,", i)
+               for _, i in skipped):
+            return [c for c in loop if c not in skipped]
+    return loop
+
+
+def k5_step_instructions(ctx):
+    """{layer: {pipe: warp instructions}} of one greedy step of K5, counted
+    in the SASS of this run's build (cuobjdump -sass of
+    build/liballoc12.so): the loop of sass_loop."""
+    from mp3tpu_torch.ops import cuda_build
+    A12 = ctx["A12"]
+    tool = os.path.join(os.path.dirname(cuda_build.nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", A12.LIBRARY], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    out = {}
+    for layer in (1, 2):
+        counts = dict.fromkeys(list(SASS_PIPES) + ["other"], 0)
+        for _, ins in sass_loop(text, f"alloc12_kernelILi{layer}E"):
+            op = ins.split()[1] if ins.startswith("@") else ins.split()[0]
+            pipe = next((k for k, ops in SASS_PIPES.items()
+                         if op.split(".")[0] in ops), "other")
+            counts[pipe] += 1
+        out[layer] = counts
+    return out
+
+
+def k5_step_sm_cycles(counts):
+    """SM cycles that one warp's greedy step of K5 takes of the SM's
+    throughput (`counts`: its warp instructions by pipe): the instructions
+    at the schedulers' dispatch rate, or those of its busiest pipe at that
+    pipe's rate, whichever is more."""
+    pipes = max(counts[k] * 32 / r for k, r in SM_RESULTS_PER_CLOCK.items())
+    return max(sum(counts.values()) / SM_DISPATCH_PER_CLOCK, pipes)
 
 
 @contextlib.contextmanager
@@ -1894,16 +1973,17 @@ def l12_cfg(ctx, layer, mode, kbps, rate=44100, crc=False):
 
 def l12_launches(ctx, path, run):
     """run() with the counts reset before and read after; fails unless it
-    launched K5 and K6 once each and no Layer III kernel.  Returns
-    (run()'s result, the counts)."""
+    launched K5 and K6 once each, K5's first design and no Layer III
+    kernel.  Returns (run()'s result, the counts)."""
     reset_counts(ctx)
     out = run()
     counts = launch_counts(ctx)
     if (counts["alloc12"], counts["pack12"]) != (1, 1) or any(
-            counts[k] for k in ("search", "bits_at", "hist_c1", "baseline",
-                                "resv_scan", "replays")):
-        fail(f"{path}: launches {counts} (expected K5 1, K6 1, no Layer III "
-             f"kernel)")
+            counts[k] for k in ("alloc12_baseline", "search", "bits_at",
+                                "hist_c1", "baseline", "resv_scan",
+                                "replays")):
+        fail(f"{path}: launches {counts} (expected K5 1, K6 1, K5's first "
+             f"design 0, no Layer III kernel)")
     return out, counts
 
 
@@ -1932,20 +2012,29 @@ def l12_capture(ctx, run):
 
 
 def k5_check(ctx, label, args):
-    """K5 against its plain version on `args` (allocate's), torch.equal on
-    every output, and its greedy steps against the lockstep code's rounds
-    (the longest frame's steps + 1, counted by a line tracer); returns
-    (max abs error, the longest frame's steps)."""
+    """K5 and its first design (allocate_baseline) against their plain
+    version on `args` (allocate's), torch.equal on every output, each
+    design's greedy steps against the other's and the lockstep code's
+    rounds (the longest frame's steps + 1, counted by a line tracer);
+    returns (K5's max abs error, the first design's, the longest frame's
+    steps, every frame's steps summed)."""
     torch, A12 = ctx["torch"], ctx["A12"]
     from test_torch_layer12_card import lockstep_rounds
     got = A12.allocate(*args)
+    first = A12.allocate_baseline(*args)
     torch.cuda.synchronize()
     want = A12.allocate_plain(*args)
-    err = max(int((got[k].cpu().long() - want[k].long()).abs().max())
-              if want[k].numel() else 0 for k in A12.OUTPUTS)
-    bad = [k for k in A12.OUTPUTS if not torch.equal(got[k].cpu(), want[k])]
-    if bad:
-        fail(f"K5 != its plain version on {label} in {bad}")
+    errs = []
+    for name, out in (("K5", got), ("K5's first design", first)):
+        errs.append(max(int((out[k].cpu().long() - want[k].long()).abs()
+                            .max()) if want[k].numel() else 0
+                        for k in A12.OUTPUTS))
+        bad = [k for k in A12.OUTPUTS
+               if not torch.equal(out[k].cpu(), want[k])]
+        if bad:
+            fail(f"{name} != its plain version on {label} in {bad}")
+    if not torch.equal(got["steps"], first["steps"]):
+        fail(f"K5 and its first design count other steps on {label}")
     smr, scf, layer, table, nch, sblimit, adb, ep, joint, mode = args
     steps = int(got["steps"].max()) if smr.shape[0] else 0
     kw = dict(layer=layer, table=table, nch=nch, adb=adb,
@@ -1956,20 +2045,27 @@ def k5_check(ctx, label, args):
     if steps + 1 != rounds:
         fail(f"K5 on {label}: the longest frame's steps {steps} + 1 != the "
              f"lockstep rounds {rounds}")
-    return err, steps
+    return errs[0], errs[1], steps, int(got["steps"].sum())
 
 
-def k5_bound(smr, scf, layer, steps):
-    """K5's least time (ms, "bytes" or "operations"): the larger of its
-    bytes (the SMR and scfsi read once; ba, adb_left, mode, mode_ext,
-    jsbound and steps written once) at the HBM rate and its design's
-    floor, the longest frame's greedy steps on the dependent path,
-    k5_step_cycles(layer) each at the boost clock."""
+def k5_bound(smr, scf, steps, total_steps, counts):
+    """K5's least time (ms, "bytes" or "operations", {term: ms}): the
+    largest of three terms.  "bytes": the SMR and scfsi read once; ba,
+    adb_left, mode, mode_ext, jsbound and steps written once, at the HBM
+    rate.  "path": the longest frame's greedy steps on one warp's
+    dependent path, K5_PATH_CYCLES each.  "throughput": every frame's steps
+    summed, k5_step_sm_cycles(counts) each (`counts`: a step's warp
+    instructions by pipe), over the card's SMs.  Both at the boost
+    clock."""
     F = smr.shape[0]
     moved = nbytes(smr) + (0 if scf is None else nbytes(scf)) + F * 69 * 4
-    t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    floor = steps * k5_step_cycles(layer) / SM_CLOCK_HZ * 1e3
-    return (t_bytes, "bytes") if t_bytes >= floor else (floor, "operations")
+    terms = dict(
+        bytes=moved / HBM_BYTES_PER_S * 1e3,
+        path=steps * K5_PATH_CYCLES / SM_CLOCK_HZ * 1e3,
+        throughput=total_steps * k5_step_sm_cycles(counts) / H100_SMS
+        / SM_CLOCK_HZ * 1e3)
+    name = max(terms, key=terms.get)
+    return terms[name], "bytes" if name == "bytes" else "operations", terms
 
 
 def k6_check(ctx, label, args):
@@ -2153,7 +2249,10 @@ def l12_trace(ctx, pcm, cfg_of, label, want):
 
 def l12_waits(ctx, pcm, cfg_of, label):
     """The host's waits of a warm card-chain encode (1) and of a stream
-    at 512 frames a window (one a window), by torch's count."""
+    at 512 frames a window (one a window), by torch's count; the stream's
+    launches of K5 and K6 (one a window each) and of K5's first design
+    (none).  Returns {"windows", "alloc12", "pack12",
+    "alloc12_baseline"}."""
     E = ctx["E"]
     E.encode_layer12_fast(pcm, cfg_of(), "cuda")
     out, where = torch_waits(ctx, lambda: E.encode_layer12_fast(
@@ -2165,15 +2264,89 @@ def l12_waits(ctx, pcm, cfg_of, label):
     pieces = [pcm[s:s + rate] for s in range(0, len(pcm), rate)]
     spf = 384 if cfg_of().layer == 1 else 1152
     windows = -(-(-(-len(pcm) // spf)) // 512)
+    reset_counts(ctx)
     streamed, swhere = torch_waits(ctx, lambda: b"".join(
         E.encode_layer12_stream(iter(pieces), cfg_of(), "cuda")))
+    counts = launch_counts(ctx)
     if streamed != out or sum(swhere.values()) != windows:
         fail(f"{label} stream: equal {streamed == out}, waits "
              f"{sum(swhere.values())} (expected {windows}): {swhere}")
+    if (counts["alloc12"], counts["pack12"],
+            counts["alloc12_baseline"]) != (windows, windows, 0):
+        fail(f"{label} stream: K5 and K6 launches {counts['alloc12']}, "
+             f"{counts['pack12']} (expected {windows} each), K5's first "
+             f"design's {counts['alloc12_baseline']}")
     print(f"{label}: host waits of a warm encode {where}; the stream in 1 s "
           f"pieces at 512 frames a window equals the one-shot with "
-          f"{windows} waits, one a window", flush=True)
-    return windows
+          f"{windows} waits, one a window; K5 launched {windows} times, its "
+          f"first design none", flush=True)
+    return dict(windows=windows, alloc12=counts["alloc12"],
+                pack12=counts["pack12"],
+                alloc12_baseline=counts["alloc12_baseline"])
+
+
+def k5_designs(ctx):
+    """Print the -Xptxas -v lines of K5 (alloc12_kernel, each layer) and
+    of its first design from phase 2's report, and the blocks each holds
+    on an SM; fails unless K5 has no stack frame and no spill."""
+    A12 = ctx["A12"]
+    report = A12.kernel_report(ctx["alloc12_ptxas"])
+    for name, r in sorted(report.items()):
+        layer = 2 if "<2>" in name else 1
+        per_sm, per_block = A12.occupancy(layer, "baseline" in name)
+        print(f"ptxas {name}: {r['registers']} registers, {r['stack']} "
+              f"bytes stack frame, {r['spill_stores']} bytes spill stores, "
+              f"{r['spill_loads']} bytes spill loads; {per_sm} blocks of "
+              f"{per_block} warps an SM", flush=True)
+    for name in ("alloc12_kernel<1>", "alloc12_kernel<2>"):
+        r = report.get(name)
+        if r is None or (r["stack"], r["spill_stores"],
+                         r["spill_loads"]) != (0, 0, 0):
+            fail(f"{name}: ptxas reports {r} (expected no stack frame and "
+                 f"no spill)")
+
+
+#: phase 8 times K5 and its first design in this many windows of turns
+#: (first, K5, K5, first; 20 launches each)
+K5_WINDOWS = 3
+
+
+def k5_timed(ctx, a5, layer, steps, total, counts):
+    """K5 and its first design on `a5` (allocate's arguments): device time
+    in K5_WINDOWS windows of turns (first, K5, K5, first: the median of
+    each design's), call time, blocks an SM and waves; the plain version's
+    host time; the bound by term."""
+    torch, A12 = ctx["torch"], ctx["A12"]
+    fns = dict(k5=lambda: A12.allocate(*a5),
+               first=lambda: A12.allocate_baseline(*a5))
+    names = dict(k5="alloc12_kernel", first="alloc12_baseline_kernel")
+    order = ("first", "k5", "k5", "first")
+    turns = dict(k5=[], first=[])
+    for _ in range(K5_WINDOWS):
+        got = kernel_series([fns[k] for k in order],
+                            [names[k] for k in order])
+        if got is None:     # the profiler lost events: CUDA events instead
+            got = [queued_ms(fns[k]) for k in order]
+        for k, ms in zip(order, got):
+            turns[k].append(ms)
+    F = a5[0].shape[0]
+    out = {}
+    for key in ("k5", "first"):
+        per_sm, per_block = A12.occupancy(layer, key == "first")
+        out[key] = dict(ms=statistics.median(turns[key]), turns=turns[key],
+                        call_ms=call_ms(fns[key], reps=20), blocks=per_sm,
+                        per_block=per_block,
+                        waves=A12.waves(F, layer, key == "first"))
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        A12.allocate_plain(*a5)
+        times.append((time.perf_counter() - t0) * 1e3)
+    b_ms, b_by, terms = k5_bound(a5[0], a5[1], steps, total, counts[layer])
+    return dict(out, plain_ms=statistics.median(times), bound_ms=b_ms,
+                bound_by=b_by, terms=terms,
+                term=max(terms, key=terms.get))
 
 
 def phase_layer12(ctx):
@@ -2183,7 +2356,22 @@ def phase_layer12(ctx):
     from mp3tpu_torch.encoder import encode_layer12_fast
     golden = os.path.join(ROOT, "tests", "golden")
     worst = None
-    k5_err = k6_err = 0
+    k5_err = k5b_err = k6_err = 0
+    k5_designs(ctx)
+    step_counts = k5_step_instructions(ctx)
+    for layer, counts in step_counts.items():
+        print(f"K5's greedy step at Layer {'I' * layer}, warp instructions "
+              f"in the SASS by pipe: {counts} ({sum(counts.values())}; "
+              f"{k5_step_sm_cycles(counts):.2f} SM cycles of throughput a "
+              f"warp's step); its dependent path {K5_PATH_CYCLES} cycles "
+              f"(latencies assumed)", flush=True)
+
+    def check5(label, args):
+        nonlocal k5_err, k5b_err
+        e5, e5b, steps, total = k5_check(ctx, label, args)
+        k5_err, k5b_err = max(k5_err, e5), max(k5b_err, e5b)
+        return steps, total
+
     for name, layer, mode, kbps, rate in L12_FIXTURES:
         pcm, _ = ctx["read_wav"](os.path.join(golden, f"{name}.wav"))
         if mode == "m":
@@ -2220,7 +2408,7 @@ def phase_layer12(ctx):
         if l12_host_route(pcm, cfg_of(), "cuda") != out:
             fail(f"{name}: the card chain and the host route (pack_elements "
                  f"with _crc_calc) give other bytes")
-        k5_err = max(k5_err, k5_check(ctx, name, alloc_args[0])[0])
+        check5(name, alloc_args[0])
         k6_err = max(k6_err, k6_check(ctx, name, pack_args[0]))
         dec, _ = dec12.decode(out)
         if len(dec) < len(pcm) - 1152 or \
@@ -2238,11 +2426,11 @@ def phase_layer12(ctx):
                 None if scf is None else torch.as_tensor(scf, device="cuda"),
                 kw["layer"], kw["table"], kw["nch"], kw["sblimit"],
                 kw["adb"], kw["error_protection"], kw["joint"], kw["mode"])
-        k5_err = max(k5_err, k5_check(ctx, label, args)[0])
-    print("K5 == its plain version on the forced rows of "
-          "tests/test_torch_layer12_card.py (ties, +-inf, NaN, silent "
-          "frames, every subband to its top) of 24 configurations",
-          flush=True)
+        check5(label, args)
+    print("K5 and its first design == their plain version on the forced "
+          "rows of tests/test_torch_layer12_card.py (ties, +-inf, NaN, "
+          "silent frames, every subband to its top, Layer I's limit) of "
+          "24 configurations", flush=True)
 
     pcm = ctx["make_signal"](CLIP_SECONDS, 44100)
     res = dict(cells={})
@@ -2253,26 +2441,34 @@ def phase_layer12(ctx):
             ctx, label, lambda: encode_layer12_fast(pcm, cfg_of(), "cuda"))
         alloc_args, pack_args = l12_capture(
             ctx, lambda: encode_layer12_fast(pcm, cfg_of(), "cuda"))
-        err5, steps = k5_check(ctx, label, alloc_args[0])
-        err6 = k6_check(ctx, label, pack_args[0])
-        k5_err, k6_err = max(k5_err, err5), max(k6_err, err6)
-        A12, P12 = ctx["A12"], ctx["P12"]
+        steps, total = check5(label, alloc_args[0])
+        k6_err = max(k6_err, k6_check(ctx, label, pack_args[0]))
+        P12 = ctx["P12"]
         a5, a6 = alloc_args[0], pack_args[0]
-        k5_ms, k5_call, k5_plain = kernel_timed(
-            ctx, lambda: A12.allocate(*a5), lambda: A12.allocate_plain(*a5),
-            True)
+        k5 = k5_timed(ctx, a5, layer, steps, total, step_counts)
         k6_ms, k6_call, k6_plain = kernel_timed(
             ctx, lambda: P12.pack_frames(*a6),
             lambda: P12.pack_frames_plain(*a6), False)
-        b5, b5_by = k5_bound(a5[0], a5[1], layer, steps)
         b6, b6_by = k6_bound(a6[0], a6[1], a6[2])
         F, Ecols = a6[0].shape
         clip = f"{label} {CLIP_SECONDS:g} s"
-        print(f"{clip}: K5 == plain, {a5[0].shape[0]} frames, longest "
-              f"frame {steps} greedy steps; device {k5_ms} ms, call "
-              f"{k5_call:.4f} ms, plain (numpy on the host with its "
-              f"download) {k5_plain:.3f} ms; bound {b5:.6f} ms ({b5_by}), "
-              f"at {b5 / k5_ms:.1%} of it", flush=True)
+        F5 = a5[0].shape[0]
+        for name, key in (("K5", "k5"), ("K5's first design", "first")):
+            d = k5[key]
+            print(f"{clip}: {name} == plain, {F5} frames, longest frame "
+                  f"{steps} greedy steps, {total} in all; {d['blocks']} "
+                  f"blocks of {d['per_block']} warps an SM, "
+                  f"{d['waves']} wave(s); device {d['ms']} ms (median of "
+                  f"{len(d['turns'])} in turns: "
+                  f"{', '.join(f'{t:.6f}' for t in d['turns'])}), call "
+                  f"{d['call_ms']:.4f} ms; bound {k5['bound_ms']:.6f} ms "
+                  f"({k5['term']}), at {k5['bound_ms'] / d['ms']:.1%} of "
+                  f"it", flush=True)
+        print(f"{clip}: K5's bound by term: " + ", ".join(
+            f"{t} {v:.6f} ms" for t, v in k5["terms"].items())
+            + f"; K5 at {k5['k5']['ms'] / k5['first']['ms']:.3f} of its "
+            f"first design's time; plain (numpy on the host with its "
+            f"download) {k5['plain_ms']:.3f} ms", flush=True)
         print(f"{clip}: K6 == plain, {F} frames x {Ecols} elements of "
               f"{a6[2]} bytes; device {k6_ms} ms, call {k6_call:.4f} ms, "
               f"plain (torch ops on the card) {k6_plain} ms; bound "
@@ -2311,10 +2507,15 @@ def phase_layer12(ctx):
                   flush=True)
         l12_trace(ctx, pcm, cfg_of, label, want)
         windows = l12_waits(ctx, pcm, cfg_of, label)
+        bound5 = dict(plain_ms=k5["plain_ms"], bound_ms=k5["bound_ms"],
+                      bound_by=k5["bound_by"], steps=steps)
         res["cells"][label] = dict(
-            launches=counts, k5=dict(ms=k5_ms, call_ms=k5_call,
-                                     plain_ms=k5_plain, bound_ms=b5,
-                                     bound_by=b5_by, steps=steps),
+            launches=counts,
+            k5=dict(bound5, ms=k5["k5"]["ms"], call_ms=k5["k5"]["call_ms"],
+                    total_steps=total, terms=k5["terms"],
+                    term=k5["term"]),
+            k5_first=dict(bound5, ms=k5["first"]["ms"],
+                          call_ms=k5["first"]["call_ms"]),
             k6=dict(ms=k6_ms, call_ms=k6_call, plain_ms=k6_plain,
                     bound_ms=b6, bound_by=b6_by), routes=routes,
             events=events, windows=windows)
@@ -2336,7 +2537,7 @@ def phase_layer12(ctx):
             fail(f"Layer {layer} {mode} {kbps} kbps {rate} Hz crc {crc}: the "
                  f"card chain and the host route give other bytes")
         label = f"Layer {layer} {rate} Hz {kbps} kbps {mode} crc {crc}"
-        k5_err = max(k5_err, k5_check(ctx, label, alloc_args[0])[0])
+        check5(label, alloc_args[0])
         k6_err = max(k6_err, k6_check(ctx, label, pack_args[0]))
         print(f"{label}, {CLIP_SECONDS:g} s: the card chain == the host "
               f"route ({len(out)} bytes); K5 and K6 == plain", flush=True)
@@ -2396,7 +2597,7 @@ def phase_layer12(ctx):
                  f"below the CPU path's {c:.2f} dB")
     ctx["streams"]["Layer II 60 s stereo 192 kbps"] = (
         out, pcm, 44100, fsize, 1152, dec12.decode)
-    res["k5_err"], res["k6_err"] = k5_err, k6_err
+    res["k5_err"], res["k5b_err"], res["k6_err"] = k5_err, k5b_err, k6_err
     return res
 
 
@@ -3299,6 +3500,7 @@ def phase_build(k1, K, R, A12, P12):
     for (mod, _), log in list(zip(jobs, logs))[1:]:
         print(f"build: ptxas report for {os.path.basename(mod.SOURCE)}:\n"
               + log.strip(), flush=True)
+    return {mod: log for (mod, _), log in zip(jobs, logs)}
 
 
 def phase_main(ctx, pcm, cfg, line):
@@ -4052,11 +4254,11 @@ def main():
     from mp3tpu_torch.runtime.wav import read_wav
     from mp3tpu_torch.tables import mpeg
 
-    phase_build(k1, K, R, A12, P12)
+    ptxas = phase_build(k1, K, R, A12, P12)
     kres = phase_kernel(k1, torch)
 
     ctx = dict(np=np, torch=torch, k1=k1, K=K, S=S, R=R, E=E, loop=loop,
-               A12=A12, P12=P12,
+               A12=A12, P12=P12, alloc12_ptxas=ptxas[A12],
                graphs=graphs, EncoderConfig=EncoderConfig, mpeg=mpeg,
                encode=encode_layer3_fast, decode_mp3=decode_mp3,
                snr_db=snr_db, read_wav=read_wav, make_signal=make_signal,
@@ -4138,15 +4340,15 @@ def main():
         return {path: (c["warm"] if warm and path != "main" else c)[kernel]
                 for path, c in runs.items()}
 
-    for kernel in ("search", "baseline", "bits_at", "resv_scan", "alloc12",
-                   "pack12", "iterations", "captures", "replays") + tuple(
-                       f"{s}_{kind}" for s in SEGMENT_STAGES
-                       for kind in ("captures", "replays")):
+    kernels = ("search", "baseline", "bits_at", "resv_scan", "alloc12",
+               "alloc12_baseline", "pack12")
+    for kernel in kernels + ("iterations", "captures", "replays") + tuple(
+            f"{s}_{kind}" for s in SEGMENT_STAGES
+            for kind in ("captures", "replays")):
         what = {"iterations": "live rate-loop iterations per encode",
                 "captures": "segment program graph captures",
                 "replays": "segment program graph replays"}.get(
-                    kernel, "graphs" if "_" in kernel and kernel !=
-                    "resv_scan" else "launches")
+                    kernel, "launches" if kernel in kernels else "graphs")
         print(f"{kernel} {what} by path (first run): {by_path(kernel)}",
               flush=True)
     for kind, name in WAITS.items():
@@ -4167,7 +4369,7 @@ def main():
                 "library_ms": None, "launches_by_path": dict(
                     by_path(name), layer2=l2["launches"][name],
                     layer1=l1["launches"][name],
-                    layer2_stream=l2["windows"]),
+                    layer2_stream=l2["windows"].get(name, 0)),
                 "call_ms": k["call_ms"], "layer1_ms": k1["ms"],
                 "layer1_plain_ms": k1["plain_ms"],
                 "layer1_bound_ms": k1["bound_ms"],
@@ -4237,6 +4439,9 @@ def main():
          "encode_ms": main_res["k3_encode_ms"]["baseline"]},
         l12_row("alloc12", "k5", "mp3tpu_torch/csrc/alloc12.cu",
                 "mp3tpu/runtime/alloc12.py:148", l12["k5_err"]),
+        l12_row("alloc12_baseline", "k5_first",
+                "mp3tpu_torch/csrc/alloc12.cu",
+                "mp3tpu/runtime/alloc12.py:148", l12["k5b_err"]),
         l12_row("pack12", "k6", "mp3tpu_torch/csrc/pack12.cu",
                 "mp3tpu/runtime/bitstream.py:181", l12["k6_err"])]}),
           flush=True)

@@ -1,15 +1,19 @@
-"""The Layer I/II chain on the card: K5 (``csrc/alloc12.cu``, the joint
-decision and the greedy bit allocation, one warp a frame) and K6
+"""The Layer I/II chain on the card: K5 (``csrc/alloc12.cu``
+``alloc12_kernel``, the joint decision and the greedy bit allocation, one
+warp a frame), its first design kept as the yardstick
+(``alloc12_baseline_kernel``, ``allocate_baseline``) and K6
 (``csrc/pack12.cu``, the frame packing with its CRC, one block a frame)
 against their plain versions, the card route of ``encode_layer12_fast``
 against the host route it replaced (``chip_smoke.l12_host_route``), one
 host wait an encode, and a malformed frame that raises.
 
-The module also holds the lane-level model of K5's walk (``model_frame``:
-the warp's argmin as five xor-shuffle rounds over (value, index) pairs,
-the winner lane's update, the broadcast) and the cases it and K5 run on
-(``alloc_cases``); tests/test_torch_alloc12_model.py holds the model to
-``runtime/alloc12`` and the sequential oracles of ``numpy_ref/layer12``
+The module also holds the lane-level model of the first design's walk
+(``model_frame``: the warp's argmin as five xor-shuffle rounds over (value,
+index) pairs, the winner lane's update, the broadcast) and the cases both
+designs run on (``alloc_cases``); tests/test_torch_alloc12_model.py holds
+that model, and tests/test_torch_alloc12_keys.py the model of K5's walk
+(ordered keys, the two-half ``redux.sync`` argmin, the packed broadcast),
+to ``runtime/alloc12`` and the sequential oracles of ``numpy_ref/layer12``
 on the CPU.
 
 A CUDA kernel has no CPU mode, so the card tests carry the `cuda` marker
@@ -375,19 +379,59 @@ def fixture(name, layer, mode, kbps, crc):
                               sample_rate_hz=rate, error_protection=crc)
 
 
-@pytest.mark.cuda
-def test_k5_equals_plain_and_model(card):
+def design_equals_plain_and_model(allocate, card, model):
+    """`allocate` (a design's wrapper) on the card == the plain version on
+    every output and == `model`'s steps, on every ``alloc_cases()`` case
+    (the forced rows: ties, +-inf, NaN, silent frames, every subband to
+    its top, Layer I's limit)."""
     for label, smr, scf, kw in alloc_cases():
-        got = A12.allocate(
+        got = allocate(
             torch.as_tensor(smr, device=card),
             None if scf is None else torch.as_tensor(scf, device=card), **kw)
         want = plain_of(smr, scf, kw)
-        model = model_alloc(smr, scf, **kw)
+        steps = model(smr, scf, **kw)["steps"]
         for k in A12.OUTPUTS:
             np.testing.assert_array_equal(got[k].cpu().numpy(), want[k],
                                           err_msg=f"{label}: {k}")
-        np.testing.assert_array_equal(got["steps"].cpu().numpy(),
-                                      model["steps"], err_msg=label)
+        np.testing.assert_array_equal(got["steps"].cpu().numpy(), steps,
+                                      err_msg=label)
+
+
+@pytest.mark.cuda
+def test_k5_equals_plain_and_model(card):
+    from test_torch_alloc12_keys import model_alloc as keys_model
+    before = A12.baseline_launches
+    design_equals_plain_and_model(A12.allocate, card, keys_model)
+    assert A12.baseline_launches == before
+
+
+@pytest.mark.cuda
+def test_k5_baseline_equals_plain_and_model(card):
+    before = A12.launches
+    design_equals_plain_and_model(A12.allocate_baseline, card, model_alloc)
+    assert A12.launches == before
+
+
+@pytest.mark.cuda
+def test_k5_keeps_its_state_in_registers_and_runs_in_one_wave(card,
+                                                              tmp_path):
+    """nvcc -Xptxas -v: alloc12_kernel (both layers) with no stack frame
+    and no spill, at most 32 registers; the first design beside it; the
+    60 s Layer I clip's 6,891 frames in one wave."""
+    from mp3tpu_torch.ops import cuda_build
+    log = cuda_build.build(A12.SOURCE, str(tmp_path / "liballoc12.so"),
+                           A12.NVCC_FLAGS + ["-Xptxas", "-v"], force=True)
+    report = A12.kernel_report(log)
+    assert set(report) == {"alloc12_kernel<1>", "alloc12_kernel<2>",
+                           "alloc12_baseline_kernel"}, log
+    for name in ("alloc12_kernel<1>", "alloc12_kernel<2>"):
+        r = report[name]
+        assert (r["stack"], r["spill_stores"], r["spill_loads"]) == \
+            (0, 0, 0), (name, r)
+        assert r["registers"] <= 32, (name, r)
+    assert A12.waves(6891, 1) == 1
+    per_sm, per_block = A12.occupancy(1)
+    assert per_sm * per_block * 132 >= 6891
 
 
 @pytest.mark.cuda
@@ -434,8 +478,10 @@ def test_one_wait_an_encode_and_a_window(card):
     from mp3tpu_torch.tools import host_waits
     pcm, cfg = fixture(*FIXTURES[1])
     E.encode_layer12_fast(pcm, cfg, "cuda")                 # warm
+    k5, first = A12.launches, A12.baseline_launches
     out, waits = host_waits(lambda: E.encode_layer12_fast(pcm, cfg, "cuda"))
     assert sum(waits.values()) == 1, waits
+    assert (A12.launches - k5, A12.baseline_launches - first) == (1, 0)
     pieces = [pcm[s:s + 20000] for s in range(0, len(pcm), 20000)]
     nwin = -(-(-(-len(pcm) // 1152)) // 8)
     streamed, waits = host_waits(lambda: b"".join(E.encode_layer12_stream(
