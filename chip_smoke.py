@@ -131,14 +131,20 @@ Phases, each printing its own lines; any failure exits non-zero:
      encode at chunk 1024 byte for byte, and the stream in the yardstick
      form, and so must a run checkpointed at 30 s, pickled and resumed in
      a fresh encoder; one wait a window;
-  8. Layers I/II, one chain queued on the card (the analysis, K5 -- the
-     joint decision and the greedy bit allocation, one warp a frame, each
-     greedy step's argmin as ordered keys reduced with redux.sync --,
+  8. Layers I/II, one chain queued on the card (int16 PCM uploaded as
+     int16, the analysis replaying one CUDA graph a frame count, K5 --
+     the joint decision and the greedy bit allocation, one warp a frame,
+     each greedy step's argmin as ordered keys reduced with redux.sync --,
      the quantizers, the element marshalling, K6 -- each frame packed
-     with its CRC, one block a frame --, one download): the six fixtures
+     with its CRC, one block a frame --, one download): the captured
+     analysis (layer12.analyze_frames) against its op-by-op form
+     (analyze_frames_eager), torch.equal on every output, on every
+     fixture and cell, a capture call and a replay each (capture ms by
+     key, torch.cuda.memory_reserved before and after); the six fixtures
      of tests/test_layer12_fast.py at their reference bars and the two
-     CRC fixtures decoding, each equal byte for byte to the host route it
-     replaced (l12_host_route: runtime/alloc12,
+     CRC fixtures decoding, each equal byte for byte to the yardstick
+     form (tools.yardstick_form: the analysis op by op) and to the host
+     route it replaced (l12_host_route: runtime/alloc12,
      _marshal_layer12 with _crc_calc, pack_elements); K5 and its first
      design (allocate_baseline) against their plain version
      (runtime/alloc12's numpy code) on every output and their greedy
@@ -156,15 +162,18 @@ Phases, each printing its own lines; any failure exits non-zero:
      version's time and its bound (K5: the largest of its bytes, its
      design's dependent path a step times the longest frame's steps, and
      the warp instructions of every frame's steps at the SMs' rates,
-     k5_bound, printed by term; K6: its bytes), the host route and
-     the card chain in 3
-     turns of host, card, card, host (walls, real-time factor), then the
+     k5_bound, printed by term; K6: its bytes), the host route, the
+     yardstick form and the card chain in 3 turns of host, yardstick,
+     card, card, yardstick, host (walls, real-time factor), then the
      same with every stage synchronized (each stage's wall, median of 6;
      the host route's _crc_calc inside its _marshal_layer12), one
      profiled encode of each (device events, idle share), one traced
-     encode of each (span_breakdown by runtime.profiling.SPANS_L12), and
+     encode of each (span_breakdown by runtime.profiling.SPANS_L12; the
+     card chain's analyze_frames span under 20 host dispatches), and
      the host's waits by torch's count: 1 an encode, one a window of
-     encode_layer12_stream; the same bytes as the host route at joint
+     encode_layer12_stream, whose warm windows replay their analysis
+     graphs and capture none; the same bytes as the host route and the
+     yardstick form at joint
      stereo with the CRC on at both layers, at stereo with the CRC, and
      at 24 kHz (LSF); psy model 1 (on the host) with 2 waits; the Layer
      II stream on the frame grid, its first 10 s within 0.5 dB of the
@@ -201,8 +210,12 @@ Phases, each printing its own lines; any failure exits non-zero:
      --sharded-rank, both computing on cuda:0): equal length, equal block
      types and first-10 s SNR within 0.5 dB of the one-shot encode at the
      same chunk, both ranks' bytes equal, each run's bytes those of its
-     yardstick form; timed,
-     kernels counted, the host scan kept; K3
+     yardstick form (the analysis lane by lane); timed, kernels counted,
+     the analysis's two graphs (psy with the automaton's maps, the
+     spectra) and the rate loop's replayed, the host scan kept; the
+     host's waits of a warm encode against torch's count (world 1:
+     waits_check, one scan download and one fetch; world 2: each rank's
+     counters, gloo exchanges included); K3
      against the plain search on each run's own first stepsize search
      (9,216 lanes at world size 1, 4,608 on each rank at 2) and bits_at
      against its plain chain at three stepsizes of that batch;
@@ -240,9 +253,9 @@ Phases, each printing its own lines; any failure exits non-zero:
      equal to its own encode_layer3_fast, the wall against one worker.
 On every path (main, LSF, stream, corpus, sharded) K3 must launch, the
 segment program's CUDA graphs must replay (the analysis, the rate loop
-and the emission; the sharded path's analysis, which holds an exchange
-between ranks, runs its lanes as one batch op by op), and none may
-launch bits_at, the baseline, K5, K5's first design or K6; every path
+and the emission; the sharded path's analysis as its two graphs around
+the exchange between ranks), and none may launch bits_at, the
+baseline, K5, K5's first design or K6; every path
 but the
 sharded one (which keeps its host scan, as the JAX package does) must
 launch K4 and make no loop-exit sync and no scan copy; the launches,
@@ -1514,10 +1527,16 @@ def reset_counts(ctx):
     ctx["P12"].launches = 0
     ctx["E"].fetches = 0
     ctx["E"].retry_fetches = 0
+    sharding().host_exchanges = 0
     ctx["loop"].any_on_host.syncs = 0
     ctx["loop"].reset_iterations()
     ctx["graphs"].reset_counts()
     ctx["torch"].cuda.synchronize()
+
+
+def sharding():
+    from mp3tpu_torch.parallel import sharding as module
+    return module
 
 
 def graph_count_keys(by_stage):
@@ -1529,14 +1548,15 @@ def graph_count_keys(by_stage):
 def stage_pairs(counts):
     """{stage: (captures, replays)} of launch_counts' "<stage>_..." keys."""
     return {s: (counts[f"{s}_captures"], counts[f"{s}_replays"])
-            for s in SEGMENT_STAGES}
+            for s in SEGMENT_STAGES + L12_STAGES + SHARDED_ANALYSIS}
 
 
 #: the host's waits on the card by kind, as launch_counts names them:
 #: the rate loop's exit read on the host, the download of a host scan's
-#: inputs, the download of results
+#: inputs, the download of results, a card tensor's trip through the
+#: host in a gloo exchange
 WAITS = {"syncs": "loop exit", "scan_copies": "scan copy",
-         "fetches": "fetch"}
+         "fetches": "fetch", "exchanges": "gloo exchange"}
 
 
 def launch_counts(ctx):
@@ -1545,11 +1565,11 @@ def launch_counts(ctx):
     "syncs": loop-exit host syncs,
     "scan_copies": host scans of the card's results, "fetches": result
     downloads ("retry_fetches": those of settle's rare retries),
+    "exchanges": card tensors through the host in a gloo exchange,
     "iterations": the rate loops' live iterations (read on
-    the device's sum), "captures" and "replays": the segment program's
-    CUDA graph captures and replays, and each stage's
-    ("<stage>_captures", "<stage>_replays": analysis, prologue, iteration,
-    emission)} since reset_counts."""
+    the device's sum), "captures" and "replays": CUDA graph captures and
+    replays, and each stage's ("<stage>_captures", "<stage>_replays":
+    graphs.STAGES)} since reset_counts."""
     torch = ctx["torch"]
     return {"search": ctx["S"].launches, "bits_at": ctx["K"].bits_at.launches,
             "hist_c1": ctx["k1"].hist_c1.launches,
@@ -1562,6 +1582,7 @@ def launch_counts(ctx):
             "scan_copies": ctx["R"].host_scans,
             "fetches": ctx["E"].fetches,
             "retry_fetches": ctx["E"].retry_fetches,
+            "exchanges": sharding().host_exchanges,
             "iterations": ctx["loop"].iterations(torch.device("cuda")),
             **ctx["graphs"].totals(),
             **graph_count_keys(ctx["graphs"].by_stage())}
@@ -1574,19 +1595,24 @@ def waits_of(counts):
 
 #: the captured stages that every path replays: the one-shot, LSF,
 #: stream and corpus paths run the whole segment program; the sharded
-#: path's analysis holds an exchange between ranks and runs its lanes as
-#: one batch op by op (parallel/clip.py)
+#: path runs its analysis as two graphs around the automaton's exchange
+#: between ranks (parallel/clip.py), then the rate loop and the emission;
+#: the Layer I/II encode replays its analysis
 SEGMENT_STAGES = ("analysis", "prologue", "iteration", "emission")
-SHARDED_STAGES = ("prologue", "iteration", "emission")
+SHARDED_ANALYSIS = ("sharded_psy", "sharded_spectra")
+SHARDED_STAGES = SHARDED_ANALYSIS + ("prologue", "iteration", "emission")
+L12_STAGES = ("l12_analysis",)
 
 
 def read_counts(ctx, path, stages=SEGMENT_STAGES, k4=True):
     """launch_counts; fails unless the path launched K3 and replayed the
     graphs of each of `stages`, and it launched bits_at, the baseline and
-    the Layer I/II kernels (K5, its first design, K6) no time; with `k4`
-    (every path but the
-    sharded one), unless it launched K4 and made no loop-exit sync and no
-    scan copy."""
+    the Layer I/II kernels (K5, its first design, K6) no time and
+    replayed no Layer I/II graph; with `k4` (every path but the sharded
+    one), unless it launched K4 and made no loop-exit sync and no scan
+    copy; without it (the sharded path, which scans on the host as the
+    JAX package does), unless it launched K4 no time and made no
+    loop-exit sync."""
     counts = launch_counts(ctx)
     if counts["search"] <= 0:
         fail(f"the {path} launched K3 no time")
@@ -1594,7 +1620,7 @@ def read_counts(ctx, path, stages=SEGMENT_STAGES, k4=True):
         if counts[f"{stage}_replays"] <= 0:
             fail(f"the {path} replayed the {stage} graphs no time: {counts}")
     for kernel in ("bits_at", "baseline", "alloc12", "alloc12_baseline",
-                   "pack12"):
+                   "pack12", "l12_analysis_replays"):
         if counts[kernel]:
             fail(f"the {path} launched {kernel} {counts[kernel]} times")
     if k4 and (counts["resv_scan"] <= 0 or counts["syncs"]
@@ -1602,6 +1628,9 @@ def read_counts(ctx, path, stages=SEGMENT_STAGES, k4=True):
         fail(f"the {path}: K4 launches {counts['resv_scan']}, loop-exit "
              f"syncs {counts['syncs']}, scan copies {counts['scan_copies']}"
              f" (expected > 0, 0, 0)")
+    if not k4 and (counts["resv_scan"] or counts["syncs"]):
+        fail(f"the {path}: K4 launches {counts['resv_scan']}, loop-exit "
+             f"syncs {counts['syncs']} (expected 0, 0)")
     return counts
 
 
@@ -1614,17 +1643,17 @@ def torch_waits(ctx, fn):
     return host_waits(fn, ROOT)
 
 
-def waits_check(ctx, path, fn, fetches, stages=SEGMENT_STAGES):
+def waits_check(ctx, path, fn, fetches, stages=SEGMENT_STAGES, k4=True):
     """fn() once more, its keys captured, with the counts reset before and
-    read after (read_counts' checks) and under torch_waits: fails unless
-    it fetched `fetches` times besides settle's retries' fetches, and
-    torch counts as many synchronizing operations (event, stream and
-    device synchronizations included) as the port's counters (loop exits,
-    scan copies, fetches) -- no hidden wait, in a retry too.  Returns
-    (out, counts, where)."""
+    read after (read_counts' checks, `k4` as there) and under torch_waits:
+    fails unless it fetched `fetches` times besides settle's retries'
+    fetches, and torch counts as many synchronizing operations (event,
+    stream and device synchronizations included) as the port's counters
+    (loop exits, scan copies, fetches, gloo exchanges) -- no hidden wait,
+    in a retry too.  Returns (out, counts, where)."""
     reset_counts(ctx)
     out, where = torch_waits(ctx, fn)
-    counts = read_counts(ctx, path, stages)
+    counts = read_counts(ctx, path, stages, k4)
     waits = waits_of(counts)
     print(f"{path}, host waits of one warm run by kind {waits} "
           f"({counts['retry_fetches']} of settle's retries); torch's "
@@ -1974,16 +2003,21 @@ def l12_cfg(ctx, layer, mode, kbps, rate=44100, crc=False):
 def l12_launches(ctx, path, run):
     """run() with the counts reset before and read after; fails unless it
     launched K5 and K6 once each, K5's first design and no Layer III
-    kernel.  Returns (run()'s result, the counts)."""
+    kernel, and captured or replayed its analysis graph once and no
+    Layer III graph.  Returns (run()'s result, the counts)."""
     reset_counts(ctx)
     out = run()
     counts = launch_counts(ctx)
     if (counts["alloc12"], counts["pack12"]) != (1, 1) or any(
             counts[k] for k in ("alloc12_baseline", "search", "bits_at",
-                                "hist_c1", "baseline", "resv_scan",
-                                "replays")):
+                                "hist_c1", "baseline", "resv_scan")) or \
+            (counts["l12_analysis_captures"]
+             + counts["l12_analysis_replays"]) != 1 or any(
+                counts[f"{s}_{kind}"] for s in SEGMENT_STAGES
+                + SHARDED_ANALYSIS for kind in ("captures", "replays")):
         fail(f"{path}: launches {counts} (expected K5 1, K6 1, K5's first "
-             f"design 0, no Layer III kernel)")
+             f"design 0, no Layer III kernel; one analysis graph, no Layer "
+             f"III graph)")
     return out, counts
 
 
@@ -2131,15 +2165,30 @@ class SyncStages:
             self.torch.cuda.synchronize()
 
 
+def l12_yardstick(pcm, cfg, device, prof=None):
+    """``encode_layer12_fast`` in ``tools.yardstick_form()``: the card chain
+    with its analysis op by op (``layer12.analyze_frames_eager``)."""
+    from mp3tpu_torch.encoder import encode_layer12_fast
+    with yardstick_form():
+        return encode_layer12_fast(pcm, cfg, device, prof=prof)
+
+
+def l12_route_fns(ctx):
+    """The Layer I/II routes phase 8 compares: the host route, the card
+    chain with its analysis op by op, the card chain."""
+    return {"host": l12_host_route, "yardstick": l12_yardstick,
+            "card": ctx["E"].encode_layer12_fast}
+
+
 def l12_staged(ctx, route, pcm, cfg):
-    """One encode of `route` ("host": l12_host_route, "card":
-    encode_layer12_fast) under SyncStages: (bytes, synced wall s, {stage:
-    s}), the host route's _crc_calc calls timed by a wrapper of
-    numpy_ref.layer12._crc_calc (they run inside its _marshal_layer12)."""
-    torch, E = ctx["torch"], ctx["E"]
+    """One encode of `route` (``l12_route_fns``) under SyncStages: (bytes,
+    synced wall s, {stage: s}), the host route's _crc_calc calls timed by
+    a wrapper of numpy_ref.layer12._crc_calc (they run inside its
+    _marshal_layer12)."""
+    torch = ctx["torch"]
     from mp3tpu_torch.numpy_ref import layer12 as ref12
     from mp3tpu_torch.runtime.profiling import Profiler
-    fn = l12_host_route if route == "host" else E.encode_layer12_fast
+    fn = l12_route_fns(ctx)[route]
     prof = SyncStages(torch, Profiler)
     real_crc, crc_s = ref12._crc_calc, [0.0]
 
@@ -2163,23 +2212,29 @@ def l12_staged(ctx, route, pcm, cfg):
     return out, wall, stages
 
 
+#: the order of phase 8's turns of the three routes
+L12_TURN_ORDER = ("host", "yardstick", "card", "card", "yardstick", "host")
+
+
 def l12_routes(ctx, pcm, cfg_of, label):
-    """The host route (l12_host_route) and the card chain
-    (encode_layer12_fast) on `pcm` in L12_TURNS turns of host, card, card,
-    host: the walls (median of 6, RTF), then the walls by stage
-    (l12_staged, median of 6 a stage), the same bytes every run.  Returns
-    ({route: {"wall": s, "walls": [s], "stages": {stage: s},
-    "synced_wall": s}}, the bytes)."""
-    torch, E = ctx["torch"], ctx["E"]
-    runs = {"host": l12_host_route, "card": E.encode_layer12_fast}
+    """The host route (l12_host_route), the card chain with its analysis
+    op by op (l12_yardstick) and the card chain (encode_layer12_fast) on
+    `pcm` in L12_TURNS turns of L12_TURN_ORDER: the walls (median of 6,
+    RTF), then the walls by stage (l12_staged, median of 6 a stage), the
+    same bytes every run.  Returns ({route: {"wall": s, "walls": [s],
+    "stages": {stage: s}, "synced_wall": s}}, the bytes)."""
+    torch = ctx["torch"]
+    runs = l12_route_fns(ctx)
     want = runs["card"](pcm, cfg_of(), "cuda")
-    if runs["host"](pcm, cfg_of(), "cuda") != want:
-        fail(f"{label}: the card chain and the host route give other bytes")
+    for route in ("host", "yardstick"):
+        if runs[route](pcm, cfg_of(), "cuda") != want:
+            fail(f"{label}: the card chain and the {route} route give "
+                 f"other bytes")
     walls = {r: [] for r in runs}
     stages = {r: {} for r in runs}
     synced = {r: [] for r in runs}
     for _ in range(L12_TURNS):
-        for route in ("host", "card", "card", "host"):
+        for route in L12_TURN_ORDER:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = runs[route](pcm, cfg_of(), "cuda")
@@ -2187,7 +2242,7 @@ def l12_routes(ctx, pcm, cfg_of, label):
             if out != want:
                 fail(f"{label}: the {route} route changed its bytes")
     for _ in range(L12_TURNS):
-        for route in ("host", "card", "card", "host"):
+        for route in L12_TURN_ORDER:
             out, wall, got = l12_staged(ctx, route, pcm, cfg_of())
             synced[route].append(wall)
             if out != want:
@@ -2204,16 +2259,21 @@ def l12_routes(ctx, pcm, cfg_of, label):
     return res, want
 
 
+#: the most host dispatches the card chain's analyze_frames span may make:
+#: the copy into the graph's static input, the replay, the outputs' clones
+#: and the streams' waits
+L12_MAX_DISPATCHES = 20
+
+
 def l12_trace(ctx, pcm, cfg_of, label, want):
     """One traced encode of each route: span_breakdown by the spans of
     runtime.profiling.SPANS_L12, and the card chain's K5 and K6 kernel
-    events (one each)."""
-    E = ctx["E"]
+    events (one each); fails if the card chain's analyze_frames span makes
+    L12_MAX_DISPATCHES host dispatches or more."""
     from mp3tpu_torch.runtime.profiling import SPANS_L12, trace
     from mp3tpu_torch.tools.trace_stages import span_breakdown
     res = {}
-    for route, fn in (("host", l12_host_route),
-                      ("card", E.encode_layer12_fast)):
+    for route, fn in l12_route_fns(ctx).items():
         with tempfile.TemporaryDirectory() as tmp:
             with trace(tmp, "cuda"):
                 t0 = time.perf_counter()
@@ -2244,6 +2304,12 @@ def l12_trace(ctx, pcm, cfg_of, label, want):
     for name in ("greedy_allocation", "pack_elements"):
         if card[name]["self_device_events"] < 1:
             fail(f"{label}: no device event under {name} in the trace")
+    if card["analyze_frames"]["host_dispatches"] >= L12_MAX_DISPATCHES or \
+            card["analyze_frames"]["device_events"] < 1:
+        fail(f"{label}: the card chain's analyze_frames span made "
+             f"{card['analyze_frames']['host_dispatches']} host dispatches "
+             f"(fewer than {L12_MAX_DISPATCHES} expected) and "
+             f"{card['analyze_frames']['device_events']} device events")
     return res
 
 
@@ -2264,10 +2330,20 @@ def l12_waits(ctx, pcm, cfg_of, label):
     pieces = [pcm[s:s + rate] for s in range(0, len(pcm), rate)]
     spf = 384 if cfg_of().layer == 1 else 1152
     windows = -(-(-(-len(pcm) // spf)) // 512)
+
+    def stream():
+        return b"".join(E.encode_layer12_stream(iter(pieces), cfg_of(),
+                                                "cuda"))
+
+    stream()                    # warm: each window shape's analysis graph
     reset_counts(ctx)
-    streamed, swhere = torch_waits(ctx, lambda: b"".join(
-        E.encode_layer12_stream(iter(pieces), cfg_of(), "cuda")))
+    streamed, swhere = torch_waits(ctx, stream)
     counts = launch_counts(ctx)
+    if (counts["l12_analysis_captures"],
+            counts["l12_analysis_replays"]) != (0, windows):
+        fail(f"{label} stream: analysis graphs captured "
+             f"{counts['l12_analysis_captures']}, replayed "
+             f"{counts['l12_analysis_replays']} (expected 0 and {windows})")
     if streamed != out or sum(swhere.values()) != windows:
         fail(f"{label} stream: equal {streamed == out}, waits "
              f"{sum(swhere.values())} (expected {windows}): {swhere}")
@@ -2278,11 +2354,42 @@ def l12_waits(ctx, pcm, cfg_of, label):
              f"design's {counts['alloc12_baseline']}")
     print(f"{label}: host waits of a warm encode {where}; the stream in 1 s "
           f"pieces at 512 frames a window equals the one-shot with "
-          f"{windows} waits, one a window; K5 launched {windows} times, its "
-          f"first design none", flush=True)
+          f"{windows} waits, one a window, its analysis graphs replayed "
+          f"{windows} times; K5 launched {windows} times, its first design "
+          f"none", flush=True)
     return dict(windows=windows, alloc12=counts["alloc12"],
                 pack12=counts["pack12"],
                 alloc12_baseline=counts["alloc12_baseline"])
+
+
+def l12_analysis_check(ctx, pcm, cfg, label, seen):
+    """The captured Layer I/II analysis (``layer12.analyze_frames``)
+    against its op-by-op form (``analyze_frames_eager``) on an encode's
+    framed and uploaded PCM, twice: torch.equal on every output.  A key's
+    first call captures (its outputs are the warm-up's), the next replays
+    the graph.  Adds to `seen` {"captures", "replays", "keys": [(label, F,
+    dtype, capture ms)]}; fails if an output differs."""
+    torch, E, np = ctx["torch"], ctx["E"], ctx["np"]
+    from mp3tpu_torch.ops import layer12 as L12
+    P, x = E._layer12_frame(pcm, cfg)
+    dtype = torch.int16 if x.dtype == np.int16 else torch.float32
+    args = (P.layer, P.sblimit, P.nch, P.sfreq_hz)
+    before = ctx["graphs"].by_stage()["l12_analysis"]
+    for call in range(2):
+        t = E._to_device(x, dtype, torch.device("cuda"))
+        got = L12.analyze_frames(t, *args)
+        want = L12.analyze_frames_eager(t, *args)
+        bad = [k for k in want if not torch.equal(got[k], want[k])]
+        if bad or got.keys() != want.keys():
+            fail(f"{label}: the captured analysis != analyze_frames_eager "
+                 f"(call {call + 1}) on {bad or sorted(got)}")
+    after = ctx["graphs"].by_stage()["l12_analysis"]
+    seen["captures"] += after[0] - before[0]
+    seen["replays"] += after[1] - before[1]
+    if after[0] > before[0]:
+        entry = L12.GRAPHS.get(L12._key(dict(pcm=t), *args))
+        seen["keys"].append((label, P.F, str(dtype).split(".")[-1],
+                             1e3 * entry.capture_s["l12_analysis"]))
 
 
 def k5_designs(ctx):
@@ -2354,8 +2461,22 @@ def phase_layer12(ctx):
     np, torch, E = ctx["np"], ctx["torch"], ctx["E"]
     from mp3tpu_torch.decoder import layer12 as dec12
     from mp3tpu_torch.encoder import encode_layer12_fast
+    from mp3tpu_torch.ops import layer12 as L12
     golden = os.path.join(ROOT, "tests", "golden")
     worst = None
+    torch.cuda.synchronize()
+    L12.GRAPHS.clear()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
+    seen = dict(captures=0, replays=0, keys=[])
+
+    def same_bytes(label, pcm, cfg_of, out):
+        """The card chain's bytes == the yardstick form's and the host
+        route's."""
+        for route in ("yardstick", "host"):
+            if l12_route_fns(ctx)[route](pcm, cfg_of(), "cuda") != out:
+                fail(f"{label}: the card chain and the {route} route give "
+                     f"other bytes")
     k5_err = k5b_err = k6_err = 0
     k5_designs(ctx)
     step_counts = k5_step_instructions(ctx)
@@ -2377,11 +2498,10 @@ def phase_layer12(ctx):
         if mode == "m":
             pcm = pcm[:, :1]
         cfg = l12_cfg(ctx, layer, mode, kbps, rate)
+        l12_analysis_check(ctx, pcm, cfg, name, seen)
         out = encode_layer12_fast(pcm, cfg, "cuda")
-        if l12_host_route(pcm, l12_cfg(ctx, layer, mode, kbps, rate),
-                          "cuda") != out:
-            fail(f"{name}: the card chain and the host route give other "
-                 f"bytes")
+        same_bytes(name, pcm, lambda layer=layer, mode=mode, kbps=kbps,
+                   rate=rate: l12_cfg(ctx, layer, mode, kbps, rate), out)
         with open(os.path.join(golden, f"{name}.ref.mp{layer}"), "rb") as f:
             ref = f.read()
         if len(out) != len(ref) or out[:3] != ref[:3]:
@@ -2402,12 +2522,12 @@ def phase_layer12(ctx):
         pcm, rate = ctx["read_wav"](os.path.join(golden, f"{name}.wav"))
         cfg_of = (lambda layer=layer, kbps=kbps, rate=rate: l12_cfg(
             ctx, layer, "s", kbps, rate, crc=True))
+        l12_analysis_check(ctx, pcm, cfg_of(), name, seen)
         alloc_args, pack_args = l12_capture(
             ctx, lambda: encode_layer12_fast(pcm, cfg_of(), "cuda"))
         out = encode_layer12_fast(pcm, cfg_of(), "cuda")
-        if l12_host_route(pcm, cfg_of(), "cuda") != out:
-            fail(f"{name}: the card chain and the host route (pack_elements "
-                 f"with _crc_calc) give other bytes")
+        same_bytes(f"{name} (pack_elements with _crc_calc on the host)",
+                   pcm, cfg_of, out)
         check5(name, alloc_args[0])
         k6_err = max(k6_err, k6_check(ctx, name, pack_args[0]))
         dec, _ = dec12.decode(out)
@@ -2417,7 +2537,9 @@ def phase_layer12(ctx):
     print(f"Layers I/II: 6 fixtures at the reference streams' length and "
           f"header, decoded SNR within 0.5 dB (worst {worst[0]:+.4f} dB, "
           f"{worst[1]} ch{worst[2]}); the CRC fixtures decode; the card "
-          f"chain gives the host route's bytes on all 8", flush=True)
+          f"chain gives the yardstick form's and the host route's bytes on "
+          f"all 8, its captured analysis analyze_frames_eager's outputs",
+          flush=True)
 
     # K5 on the forced rows of tests/test_torch_layer12_card.py
     from test_torch_layer12_card import alloc_cases
@@ -2437,8 +2559,24 @@ def phase_layer12(ctx):
     for label, layer, kbps in L12_CELLS:
         cfg_of = (lambda layer=layer, kbps=kbps: l12_cfg(ctx, layer, "s",
                                                          kbps))
+        torch.cuda.synchronize()
+        reserved = [torch.cuda.memory_reserved()]
+        allocated = [torch.cuda.memory_allocated()]
+        l12_analysis_check(ctx, pcm, cfg_of(), label, seen)
+        torch.cuda.synchronize()
+        reserved.append(torch.cuda.memory_reserved())
+        allocated.append(torch.cuda.memory_allocated())
         out, counts = l12_launches(
             ctx, label, lambda: encode_layer12_fast(pcm, cfg_of(), "cuda"))
+        took = [k[3] for k in seen["keys"] if k[0] == label]
+        print(f"{label} {CLIP_SECONDS:g} s: the analysis graph captured "
+              f"{f'in {took[0]:.1f} ms' if took else 'before'}; "
+              f"torch.cuda.memory_reserved "
+              f"{reserved[0] / 2**20:.1f} MiB before its capture, "
+              f"{reserved[1] / 2**20:.1f} MiB after (memory_allocated "
+              f"{allocated[0] / 2**20:.1f} MiB before, "
+              f"{allocated[1] / 2**20:.1f} MiB after: the key's static "
+              f"tensors); the encode's counts {counts}", flush=True)
         alloc_args, pack_args = l12_capture(
             ctx, lambda: encode_layer12_fast(pcm, cfg_of(), "cuda"))
         steps, total = check5(label, alloc_args[0])
@@ -2479,7 +2617,7 @@ def phase_layer12(ctx):
             fail(f"{label}: the timed runs gave other bytes")
         for route, r in routes.items():
             names = [n.format(layer) for n in (
-                L12_CARD_STAGES if route == "card" else L12_HOST_STAGES)]
+                L12_HOST_STAGES if route == "host" else L12_CARD_STAGES)]
             # _crc_calc runs inside _marshal_layer12
             inside = sum(r["stages"].get(n, 0.0) for n in names
                          if n != "_crc_calc")
@@ -2495,8 +2633,7 @@ def phase_layer12(ctx):
                   + f"; outside them {r['outside_s'] * 1e3:.3f} ms",
                   flush=True)
         events = {}
-        for route, fn in (("host", l12_host_route),
-                          ("card", encode_layer12_fast)):
+        for route, fn in l12_route_fns(ctx).items():
             ev, busy, wall = profile_once(lambda fn=fn: fn(pcm, cfg_of(),
                                                            "cuda"))
             events[route] = dict(events=events_by_cat(ev), busy_s=busy,
@@ -2530,17 +2667,17 @@ def phase_layer12(ctx):
         x = pcm if rate == 44100 else ctx["make_signal"](CLIP_SECONDS, rate)
         cfg_of = (lambda layer=layer, mode=mode, kbps=kbps, rate=rate,
                   crc=crc: l12_cfg(ctx, layer, mode, kbps, rate, crc))
+        label = f"Layer {layer} {rate} Hz {kbps} kbps {mode} crc {crc}"
+        l12_analysis_check(ctx, x, cfg_of(), label, seen)
         alloc_args, pack_args = l12_capture(
             ctx, lambda: encode_layer12_fast(x, cfg_of(), "cuda"))
         out = encode_layer12_fast(x, cfg_of(), "cuda")
-        if l12_host_route(x, cfg_of(), "cuda") != out:
-            fail(f"Layer {layer} {mode} {kbps} kbps {rate} Hz crc {crc}: the "
-                 f"card chain and the host route give other bytes")
-        label = f"Layer {layer} {rate} Hz {kbps} kbps {mode} crc {crc}"
+        same_bytes(label, x, cfg_of, out)
         check5(label, alloc_args[0])
         k6_err = max(k6_err, k6_check(ctx, label, pack_args[0]))
-        print(f"{label}, {CLIP_SECONDS:g} s: the card chain == the host "
-              f"route ({len(out)} bytes); K5 and K6 == plain", flush=True)
+        print(f"{label}, {CLIP_SECONDS:g} s: the card chain == the "
+              f"yardstick form == the host route ({len(out)} bytes); K5 and "
+              f"K6 == plain", flush=True)
         if crc:
             # one run of each route by stage: what the CRC costs each
             for route in ("host", "card"):
@@ -2597,6 +2734,21 @@ def phase_layer12(ctx):
                  f"below the CPU path's {c:.2f} dB")
     ctx["streams"]["Layer II 60 s stereo 192 kbps"] = (
         out, pcm, 44100, fsize, 1152, dec12.decode)
+    torch.cuda.synchronize()
+    print(f"Layer I/II analysis graphs: analyze_frames == "
+          f"analyze_frames_eager (torch.equal on every output) on "
+          f"{len(seen['keys'])} keys captured and checked in "
+          f"{seen['captures']} capture and {seen['replays']} replay calls; "
+          f"capture ms by key (label, frames, dtype): "
+          f"{'; '.join(f'{k[0]} {k[1]} {k[2]} {k[3]:.1f}' for k in seen['keys'])}"
+          f"; {len(L12.GRAPHS)} keys held at the end; "
+          f"torch.cuda.memory_reserved {reserved0 / 2**20:.1f} MiB before "
+          f"phase 8's captures, {torch.cuda.memory_reserved() / 2**20:.1f} "
+          f"MiB at its end", flush=True)
+    if seen["captures"] < 1 or seen["replays"] < 1:
+        fail(f"phase 8 checked the analysis graphs in {seen['captures']} "
+             f"capture and {seen['replays']} replay calls")
+    res["analysis_graphs"] = seen
     res["k5_err"], res["k5b_err"], res["k6_err"] = k5_err, k5b_err, k6_err
     return res
 
@@ -3005,10 +3157,16 @@ def print_captures(ctx, when):
     """The captured graphs held now: by stage and key, the capture ms,
     and torch.cuda.memory_reserved."""
     from mp3tpu_torch.models import layer3
+    from mp3tpu_torch.ops import layer12
     torch, loop = ctx["torch"], ctx["loop"]
     rows = [f"analysis {tuple(e.inputs['blocks_h4'].shape)} "
             f"{1e3 * e.capture_s['analysis']:.1f}"
             for e in layer3.GRAPHS.entries.values()]
+    rows += [f"l12_analysis {tuple(e.inputs['pcm'].shape)} "
+             f"{1e3 * e.capture_s['l12_analysis']:.1f}"
+             for e in layer12.GRAPHS.entries.values()]
+    rows += [f"{stage} {lanes} {ms}"
+             for stage, lanes, ms in sharded_captures()]
     rows += [f"{name if isinstance(name, str) else name[0]} "
              f"{e.inputs['xr'].shape[0]} lanes {1e3 * t:.1f}"
              for e in loop.GRAPHS.entries.values()
@@ -3016,6 +3174,15 @@ def print_captures(ctx, when):
     print(f"captured graphs {when} (stage, key, capture ms): "
           f"{'; '.join(rows)}; torch.cuda.memory_reserved "
           f"{torch.cuda.memory_reserved() / 2**20:.1f} MiB", flush=True)
+
+
+def sharded_captures():
+    """The sharded analysis graphs held now: (stage, lanes x granules,
+    capture ms)."""
+    from mp3tpu_torch.parallel import clip
+    return [(k[0], tuple(e.inputs["ext"].shape[:2]),
+             round(1e3 * e.capture_s[k[0]], 1))
+            for k, e in clip.GRAPHS.entries.items()]
 
 
 def free_port():
@@ -3072,6 +3239,20 @@ def sharded_rank(rank, world, url, out):
         data = encode()
         wall = time.perf_counter() - t0
         graphs = {**G.totals(), "by_stage": G.by_stage()}
+        # the host's waits of a warm encode: torch's count against the
+        # port's counters
+        from mp3tpu_torch import encoder as E
+        from mp3tpu_torch.ops import resv
+        from mp3tpu_torch.parallel import sharding
+
+        def counters():
+            return dict(syncs=loop.any_on_host.syncs,
+                        scan_copies=resv.host_scans, fetches=E.fetches,
+                        exchanges=sharding.host_exchanges)
+
+        c0 = counters()
+        _, where = host_waits(encode, ROOT)
+        waits = {k: v - c0[k] for k, v in counters().items()}
         with yardstick_form():
             yardstick_same = encode() == data
         _, err, s_err, b_err = path_batch_check(
@@ -3086,7 +3267,8 @@ def sharded_rank(rank, world, url, out):
         json.dump({"wall_s": wall, "max_abs_err": err,
                    "search_max_abs_err": s_err,
                    "baseline_max_abs_err": b_err, "graphs": graphs,
-                   "yardstick_same": yardstick_same}, f)
+                   "yardstick_same": yardstick_same, "waits": waits,
+                   "torch_waits": where}, f)
 
 
 def phase_sharded(ctx, cfg_of, line):
@@ -3122,16 +3304,15 @@ def phase_sharded(ctx, cfg_of, line):
         launches = read_counts(ctx, "sharded path", SHARDED_STAGES, k4=False)
         with yardstick_form():
             if encode_layer3_sharded(pcm, cfg_of(), "cuda") != streams[1]:
-                fail("sharded world 1: the batched lanes with the emission "
-                     "replayed and the yardstick form give other bytes")
-        reset_counts(ctx)
-        _, where = torch_waits(ctx, lambda: encode_layer3_sharded(
-            pcm, cfg_of(), "cuda"))
-        launches["warm"] = read_counts(ctx, "sharded path", SHARDED_STAGES,
-                                       k4=False)
-        print(f"sharded world 1, host waits of one warm encode by kind "
-              f"{waits_of(launches['warm'])}; torch's synchronizing "
-              f"operations {sum(where.values())} by line {where}", flush=True)
+                fail("sharded world 1: the graphs and the yardstick form "
+                     "give other bytes")
+        _, launches["warm"], _ = waits_check(
+            ctx, "sharded path (world 1, NCCL)",
+            lambda: encode_layer3_sharded(pcm, cfg_of(), "cuda"), 1,
+            SHARDED_STAGES, k4=False)
+        if launches["warm"]["scan_copies"] != 1:
+            fail(f"sharded world 1: {launches['warm']['scan_copies']} scan "
+                 f"downloads an encode (expected 1)")
         n_sh = len(profile_once(
             lambda: encode_layer3_sharded(pcm, cfg_of(), "cuda"))[0])
         _, err, s_err, b_err = path_batch_check(
@@ -3177,8 +3358,15 @@ def phase_sharded(ctx, cfg_of, line):
             fail(f"sharded world 2: a rank's timed encode replayed the "
                  f"{SHARDED_STAGES} graphs no time ({res['graphs']})")
         if not res["yardstick_same"]:
-            fail("sharded world 2: a rank's batched lanes with the emission "
-                 "replayed and its yardstick form gave other bytes")
+            fail("sharded world 2: a rank's graphs and its yardstick form "
+                 "gave other bytes")
+        print(f"sharded world 2, a rank's host waits of one warm encode by "
+              f"kind {res['waits']}; torch's synchronizing operations "
+              f"{sum(res['torch_waits'].values())} by line "
+              f"{res['torch_waits']}", flush=True)
+        if sum(res["waits"].values()) != sum(res["torch_waits"].values()):
+            fail(f"sharded world 2: the port counts {res['waits']}, torch "
+                 f"{res['torch_waits']}")
         replays.append(res["graphs"])
         errs.append(res["max_abs_err"])
         s_errs.append(res["search_max_abs_err"])
@@ -3232,7 +3420,8 @@ def phase_sharded(ctx, cfg_of, line):
           f"the timed encode by stage: world 1 "
           f"{stage_pairs(launches)}, "
           f"world 2 by rank {[r['by_stage'] for r in replays]}; each run's "
-          f"yardstick form gives its bytes", flush=True)
+          f"yardstick form gives its bytes; captured graphs by stage, key "
+          f"and capture ms: {sharded_captures()}", flush=True)
     return dict(launches=launches, max_abs_err=max(errs),
                 search_max_abs_err=max(s_errs),
                 baseline_max_abs_err=max(b_errs))
@@ -4183,7 +4372,7 @@ def phase_segment_graphs(ctx, pcm, cfg, line, main_out):
           f"; torch.cuda.memory_reserved {reserved0 / 2**20:.1f} MiB "
           f"before the captures, {reserved1 / 2**20:.1f} MiB after",
           flush=True)
-    for stage in ctx["graphs"].STAGES:
+    for stage in SEGMENT_STAGES:
         if first[f"{stage}_captures"] <= 0:
             fail(f"the main path captured no {stage} graph: {first}")
 
@@ -4343,11 +4532,11 @@ def main():
     kernels = ("search", "baseline", "bits_at", "resv_scan", "alloc12",
                "alloc12_baseline", "pack12")
     for kernel in kernels + ("iterations", "captures", "replays") + tuple(
-            f"{s}_{kind}" for s in SEGMENT_STAGES
+            f"{s}_{kind}" for s in SEGMENT_STAGES + SHARDED_ANALYSIS
             for kind in ("captures", "replays")):
         what = {"iterations": "live rate-loop iterations per encode",
-                "captures": "segment program graph captures",
-                "replays": "segment program graph replays"}.get(
+                "captures": "graph captures",
+                "replays": "graph replays"}.get(
                     kernel, "launches" if kernel in kernels else "graphs")
         print(f"{kernel} {what} by path (first run): {by_path(kernel)}",
               flush=True)

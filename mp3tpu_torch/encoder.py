@@ -28,8 +28,9 @@ exit syncs are ``ops/loop.any_on_host.syncs`` and the host scans'
 downloads ``ops/resv.host_scans``.
 
 Layers I/II (``encode_layer12_fast``, ``encode_layer12_stream``): one
-chain queued on the device -- the analysis and the quantizers
-(``ops/layer12.py``), the bit allocation (K5, ``ops/alloc12.py``), the
+chain queued on the device -- the analysis (one CUDA graph a frame
+count on the card) and the quantizers (``ops/layer12.py``), the bit
+allocation (K5, ``ops/alloc12.py``), the
 element marshalling (``marshal_frames``) and the frame packing with the
 CRC (K6, ``ops/pack12.py``) -- and one download an encode (a stream
 window).  ``_marshal_layer12``, the host marshalling it replaced, stays
@@ -56,6 +57,7 @@ from .ops import alloc12 as A12
 from .ops import bits
 from .ops import layer12 as L12
 from .ops import pack12 as P12
+from .ops import resv
 
 #: super-chunk buckets (granules per channel per segment), as in the
 #: JAX package, so that segments line up with it
@@ -140,11 +142,13 @@ class Download:
         self.layout, self.host, self.done = layout, host, done
 
     @span("fetch")
-    def wait(self, earlier=()):
+    def wait(self, earlier=(), scan=False):
         """The host's one wait for this download and the `earlier` ones,
         queued before it on the same copy stream: this one's event is
         synchronized (the stream runs its copies in order, so the earlier
-        ones are done then) and one fetch is counted.  Returns the dicts
+        ones are done then) and one fetch is counted (with `scan`, one
+        host scan's download in ``ops/resv.host_scans``: the multi-rank
+        path's scan inputs).  Returns the dicts
         of numpy values of every segment of `earlier` and then of this
         one, as ``_Layer3Framing.fetch`` does.
 
@@ -152,7 +156,10 @@ class Download:
         and no error, so an earlier download whose event has not
         completed raises instead."""
         global fetches
-        fetches += 1
+        if scan:
+            resv.host_scans += 1
+        else:
+            fetches += 1
         if self.done is not None:
             self.done.synchronize()
         outs = []
@@ -674,11 +681,15 @@ class _Layer12Plan:
 
 
 def _layer12_frame(pcm, cfg):
-    """(plan, PCM as (nch, F * spf) float32 padded to whole frames)."""
+    """(plan, PCM as (nch, F * spf) padded to whole frames): int16 PCM
+    stays int16 (one transposing copy); any other dtype becomes float32,
+    as the JAX package frames it (a float PCM is never cast to int16)."""
     cfg.finalize()
     if cfg.layer not in (1, 2):
         raise ValueError("Layer I/II encodes take layer 1 or 2")
-    pcm = np.atleast_2d(np.asarray(pcm, np.float32))
+    pcm = np.atleast_2d(np.asarray(pcm))
+    if pcm.dtype != np.int16:
+        pcm = pcm.astype(np.float32)
     if pcm.shape[0] > pcm.shape[1]:
         pcm = pcm.T
     if pcm.shape[0] != cfg.nchannels:
@@ -686,27 +697,25 @@ def _layer12_frame(pcm, cfg):
                          f"{cfg.nchannels}")
     spf = _frame_bytes(cfg)[0]
     P = _Layer12Plan(cfg, int(np.ceil(pcm.shape[1] / spf)))
-    return P, np.pad(pcm, ((0, 0), (0, P.F * spf - pcm.shape[1])))
+    framed = np.zeros((P.nch, P.F * spf), pcm.dtype)
+    framed[:, :pcm.shape[1]] = pcm
+    return P, framed
 
 
 def _to_device(arr, dtype, dev):
-    """A numpy array on `dev` through a pinned buffer: its upload is queued
-    and the host does not wait."""
-    host = pinned(arr.shape, dtype, dev)
+    """A numpy array on `dev` through a pinned buffer (not zeroed: the
+    array fills it): its upload is queued and the host does not wait."""
+    host = torch.empty(arr.shape, dtype=dtype, pin_memory=dev.type == "cuda")
     host.numpy()[...] = arr
     return upload(host, dev)
 
 
 def _layer12_analysis(pcm, P, dev):
-    """The PCM uploaded once and ``ops/layer12.analyze_frames`` on `dev`;
-    the Layer I filterbank reads the PCM delayed by 64 samples
-    (encode.c:221-246), made on the device."""
-    pcm_d = _to_device(pcm, torch.float32, dev)
-    fb = pcm_d if P.layer == 2 else torch.cat(
-        [torch.zeros((P.nch, 64), dtype=pcm_d.dtype, device=dev),
-         pcm_d[:, :-64]], dim=1)
-    return L12.analyze_frames(pcm_d, fb, P.layer, P.sblimit, P.nch, P.F,
-                              P.sfreq_hz)
+    """The framed PCM uploaded once, in its own dtype (int16: half the
+    bytes of float32), and ``ops/layer12.analyze_frames`` on `dev`."""
+    pcm_d = _to_device(pcm, torch.int16 if pcm.dtype == np.int16
+                       else torch.float32, dev)
+    return L12.analyze_frames(pcm_d, P.layer, P.sblimit, P.nch, P.sfreq_hz)
 
 
 def _layer12_quantize(ana, P, jsbound, ba):
@@ -783,9 +792,11 @@ def _fetch_frames(buf):
 
 def encode_layer12_fast(pcm, cfg: EncoderConfig, device, prof=None):
     """Layer I/II encode of int16 PCM on `device`, as one chain queued on
-    the device: the PCM uploaded once, the analysis (filterbank, psy model
-    2, scale factors, scfsi: ``ops/layer12.py``), K5 (the joint decision
-    and the greedy bit allocation, ``ops/alloc12.py``), the quantizers,
+    the device: the PCM uploaded once (int16 PCM as int16, any other as
+    float32), the analysis (filterbank, psy model 2, scale factors, scfsi:
+    ``ops/layer12.py``, one CUDA graph a frame count on the card), K5
+    (the joint decision and the greedy bit allocation,
+    ``ops/alloc12.py``), the quantizers,
     the element marshalling (``marshal_frames``) and K6 (every frame packed
     into its fixed byte range with its CRC, ``ops/pack12.py``); then the
     bytes and K6's status come back in one download.  On a CUDA device the

@@ -1,13 +1,16 @@
-"""The segment program's CUDA graphs: capture, replay and the cache.
+"""The port's CUDA graphs: capture, replay and the cache.
 
-The JAX package compiles each segment program with ``jax.jit``; that is
-this module's counterpart, so it has no JAX original.  On a CUDA device
-three parts of ``Layer3SegmentEncoder`` replay graphs captured once per
-key: the analysis (``models/layer3.py``, one graph), the rate loop
-(``ops/loop.py``: its prologue and its iterations, unrolled) and, after
-the final rate loop, the emission and packing (a continuation of the
-loop's entry).  ``graph_counts`` counts captures and replays by stage
-(``STAGES``).
+The JAX package compiles its programs with ``jax.jit``; this module is
+their counterpart, so it has no JAX original.  On a CUDA device three
+parts of ``Layer3SegmentEncoder`` replay graphs captured once per key
+(``SEGMENT_STAGES``): the analysis (``models/layer3.py``, one graph),
+the rate loop (``ops/loop.py``: its prologue and its iterations,
+unrolled) and, after the final rate loop, the emission and packing (a
+continuation of the loop's entry).  So do the Layer I/II analysis
+(``ops/layer12.py``, one graph a frame count) and the multi-rank clip's
+analysis (``parallel/clip.py``: psy with the automaton's maps, and the
+spectra, two graphs around the maps' all-gather).  ``graph_counts``
+counts captures and replays by stage (``STAGES``).
 
 Every graph of a device is captured into one memory pool and replays on
 one stream, one graph at a time (``LOCK``).  So a tensor that a graph
@@ -29,8 +32,12 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-#: the captured parts of the segment program, by what they count as
-STAGES = ("analysis", "prologue", "iteration", "emission")
+#: the captured parts of the Layer III segment program, by what they
+#: count as
+SEGMENT_STAGES = ("analysis", "prologue", "iteration", "emission")
+#: every captured stage: the segment program's, the Layer I/II analysis
+#: and the multi-rank clip's two analysis graphs
+STAGES = SEGMENT_STAGES + ("l12_analysis", "sharded_psy", "sharded_spectra")
 #: graph captures and replays by stage
 graph_counts = {stage: dict(captures=0, replays=0) for stage in STAGES}
 

@@ -5,8 +5,12 @@ matmul form of ``ops/dsp.py``), psy model 2 (Hann window + real FFT over
 every analysis window at once, unpredictability from the two previous
 windows, partition sums and spreading as matmuls, the 32-subband SNR
 translation), scale factors, the Layer II scfsi classes and the
-a*x+b quantizers.  The JAX package computes all of this as plain XLA,
-so plain torch ops are its port.  ``marshal_frames`` is the torch form of
+a*x+b quantizers.  The JAX package computes all of this as plain XLA
+and jits the analysis with the frame count static
+(``jaxlayer12.analyze_frames``); here the analysis is plain torch ops
+(``_analyze_frames``), run op by op on the CPU (``analyze_frames_eager``)
+and replayed as one CUDA graph a key on the card (``analyze_frames``,
+``GRAPHS``).  ``marshal_frames`` is the torch form of
 the JAX package's host marshalling (``encoder._marshal_layer12``), so
 that the whole Layer I/II chain stays on the device: the bit allocation
 between the analysis and the quantizers is K5 (``ops/alloc12.py``), the
@@ -26,7 +30,7 @@ from ..runtime.profiling import span
 from ..tables import layer12 as L
 from ..tables import mpeg
 
-from . import dsp
+from . import dsp, graphs
 
 _INT32_MIN, _INT32_MAX = -2 ** 31, 2 ** 31 - 1
 
@@ -162,19 +166,26 @@ def psy_windows(stream, nframes, layer):
     return xp[idx.clamp(0, xp.shape[0] - 1)]
 
 
-@span("analyze_frames")
-def analyze_frames(pcm, fb_stream, layer, sblimit, nch, nframes, sfreq_hz):
-    """Analysis of a whole clip: filterbank + psy + scale factors + scfsi
-    (+ the joint-stereo combination).
+def _analyze_frames(pcm, layer, sblimit, nch, sfreq_hz):
+    """The analysis of a whole clip: filterbank + psy + scale factors +
+    scfsi (+ the joint-stereo combination).  It builds no tensor from
+    host data and reads none back once its tables exist, so that a CUDA
+    graph can capture it (``analyze_frames``).
 
-    pcm (nch, N) int16-valued float32 (the psy input); fb_stream (nch, N)
-    the filterbank input (layer 1: the 64-sample delayed copy; layer 2:
-    pcm), both on the device.  Returns a dict of tensors on that device:
-    sb (nch, F, G, 12, 32), snr (nch, F, 32), scalar (nch, F, G, 32),
-    for layer 2 scfsi (nch, F, 32), for stereo j_sample and j_scale."""
+    pcm (nch, F * spf) int16 or int16-valued float32 on the device: the
+    psy input and, for layer 2, the filterbank's; layer 1's filterbank
+    reads it delayed by 64 samples (encode.c:221-246).  Returns a dict of
+    tensors on that device: sb (nch, F, G, 12, 32), snr (nch, F, 32),
+    scalar (nch, F, G, 32), for layer 2 scfsi (nch, F, 32), for stereo
+    j_sample and j_scale."""
     C = device_constants(float(sfreq_hz), pcm.device)
     ngroups = 1 if layer == 1 else 3
     spf = 384 if layer == 1 else 1152
+    nframes = pcm.shape[1] // spf
+    pcm = pcm.to(torch.float32)
+    fb_stream = pcm if layer == 2 else torch.cat(
+        [torch.zeros((nch, 64), dtype=pcm.dtype, device=pcm.device),
+         pcm[:, :-64]], dim=1)
     sbs, snrs = [], []
     for ch in range(nch):
         sbs.append(subband_frames(fb_stream[ch].reshape(nframes, spf)
@@ -196,6 +207,70 @@ def analyze_frames(pcm, fb_stream, layer, sblimit, nch, nframes, sfreq_hz):
         out["j_sample"] = 0.5 * (sb[0] + sb[1])
         out["j_scale"] = scale_factors(out["j_sample"], sblimit)
     return out
+
+
+#: ``_analyze_frames`` op by op: what the CPU runs, and on the card the
+#: yardstick of the captured analysis
+analyze_frames_eager = span("analyze_frames")(_analyze_frames)
+
+#: the process's captured analyses (``graphs.GraphCache``), one a key:
+#: the PCM's dtype and frame count, (layer, sblimit, nch, rate) and the
+#: tables.  A key holds its static input and outputs (a 60 s stereo
+#: Layer II clip: 10.6 MB of int16 in, ~39 MB out); the temporaries live
+#: in the device's one graph pool, which every key shares.  A stream at
+#: 512 frames a window makes 3 keys (the first window, the others, the
+#: tail), so 8 hold a stream and a few clip lengths.  A dropped key
+#: synchronizes the card (``graphs.on_stream``), and its next call runs
+#: eagerly and captures again (capture times and memory: PERF.md §7).
+GRAPHS = graphs.GraphCache(8)
+
+
+def _tables(sfreq_hz, device):
+    """The tables the analysis reads on `device`, flat, for the key:
+    (the psy constants and the Hann window, the filterbank's, the scale
+    factors' and scfsi's)."""
+    C = device_constants(float(sfreq_hz), device)
+    return ({k: v for k, v in C.items() if k != "dsp"}, C["dsp"],
+            {k: _table(k, device) for k in ("multiple", "scfsi_pattern")})
+
+
+def _key(inputs, layer, sblimit, nch, sfreq_hz):
+    """A captured analysis is specific to its input's dtype and shape
+    (so to the frame count: each count its own graph, as the JAX
+    package's jit is, since a product over another batch may round
+    otherwise), to (layer, sblimit, nch, rate) and to its tables."""
+    return graphs.key_of(
+        inputs, dict(layer=layer, sblimit=sblimit, nch=nch,
+                     sfreq_hz=float(sfreq_hz)),
+        *_tables(sfreq_hz, inputs["pcm"].device))
+
+
+def _run(inputs, layer, sblimit, nch, sfreq_hz, record):
+    """``analyze_frames``' host side (``graphs.run`` of ``_analyze_frames``,
+    stage "l12_analysis") on the current stream: (entry, the entries the
+    cache dropped)."""
+    return graphs.run(
+        GRAPHS, _key(inputs, layer, sblimit, nch, sfreq_hz), "l12_analysis",
+        inputs, lambda i: _analyze_frames(i["pcm"], layer, sblimit, nch,
+                                          sfreq_hz),
+        record, refs=_tables(sfreq_hz, inputs["pcm"].device))
+
+
+@span("analyze_frames")
+def analyze_frames(pcm, layer, sblimit, nch, sfreq_hz):
+    """``_analyze_frames`` of (nch, F * spf) int16 or int16-valued float32
+    PCM on its device.  On a CUDA tensor it replays a CUDA graph captured
+    on its key's first call (``GRAPHS``), and the caller gets clones of
+    the static outputs; a capture or replay error raises.  On any other
+    device it runs op by op, as ``analyze_frames_eager``."""
+    if pcm.device.type != "cuda":
+        return _analyze_frames(pcm, layer, sblimit, nch, sfreq_hz)
+    dev = pcm.device
+    return graphs.on_stream(
+        dev, lambda: _run(dict(pcm=pcm), layer, sblimit, nch, sfreq_hz,
+                          graphs.cuda_graph(dev)),
+        lambda entry: {k: v.clone() for k, v in
+                       entry.outputs["l12_analysis"].items()})
 
 
 @lru_cache(maxsize=None)

@@ -44,15 +44,27 @@ def make_mesh(device_type, n_devices):
                             mesh_dim_names=("frames",))
 
 
+#: the host's waits in exchanges of card tensors over a host mesh (gloo):
+#: each copy of a card tensor down to the exchange
+host_exchanges = 0
+
+
 def all_gather_cat(mesh, t):
     """Every rank's `t` (one shape on all ranks), concatenated along
     dim 0 in rank order, on t's device; exchanged on the mesh's device
-    type."""
+    type.  A CUDA tensor over a host mesh passes through the host: its
+    download is a wait (counted in ``host_exchanges``), and the result
+    goes back up through pinned memory, queued."""
     wire = _WIRE.get(t.dtype, t.dtype)
     x = t.to(device=mesh.device_type, dtype=wire).contiguous()
     parts = [torch.empty_like(x) for _ in range(mesh.size())]
     dist.all_gather(parts, x, group=mesh.get_group("frames"))
-    return torch.cat(parts).to(device=t.device, dtype=t.dtype)
+    out = torch.cat(parts).to(dtype=t.dtype)
+    if t.device.type == "cuda" and mesh.device_type != "cuda":
+        global host_exchanges
+        host_exchanges += 1
+        out = out.pin_memory()
+    return out.to(device=t.device, non_blocking=True)
 
 
 def encode_sharded(mesh, blocks, budget, version, sampling_frequency,

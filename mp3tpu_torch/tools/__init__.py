@@ -119,9 +119,10 @@ def profile_once(fn):
 
 @contextlib.contextmanager
 def yardstick_form(rate_loop_eager=False):
-    """Within the block the segment program runs its yardstick forms: the
+    """Within the block the programs run their yardstick forms: the
     analysis lane by lane (``Layer3SegmentEncoder.analysis_eager``, the
-    multi-rank path's ``clip._per_lane``) and the emission op by op
+    multi-rank path's ``clip._per_lane``), the Layer I/II analysis op by
+    op (``layer12.analyze_frames_eager``) and the emission op by op
     (``encode_final_eager``), the rate loop still as CUDA graphs on the
     card (the form before the analysis and emission were captured);
     with `rate_loop_eager` the rate loop op by op too
@@ -129,11 +130,12 @@ def yardstick_form(rate_loop_eager=False):
     measurement only: a replay runs no Python and dispatches no aten op
     that a counter or a swapped function could see."""
     from ..models.layer3 import Layer3SegmentEncoder as Enc
-    from ..ops import loop
+    from ..ops import layer12, loop
     from ..parallel import clip
     swaps = [(Enc, "analysis", Enc.analysis_eager),
              (Enc, "encode_final", Enc.encode_final_eager),
-             (clip, "_lanes", clip._per_lane)]
+             (clip, "_lanes", clip._per_lane),
+             (layer12, "analyze_frames", layer12.analyze_frames_eager)]
     if rate_loop_eager:
         swaps.append((loop, "outer_loop", loop.outer_loop_eager))
     real = [(obj, name, getattr(obj, name)) for obj, name, _ in swaps]

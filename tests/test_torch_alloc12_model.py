@@ -128,6 +128,7 @@ def jax_analysis(name, layer, mode, kbps, crc):
     cfg = EncoderConfig(layer=layer, mode=mode, bitrate_kbps=kbps,
                         sample_rate_hz=rate, error_protection=crc)
     P, x = E._layer12_frame(pcm, cfg)
+    x = x.astype(np.float32)            # JAX frames float32 PCM
     key = (name, mode, kbps)
     if key not in _ANALYSES:
         fb = (np.concatenate([np.zeros((P.nch, 64), x.dtype), x[:, :-64]],

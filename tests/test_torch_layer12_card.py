@@ -4,8 +4,9 @@ warp a frame), its first design kept as the yardstick
 (``alloc12_baseline_kernel``, ``allocate_baseline``) and K6
 (``csrc/pack12.cu``, the frame packing with its CRC, one block a frame)
 against their plain versions, the card route of ``encode_layer12_fast``
-against the host route it replaced (``chip_smoke.l12_host_route``), one
-host wait an encode, and a malformed frame that raises.
+against the host route it replaced (``chip_smoke.l12_host_route``), the
+captured analysis against its op-by-op form, one host wait an encode,
+and a malformed frame that raises.
 
 The module also holds the lane-level model of the first design's walk
 (``model_frame``: the warp's argmin as five xor-shuffle rounds over (value,
@@ -244,7 +245,7 @@ def silent_smr(layer, rate):
     """The SMR the analysis gives four frames of silence: (4, 32)."""
     spf = 384 if layer == 1 else 1152
     z = torch.zeros((1, 4 * spf))
-    return L12.analyze_frames(z, z, layer, 32, 1, 4, float(rate))["snr"][0] \
+    return L12.analyze_frames_eager(z, layer, 32, 1, float(rate))["snr"][0] \
         .to(torch.float64).numpy()
 
 
@@ -484,10 +485,42 @@ def test_one_wait_an_encode_and_a_window(card):
     assert (A12.launches - k5, A12.baseline_launches - first) == (1, 0)
     pieces = [pcm[s:s + 20000] for s in range(0, len(pcm), 20000)]
     nwin = -(-(-(-len(pcm) // 1152)) // 8)
-    streamed, waits = host_waits(lambda: b"".join(E.encode_layer12_stream(
-        iter(pieces), cfg, "cuda", window_frames=8)))
+
+    def stream():
+        return b"".join(E.encode_layer12_stream(iter(pieces), cfg, "cuda",
+                                                window_frames=8))
+
+    stream()                        # warm: each window shape's capture
+    streamed, waits = host_waits(stream)
     assert streamed == out
     assert sum(waits.values()) == nwin, waits
+
+
+@pytest.mark.cuda
+def test_analysis_graph_equals_eager(card, monkeypatch):
+    """``analyze_frames`` (one CUDA graph a key) == ``analyze_frames_eager``
+    (op by op), torch.equal on every output: on each layer's fixtures, as
+    int16 and float32 PCM, over the capture call, a replay and a replay
+    on other PCM of the key."""
+    from mp3tpu_torch.ops import graphs
+    monkeypatch.setattr(L12, "GRAPHS", graphs.GraphCache(16))
+    monkeypatch.setattr(graphs, "graph_counts", {
+        s: dict(captures=0, replays=0) for s in graphs.STAGES})
+    keys = 0
+    for case in (FIXTURES[1], FIXTURES[2], FIXTURES[5]):
+        pcm, cfg = fixture(*case)
+        P, x = E._layer12_frame(pcm, cfg)
+        for dtype in (torch.int16, torch.float32):
+            keys += 1
+            for arr in (x, x, x[:, ::-1].copy()):
+                t = torch.as_tensor(arr).to(dtype).cuda()
+                args = (P.layer, P.sblimit, P.nch, P.sfreq_hz)
+                got = L12.analyze_frames(t, *args)
+                want = L12.analyze_frames_eager(t, *args)
+                assert got.keys() == want.keys()
+                for k in want:
+                    assert torch.equal(got[k], want[k]), (case[0], k)
+    assert graphs.by_stage()["l12_analysis"] == (keys, 2 * keys)
 
 
 @pytest.mark.cuda

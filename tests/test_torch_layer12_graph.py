@@ -1,0 +1,241 @@
+"""The Layer I/II analysis as a CUDA graph, checked on the CPU
+(``ops/layer12.py``, ``ops/graphs.py``, ``encoder._layer12_frame``).
+
+``_analyze_frames`` is the analysis of a whole clip (filterbank, psy
+model 2, scale factors, scfsi, the joint combination) on (nch, F * spf)
+int16 or float32 PCM; on a CUDA tensor ``analyze_frames`` replays it as
+one graph a key (the PCM's dtype and frame count, layer, sblimit, nch,
+rate and tables), as the JAX package jits ``jaxlayer12.analyze_frames``
+with the frame count static.  These tests check that it can be captured
+(an aten-op log on "cpu" and "meta": no host read, no tensor from host
+data, no op across devices); run the captured host side
+(``graphs.run``) with a stand-in capture against the op-by-op form
+(``analyze_frames_eager``) call after call, its outputs never in a
+replay's pool; check what changes the key; hold int16 framing to the
+float32 path's outputs and bytes, and a float PCM to float32; and hold
+the int16 analysis to the JAX function fed the same values as float32,
+within tests/test_torch_layer12.py's tolerances.  The graph itself is
+checked on the card (tests/test_torch_layer12_card.py, chip_smoke.py
+phase 8).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mp3tpu.ops import jaxlayer12 as J
+from mp3tpu_torch import encoder as E
+from mp3tpu_torch.config import EncoderConfig
+from mp3tpu_torch.ops import graphs
+from mp3tpu_torch.ops import layer12 as L12
+from mp3tpu_torch.tables import mpeg
+from mp3tpu_torch.tools import yardstick_form
+from test_torch_analysis_graph import (_assert_equal, pooled_stand_in,
+                                       shares_storage)
+from test_torch_graph import HOST_DATA, HOST_READS, OpLog
+
+torch.set_num_threads(1)
+
+#: (layer, nch, sblimit, rate, frames) of the cases
+CASES = {"l1_stereo": (1, 2, 32, 44100, 7), "l2_stereo": (2, 2, 30, 44100, 4),
+         "l2_mono": (2, 1, 27, 48000, 5), "l1_mono_32k": (1, 1, 32, 32000, 6)}
+
+
+def pcm_of(layer, nch, frames, seed=0):
+    """(nch, frames * spf) int16: noise, a tone and a click, so that every
+    scale factor class and scfsi pattern takes part."""
+    spf = 384 if layer == 1 else 1152
+    n = frames * spf
+    rng = np.random.RandomState(seed)
+    t = np.arange(n) / 44100.0
+    x = rng.randn(nch, n) * rng.choice([30.0, 600.0, 6000.0], (nch, 1))
+    x += 9000 * np.sin(2 * np.pi * (700 + 300 * np.arange(nch))[:, None] * t)
+    x[:, n // 3:n // 3 + 64] += 20000
+    return torch.tensor(np.clip(x, -32768, 32767).astype(np.int16))
+
+
+def analyze(pcm, case, form=L12.analyze_frames_eager):
+    layer, nch, sblimit, rate, _ = CASES[case]
+    return form(pcm, layer, sblimit, nch, float(rate))
+
+
+@pytest.fixture
+def l12_graphs(monkeypatch):
+    """An empty Layer I/II analysis cache of its own, zeroed counts."""
+    cache = graphs.GraphCache(4)
+    monkeypatch.setattr(L12, "GRAPHS", cache)
+    monkeypatch.setattr(graphs, "graph_counts", {
+        s: dict(captures=0, replays=0) for s in graphs.STAGES})
+    return cache
+
+
+@pytest.mark.parametrize("dtype", [torch.int16, torch.float32])
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+@pytest.mark.parametrize("case", ["l1_stereo", "l2_stereo", "l2_mono"])
+def test_analysis_is_capture_safe(case, device, dtype):
+    """The analysis under an aten-op log, its tables made first (as the
+    warm-up makes them): no host read of a device value, no tensor from
+    host data, every tensor of every op on the run's device."""
+    layer, nch, sblimit, rate, F = CASES[case]
+    L12._tables(float(rate), torch.device(device))
+    pcm = pcm_of(layer, nch, F).to(dtype).to(device)
+    with OpLog() as log:
+        out = L12._analyze_frames(pcm, layer, sblimit, nch, float(rate))
+    names = {op for op, _ in log.ops}
+    assert len(log.ops) > 100
+    assert not names & HOST_READS, names & HOST_READS
+    assert not names & HOST_DATA, names & HOST_DATA
+    elsewhere = [(op, devs) for op, devs in log.ops if devs - {device}]
+    assert not elsewhere, elsewhere[:5]
+    assert all(t.device.type == device for t in out.values())
+    assert ("scfsi" in out) == (layer == 2)
+    assert ("j_sample" in out) == (nch == 2)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_int16_input_equals_float32(case):
+    """The int16 PCM gives exactly the outputs of the same values as
+    float32 (the conversion is the body's first op)."""
+    layer, nch, _, _, F = CASES[case]
+    pcm = pcm_of(layer, nch, F, seed=3)
+    _assert_equal(analyze(pcm, case), analyze(pcm.to(torch.float32), case))
+
+
+@pytest.mark.parametrize("case", ["l1_stereo", "l2_stereo", "l2_mono"])
+def test_captured_analysis_equals_eager(l12_graphs, case):
+    """``analyze_frames``' host side with a stand-in capture, three calls
+    on one key (the warm-up and capture, then replays, the second on
+    other PCM): each call's results equal ``analyze_frames_eager``'s
+    exactly, are written by copy into tensors made outside the replays,
+    and the first call's clones outlive the later replays."""
+    layer, nch, sblimit, rate, F = CASES[case]
+    pools = []
+    record = pooled_stand_in(pools)
+    calls = [pcm_of(layer, nch, F), pcm_of(layer, nch, F, seed=1),
+             pcm_of(layer, nch, F)]
+    kept = []
+    for pcm in calls:
+        entry, dropped = L12._run(dict(pcm=pcm), layer, sblimit, nch,
+                                  float(rate), record)
+        out = entry.outputs["l12_analysis"]
+        _assert_equal(out, analyze(pcm, case))
+        if pools:
+            assert not [k for k, v in out.items()
+                        if shares_storage(v, pools[-1])]
+        kept.append({k: v.clone() for k, v in out.items()})
+        assert dropped == []
+    assert len(l12_graphs) == 1 and len(pools) == 2
+    assert graphs.by_stage()["l12_analysis"] == (1, 2)
+    _assert_equal(kept[0], kept[2])
+    assert not torch.equal(kept[0]["sb"], kept[1]["sb"])
+
+
+def test_a_full_cache_drops_its_oldest_key(l12_graphs):
+    """Five frame counts through a cache of 4: the first key is dropped
+    (the caller then synchronizes before letting it go) and captured
+    again on its next call."""
+    layer, nch, sblimit, rate, _ = CASES["l2_mono"]
+    record = pooled_stand_in([])
+    drops = []
+    for F in (1, 2, 3, 4, 5, 1):
+        _, dropped = L12._run(dict(pcm=pcm_of(layer, nch, F)), layer,
+                              sblimit, nch, float(rate), record)
+        drops.append(len(dropped))
+    assert drops == [0, 0, 0, 0, 1, 1]
+    assert graphs.by_stage()["l12_analysis"] == (6, 0)
+
+
+def test_key_is_the_input_the_settings_and_the_tables():
+    """The frame count, the dtype, layer, sblimit, nch and the rate's
+    tables each change the key; equal calls share one."""
+    def key(pcm, layer=2, sblimit=30, nch=2, rate=44100.0):
+        return L12._key(dict(pcm=pcm), layer, sblimit, nch, rate)
+
+    pcm = pcm_of(2, 2, 4)
+    assert key(pcm) == key(pcm_of(2, 2, 4, seed=5))
+    others = [key(pcm_of(2, 2, 5)), key(pcm.to(torch.float32)),
+              key(pcm, layer=1), key(pcm, sblimit=27),
+              key(pcm[:1], nch=1), key(pcm, rate=48000.0)]
+    assert all(k != key(pcm) for k in others)
+    assert len(set(others)) == len(others)
+    # the rate's tables are other tensors, not only another value
+    a, b = L12._tables(44100.0, "cpu"), L12._tables(48000.0, "cpu")
+    assert a[0]["onehot_t"] is not b[0]["onehot_t"]
+    assert a[2]["multiple"] is b[2]["multiple"]
+
+
+def test_framing_keeps_int16_and_float():
+    """``_layer12_frame``: int16 PCM stays int16, float PCM becomes float32
+    (its fractions kept: never cast to int16), both transposed and padded
+    to whole frames with zeros; the uploaded PCM has the framed dtype."""
+    cfg = EncoderConfig(layer=2, mode=mpeg.MODE_STEREO, bitrate_kbps=192,
+                        sample_rate_hz=44100)
+    pcm = pcm_of(2, 2, 3).numpy().T[:3000]                 # (samples, ch)
+    P, x = E._layer12_frame(pcm, cfg)
+    assert x.dtype == np.int16 and x.shape == (2, 3 * 1152) and P.F == 3
+    np.testing.assert_array_equal(x[:, :3000], pcm.T)
+    assert not x[:, 3000:].any()
+    P, xf = E._layer12_frame(pcm.astype(np.float64) + 0.25, cfg)
+    assert xf.dtype == np.float32
+    np.testing.assert_array_equal(xf[:, :3000], pcm.T + np.float32(0.25))
+    for arr, want in ((x, torch.int16), (xf, torch.float32)):
+        seen = []
+        real = L12.analyze_frames
+        try:
+            L12.analyze_frames = lambda p, *a: seen.append(p.dtype) \
+                or real(p, *a)
+            E._layer12_analysis(arr, P, torch.device("cpu"))
+        finally:
+            L12.analyze_frames = real
+        assert seen == [want]
+
+
+@pytest.mark.parametrize("layer,mode,kbps", [(2, mpeg.MODE_STEREO, 192),
+                                             (1, mpeg.MODE_JOINT, 384),
+                                             (2, mpeg.MODE_MONO, 96)])
+def test_int16_and_float32_pcm_give_the_same_bytes(layer, mode, kbps):
+    """A Layer I/II encode of int16 PCM equals that of the same values as
+    float32, byte for byte; the yardstick form too."""
+    nch = 1 if mode == mpeg.MODE_MONO else 2
+    pcm = pcm_of(layer, nch, 9, seed=7).numpy().T
+
+    def encode(x):
+        cfg = EncoderConfig(layer=layer, mode=mode, bitrate_kbps=kbps,
+                            sample_rate_hz=44100)
+        return E.encode_layer12_fast(x, cfg, "cpu")
+
+    out = encode(pcm)
+    assert out == encode(pcm.astype(np.float32))
+    with yardstick_form():
+        assert L12.analyze_frames is L12.analyze_frames_eager
+        assert encode(pcm) == out
+    assert L12.analyze_frames is not L12.analyze_frames_eager
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_int16_analysis_holds_to_jax(case):
+    """``analyze_frames`` on int16 PCM against the JAX package's
+    ``analyze_frames`` on the same values as float32: the subband and
+    joint samples within 1e-5, the SNR within 0.05 dB (noise-like
+    input), scale factors, joint scale factors and scfsi exactly, as
+    tests/test_torch_layer12.py holds the functions one by one."""
+    layer, nch, sblimit, rate, F = CASES[case]
+    pcm = pcm_of(layer, nch, F, seed=11)
+    got = analyze(pcm, case, L12.analyze_frames)
+    x = pcm.numpy().astype(np.float32)
+    fb = (np.concatenate([np.zeros((nch, 64), np.float32), x[:, :-64]],
+                         axis=1) if layer == 1 else x)
+    ref = J.analyze_frames(jnp.asarray(x), jnp.asarray(fb), layer, None,
+                           sblimit, nch, F, float(rate))
+    assert got.keys() == ref.keys()
+    for k in ("sb", "j_sample"):
+        if k in ref:
+            assert np.abs(got[k].numpy() - np.asarray(ref[k])).max() <= 1e-5
+    snr = np.asarray(ref["snr"], np.float64)
+    assert np.isfinite(snr).all()
+    assert np.abs(got["snr"].numpy().astype(np.float64) - snr).max() <= 0.05
+    for k in ("scalar", "scfsi", "j_scale"):
+        if k in ref:
+            np.testing.assert_array_equal(
+                np.asarray(ref[k]).astype(np.int64), got[k].numpy(),
+                err_msg=k)
