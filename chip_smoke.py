@@ -66,12 +66,14 @@ Phases, each printing its own lines; any failure exits non-zero:
      plain PyTorch around it, then the plain searches on bits_at (the
      lockstep path), then K3's first design (the baseline), then K3 with
      the rate loop op by op (its evaluation counts recorded), each of
-     these with loop.outer_loop_eager (a replayed graph calls no Python),
-     then as the package runs it (K3, the rate loop as CUDA graphs), each
-     with the launch counts reset before and read after (each swap must
-     show in them); the six streams must be equal byte for byte, the
-     iterations counted equal op by op and as graphs (which launch K3 in
-     all 6 unrolled iterations and read no exit on the host), and K3's
+     these in the segment program's staged form (tools.staged_form) with
+     loop.outer_loop_eager (a replayed graph calls no Python), then as the
+     package runs it (K3, the segment program as one CUDA graph a
+     segment), each with the launch counts reset before and read after
+     (each swap must show in them); the six streams must be equal byte for
+     byte, the iterations counted equal op by op and in the graph (which
+     launches K3 in all 6 unrolled iterations of both rate loops and reads
+     no exit on the host; 56 K3 and 4 K4 launches an encode), and K3's
      evaluation counts must give the lockstep path's bits_at launches;
      then 3 warm encodes timed before torch's GPU trace is turned on and
      3 after (it stays on: what its callbacks cost), and the host's waits
@@ -104,33 +106,47 @@ Phases, each printing its own lines; any failure exits non-zero:
      main path's own first 512- and 4096-lane demand and final batches
      and on random MPEG-1 and LSF demand and final batches at G = 4096
      and 32,768, each new key called twice (its capture, then replays);
-  5c. the segment program as the package runs it on the card (the
-     analysis of all lanes in one batch, the rate loop, K4 and the
-     emission and packing after the final rate loop, each replaying CUDA
-     graphs or launching, with one wait an encode) against the
-     yardstick form (the analysis lane by lane and the emission op by op,
-     the rate loop as graphs): captures from empty caches (capture ms by
-     stage and key, torch.cuda.memory_reserved before and after); the
-     captured analysis against the lane-by-lane one, torch.equal on
-     every output, on the main path's own 512- and 4096-lane segments,
-     two calls each, and each product of the
-     analysis batched alone (which change an output); encode_final with
-     the emission replayed against encode_final_eager on the main path's
-     own final encodes; then both forms: the same bytes, counts (launches,
-     waits, captures and replays by stage), 3 ABBA turns (real-time
-     factor), one profiled encode each (device events, idle share) and
-     one traced encode each (host dispatches and device events by span;
-     analyze_demand_fused's own dispatches at most 100, granule_payload's
-     at most 32);
+  5c. the segment program as the package runs it on the card, one CUDA
+     graph a segment (the analysis of all lanes in one batch, the demand
+     rate loop, K4, the final budgets, the final rate loop and the
+     emission and packing in one replay, n_real an input of the graph,
+     one wait an encode), against its staged form (tools.staged_form: the
+     analysis, rate-loop and emission graphs with K4 and the budgets
+     between them) and the yardstick form (the staged form with the
+     analysis lane by lane and the emission op by op): captures from
+     empty caches (the plan's 4 segments on 2 keys; capture ms,
+     torch.cuda.memory_allocated and memory_reserved growth by key);
+     each of the main path's segment calls as one graph against
+     encode_segment_staged, torch.equal on every output, two calls each;
+     the caller's clones timed (all outputs against what the fetch and
+     the carry need);
+     the staged form's graphs from empty caches: the captured analysis
+     against the lane-by-lane one, torch.equal on every output, on the
+     main path's own 512- and 4096-lane segments, two calls each, and
+     each product of the analysis batched alone (which change an
+     output); encode_final with the emission replayed against
+     encode_final_eager on the main path's own final encodes; then the
+     three forms: the same bytes, counts (launches, waits, captures and
+     replays by stage), 3 turns of yardstick, staged, graphs, graphs,
+     staged, yardstick (real-time factor), one profiled encode each
+     (device events, idle share) and one traced encode each (host
+     dispatches and device events by span: the package at most 30 host
+     dispatches a segment, none of the inner spans firing; the staged
+     form's analyze_demand_fused at most 100 of its own, granule_payload
+     at most 32); each held graph replayed from an idle card (the
+     launch's host time against the whole, replay_timing); a warm encode
+     under cProfile, which must call graphs.fingerprint no time;
   6. MPEG-2 LSF: the three 0.5 s mono cases of tests/test_lsf.py, then a
      60 s stereo 24 kHz 64 kbps clip (launches and waits counted), interior
-     frames on the grid, the yardstick form's bytes, first 10 s within
+     frames on the grid, the yardstick form's bytes, each segment as one
+     graph == encode_segment_staged on every output, first 10 s within
      1 dB of the CPU path;
   7. streaming: the bench clip in 1 s pieces through StreamEncoder at
      window 1024 (launches counted, timed) must equal the one-shot
      encode at chunk 1024 byte for byte, and the stream in the yardstick
      form, and so must a run checkpointed at 30 s, pickled and resumed in
-     a fresh encoder; one wait a window;
+     a fresh encoder; each window as one graph == encode_segment_staged
+     on every output; one wait a window;
   8. Layers I/II, one chain queued on the card (int16 PCM uploaded as
      int16, the analysis replaying one CUDA graph a frame count, K5 --
      the joint decision and the greedy bit allocation, one warp a frame,
@@ -179,7 +195,8 @@ Phases, each printing its own lines; any failure exits non-zero:
      II stream on the frame grid, its first 10 s within 0.5 dB of the
      CPU path;
   9. the command line: python -m mp3tpu_torch on a 10 s WAV and on raw
-     PCM piped to stdin must write the library's bytes;
+     PCM piped to stdin must write the library's bytes (the WAV's: the
+     yardstick form's too);
   10. corpus: 32 stereo 44.1 kHz 128 kbps clips x 10 s (bench_corpus.py's
      clips) through encode_corpus_batched at lane batch 1, 2, 4, 8 and 16
      by the corpus sweep tool (mp3tpu_torch.tools.corpus_sweep.sweep): one
@@ -250,11 +267,14 @@ Phases, each printing its own lines; any failure exits non-zero:
   14. encode_corpus with 3 worker threads from empty graph caches on a
      mixed corpus (stereo 128 kbps clips of several lengths at 44.1 and
      48 kHz, so that threads capture several keys at once): every stream
-     equal to its own encode_layer3_fast, the wall against one worker.
+     equal to its own encode_layer3_fast and to the yardstick form's, the
+     wall against one worker.
 On every path (main, LSF, stream, corpus, sharded) K3 must launch, the
-segment program's CUDA graphs must replay (the analysis, the rate loop
-and the emission; the sharded path's analysis as its two graphs around
-the exchange between ranks), and none may launch bits_at, the
+segment program's CUDA graphs must replay (on the main, LSF and stream
+paths the one graph and no graph of the staged form; on the corpus path
+the analysis, the rate loop and the emission; the sharded path's
+analysis as its two graphs around the exchange between ranks, then the
+rate loop and the emission), and none may launch bits_at, the
 baseline, K5, K5's first design or K6; every path
 but the
 sharded one (which keeps its host scan, as the JAX package does) must
@@ -282,7 +302,7 @@ sys.path.insert(0, ROOT)
 from mp3tpu_torch.tools import (DEVICE_CATS,  # noqa: E402
                                 FP32_OPS_PER_S, HBM_BYTES_PER_S,
                                 device_events, gpu_trace_on, host_waits,
-                                profile_once, yardstick_form)
+                                profile_once, staged_form, yardstick_form)
 from mp3tpu_torch.tools.signals import make_signal  # noqa: E402
 
 CLIP_SECONDS = 60.0
@@ -544,9 +564,10 @@ def capture_searches(ctx, run, lanes, what):
     """The first stepsize search and the first walk of `lanes` granules
     that run() makes, recorded by wrapping loop.search_stepsize and
     loop.search_walk (whose callers look them up at each call), with the
-    rate loop run by loop.outer_loop_eager (a replayed graph calls no
-    Python): {"stepsize": (args, kwargs), "walk": (args, kwargs)},
-    tensors cloned."""
+    segment program in stages (tools.staged_form) and the rate loop run by
+    loop.outer_loop_eager (a replayed graph calls no Python):
+    {"stepsize": (args, kwargs), "walk": (args, kwargs)}, tensors
+    cloned."""
     loop = ctx["loop"]
     real = {"stepsize": loop.search_stepsize, "walk": loop.search_walk,
             "outer_loop": loop.outer_loop}
@@ -566,7 +587,8 @@ def capture_searches(ctx, run, lanes, what):
     loop.search_walk = recorder("walk")
     loop.outer_loop = loop.outer_loop_eager
     try:
-        run()
+        with staged_form():
+            run()
     finally:
         loop.search_stepsize = real["stepsize"]
         loop.search_walk = real["walk"]
@@ -1067,9 +1089,10 @@ PARENT_TREE = None
 
 
 def capture_scans(ctx, run):
-    """Every resv.scan_budgets call that run() makes, recorded at the
-    function's entry (Layer3SegmentEncoder.forward looks it up at each
-    call): [(args, kwargs)], tensors cloned."""
+    """Every resv.scan_budgets call that run() makes in the staged form
+    (tools.staged_form: encode_segment_staged looks it up at each call; a
+    replayed graph calls no Python), recorded at the function's entry:
+    [(args, kwargs)], tensors cloned."""
     R = ctx["R"]
     real, seen = R.scan_budgets, []
 
@@ -1082,7 +1105,8 @@ def capture_scans(ctx, run):
 
     R.scan_budgets = record
     try:
-        run()
+        with staged_form():
+            run()
     finally:
         R.scan_budgets = real
     return seen
@@ -1548,7 +1572,8 @@ def graph_count_keys(by_stage):
 def stage_pairs(counts):
     """{stage: (captures, replays)} of launch_counts' "<stage>_..." keys."""
     return {s: (counts[f"{s}_captures"], counts[f"{s}_replays"])
-            for s in SEGMENT_STAGES + L12_STAGES + SHARDED_ANALYSIS}
+            for s in ONE_GRAPH_STAGES + SEGMENT_STAGES + L12_STAGES
+            + SHARDED_ANALYSIS}
 
 
 #: the host's waits on the card by kind, as launch_counts names them:
@@ -1593,22 +1618,28 @@ def waits_of(counts):
     return {WAITS[k]: counts[k] for k in WAITS}
 
 
-#: the captured stages that every path replays: the one-shot, LSF,
-#: stream and corpus paths run the whole segment program; the sharded
-#: path runs its analysis as two graphs around the automaton's exchange
-#: between ranks (parallel/clip.py), then the rate loop and the emission;
-#: the Layer I/II encode replays its analysis
+#: the captured stages that every path replays: the one-shot, LSF and
+#: stream paths replay the whole segment program as one graph; the corpus
+#: path runs it in stages (the analysis, the rate loop and the emission),
+#: as do settle's retries; the sharded path runs its analysis as two
+#: graphs around the automaton's exchange between ranks
+#: (parallel/clip.py), then the rate loop and the emission; the Layer I/II
+#: encode replays its analysis
+ONE_GRAPH_STAGES = ("segment",)
 SEGMENT_STAGES = ("analysis", "prologue", "iteration", "emission")
 SHARDED_ANALYSIS = ("sharded_psy", "sharded_spectra")
 SHARDED_STAGES = SHARDED_ANALYSIS + ("prologue", "iteration", "emission")
 L12_STAGES = ("l12_analysis",)
 
 
-def read_counts(ctx, path, stages=SEGMENT_STAGES, k4=True):
+def read_counts(ctx, path, stages=ONE_GRAPH_STAGES, k4=True):
     """launch_counts; fails unless the path launched K3 and replayed the
     graphs of each of `stages`, and it launched bits_at, the baseline and
     the Layer I/II kernels (K5, its first design, K6) no time and
-    replayed no Layer I/II graph; with `k4` (every path but the sharded
+    replayed no Layer I/II graph; with the one graph (the one-shot, LSF
+    and stream paths), unless it captured and replayed no graph of the
+    staged form (settle's retries excepted: they re-encode with the
+    staged rate loop and emission); with `k4` (every path but the sharded
     one), unless it launched K4 and made no loop-exit sync and no scan
     copy; without it (the sharded path, which scans on the host as the
     JAX package does), unless it launched K4 no time and made no
@@ -1619,6 +1650,12 @@ def read_counts(ctx, path, stages=SEGMENT_STAGES, k4=True):
     for stage in stages:
         if counts[f"{stage}_replays"] <= 0:
             fail(f"the {path} replayed the {stage} graphs no time: {counts}")
+    if stages == ONE_GRAPH_STAGES:
+        staged = [s for s in SEGMENT_STAGES
+                  if counts[f"{s}_captures"] + counts[f"{s}_replays"]]
+        if staged and (not counts["retry_fetches"] or "analysis" in staged):
+            fail(f"the {path} ran graphs of the staged form {staged}: "
+                 f"{counts}")
     for kernel in ("bits_at", "baseline", "alloc12", "alloc12_baseline",
                    "pack12", "l12_analysis_replays"):
         if counts[kernel]:
@@ -1643,7 +1680,7 @@ def torch_waits(ctx, fn):
     return host_waits(fn, ROOT)
 
 
-def waits_check(ctx, path, fn, fetches, stages=SEGMENT_STAGES, k4=True):
+def waits_check(ctx, path, fn, fetches, stages=ONE_GRAPH_STAGES, k4=True):
     """fn() once more, its keys captured, with the counts reset before and
     read after (read_counts' checks, `k4` as there) and under torch_waits:
     fails unless it fetched `fetches` times besides settle's retries'
@@ -1703,6 +1740,8 @@ def phase_lsf(ctx):
         if encode(pcm, cfg, device="cuda") != out:
             fail("LSF 60 s: the segment graphs and the yardstick form give "
                  "other bytes")
+    _, seen = record_segments(ctx, lambda: encode(pcm, cfg, device="cuda"))
+    segment_check(ctx, seen, "LSF 60 s")
     warm_out, launches["warm"], _ = waits_check(
         ctx, "LSF path", lambda: encode(pcm, cfg, device="cuda"), 1)
     if warm_out != out:
@@ -1760,6 +1799,13 @@ def phase_stream(ctx, pcm, cfg_of):
         if run(enc, 0, len(pcm)) + enc.finish() != streamed:
             fail("stream: the package and the yardstick form give other "
                  "bytes")
+
+    def whole():
+        enc = StreamEncoder(cfg_of(), "cuda", window=1024)
+        return run(enc, 0, len(pcm)) + enc.finish()
+
+    _, seen = record_segments(ctx, whole)
+    segment_check(ctx, seen, "stream at window 1024")
     from mp3tpu_torch.encoder import _plan_segments
     ws = 1024 * 576
     rem = len(pcm) % ws
@@ -2013,8 +2059,9 @@ def l12_launches(ctx, path, run):
                                 "hist_c1", "baseline", "resv_scan")) or \
             (counts["l12_analysis_captures"]
              + counts["l12_analysis_replays"]) != 1 or any(
-                counts[f"{s}_{kind}"] for s in SEGMENT_STAGES
-                + SHARDED_ANALYSIS for kind in ("captures", "replays")):
+                counts[f"{s}_{kind}"] for s in ONE_GRAPH_STAGES
+                + SEGMENT_STAGES + SHARDED_ANALYSIS
+                for kind in ("captures", "replays")):
         fail(f"{path}: launches {counts} (expected K5 1, K6 1, K5's first "
              f"design 0, no Layer III kernel; one analysis graph, no Layer "
              f"III graph)")
@@ -2263,25 +2310,90 @@ def l12_routes(ctx, pcm, cfg_of, label):
 #: the copy into the graph's static input, the replay, the outputs' clones
 #: and the streams' waits
 L12_MAX_DISPATCHES = 20
+#: the kernels the card chain's spans must hold: span, a part of the
+#: kernel's name in the trace
+L12_SPAN_KERNELS = (("greedy_allocation", "alloc12_kernel<"),
+                    ("pack_elements", "pack12_kernel("))
+#: the most traced card-chain encodes l12_trace takes to find each of
+#: L12_SPAN_KERNELS under its span
+L12_TRACE_TRIES = 3
+
+
+def kernel_whereabouts(path, span, word):
+    """Where a trace() file puts the kernel named by `word` against the
+    span `span`: its device events, and for the first the launching host
+    call's category and its offsets from the span's start and end in us
+    (None when the trace holds no such call), as one line."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+    spans = [e for e in events if e.get("cat") == "user_annotation"
+             and e["name"] == span]
+    kernels = [e for e in events if e.get("cat") in DEVICE_CATS
+               and word in e["name"]]
+    if not kernels:
+        return f"the trace holds no device event of {word}"
+    corr = kernels[0].get("args", {}).get("correlation")
+    calls = [e for e in events if e.get("cat") in ("cuda_runtime",
+                                                   "cuda_driver")
+             and e.get("args", {}).get("correlation") == corr]
+    if not calls:
+        return (f"{len(kernels)} device event(s) of {word}, correlation "
+                f"{corr} held by no host call")
+    call = calls[0]
+    where = "; no such span" if not spans else (
+        f", {call['ts'] - spans[0]['ts']:.3f} us after the span's start "
+        f"and {spans[0]['ts'] + spans[0]['dur'] - call['ts']:.3f} us "
+        f"before its end")
+    return (f"{len(kernels)} device event(s) of {word}, launched by "
+            f"{call['cat']} {call['name']}{where}")
+
+
+def l12_trace_route(fn, pcm, cfg_of, label, route, want):
+    """One traced encode of `route`: (span_breakdown by SPANS_L12, host
+    wall s, the names of L12_SPAN_KERNELS' spans with no device event of
+    their own, {span: kernel_whereabouts}); fails on other bytes."""
+    from mp3tpu_torch.runtime.profiling import SPANS_L12, trace
+    from mp3tpu_torch.tools.trace_stages import span_breakdown
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp, "cuda"):
+            t0 = time.perf_counter()
+            out = fn(pcm, cfg_of(), "cuda")
+            wall = time.perf_counter() - t0
+        path = os.path.join(tmp, "trace.json")
+        bd = span_breakdown(path, SPANS_L12)
+        empty = [s for s, _ in L12_SPAN_KERNELS
+                 if bd["spans"][s]["self_device_events"] < 1]
+        where = {s: kernel_whereabouts(path, s, w)
+                 for s, w in L12_SPAN_KERNELS} if empty else {}
+    if out != want:
+        fail(f"{label}: the traced {route} route gave other bytes")
+    return bd, wall, empty, where
 
 
 def l12_trace(ctx, pcm, cfg_of, label, want):
     """One traced encode of each route: span_breakdown by the spans of
     runtime.profiling.SPANS_L12, and the card chain's K5 and K6 kernel
-    events (one each); fails if the card chain's analyze_frames span makes
-    L12_MAX_DISPATCHES host dispatches or more."""
-    from mp3tpu_torch.runtime.profiling import SPANS_L12, trace
-    from mp3tpu_torch.tools.trace_stages import span_breakdown
+    events (one each, under greedy_allocation and pack_elements); fails
+    if the card chain's analyze_frames span makes L12_MAX_DISPATCHES host
+    dispatches or more.  torch.profiler has, on a rare run, given a
+    trace with no device event under greedy_allocation (none in 220
+    traced encodes on an H100 80GB HBM3), so the card chain is traced
+    again, up to L12_TRACE_TRIES encodes in all, while a kernel is
+    missing from its span; each miss is printed with where the trace put
+    that kernel."""
+    from mp3tpu_torch.runtime.profiling import SPANS_L12
     res = {}
     for route, fn in l12_route_fns(ctx).items():
-        with tempfile.TemporaryDirectory() as tmp:
-            with trace(tmp, "cuda"):
-                t0 = time.perf_counter()
-                out = fn(pcm, cfg_of(), "cuda")
-                wall = time.perf_counter() - t0
-            bd = span_breakdown(os.path.join(tmp, "trace.json"), SPANS_L12)
-        if out != want:
-            fail(f"{label}: the traced {route} route gave other bytes")
+        for attempt in range(1, L12_TRACE_TRIES + 1):
+            bd, wall, empty, where = l12_trace_route(fn, pcm, cfg_of, label,
+                                                     route, want)
+            if route != "card" or not empty:
+                break
+            print(f"{label}, card route traced (encode {attempt} of at "
+                  f"most {L12_TRACE_TRIES}): no device event under "
+                  f"{', '.join(empty)}: " + "; ".join(
+                      f"{s}: {w}" for s, w in where.items()), flush=True)
         res[route] = bd
         print(f"{label}, {route} route traced: {wall:.4f} s, "
               f"{bd['device_events']} device events "
@@ -2301,9 +2413,10 @@ def l12_trace(ctx, pcm, cfg_of, label, want):
         if card[name]["count"] != 1:
             fail(f"{label}: the card chain's trace holds span {name} "
                  f"{card[name]['count']} times")
-    for name in ("greedy_allocation", "pack_elements"):
+    for name, _ in L12_SPAN_KERNELS:
         if card[name]["self_device_events"] < 1:
-            fail(f"{label}: no device event under {name} in the trace")
+            fail(f"{label}: no device event under {name} in "
+                 f"{L12_TRACE_TRIES} traces")
     if card["analyze_frames"]["host_dispatches"] >= L12_MAX_DISPATCHES or \
             card["analyze_frames"]["device_events"] < 1:
         fail(f"{label}: the card chain's analyze_frames span made "
@@ -2784,6 +2897,9 @@ def phase_cli(ctx, pcm, cfg_of):
     t1 = cli(["-b", "128", wav, out1])
     if read(out1) != ctx["encode"](pcm, cfg_of(), device="cuda"):
         fail("CLI file encode != encode_layer3_fast(..., 'cuda')")
+    with yardstick_form():
+        if read(out1) != ctx["encode"](pcm, cfg_of(), device="cuda"):
+            fail("CLI file encode != the yardstick form's bytes")
     out2 = os.path.join(work, "out2.mp3")
     raw = pcm.astype(">i2").tobytes()
     t2 = cli(["-b", "128", "-s", "44.1", "-", out2], stdin=raw)
@@ -2797,7 +2913,8 @@ def phase_cli(ctx, pcm, cfg_of):
     if read(out3) != encode_layer12_fast(pcm, cfg, "cuda"):
         fail("CLI -l 2 encode != encode_layer12_fast(..., 'cuda')")
     print(f"CLI: python -m mp3tpu_torch --device cuda equals the library "
-          f"on a 10 s WAV ({t1:.2f} s), raw stdin stream ({t2:.2f} s) and "
+          f"(and the yardstick form) on a 10 s WAV ({t1:.2f} s), raw stdin "
+          f"stream ({t2:.2f} s) and "
           f"-l 2 ({t3:.2f} s), process start included", flush=True)
 
 
@@ -2895,7 +3012,7 @@ def lookahead_runs(ctx, clips, batch, label, line, want):
     res = {}
     for la in LOOKAHEADS:
         _, counts, _ = waits_check(ctx, f"{label}, lookahead {la}",
-                                   lambda: go(la), groups)
+                                   lambda: go(la), groups, SEGMENT_STAGES)
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -2966,8 +3083,8 @@ def phase_corpus(ctx, line, cfg_of):
             reset_counts(ctx)
         outs, stats = encode()
         if i == 0:
-            counts_of[batch] = read_counts(ctx,
-                                           f"corpus at lane batch {batch}")
+            counts_of[batch] = read_counts(
+                ctx, f"corpus at lane batch {batch}", SEGMENT_STAGES)
             first_of[batch] = outs
         elif outs != first_of[batch]:
             fail(f"corpus at lane batch {batch}: two runs differ")
@@ -3019,7 +3136,7 @@ def phase_corpus(ctx, line, cfg_of):
     warm_out, launches["warm"], _ = waits_check(
         ctx, f"corpus at lane batch {batch}",
         lambda: encode_corpus_batched(clips, kw, "cuda", batch=batch)[0],
-        -(-CORPUS_CLIPS // batch))
+        -(-CORPUS_CLIPS // batch), SEGMENT_STAGES)
     if warm_out != outs:
         fail(f"corpus at lane batch {batch}: the warm run gave other bytes")
     analysis_check(ctx, *corpus_analysis_args(ctx, clips[:batch], kw),
@@ -3100,6 +3217,7 @@ def phase_threaded_corpus(ctx, line):
     torch.cuda.synchronize()
     loop.GRAPHS.clear()
     layer3.GRAPHS.clear()
+    layer3.SEGMENTS.clear()
     reset_counts(ctx)
     t0 = time.perf_counter()
     outs, _ = encode_corpus(clips, kw, "cuda", workers=3)
@@ -3112,6 +3230,14 @@ def phase_threaded_corpus(ctx, line):
     if bad or len(outs) != len(clips):
         fail(f"encode_corpus with 3 workers: clips {bad} differ from their "
              f"own encode_layer3_fast")
+    with yardstick_form():
+        yard = [ctx["encode"](pcm, ctx["EncoderConfig"](
+            sample_rate_hz=rate, **kw), device="cuda")
+            for pcm, rate in clips]
+    bad = [i for i, (a, b) in enumerate(zip(outs, yard)) if a != b]
+    if bad:
+        fail(f"encode_corpus with 3 workers: clips {bad} differ from their "
+             f"yardstick form's bytes")
     walls = {1: [], 3: []}
     for workers in (1, 3, 3, 1):
         torch.cuda.synchronize()
@@ -3125,7 +3251,8 @@ def phase_threaded_corpus(ctx, line):
           f"({', '.join(f'{sec:.0f} s at {rate}' for sec, rate in C1_CLIPS)}"
           f" Hz) with 3 workers from empty graph caches: {cold:.3f} s, "
           f"captures by stage {stage_pairs(counts)}; every stream equal to "
-          f"its own encode_layer3_fast; warm, in turns: 1 worker "
+          f"its own encode_layer3_fast and to its yardstick form's; warm, "
+          f"in turns: 1 worker "
           f"{', '.join(f'{w:.4f}' for w in walls[1])} s, 3 workers "
           f"{', '.join(f'{w:.4f}' for w in walls[3])} s (means "
           f"{audio / w1:.2f}x and {audio / w3:.2f}x real time, 3 workers at "
@@ -3159,9 +3286,12 @@ def print_captures(ctx, when):
     from mp3tpu_torch.models import layer3
     from mp3tpu_torch.ops import layer12
     torch, loop = ctx["torch"], ctx["loop"]
-    rows = [f"analysis {tuple(e.inputs['blocks_h4'].shape)} "
-            f"{1e3 * e.capture_s['analysis']:.1f}"
-            for e in layer3.GRAPHS.entries.values()]
+    rows = [f"segment {tuple(e.inputs['blocks_h4'].shape)} "
+            f"{1e3 * e.capture_s['segment']:.1f}"
+            for e in layer3.SEGMENTS.entries.values()]
+    rows += [f"analysis {tuple(e.inputs['blocks_h4'].shape)} "
+             f"{1e3 * e.capture_s['analysis']:.1f}"
+             for e in layer3.GRAPHS.entries.values()]
     rows += [f"l12_analysis {tuple(e.inputs['pcm'].shape)} "
              f"{1e3 * e.capture_s['l12_analysis']:.1f}"
              for e in layer12.GRAPHS.entries.values()]
@@ -3696,10 +3826,12 @@ def phase_main(ctx, pcm, cfg, line):
     """Phase 5: the bench clip five ways: the plain searches with the
     plain chain, the plain searches with the K1 chain, the plain searches
     on bits_at (the lockstep path), K3's first design, each swapped in by
-    this script, and as the package runs it (K3); the five streams must
-    be equal, and the launch counts must show that each swap took effect.
-    The lockstep path and K3 are timed in turns and profiled once each.
-    Returns the package run's counts and measurements."""
+    this script into the segment program's staged form (a replayed graph
+    calls no Python), and as the package runs it (K3, the segment program
+    as one CUDA graph); the five streams must be equal, and the launch
+    counts must show that each swap took effect.  The lockstep path and
+    K3 are timed in turns and profiled once each.  Returns the package
+    run's counts and measurements."""
     np, torch, loop, K = ctx["np"], ctx["torch"], ctx["loop"], ctx["K"]
     encode, decode_mp3, snr_db = (ctx["encode"], ctx["decode_mp3"],
                                   ctx["snr_db"])
@@ -3729,11 +3861,15 @@ def phase_main(ctx, pcm, cfg, line):
     # the five ways: the functions swapped into loop, and the launch
     # counts that must be 0 / more than 0 after each; K3's evaluation
     # counts are read with the rate loop op by op ("k3_eager").  The
-    # analysis replays its graph on every way; the emission is the rate
-    # loop's continuation, op by op where the loop is.
-    op_by_op = tuple(f"{s}_{kind}" for s in ("prologue", "iteration",
-                                              "emission")
+    # swapped ways run the segment program in stages (staged_form): the
+    # analysis replays its graph; the emission is the rate loop's
+    # continuation, op by op where the loop is.  The package's way
+    # replays the one graph and no graph of the staged form.
+    op_by_op = tuple(f"{s}_{kind}" for s in ("segment", "prologue",
+                                              "iteration", "emission")
                      for kind in ("captures", "replays"))
+    staged = tuple(f"{s}_{kind}" for s in SEGMENT_STAGES
+                   for kind in ("captures", "replays"))
     ways = {"plain": (dict(plain_searches, _bits_at=plain_chain),
                       ("search", "bits_at", "hist_c1", "baseline")
                       + op_by_op, ()),
@@ -3746,19 +3882,21 @@ def phase_main(ctx, pcm, cfg, line):
                          + op_by_op, ("baseline",)),
             "k3_eager": (eager, ("bits_at", "hist_c1", "baseline")
                          + op_by_op, ("search",)),
-            "k3": ({}, ("bits_at", "hist_c1", "baseline"),
-                   ("search", "iteration_replays", "emission_replays"))}
+            "k3": ({}, ("bits_at", "hist_c1", "baseline") + staged,
+                   ("search", "segment_replays"))}
     label = {"plain": "plain", "k1": "K1 chain", "pr5": "the lockstep path",
              "baseline": "K3's first design",
              "k3_eager": "K3, the rate loop op by op",
-             "k3": "K3, the rate loop as CUDA graphs"}
+             "k3": "K3, the segment program as one CUDA graph"}
 
     def run(way, swaps=None):
         swaps = ways[way][0] if swaps is None else swaps
         for name, fn in swaps.items():
             setattr(loop, name, fn)
         try:
-            return encode(pcm, cfg, device="cuda")
+            with (contextlib.nullcontext() if way == "k3"
+                  else staged_form()):
+                return encode(pcm, cfg, device="cuda")
         finally:
             for name in swaps:
                 setattr(loop, name, real[name])
@@ -3813,19 +3951,20 @@ def phase_main(ctx, pcm, cfg, line):
     plan = _plan_segments(nframes * 2)
     print(f"main path: the plain searches with the plain chain, with the K1 "
           f"chain, on bits_at (the lockstep path), K3's first design, K3 "
-          f"with the rate loop op by op and K3 with it as CUDA graphs: "
-          f"the same {len(out)} bytes", flush=True)
+          f"with the rate loop op by op and K3 in the segment program as "
+          f"one CUDA graph: the same {len(out)} bytes", flush=True)
     for way in ("plain", "k1", "pr5", "baseline", "k3_eager"):
         print(f"main path ({label[way]}): launches and waits per encode "
               f"{counts[way]}", flush=True)
-    # the graphs run all 6 iterations of each of the 2 rate loops a
-    # segment, launching K3 in each, and read no exit on the host
+    # the graph runs all 6 iterations of each of the 2 rate loops a
+    # segment, launching K3 in each, and reads no exit on the host
     e, calls = counts["k3_eager"], 2 * len(plan)
     if (launches["iterations"], launches["syncs"], launches["search"]) != \
             (e["iterations"], 0, 7 * calls) or \
             e["search"] != calls + e["iterations"]:
         fail(f"main path: as CUDA graphs {launches}, op by op {e}")
-    print(f"main path (K3, the rate loop as CUDA graphs, first run): "
+    print(f"main path (K3, the segment program as one CUDA graph, first "
+          f"run): "
           f"{first_s:.3f} s; launches and "
           f"waits per encode {launches}; {len(evals)} searches, "
           f"{lockstep} lockstep evaluations (= the lockstep path's bits_at "
@@ -4155,39 +4294,52 @@ def phase_graphs(ctx, pcm, cfg, line, main_out):
                 reserved=(reserved0, reserved1), **res)
 
 
-#: phase 5c times the package and the yardstick form in this many ABBA
-#: turns (2 runs each), and so does phase 10 at lane batch 16
+#: phase 5c times the package, the staged form and the yardstick form in
+#: this many turns (2 runs each), and phase 10 at lane batch 16 the
+#: package and the yardstick form
 SEGMENT_TURNS = 3
 #: the spans whose host dispatches and device events phases 5c and 10
-#: print for each form
+#: print for each form; on the card's main path (one graph a segment)
+#: all but the first stay silent
 FORM_SPANS = ("encode_segment_fused", "analyze_demand_fused", "outer_loop",
               "encode_final", "granule_payload", "compact_payload",
               "pack_state")
-#: the most host dispatches a traced 60 s encode may make in the spans
-#: whose programs replay one graph a call: analyze_demand_fused's own
-#: and granule_payload's
+#: the most host dispatches a traced 60 s encode in the staged form may
+#: make in the spans whose programs replay one graph a call:
+#: analyze_demand_fused's own and granule_payload's
 MAX_DISPATCHES = {"analyze_demand_fused": 100, "granule_payload": 32}
+#: the most host dispatches a segment of the package (one graph) may make
+#: inside its encode_segment_fused span: the inputs' copies, the replay
+#: and the caller's clones
+ONE_GRAPH_MAX_DISPATCHES = 30
+#: the forms that form_runs can run: the package, the segment program in
+#: stages (tools.staged_form) and the yardstick form
+FORMS = {"graphs": contextlib.nullcontext, "staged": staged_form,
+         "yardstick": yardstick_form}
 
 
-def form_runs(ctx, run, label, line, audio_s, turns=SEGMENT_TURNS):
-    """run() as the package runs it ("graphs": the analysis, the rate loop
-    and the emission replay CUDA graphs, the scan is K4, one wait) and
-    in the yardstick form ("yardstick", tools.yardstick_form: the
-    analysis lane by lane, the emission op by op, the rate loop as
-    graphs): the counts of one run each (launches, waits, graph captures
-    and replays by stage), equal outputs, `turns` turns in the order
-    yardstick, graphs, graphs, yardstick (median wall, real-time factor
-    of audio_s seconds), one profiled run each (device events, idle
-    share) and one traced run each (host dispatches and device events by
-    span, search_kernel events = search.launches).  Returns (the output,
-    {form: record})."""
+def form_runs(ctx, run, label, line, audio_s, turns=SEGMENT_TURNS,
+              forms=("graphs", "yardstick")):
+    """run() in each of `forms` (FORMS): as the package runs it
+    ("graphs": on the one-shot path the segment program as one CUDA
+    graph, on the corpus path its staged graphs; one wait), the segment
+    program in stages ("staged": the analysis, the rate loop and the
+    emission replay CUDA graphs, the scan is K4 between them) and the
+    yardstick form ("yardstick", tools.yardstick_form: the segment
+    program in stages, the analysis lane by lane, the emission op by op,
+    the rate loop as graphs): the counts of one run each (launches,
+    waits, graph captures and replays by stage), equal outputs, `turns`
+    turns in the order of `forms` reversed and then `forms` (median wall,
+    real-time factor of audio_s seconds), one profiled run each (device
+    events, idle share) and one traced run each (host dispatches and
+    device events by span, search_kernel events = search.launches).
+    Returns (the output, {form: record})."""
     torch = ctx["torch"]
     from mp3tpu_torch.runtime.profiling import trace
     from mp3tpu_torch.tools.trace_stages import span_breakdown
-    forms = {"graphs": contextlib.nullcontext, "yardstick": yardstick_form}
 
     def go(form):
-        with forms[form]():
+        with FORMS[form]():
             return run()
 
     outs, counts = {}, {}
@@ -4196,11 +4348,12 @@ def form_runs(ctx, run, label, line, audio_s, turns=SEGMENT_TURNS):
         outs[form] = go(form)
         torch.cuda.synchronize()
         counts[form] = launch_counts(ctx)
-    if outs["yardstick"] != outs["graphs"]:
-        fail(f"{label}: the package and the yardstick form give other "
-             f"bytes")
+    for form in forms:
+        if outs[form] != outs["graphs"]:
+            fail(f"{label}: the package and the {form} form give other "
+                 f"bytes")
     times = {form: [] for form in forms}
-    for form in ("yardstick", "graphs", "graphs", "yardstick") * turns:
+    for form in (tuple(reversed(forms)) + tuple(forms)) * turns:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = go(form)
@@ -4261,16 +4414,18 @@ def form_runs(ctx, run, label, line, audio_s, turns=SEGMENT_TURNS):
                   f"{r['self_host_dispatches']}), device events "
                   f"{r['device_events']} (self {r['self_device_events']})",
                   flush=True)
-    g, y = res["graphs"], res["yardstick"]
-    print(f"{label}: the package's wall {g['wall'] / y['wall']:.3f} of "
-          f"the yardstick form's (real-time factor "
-          f"{g['rtf'] / y['rtf']:.3f}x), host dispatches "
-          f"{g['dispatches']} against {y['dispatches']}, device events "
-          f"{g['device_events']} against {y['device_events']}, device "
-          f"busy {g['busy']:.4f} s against {y['busy']:.4f} s, idle "
-          f"share {g['idle']:.3f} against {y['idle']:.3f}; waits "
-          f"{waits_of(g['counts'])} against {waits_of(y['counts'])}",
-          flush=True)
+    g = res["graphs"]
+    for form in forms[1:]:
+        y = res[form]
+        print(f"{label}: the package's wall {g['wall'] / y['wall']:.3f} of "
+              f"the {form} form's (real-time factor "
+              f"{g['rtf'] / y['rtf']:.3f}x), host dispatches "
+              f"{g['dispatches']} against {y['dispatches']}, device events "
+              f"{g['device_events']} against {y['device_events']}, device "
+              f"busy {g['busy']:.4f} s against {y['busy']:.4f} s, idle "
+              f"share {g['idle']:.3f} against {y['idle']:.3f}; waits "
+              f"{waits_of(g['counts'])} against {waits_of(y['counts'])}",
+              flush=True)
     return outs["graphs"], res
 
 
@@ -4314,76 +4469,282 @@ def analysis_check(ctx, enc, args, label):
     return sorted(changed)
 
 
+def record_segments(ctx, run):
+    """run() with Layer3SegmentEncoder.forward wrapped, synchronizing
+    around each call: each call's encoder and arguments (tensors cloned)
+    and, for a call that captured its key's graph, its key (blocks_h4's
+    shape), capture ms and the growth of torch.cuda.memory_allocated (the
+    entry's static tensors and the call's clones) and memory_reserved
+    (the graphs' pool as well) around it.  Returns (run()'s result,
+    [(encoder, args, capture record or None)])."""
+    torch, graphs = ctx["torch"], ctx["graphs"]
+    from mp3tpu_torch.models import layer3
+    Enc = layer3.Layer3SegmentEncoder
+    real, seen = Enc.forward, []
+
+    def forward(self, *args):
+        kept = tuple(a.clone() if hasattr(a, "clone") else a for a in args)
+        c0 = graphs.graph_counts["segment"]["captures"]
+        torch.cuda.synchronize()
+        a0, r0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        out = real(self, *args)
+        torch.cuda.synchronize()
+        cap = None
+        if graphs.graph_counts["segment"]["captures"] > c0:
+            entry = next(reversed(layer3.SEGMENTS.entries.values()))
+            cap = dict(key=tuple(args[0].shape),
+                       ms=1e3 * entry.capture_s["segment"],
+                       allocated=torch.cuda.memory_allocated() - a0,
+                       reserved=torch.cuda.memory_reserved() - r0)
+        seen.append((self, kept, cap))
+        return out
+
+    Enc.forward = forward
+    try:
+        out = run()
+    finally:
+        Enc.forward = real
+    return out, seen
+
+
+def clone_cost(ctx, line):
+    """What the caller's clones of a segment graph's static outputs cost
+    (Layer3SegmentEncoder.forward's keep), for each key held in
+    layer3.SEGMENTS: the outputs' count and bytes, the clones' host time
+    (median of 20, no synchronize: the dispatches alone) and their device
+    time (torch.profiler, the copies' events summed); beside the
+    clones of what the fetch and the carry need alone (side, payload,
+    n_nonfinite, scfsi, fsm_state, size)."""
+    torch = ctx["torch"]
+    from mp3tpu_torch.models import layer3
+    need = ("side", "payload", "n_nonfinite", "scfsi", "fsm_state", "size")
+    rows = []
+    for entry in layer3.SEGMENTS.entries.values():
+        outs = entry.outputs["segment"]
+        for label, keys in (("all", tuple(outs)),
+                            ("fetch and carry", tuple(k for k in need
+                                                      if k in outs))):
+            torch.cuda.synchronize()
+            host = []
+            for _ in range(20):
+                t0 = time.perf_counter()
+                [outs[k].clone() for k in keys]
+                host.append(time.perf_counter() - t0)
+                torch.cuda.synchronize()
+            events, _, _ = profile_once(lambda: [outs[k].clone()
+                                                 for k in keys])
+            dev_ms = sum(e - s for _, s, e in events) / 1e3
+            rows.append((tuple(entry.inputs["blocks_h4"].shape), label,
+                         len(keys), nbytes(*(outs[k] for k in keys)),
+                         statistics.median(host) * 1e3, dev_ms))
+    print("segment graph outputs' clones a call (key, which, tensors, "
+          "bytes, host ms median of 20, device ms): "
+          + "; ".join(f"{k} {w}: {n}, {b}, {h:.4f}, {d:.4f}"
+                      for k, w, n, b, h, d in rows) + f" on {line}",
+          flush=True)
+    return rows
+
+
+def replay_timing(ctx, line, reps=10):
+    """Whether a replay's launch holds the host: for each segment graph
+    held in layer3.SEGMENTS, and for the 4096-lane rate loop's iteration
+    graphs in loop.GRAPHS (the staged form's largest), the host time of
+    the launch alone (CUDAGraph.replay() from a synchronized card), the
+    time to the card's synchronize after it, both medians of `reps`, and
+    the device events and busy time of one replay (torch.profiler).  A
+    launch whose host time comes near the whole is held until the card
+    has taken most of the graph's work."""
+    torch, loop, graphs = ctx["torch"], ctx["loop"], ctx["graphs"]
+    from mp3tpu_torch.models import layer3
+    dev = torch.device("cuda", torch.cuda.current_device())
+    held = [(f"segment {tuple(e.inputs['blocks_h4'].shape)}",
+             e.graphs["segment"]) for e in layer3.SEGMENTS.entries.values()]
+    held += [(f"iteration {e.inputs['xr'].shape[0]} lanes",
+              e.graphs["iteration"]) for e in loop.GRAPHS.entries.values()
+             if e.inputs["xr"].shape[0] == 4096]
+    rows = []
+    with graphs.LOCK, torch.cuda.stream(graphs.stream(dev)):
+        for name, graph in held:
+            launch, whole = [], []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                graph.replay()
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+                launch.append(t1 - t0)
+                whole.append(time.perf_counter() - t0)
+            events, busy, _ = profile_once(graph.replay)
+            rows.append((name, statistics.median(launch) * 1e3,
+                         statistics.median(whole) * 1e3, len(events),
+                         busy * 1e3))
+    print("graph replays, the launch's host time against the whole (ms, "
+          "median of " + str(reps) + "), device events and busy ms of one: "
+          + "; ".join(f"{n}: {a:.3f} of {w:.3f}, {k} events, {b:.3f}"
+                      for n, a, w, k, b in rows) + f" on {line}",
+          flush=True)
+    return rows
+
+
+def fingerprint_calls(run):
+    """run() under cProfile: (the calls of ops/graphs.py's fingerprint,
+    every function call), so that a warm encode shows that it made and
+    hashed no table (layer3.rate_tables)."""
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    prof.runcall(run)
+    stats = pstats.Stats(prof).stats
+    mine = os.path.join("ops", "graphs.py")
+    return (sum(nc for (path, _, name), (_, nc, *_) in stats.items()
+                if name == "fingerprint" and path.endswith(mine)),
+            sum(nc for _, (_, nc, *_) in stats.items()))
+
+
+def segment_check(ctx, seen, label):
+    """Each recorded segment call (record_segments) as one graph (the
+    encoder's forward: a replay, or for a new key its capture, then a
+    replay) against encode_segment_staged on the same arguments:
+    torch.equal and the same dtype on every output, two calls each; fails
+    on any difference."""
+    torch = ctx["torch"]
+    for i, (enc, args, _) in enumerate(seen):
+        ref = enc.encode_segment_staged(*args)
+        for call in range(2):
+            got = enc(*args)
+            bad = [k for k in ref if got[k].dtype != ref[k].dtype
+                   or not torch.equal(got[k], ref[k])]
+            if got.keys() != ref.keys() or bad:
+                fail(f"{label}: segment {i} as one graph != "
+                     f"encode_segment_staged (call {call + 1}): "
+                     f"{bad or 'keys'}")
+    print(f"{label}: each of its {len(seen)} segment calls as one graph == "
+          f"encode_segment_staged (torch.equal and dtype on every output: "
+          f"{', '.join(sorted(ref))}; two calls each, lanes "
+          f"{[a[0].shape[0] * (a[0].shape[1] - 4) for _, a, _ in seen]}, "
+          f"n_real {[a[6] for _, a, _ in seen]})", flush=True)
+
+
 def phase_segment_graphs(ctx, pcm, cfg, line, main_out):
-    """Phase 5c: the segment program's graphs on the main path, as the
-    package runs it, against the yardstick form: captures from empty
-    caches (capture ms by stage and key, torch.cuda.memory_reserved
-    before and after), the counts, the same bytes, ABBA turns, one
-    profiled and one traced encode each (form_runs), the trace's host
-    dispatches held to MAX_DISPATCHES; the captured analysis against
-    analysis_eager on the main path's own 512- and 4096-lane segments with
-    each product batched alone (analysis_check), and encode_final (the
-    emission replayed after the rate loop) against encode_final_eager on
-    the main path's own final encodes, torch.equal, two calls each."""
+    """Phase 5c: the segment program as one CUDA graph a segment on the
+    main path (the analysis, the demand rate loop, K4, the final budgets,
+    the final rate loop and the emission in one replay), against its
+    staged form (tools.staged_form: the analysis, rate-loop and emission
+    graphs with the scan and the budgets between them) and the yardstick
+    form: captures from empty caches (capture ms, memory_allocated and
+    memory_reserved growth by key; the plan's 4 segments on 2 keys, n_real
+    an input of the graph); each of the main path's segment calls as one
+    graph against encode_segment_staged, torch.equal on every output;
+    the staged form's own graphs (captured from empty caches in one
+    staged encode): the captured analysis against analysis_eager on the
+    main path's own 512- and 4096-lane segments with each product
+    batched alone (analysis_check), and encode_final (the emission
+    replayed after the rate loop) against encode_final_eager on the main
+    path's own final encodes, torch.equal, two calls each; then the three
+    forms in turns (form_runs): the same bytes, counts, walls, one
+    profiled and one traced encode each, the package's host dispatches
+    a segment held to ONE_GRAPH_MAX_DISPATCHES with no inner span
+    firing, the staged form's to MAX_DISPATCHES."""
     torch, loop = ctx["torch"], ctx["loop"]
     from mp3tpu_torch.models import layer3
     Enc = layer3.Layer3SegmentEncoder
+
+    def clear():
+        torch.cuda.synchronize()
+        for cache in (layer3.SEGMENTS, layer3.GRAPHS, loop.GRAPHS):
+            cache.clear()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+
+    def encode():
+        return ctx["encode"](pcm, cfg, device="cuda")
+
+    mem0 = clear()
+    reset_counts(ctx)
+    out, seen = record_segments(ctx, encode)
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    first = launch_counts(ctx)
+    if out != main_out:
+        fail("main path, capturing the segment graphs: other bytes than "
+             "phase 5's")
+    captured = [cap for _, _, cap in seen if cap]
+    rows = "; ".join(f"{c['key']} {c['ms']:.1f} ms, "
+                     f"{c['allocated'] / 2**20:.1f} MiB allocated, "
+                     f"{c['reserved'] / 2**20:.1f} MiB reserved"
+                     for c in captured)
+    print(f"segment program as one graph, captured from empty caches in one "
+          f"encode ({len(seen)} segments): counts {first}; by key (blocks, "
+          f"capture ms, memory_allocated and memory_reserved growth of the "
+          f"capturing call): {rows}"
+          f"; torch.cuda.memory_allocated {mem0[0] / 2**20:.1f} MiB before "
+          f"the captures, {mem1[0] / 2**20:.1f} MiB after, memory_reserved "
+          f"{mem0[1] / 2**20:.1f} MiB before, {mem1[1] / 2**20:.1f} MiB "
+          f"after; on {line}", flush=True)
+    staged_counts = [f"{s}_{k}" for s in SEGMENT_STAGES
+                     for k in ("captures", "replays") if first[f"{s}_{k}"]]
+    if (first["segment_captures"], first["segment_replays"]) != (2, 2) or \
+            len(captured) != 2 or len(layer3.SEGMENTS) != 2 or \
+            staged_counts:
+        fail(f"the main path's 4 segments: expected 2 keys (2 captures, 2 "
+             f"replays of stage segment, none of the staged form): "
+             f"{first}")
+    segment_check(ctx, seen, "the main path")
+    clones = clone_cost(ctx, line)
+
+    # the staged form's own graphs, as the corpus path and settle's
+    # retries replay them
     real = {"analysis": Enc.analysis, "final": Enc.encode_final}
-    seen = {"analysis": {}, "final": {}}
+    staged_seen = {"analysis": {}, "final": {}}
 
     def recorder(kind):
         def call(self, *args, **kwargs):
             key = tuple(args[0].shape)
-            if key not in seen[kind]:
-                seen[kind][key] = (self, tuple(
+            if key not in staged_seen[kind]:
+                staged_seen[kind][key] = (self, tuple(
                     a.clone() if hasattr(a, "clone") else a for a in args),
                     {k: v.clone() if hasattr(v, "clone") else v
                      for k, v in kwargs.items()})
             return real[kind](self, *args, **kwargs)
         return call
 
-    torch.cuda.synchronize()
-    layer3.GRAPHS.clear()
-    loop.GRAPHS.clear()
-    torch.cuda.empty_cache()
-    reserved0 = torch.cuda.memory_reserved()
+    clear()
     reset_counts(ctx)
     Enc.analysis, Enc.encode_final = recorder("analysis"), recorder("final")
     try:
-        out = ctx["encode"](pcm, cfg, device="cuda")
+        with staged_form():
+            out_s = encode()
     finally:
         Enc.analysis, Enc.encode_final = real["analysis"], real["final"]
     torch.cuda.synchronize()
-    reserved1 = torch.cuda.memory_reserved()
-    first = launch_counts(ctx)
-    if out != main_out:
-        fail("main path, capturing the segment graphs: other bytes than "
-             "phase 5's")
-    captured = [("analysis", tuple(e.inputs["blocks_h4"].shape),
-                 e.capture_s["analysis"])
-                for e in layer3.GRAPHS.entries.values()]
-    captured += [(name if isinstance(name, str) else name[0],
-                  e.inputs["xr"].shape[0], s)
-                 for e in loop.GRAPHS.entries.values()
-                 for name, s in e.capture_s.items()]
-    print(f"segment graphs, captured from empty caches in one encode: "
-          f"counts {first}; capture ms by stage and key: "
-          f"{', '.join(f'{st} {k} {1e3 * t:.1f}' for st, k, t in captured)}"
-          f"; torch.cuda.memory_reserved {reserved0 / 2**20:.1f} MiB "
-          f"before the captures, {reserved1 / 2**20:.1f} MiB after",
+    staged_first = launch_counts(ctx)
+    if out_s != main_out:
+        fail("main path in the staged form: other bytes than phase 5's")
+    staged_captured = [("analysis", tuple(e.inputs["blocks_h4"].shape),
+                        e.capture_s["analysis"])
+                       for e in layer3.GRAPHS.entries.values()]
+    staged_captured += [(name if isinstance(name, str) else name[0],
+                         e.inputs["xr"].shape[0], t)
+                        for e in loop.GRAPHS.entries.values()
+                        for name, t in e.capture_s.items()]
+    print(f"the staged form's graphs, captured from empty caches in one "
+          f"staged encode: counts {staged_first}; capture ms by stage and "
+          f"key: "
+          f"{', '.join(f'{st} {k} {1e3 * t:.1f}' for st, k, t in staged_captured)}",
           flush=True)
     for stage in SEGMENT_STAGES:
-        if first[f"{stage}_captures"] <= 0:
-            fail(f"the main path captured no {stage} graph: {first}")
-
+        if staged_first[f"{stage}_captures"] <= 0:
+            fail(f"the staged form captured no {stage} graph: "
+                 f"{staged_first}")
     changed = {}
-    for key, (enc, args, _) in sorted(seen["analysis"].items()):
+    for key, (enc, args, _) in sorted(staged_seen["analysis"].items()):
         lanes = key[0] * (key[1] - 4)
         changed[key] = analysis_check(
             ctx, enc, args, f"the main path's {lanes}-lane segment")
-    if sorted(k[1] - 4 for k in seen["analysis"]) != [256, 2048]:
-        fail(f"the main path's analysis inputs: {sorted(seen['analysis'])}")
-    for key, (enc, args, kwargs) in sorted(seen["final"].items()):
+    if sorted(k[1] - 4 for k in staged_seen["analysis"]) != [256, 2048]:
+        fail(f"the main path's analysis inputs: "
+             f"{sorted(staged_seen['analysis'])}")
+    for key, (enc, args, kwargs) in sorted(staged_seen["final"].items()):
         ref = enc.encode_final_eager(*args, **kwargs)
         for i in range(2):
             got = enc.encode_final(*args, **kwargs)
@@ -4395,19 +4756,46 @@ def phase_segment_graphs(ctx, pcm, cfg, line, main_out):
     print(f"encode_final with the emission replayed after the rate loop == "
           f"encode_final_eager (torch.equal on side and payload, two calls "
           f"each) on the main path's final encodes "
-          f"{sorted(k[0] for k in seen['final'])} lanes", flush=True)
+          f"{sorted(k[0] for k in staged_seen['final'])} lanes", flush=True)
 
-    out, res = form_runs(ctx, lambda: ctx["encode"](pcm, cfg, device="cuda"),
-                         "main path", line, CLIP_SECONDS)
-    spans = res["graphs"]["spans"]
+    out, res = form_runs(ctx, encode, "main path", line, CLIP_SECONDS,
+                         forms=("graphs", "staged", "yardstick"))
+    replays = replay_timing(ctx, line)
+    hashed, calls = fingerprint_calls(encode)
+    print(f"main path, a warm encode under cProfile: {hashed} calls of "
+          f"graphs.fingerprint in {calls} function calls", flush=True)
+    if hashed:
+        fail(f"a warm encode hashed its tables: {hashed} calls of "
+             f"graphs.fingerprint")
+    g = res["graphs"]["spans"]
+    seg = g["encode_segment_fused"]
+    per_segment = seg["host_dispatches"] / max(seg["count"], 1)
+    fired = [n for n in FORM_SPANS[1:] if g[n]["count"]]
+    print(f"main path as one graph a segment: {seg['host_dispatches']} host "
+          f"dispatches in {seg['count']} encode_segment_fused spans "
+          f"({per_segment:.1f} a segment; at most "
+          f"{ONE_GRAPH_MAX_DISPATCHES}), {res['graphs']['dispatches']} in "
+          f"the encode (the staged form {res['staged']['dispatches']}, the "
+          f"yardstick form {res['yardstick']['dispatches']}); idle share "
+          f"{res['graphs']['idle']:.3f} (staged "
+          f"{res['staged']['idle']:.3f}); median wall "
+          f"{res['graphs']['wall']:.4f} s against the staged form's "
+          f"{res['staged']['wall']:.4f} s; inner spans that fired: "
+          f"{fired or 'none'}; on {line}", flush=True)
+    if per_segment > ONE_GRAPH_MAX_DISPATCHES or fired:
+        fail(f"main path as one graph: {per_segment:.1f} host dispatches a "
+             f"segment (at most {ONE_GRAPH_MAX_DISPATCHES}), inner spans "
+             f"{fired}")
+    spans = res["staged"]["spans"]
     for name, most in MAX_DISPATCHES.items():
         key = ("self_host_dispatches" if name == "analyze_demand_fused"
                else "host_dispatches")
         if spans[name][key] > most:
-            fail(f"main path as segment graphs: span {name} made "
+            fail(f"main path in the staged form: span {name} made "
                  f"{spans[name][key]} host dispatches (at most {most})")
-    return dict(first=first, captured=captured,
-                reserved=(reserved0, reserved1), changed=changed, **res)
+    return dict(first=first, captured=captured, staged_captured=
+                staged_captured, memory=(mem0, mem1), changed=changed,
+                clones=clones, replays=replays, **res)
 
 
 def main():
@@ -4532,8 +4920,8 @@ def main():
     kernels = ("search", "baseline", "bits_at", "resv_scan", "alloc12",
                "alloc12_baseline", "pack12")
     for kernel in kernels + ("iterations", "captures", "replays") + tuple(
-            f"{s}_{kind}" for s in SEGMENT_STAGES + SHARDED_ANALYSIS
-            for kind in ("captures", "replays")):
+            f"{s}_{kind}" for s in ONE_GRAPH_STAGES + SEGMENT_STAGES
+            + SHARDED_ANALYSIS for kind in ("captures", "replays")):
         what = {"iterations": "live rate-loop iterations per encode",
                 "captures": "graph captures",
                 "replays": "graph replays"}.get(

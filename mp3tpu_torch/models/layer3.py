@@ -5,39 +5,59 @@
 scan -> final encode + on-device emission and packing.  Its constant
 matrices and lookup tables are buffers, built from the port's ``tables`` or
 loaded from the JAX package's own numpy constants; equal tables on one
-device are one set of tensors, shared by every encoder.
+device are one set of tensors, shared by every encoder, and an encoder
+of a (version, sampling_frequency, device) made before gives the next
+its tensors without making or hashing them again (``rate_tables``).
 
-On a CUDA device the program replays CUDA graphs, the port's
+On a CUDA device the program (``forward``, alias
+``encode_segment_fused``) replays one CUDA graph a call, the port's
 counterpart of the JAX package's one compiled program
-(``ops/graphs.py``): the analysis of all lanes in one batch
-(``analysis``), the rate loop (``loop.outer_loop``) and, after the final
-rate loop, the emission and packing (``encode_final``); between the two
-rate loops the reservoir scan is one K4 launch (``ops/resv.py``), with
-the carried level in and out as a device tensor.  So a segment queues
-all its work without a wait on the host, and the encode functions fetch the
-results of every queued segment in one download
-(``encoder._Layer3Framing.fetch``).  ``analysis_eager`` (lane by lane)
-and ``encode_final_eager`` (emission op by op) are what the CPU runs and
-the card's yardstick.
+(``ops/graphs.py``): ``_segment`` chains the analysis of all lanes in one
+batch, the demand rate loop, the reservoir scan (one K4 launch,
+``ops/resv.py``), the final budgets, the final rate loop and the
+emission and packing, captured once per key (``SEGMENTS``: the inputs'
+layout, the segment's constants and the tables' identity; stage
+"segment").  The clip length ``n_real`` is one of the graph's inputs, as
+the JAX package traces it, so one graph serves every clip length of a
+segment width.  So a segment queues all its work without a wait on the
+host, and the encode functions fetch the results of every queued
+segment in one download (``encoder._Layer3Framing.fetch``).
+
+``encode_segment_staged`` is the same program in stages, each captured
+on its own: the analysis (``analysis``), the rate loop
+(``loop.outer_loop``) and, after the final rate loop, the emission and
+packing (``encode_final``), with the scan and the final budgets
+dispatched op by op between them.  It is what the CPU runs, and on the
+card the yardstick of the one graph; ``analysis_eager`` (lane by lane)
+and ``encode_final_eager`` (emission op by op) are in turn the
+yardsticks of its captured stages.
 
 Quality deviations from the reference are those of the JAX package:
 true quantization range, psy outputs used for the granule they were
 computed on, and scfsi with the intended per-channel indexing.
 """
+from functools import lru_cache
+
 import numpy as np
 import torch
 from torch import nn
 
 from ..tables import mpeg
 
-from ..ops import bits, dsp, graphs, lanes, loop, psy, resv
+from ..ops import bits, dsp, graphs, lanes, loop, psy, resv, search
 from ..runtime.profiling import span
 
 #: sfb -> scfsi band map (loop.c scfsi_band_long 0,6,11,16,21)
 BAND_OF_SFB = np.repeat(np.arange(4), np.diff(mpeg.SCFSI_BAND_LONG))
-#: the process's captured analyses (``graphs.GraphCache``; a stereo
-#: clip of one sample rate makes 2 keys, a corpus group 1 a segment width)
+#: the process's captured analyses of the staged form
+#: (``graphs.GraphCache``; a stereo clip of one sample rate makes 2 keys,
+#: a corpus group 1 a segment width)
 GRAPHS = graphs.GraphCache(16)
+#: the process's captured segment programs (``graphs.GraphCache``; the
+#: bench clip's plan, 512- and 4096-lane segments, makes 2 keys)
+SEGMENTS = graphs.GraphCache(16)
+#: the rate loop's iterations at most, as ``loop.outer_loop``'s default
+MAX_ITER = 6
 
 
 def device_tables(device):
@@ -48,6 +68,31 @@ def device_tables(device):
         scfsi_band_oh=(np.arange(4)[None, :] == BAND_OF_SFB[:, None])
         .astype(np.float32), band_of_sfb=BAND_OF_SFB.astype(np.int64)),
         device)
+
+
+def _groups(d, device):
+    """The segment program's tables on `device` by group ("st", "psy",
+    "dsp", "bits", "l3") from numpy constants in the JAX package's form
+    (``Layer3SegmentEncoder.load_numpy_constants``' `d`)."""
+    return dict(st=loop.device_tables(d["static"], device),
+                psy=psy.device_tables(d, device),
+                dsp=dsp.device_tables(d["dsp"], device),
+                bits=bits.device_tables(device), l3=device_tables(device))
+
+
+@lru_cache(maxsize=None)
+def rate_tables(version, sampling_frequency, device):
+    """The tables by group of one (version, sampling_frequency) on
+    `device` (a ``graphs.canonical_device``), made once: each later
+    encoder of the key registers these tensors, with no table made or
+    hashed (``graphs.fingerprint``) again.  They are the tensors that
+    ``graphs.shared_tensors`` gives, so the graphs' keys are
+    unchanged."""
+    sfreq_hz = float(mpeg.S_FREQ_KHZ[version][sampling_frequency]) * 1000.0
+    return _groups(dict(static=loop.static_tables(version,
+                                                  sampling_frequency),
+                        dsp=dsp.numpy_constants(),
+                        **psy.numpy_constants(sfreq_hz)), device)
 
 
 def _scfsi_flags(xr, ratio_l, ratio_s, block_type, ST, LT):
@@ -143,10 +188,10 @@ class Layer3SegmentEncoder(nn.Module):
         self.sfreq_hz = float(mpeg.S_FREQ_KHZ[version][sampling_frequency]) \
             * 1000.0
         self._groups = {}
-        self.load_numpy_constants(dict(
-            static=loop.static_tables(version, sampling_frequency),
-            dsp=dsp.numpy_constants(),
-            **psy.numpy_constants(self.sfreq_hz)), device=device)
+        for group, tables in rate_tables(
+                version, sampling_frequency,
+                graphs.canonical_device(device)).items():
+            self._register(group, tables)
 
     def _register(self, group, tables):
         """Tensors become buffers `<group>_<name>`, Python values plain
@@ -171,11 +216,8 @@ class Layer3SegmentEncoder(nn.Module):
         "basis_short", "alias"} (jaxdsp._ENWINDOW_REV, ...)."""
         if device is None:
             device = self.st_oh_l.device
-        self._register("st", loop.device_tables(d["static"], device))
-        self._register("psy", psy.device_tables(d, device))
-        self._register("dsp", dsp.device_tables(d["dsp"], device))
-        self._register("bits", bits.device_tables(device))
-        self._register("l3", device_tables(device))
+        for group, tables in _groups(d, device).items():
+            self._register(group, tables)
         return self
 
     # ------------------------------------------------------------------
@@ -285,22 +327,21 @@ class Layer3SegmentEncoder(nn.Module):
         576) and its rate-loop inputs, pe, p23 (demand), qss (warm lower
         bound for the final encode), fsm_state, n_nonfinite, and for
         MPEG-1 the scfsi flags with the demand granule-0 scalefactors."""
-        ST = self.tables("st")
-        nch = blocks_h4.shape[0]
-        S = blocks_h4.shape[1] - 4
         ana = self.analysis(blocks_h4, fsm_init)
-        budget = torch.full((nch * S,), 4095.0, device=blocks_h4.device)
-        out = loop.outer_loop(ana["xr"], budget, ana["ratio_l"],
-                              ana["ratio_s"],
-                              ana["block_type"] != mpeg.NORM_TYPE,
-                              ana["block_type"], ST)
+        out = loop.outer_loop(ST=self.tables("st"), **_demand_args(ana))
+        return self._demand_outputs(ana, out, blocks_h4.shape[0])
+
+    def _demand_outputs(self, ana, out, nch):
+        """``analyze_demand_fused``'s outputs from the analysis `ana` and
+        the demand rate loop's outputs `out`."""
         res = dict(
             xr=ana["xr"], ratio_l=ana["ratio_l"], ratio_s=ana["ratio_s"],
             block_type=ana["block_type"], pe=ana["pe"],
             p23=out["part2_3_length"].to(torch.int32),
             qss=out["qss0"].to(torch.float32), fsm_state=ana["fsm_state"],
             n_nonfinite=ana["n_nonfinite"])
-        if not ST["lsf"]:
+        if not self.tables("st")["lsf"]:
+            S = ana["xr"].shape[0] // nch
             res["scfsi"] = ana["scfsi"]
             res["sf_fix"] = out["sf_l"].reshape(nch, S, 21)[:, 0::2] \
                 .to(torch.int8)
@@ -414,21 +455,94 @@ class Layer3SegmentEncoder(nn.Module):
         budget rows stay at 4095.  The carry, fsm_init (nch,) and size_in
         (), may be tensors or numpy values (such as the carry a JAX
         segment returned); it comes back as tensors on the device,
-        fsm_state (nch,) and size () int32, and on a CUDA device nothing
-        in the call waits on the host once its graphs are captured."""
+        fsm_state (nch,) and size () int32.
+
+        On a CUDA tensor the whole program (``_segment``) replays one
+        CUDA graph, captured on its key's first call (``SEGMENTS``: the
+        inputs' layout, payload_words, flat_cap, mean_bits, resv_max,
+        mode_gr, delta, nch and the tables' identity; stage "segment");
+        n_real is an input of the graph, not part of its key.  The
+        caller gets clones of its static outputs, and nothing in the call
+        waits on the host once the graph is captured; a capture or replay
+        error raises.  On any other device it is
+        ``encode_segment_staged``."""
         dev = blocks_h4.device
-        fsm_init = torch.as_tensor(fsm_init, dtype=torch.int32, device=dev)
+        if dev.type != "cuda":
+            return self._staged(blocks_h4, fsm_init, size_in, payload_words,
+                                nch, flat_cap, n_real, mean_bits, resv_max,
+                                mode_gr, delta)
+        inputs = _segment_inputs(blocks_h4, fsm_init, size_in, n_real)
+        params = _segment_params(payload_words, flat_cap, mean_bits,
+                                 resv_max, mode_gr, delta, nch)
+        return graphs.on_stream(
+            dev, lambda: self._run_segment(inputs, params,
+                                           graphs.cuda_graph(dev),
+                                           search.device_buffers(dev)),
+            lambda entry: {k: v.clone()
+                           for k, v in entry.outputs["segment"].items()})
+
+    encode_segment_fused = forward
+
+    def _run_segment(self, inputs, params, record, refs=()):
+        """``forward``'s host side (``graphs.run`` of ``_segment``) on the
+        current stream: (entry, the entries the cache dropped).  The
+        entry keeps the tables, the iterations' sum and `refs` (K3's
+        buffers and counter) alive."""
+        tables = tuple(self.tables(g)
+                       for g in ("st", "psy", "dsp", "l3", "bits"))
+        acc = loop.iterations_on(inputs["blocks_h4"].device)
+        return graphs.run(
+            SEGMENTS, (graphs.key_of(inputs, *tables), params), "segment",
+            inputs, lambda i: self._segment(i, *params), record,
+            refs=tables + (acc,) + tuple(refs))
+
+    def _segment(self, inputs, payload_words, flat_cap, mean_bits, resv_max,
+                 mode_gr, delta, nch):
+        """The segment program as one function of tensors (``forward``'s
+        inputs by name: blocks_h4 (nch, 4+n_pad, 576) int16, fsm_init
+        (nch,) int32, size_in () int32, n_real () int32): the batched
+        analysis, the demand rate loop at 4095 bits (``loop.unrolled``),
+        the scan of its demand (K4 on the card), the final budgets, the
+        final rate loop and the emission and packing.  It reads no device
+        value on the host and builds no tensor from host data, so that a
+        CUDA graph can capture it whole; n_real's validity masks are
+        made from the tensor on the device.  Its outputs equal
+        ``encode_segment_staged``'s."""
+        ST = self.tables("st")
+        ana = self._analysis(inputs["blocks_h4"], inputs["fsm_init"])
+        ana = self._demand_outputs(
+            ana, loop.unrolled(_demand_args(ana), ST, MAX_ITER), nch)
+        n_real = inputs["n_real"]
+        demand, bud, size_out = _scan(ana, inputs["size_in"], n_real, nch,
+                                      mean_bits, resv_max, mode_gr, delta)
+        target, row = final_budgets(demand, bud, n_real, nch, mode_gr)
+        args = self._final_args(ana["xr"], ana["ratio_l"], ana["ratio_s"],
+                                ana["block_type"], row, ana.get("scfsi"),
+                                ana.get("sf_fix"), nch, ana["qss"])
+        h = self._emission(loop.unrolled(args, ST, MAX_ITER), args,
+                           payload_words, flat_cap)
+        return _segment_outputs(ana, h, target, demand, size_out)
+
+    @span("encode_segment_fused")
+    def encode_segment_staged(self, blocks_h4, fsm_init, size_in,
+                              payload_words, nch, flat_cap, n_real,
+                              mean_bits, resv_max, mode_gr, delta):
+        """``forward`` in stages: ``analyze_demand_fused`` (the analysis
+        graph and the rate loop's graphs on the card), the scan and the
+        final budgets op by op, and ``encode_final`` (the rate loop's
+        graphs and the emission graph).  What the CPU runs, and on the
+        card the yardstick of the one graph (``tools.yardstick_form``)."""
+        return self._staged(blocks_h4, fsm_init, size_in, payload_words, nch,
+                            flat_cap, n_real, mean_bits, resv_max, mode_gr,
+                            delta)
+
+    def _staged(self, blocks_h4, fsm_init, size_in, payload_words, nch,
+                flat_cap, n_real, mean_bits, resv_max, mode_gr, delta):
+        fsm_init = torch.as_tensor(fsm_init, dtype=torch.int32,
+                                   device=blocks_h4.device)
         ana = self.analyze_demand_fused(blocks_h4, fsm_init)
-        n_pad = blocks_h4.shape[1] - 4
-        pe = ana["pe"].reshape(nch, -1)
-        demand = ana["p23"].reshape(nch, -1)
-        valid_f = torch.arange(n_pad // mode_gr, device=dev) \
-            < (n_real // mode_gr)
-        bud, size_out = resv.scan_budgets(
-            resv.granule_major(pe, nch, mode_gr),
-            resv.granule_major(demand, nch, mode_gr),
-            size_in, mean_bits, resv_max, mode_gr, nch, delta,
-            valid=valid_f)
+        demand, bud, size_out = _scan(ana, size_in, n_real, nch, mean_bits,
+                                      resv_max, mode_gr, delta)
         target, row = final_budgets(demand, bud, n_real, nch, mode_gr)
         h = self.encode_final(ana["xr"], ana["ratio_l"], ana["ratio_s"],
                               ana["block_type"], row,
@@ -436,15 +550,66 @@ class Layer3SegmentEncoder(nn.Module):
                               scfsi=ana.get("scfsi"),
                               sf_fix=ana.get("sf_fix"), nch=nch,
                               qss_lo=ana["qss"], flat_cap=flat_cap)
-        out = dict(side=h["side"], payload=h["payload"],
-                   fsm_state=ana["fsm_state"], size=size_out,
-                   target=target, demand=demand,
-                   n_nonfinite=ana["n_nonfinite"], xr=ana["xr"],
-                   ratio_l=ana["ratio_l"], ratio_s=ana["ratio_s"],
-                   block_type=ana["block_type"], qss=ana["qss"])
-        if "scfsi" in ana:
-            out["scfsi"] = ana["scfsi"]
-            out["sf_fix"] = ana["sf_fix"]
-        return out
+        return _segment_outputs(ana, h, target, demand, size_out)
 
-    encode_segment_fused = forward
+
+def _demand_args(ana):
+    """The demand encode's rate-loop arguments by name (``loop._inputs``):
+    the analysis' spectrum at a 4095-bit budget a granule."""
+    budget = torch.full((ana["xr"].shape[0],), 4095.0,
+                        device=ana["xr"].device)
+    return loop._inputs(ana["xr"], budget, ana["ratio_l"], ana["ratio_s"],
+                        ana["block_type"] != mpeg.NORM_TYPE,
+                        ana["block_type"], None, None, None, None)
+
+
+def _scan(ana, size_in, n_real, nch, mean_bits, resv_max, mode_gr, delta):
+    """The reservoir scan of a segment's demand (``resv.scan_budgets``:
+    one K4 launch on the card), frames from n_real on (an int, or a ()
+    tensor on the device) masked out.  Returns (demand (nch, n_pad),
+    budgets (F, R), the level after)."""
+    pe = ana["pe"].reshape(nch, -1)
+    demand = ana["p23"].reshape(nch, -1)
+    valid_f = torch.arange(pe.shape[1] // mode_gr, device=pe.device) \
+        < (n_real // mode_gr)
+    bud, size_out = resv.scan_budgets(
+        resv.granule_major(pe, nch, mode_gr),
+        resv.granule_major(demand, nch, mode_gr), size_in, mean_bits,
+        resv_max, mode_gr, nch, delta, valid=valid_f)
+    return demand, bud, size_out
+
+
+def _segment_outputs(ana, h, target, demand, size_out):
+    """The segment program's outputs: the final encode's side table and
+    payload, the carry, the scan's target and demand, and what
+    ``encoder._Layer3Framing.settle`` re-encodes from."""
+    out = dict(side=h["side"], payload=h["payload"],
+               fsm_state=ana["fsm_state"], size=size_out, target=target,
+               demand=demand, n_nonfinite=ana["n_nonfinite"], xr=ana["xr"],
+               ratio_l=ana["ratio_l"], ratio_s=ana["ratio_s"],
+               block_type=ana["block_type"], qss=ana["qss"])
+    if "scfsi" in ana:
+        out["scfsi"] = ana["scfsi"]
+        out["sf_fix"] = ana["sf_fix"]
+    return out
+
+
+def _segment_inputs(blocks_h4, fsm_init, size_in, n_real):
+    """The one graph's inputs by name, on blocks_h4's device: the carry
+    and n_real as int32 tensors (a Python value filled in on the device,
+    not uploaded)."""
+    dev = blocks_h4.device
+    return dict(blocks_h4=blocks_h4,
+                fsm_init=torch.as_tensor(fsm_init, dtype=torch.int32,
+                                         device=dev),
+                size_in=resv._level(size_in, dev),
+                n_real=resv._level(n_real, dev))
+
+
+def _segment_params(payload_words, flat_cap, mean_bits, resv_max, mode_gr,
+                    delta, nch):
+    """The constants of a segment program, part of its graph's key:
+    (payload_words, flat_cap, mean_bits, resv_max, mode_gr, delta, nch)
+    as Python ints (flat_cap may be None)."""
+    return (int(payload_words), None if flat_cap is None else int(flat_cap),
+            int(mean_bits), int(resv_max), int(mode_gr), int(delta), int(nch))

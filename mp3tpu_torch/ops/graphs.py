@@ -1,12 +1,15 @@
 """The port's CUDA graphs: capture, replay and the cache.
 
 The JAX package compiles its programs with ``jax.jit``; this module is
-their counterpart, so it has no JAX original.  On a CUDA device three
-parts of ``Layer3SegmentEncoder`` replay graphs captured once per key
-(``SEGMENT_STAGES``): the analysis (``models/layer3.py``, one graph),
-the rate loop (``ops/loop.py``: its prologue and its iterations,
-unrolled) and, after the final rate loop, the emission and packing (a
-continuation of the loop's entry).  So do the Layer I/II analysis
+their counterpart, so it has no JAX original.  On a CUDA device
+``Layer3SegmentEncoder`` replays the whole segment program as one graph
+captured once per key (stage "segment", ``models/layer3.py``), as the
+JAX package compiles ``encode_segment_fused`` as one program.  Its
+staged form (``encode_segment_staged``), which the corpus path and
+``settle``'s retries run, replays three parts (``SEGMENT_STAGES``): the
+analysis (one graph), the rate loop (``ops/loop.py``: its prologue and
+its iterations, unrolled) and, after the final rate loop, the emission
+and packing (a continuation of the loop's entry).  So do the Layer I/II analysis
 (``ops/layer12.py``, one graph a frame count) and the multi-rank clip's
 analysis (``parallel/clip.py``: psy with the automaton's maps, and the
 spectra, two graphs around the maps' all-gather).  ``graph_counts``
@@ -32,12 +35,14 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-#: the captured parts of the Layer III segment program, by what they
-#: count as
+#: the captured parts of the Layer III segment program's staged form, by
+#: what they count as
 SEGMENT_STAGES = ("analysis", "prologue", "iteration", "emission")
-#: every captured stage: the segment program's, the Layer I/II analysis
-#: and the multi-rank clip's two analysis graphs
-STAGES = SEGMENT_STAGES + ("l12_analysis", "sharded_psy", "sharded_spectra")
+#: every captured stage: the segment program as one graph, its staged
+#: form's, the Layer I/II analysis and the multi-rank clip's two
+#: analysis graphs
+STAGES = ("segment",) + SEGMENT_STAGES + ("l12_analysis", "sharded_psy",
+                                          "sharded_spectra")
 #: graph captures and replays by stage
 graph_counts = {stage: dict(captures=0, replays=0) for stage in STAGES}
 
@@ -150,14 +155,17 @@ LOCK = threading.Lock()
 
 
 def _launch_counts():
-    from . import bits_at, search     # they import loop, which imports this
-    return search.launches, bits_at.bits_at.launches
+    """The launch counts of the kernels a graph may hold: K3, bits_at and
+    K4."""
+    from . import bits_at, resv, search   # they import loop, which imports this
+    return search.launches, bits_at.bits_at.launches, resv.launches
 
 
-def _add_launches(n_search, n_bits_at):
-    from . import bits_at, search
+def _add_launches(n_search, n_bits_at, n_resv):
+    from . import bits_at, resv, search
     search.launches += n_search
     bits_at.bits_at.launches += n_bits_at
+    resv.launches += n_resv
 
 
 class Captured:
@@ -166,7 +174,7 @@ class Captured:
     graphs write (`outputs` by graph name; the rate loop's `state` and
     `best`), its graphs with the kernel launches each holds, its stage
     and the seconds its capture took, and the other tensors they read
-    (`refs`: tables, K3's buffers and counter)."""
+    (`refs`: tables, K3's buffers and counter, the iterations' sum)."""
 
     def __init__(self, inputs, refs, state=None, best=None):
         self.inputs, self.refs = inputs, refs

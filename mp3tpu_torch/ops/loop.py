@@ -34,6 +34,8 @@ port's counterpart of the JAX package's compiled ``while_loop``;
 encode's emission and packing) that reads the loop's static tensors
 after the last iteration; ``outer_loop_eager`` dispatches the same
 functions op by op with the host exit, and is what the CPU runs.
+Inside the segment program's one graph the rate loop is ``unrolled``:
+the same three parts in one function of tensors.
 
 Unrolling is exact: an iteration writes ``best`` only where ``upd =
 ~done`` holds, and ``done`` only grows, so once every lane is done an
@@ -765,6 +767,19 @@ def _epilogue(xr, best, qss0, block_type, is_short_block):
     out["block_type"] = block_type
     out["window_switching_flag"] = is_short_block.to(torch.int32)
     return out
+
+
+def unrolled(inputs, ST, max_iter):
+    """``outer_loop`` as one function of tensors: the prologue,
+    ``max_iter`` iterations with no exit read (``_iterations``), the
+    call's live iterations added to ``iterations_on`` and the epilogue.
+    Capture-safe: the rate loop inside the segment program's one graph
+    (``Layer3SegmentEncoder._segment``); op by op it equals ``_eager``."""
+    state, best = _prologue(ST=ST, **inputs)
+    _iterations(state, best, ST, max_iter)
+    iterations_on(inputs["xr"].device).add_(state["iters"])
+    return _epilogue(inputs["xr"], best, state["qss0"], inputs["block_type"],
+                     inputs["is_short_block"])
 
 
 class Then(NamedTuple):

@@ -16,7 +16,9 @@ no fallback between the two: a CUDA tensor never reaches the host scan,
 and a build or launch error raises.
 
 ``launches`` counts K4's calls (one a wrapper call, two kernels or, for
-a single chunk, one).  ``host_scans`` counts the scans that
+a single chunk, one) as they run: a call made into a CUDA graph (the
+segment program's, ``models/layer3.py``) is counted at each replay of
+the graph, not at its capture (``graphs.Captured``).  ``host_scans`` counts the scans that
 ran on the host on results the card made, each behind a download: the
 multi-rank path's (``parallel/clip.py``), which scans on the host as
 the JAX package's does.

@@ -31,8 +31,8 @@ ran for the granule, speculative ones included.  The kernel's rows are
 views of one (16, G) buffer.
 
 ``launches`` counts K3's launches as they run: a launch made into a CUDA
-graph (``loop.outer_loop``) is counted at each replay of the graph, not
-at its capture.
+graph (``loop.outer_loop``, the segment program's graph) is counted at
+each replay of the graph, not at its capture.
 
 ``baseline_stepsize`` and ``baseline_walk`` launch K3's first design
 (``search_baseline``: one warp a granule, every evaluation of the

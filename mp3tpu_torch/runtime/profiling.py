@@ -36,10 +36,16 @@ SPANS = ("encode_segment_fused", "analyze_demand_fused", "encode_final",
 SPANS_L12 = ("analyze_frames", "joint_mode", "greedy_allocation",
              "quantize_l1", "quantize_l2", "_marshal_layer12",
              "pack_elements", "fetch")
-#: on a CUDA device the emission and packing replay one graph inside the
-#: span granule_payload (``ops/graphs.py``): the spans of the programs it
-#: covers then show only where it is captured or runs op by op
-REPLAY_COVERS = {"granule_payload": ("compact_payload", "pack_state")}
+#: on a CUDA device the segment program replays one graph inside the span
+#: encode_segment_fused, and in its staged form the emission and packing
+#: replay one graph inside the span granule_payload (``ops/graphs.py``):
+#: the spans of the programs each covers then show only where it is
+#: captured or runs op by op
+REPLAY_COVERS = {"encode_segment_fused": ("analyze_demand_fused",
+                                          "outer_loop", "scan_budgets",
+                                          "encode_final", "granule_payload",
+                                          "compact_payload", "pack_state"),
+                 "granule_payload": ("compact_payload", "pack_state")}
 
 
 class Profiler:

@@ -18,7 +18,8 @@ Each runs on the card unless ``--device cpu`` is given (without a card
 ``--device cuda`` exits non-zero; there is no fall back to the CPU),
 prints its report as JSON on stdout and writes a file only to a path it
 is given.  ``signals`` holds the benchmark scripts' signals;
-``yardstick_form`` swaps in the segment program's op-by-op forms, for
+``yardstick_form`` swaps in the segment program's staged and op-by-op
+forms (``staged_form`` the staged one alone), for
 comparisons and counts that a replayed CUDA graph hides; ``host_waits``
 counts the host's waits on the card as torch sees them.
 """
@@ -120,24 +121,45 @@ def profile_once(fn):
 @contextlib.contextmanager
 def yardstick_form(rate_loop_eager=False):
     """Within the block the programs run their yardstick forms: the
-    analysis lane by lane (``Layer3SegmentEncoder.analysis_eager``, the
-    multi-rank path's ``clip._per_lane``), the Layer I/II analysis op by
-    op (``layer12.analyze_frames_eager``) and the emission op by op
-    (``encode_final_eager``), the rate loop still as CUDA graphs on the
-    card (the form before the analysis and emission were captured);
-    with `rate_loop_eager` the rate loop op by op too
+    segment program in stages (``Layer3SegmentEncoder.forward`` as
+    ``encode_segment_staged``), its analysis lane by lane
+    (``analysis_eager``, the multi-rank path's ``clip._per_lane``), the
+    Layer I/II analysis op by op (``layer12.analyze_frames_eager``) and
+    the emission op by op (``encode_final_eager``), the rate loop still as
+    CUDA graphs on the card (the form before the analysis and emission
+    were captured); with `rate_loop_eager` the rate loop op by op too
     (``loop.outer_loop_eager``), so that no graph replays.  For
     measurement only: a replay runs no Python and dispatches no aten op
     that a counter or a swapped function could see."""
     from ..models.layer3 import Layer3SegmentEncoder as Enc
     from ..ops import layer12, loop
     from ..parallel import clip
-    swaps = [(Enc, "analysis", Enc.analysis_eager),
+    swaps = [(Enc, "forward", Enc.encode_segment_staged),
+             (Enc, "analysis", Enc.analysis_eager),
              (Enc, "encode_final", Enc.encode_final_eager),
              (clip, "_lanes", clip._per_lane),
              (layer12, "analyze_frames", layer12.analyze_frames_eager)]
     if rate_loop_eager:
         swaps.append((loop, "outer_loop", loop.outer_loop_eager))
+    with _swapped(swaps):
+        yield
+
+
+def staged_form():
+    """Within the block the Layer III segment program runs in stages
+    (``Layer3SegmentEncoder.forward`` as ``encode_segment_staged``: the
+    analysis, rate-loop and emission graphs with the scan and the final
+    budgets between them), every other program as the package runs it:
+    the yardstick of the one graph, and the form in which a wrapped
+    function of the segment program is called on every encode."""
+    from ..models.layer3 import Layer3SegmentEncoder as Enc
+    return _swapped([(Enc, "forward", Enc.encode_segment_staged)])
+
+
+@contextlib.contextmanager
+def _swapped(swaps):
+    """Each (object, attribute, function) of `swaps` set within the block,
+    and set back after it."""
     real = [(obj, name, getattr(obj, name)) for obj, name, _ in swaps]
     try:
         for obj, name, fn in swaps:
@@ -146,7 +168,6 @@ def yardstick_form(rate_loop_eager=False):
     finally:
         for obj, name, fn in real:
             setattr(obj, name, fn)
-
 
 
 class _SyncLog:

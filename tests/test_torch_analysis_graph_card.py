@@ -7,8 +7,9 @@ rate loop's last iteration) against ``encode_final_eager`` (op by op
 after the loop): torch.equal on every output at the main path's 512- and
 4096-lane segments, MPEG-1 and LSF, and at a corpus group's 32 lanes,
 over a capture call, a replay and a call on other inputs of the key;
-and a whole encode equal to the yardstick form's bytes
-(``tools.yardstick_form``) with the analysis and emission replayed.
+and a whole encode in the staged form (``tools.staged_form``) equal to
+the yardstick form's bytes (``tools.yardstick_form``) with the analysis
+and emission replayed.
 
 A CUDA graph has no CPU mode, so these tests carry the `cuda` marker and
 skip without a card.  This file imports no jax; run it on the card
@@ -27,7 +28,7 @@ from mp3tpu_torch.models import layer3
 from mp3tpu_torch.models.layer3 import Layer3SegmentEncoder
 from mp3tpu_torch.ops import graphs, loop
 from mp3tpu_torch.tables import mpeg
-from mp3tpu_torch.tools import yardstick_form
+from mp3tpu_torch.tools import staged_form, yardstick_form
 from mp3tpu_torch.tools.signals import make_clip, make_signal
 
 torch.set_num_threads(1)
@@ -151,8 +152,9 @@ def test_emission_graph_equals_eager(fresh, card, S, version, flat):
 @pytest.mark.cuda
 @pytest.mark.parametrize("version", VERSIONS)
 def test_encode_equals_the_yardstick_form(fresh, card, version):
-    """A 20 s encode gives the yardstick form's bytes, the second time
-    with every stage replayed."""
+    """A 20 s encode in the staged form (``encode_segment_staged``) gives
+    the yardstick form's bytes, the second time with every stage of the
+    staged form replayed."""
     v, sf, rate = VERSIONS[version]
     pcm = clicked_signal(20.0, rate, 7)
 
@@ -165,7 +167,9 @@ def test_encode_equals_the_yardstick_form(fresh, card, version):
     with yardstick_form():
         ref = encode()
     assert graphs.by_stage()["analysis"] == (0, 0)
-    assert encode() == ref
-    assert encode() == ref
+    # the staged form, whose analysis and emission graphs this file holds
+    with staged_form():
+        assert encode() == ref
+        assert encode() == ref
     by_stage = graphs.by_stage()
     assert all(by_stage[s][1] > 0 for s in graphs.SEGMENT_STAGES), by_stage

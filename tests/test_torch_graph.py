@@ -374,7 +374,7 @@ def test_replays_count_the_launches_their_graph_holds(monkeypatch):
 
     entry = G.Captured({}, ())
     entry.capture("iteration", launch_twice, record, "iteration")
-    assert search.launches == 10 and entry.held["iteration"] == [2, 0]
+    assert search.launches == 10 and entry.held["iteration"] == [2, 0, 0]
     for n in (1, 2):
         entry.replay("iteration")
         assert search.launches == 10 + 2 * n
