@@ -181,8 +181,9 @@ Phases, each printing its own lines; any failure exits non-zero:
      k5_bound, printed by term; K6: its bytes), the host route, the
      yardstick form and the card chain in 3 turns of host, yardstick,
      card, card, yardstick, host (walls, real-time factor), then the
-     same with every stage synchronized (each stage's wall, median of 6;
-     the host route's _crc_calc inside its _marshal_layer12), one
+     same with the host route's every stage synchronized (each stage's
+     wall, median of 6; its _crc_calc inside its _marshal_layer12; the
+     card chain's stages are spans, read from its trace), one
      profiled encode of each (device events, idle share), one traced
      encode of each (span_breakdown by runtime.profiling.SPANS_L12; the
      card chain's analyze_frames span under 20 host dispatches), and
@@ -1855,12 +1856,10 @@ L12_DELAY = {1: 545, 2: 481}
 L12_TURNS = 3
 #: phase 8's timed cells on the bench signal: (label, layer, kbps); stereo
 L12_CELLS = (("Layer II 192 kbps", 2, 192), ("Layer I 384 kbps", 1, 384))
-#: the card chain's stages and the host route's, as their Profiler stages
-#: and spans (runtime.profiling.SPANS_L12) name them, and the PCM's framing
-#: (encoder._layer12_frame) ahead of both
-L12_CARD_STAGES = ("framing", "analyze_frames", "greedy_allocation",
-                   "quantize_l{}", "_marshal_layer12", "pack_elements",
-                   "fetch")
+#: the host route's stages, as its Profiler stages and spans
+#: (runtime.profiling.SPANS_L12) name them, and the PCM's framing
+#: (encoder._layer12_frame) ahead of them; the card chain times its
+#: stages with spans alone (l12_trace)
 L12_HOST_STAGES = ("framing", "analyze_frames", "download", "joint_mode",
                    "greedy_allocation", "quantize_l{}", "_marshal_layer12",
                    "_crc_calc", "pack_elements")
@@ -2212,12 +2211,12 @@ class SyncStages:
             self.torch.cuda.synchronize()
 
 
-def l12_yardstick(pcm, cfg, device, prof=None):
+def l12_yardstick(pcm, cfg, device):
     """``encode_layer12_fast`` in ``tools.yardstick_form()``: the card chain
     with its analysis op by op (``layer12.analyze_frames_eager``)."""
     from mp3tpu_torch.encoder import encode_layer12_fast
     with yardstick_form():
-        return encode_layer12_fast(pcm, cfg, device, prof=prof)
+        return encode_layer12_fast(pcm, cfg, device)
 
 
 def l12_route_fns(ctx):
@@ -2227,15 +2226,13 @@ def l12_route_fns(ctx):
             "card": ctx["E"].encode_layer12_fast}
 
 
-def l12_staged(ctx, route, pcm, cfg):
-    """One encode of `route` (``l12_route_fns``) under SyncStages: (bytes,
-    synced wall s, {stage: s}), the host route's _crc_calc calls timed by
-    a wrapper of numpy_ref.layer12._crc_calc (they run inside its
-    _marshal_layer12)."""
+def l12_staged(ctx, pcm, cfg):
+    """One encode of the host route under SyncStages: (bytes, synced wall
+    s, {stage: s}), its _crc_calc calls timed by a wrapper of
+    numpy_ref.layer12._crc_calc (they run inside its _marshal_layer12)."""
     torch = ctx["torch"]
     from mp3tpu_torch.numpy_ref import layer12 as ref12
     from mp3tpu_torch.runtime.profiling import Profiler
-    fn = l12_route_fns(ctx)[route]
     prof = SyncStages(torch, Profiler)
     real_crc, crc_s = ref12._crc_calc, [0.0]
 
@@ -2249,14 +2246,11 @@ def l12_staged(ctx, route, pcm, cfg):
     ref12._crc_calc = timed_crc
     try:
         t0 = time.perf_counter()
-        out = fn(pcm, cfg, "cuda", prof=prof)
+        out = l12_host_route(pcm, cfg, "cuda", prof=prof)
         wall = time.perf_counter() - t0
     finally:
         ref12._crc_calc = real_crc
-    stages = dict(prof.prof.stages)
-    if route == "host":
-        stages["_crc_calc"] = crc_s[0]
-    return out, wall, stages
+    return out, wall, dict(prof.prof.stages, _crc_calc=crc_s[0])
 
 
 #: the order of phase 8's turns of the three routes
@@ -2267,9 +2261,10 @@ def l12_routes(ctx, pcm, cfg_of, label):
     """The host route (l12_host_route), the card chain with its analysis
     op by op (l12_yardstick) and the card chain (encode_layer12_fast) on
     `pcm` in L12_TURNS turns of L12_TURN_ORDER: the walls (median of 6,
-    RTF), then the walls by stage (l12_staged, median of 6 a stage), the
-    same bytes every run.  Returns ({route: {"wall": s, "walls": [s],
-    "stages": {stage: s}, "synced_wall": s}}, the bytes)."""
+    RTF), then the host route's walls by stage (l12_staged, median of 6 a
+    stage), the same bytes every run.  Returns ({route: {"wall": s,
+    "walls": [s]}, with "stages": {stage: s} and "synced_wall": s for the
+    host route}, the bytes)."""
     torch = ctx["torch"]
     runs = l12_route_fns(ctx)
     want = runs["card"](pcm, cfg_of(), "cuda")
@@ -2278,8 +2273,7 @@ def l12_routes(ctx, pcm, cfg_of, label):
             fail(f"{label}: the card chain and the {route} route give "
                  f"other bytes")
     walls = {r: [] for r in runs}
-    stages = {r: {} for r in runs}
-    synced = {r: [] for r in runs}
+    stages, synced = {}, []
     for _ in range(L12_TURNS):
         for route in L12_TURN_ORDER:
             torch.cuda.synchronize()
@@ -2288,21 +2282,18 @@ def l12_routes(ctx, pcm, cfg_of, label):
             walls[route].append(time.perf_counter() - t0)
             if out != want:
                 fail(f"{label}: the {route} route changed its bytes")
-    for _ in range(L12_TURNS):
-        for route in L12_TURN_ORDER:
-            out, wall, got = l12_staged(ctx, route, pcm, cfg_of())
-            synced[route].append(wall)
-            if out != want:
-                fail(f"{label}: the {route} route changed its bytes")
-            for k, v in got.items():
-                stages[route].setdefault(k, []).append(v)
-    res = {}
-    for route in runs:
-        res[route] = dict(
-            wall=statistics.median(walls[route]), walls=walls[route],
-            synced_wall=statistics.median(synced[route]),
-            stages={k: statistics.median(v)
-                    for k, v in stages[route].items()})
+    for _ in range(2 * L12_TURNS):
+        out, wall, got = l12_staged(ctx, pcm, cfg_of())
+        synced.append(wall)
+        if out != want:
+            fail(f"{label}: the host route changed its bytes")
+        for k, v in got.items():
+            stages.setdefault(k, []).append(v)
+    res = {route: dict(wall=statistics.median(walls[route]),
+                       walls=walls[route]) for route in runs}
+    res["host"].update(synced_wall=statistics.median(synced),
+                       stages={k: statistics.median(v)
+                               for k, v in stages.items()})
     return res, want
 
 
@@ -2729,22 +2720,22 @@ def phase_layer12(ctx):
         if want != out:
             fail(f"{label}: the timed runs gave other bytes")
         for route, r in routes.items():
-            names = [n.format(layer) for n in (
-                L12_HOST_STAGES if route == "host" else L12_CARD_STAGES)]
-            # _crc_calc runs inside _marshal_layer12
-            inside = sum(r["stages"].get(n, 0.0) for n in names
-                         if n != "_crc_calc")
-            r["outside_s"] = r["synced_wall"] - inside
             print(f"{clip}, {route} route: median wall "
                   f"{r['wall']:.4f} s of {2 * L12_TURNS} in turns "
                   f"({CLIP_SECONDS / r['wall']:.2f}x real time; "
-                  f"{', '.join(f'{w:.4f}' for w in r['walls'])}); stages "
-                  f"synchronized (median of {2 * L12_TURNS}, the synced "
-                  f"wall {r['synced_wall']:.4f} s): " + ", ".join(
-                      f"{n} {r['stages'].get(n, 0.0) * 1e3:.3f} ms"
-                      for n in names)
-                  + f"; outside them {r['outside_s'] * 1e3:.3f} ms",
+                  f"{', '.join(f'{w:.4f}' for w in r['walls'])})",
                   flush=True)
+        r = routes["host"]
+        names = [n.format(layer) for n in L12_HOST_STAGES]
+        # _crc_calc runs inside _marshal_layer12
+        r["outside_s"] = r["synced_wall"] - sum(
+            r["stages"].get(n, 0.0) for n in names if n != "_crc_calc")
+        print(f"{clip}, host route, stages synchronized (median of "
+              f"{2 * L12_TURNS}, the synced wall {r['synced_wall']:.4f} "
+              f"s): " + ", ".join(f"{n} {r['stages'].get(n, 0.0) * 1e3:.3f}"
+                                  f" ms" for n in names)
+              + f"; outside them {r['outside_s'] * 1e3:.3f} ms; the card "
+              f"chain's stages by span below", flush=True)
         events = {}
         for route, fn in l12_route_fns(ctx).items():
             ev, busy, wall = profile_once(lambda fn=fn: fn(pcm, cfg_of(),
@@ -2792,16 +2783,14 @@ def phase_layer12(ctx):
               f"yardstick form == the host route ({len(out)} bytes); K5 and "
               f"K6 == plain", flush=True)
         if crc:
-            # one run of each route by stage: what the CRC costs each
-            for route in ("host", "card"):
-                got, wall, st = l12_staged(ctx, route, x, cfg_of())
-                if got != out:
-                    fail(f"{label}: the staged {route} run gave other "
-                         f"bytes")
-                print(f"  {route} route, stages synchronized (one run, "
-                      f"{wall:.4f} s): " + ", ".join(
-                          f"{n} {v * 1e3:.3f} ms" for n, v in st.items()),
-                      flush=True)
+            # one run of the host route by stage: what the CRC costs it
+            got, wall, st = l12_staged(ctx, x, cfg_of())
+            if got != out:
+                fail(f"{label}: the staged host run gave other bytes")
+            print(f"  host route, stages synchronized (one run, "
+                  f"{wall:.4f} s): " + ", ".join(
+                      f"{n} {v * 1e3:.3f} ms" for n, v in st.items()),
+                  flush=True)
     # psy model 1 runs on the host: two waits
     short = pcm[:int(2.0 * 44100)]
 
@@ -3559,13 +3548,15 @@ def phase_sharded(ctx, cfg_of, line):
 
 def phase_trace(ctx, pcm, cfg_of, main_out):
     """Phase 12a: runtime.profiling.trace around one bench encode; the
-    trace must hold every named span (less those a replay covers:
-    REPLAY_COVERS), one search_kernel event per K3
+    trace must hold every named span (less those a replay covers,
+    REPLAY_COVERS, and those of settle's re-encodes, ON_RETRY), one
+    search_kernel event per K3
     launch (and as many bits_at_kernel events as bits_at launches: none)
     and one or two K4 kernel events per K4 call (the map build and the
     walk; the walk alone for one chunk); asked up to 3 times: the
     profiler now and then records no device event in a window."""
-    from mp3tpu_torch.runtime.profiling import REPLAY_COVERS, SPANS, trace
+    from mp3tpu_torch.runtime.profiling import (ON_RETRY, REPLAY_COVERS,
+                                                SPANS, trace)
     from mp3tpu_torch.tools.trace_stages import span_breakdown
     ctx["encode"](pcm, cfg_of(), device="cuda")     # its keys captured
     with tempfile.TemporaryDirectory() as tmp:
@@ -3598,7 +3589,7 @@ def phase_trace(ctx, pcm, cfg_of, main_out):
         fail("the traced encode gave other bytes than phase 5's")
     covered = {n for names in REPLAY_COVERS.values() for n in names}
     missing = [n for n in SPANS if bd["spans"][n]["count"] == 0
-               and n not in covered]
+               and n not in covered and n not in ON_RETRY]
     if missing:
         fail(f"the trace lacks the spans {missing}")
     print(f"trace: trace.json of {size} bytes parsed in {parse_s:.2f} s; "

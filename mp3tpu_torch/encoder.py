@@ -46,7 +46,7 @@ import torch
 
 from .config import EncoderConfig
 from .runtime import profiling
-from .runtime.profiling import span
+from .runtime.profiling import scope, span
 from .runtime.bitstream import NativeAssembler, guard_clamp, resv_guard
 from .tables import layer12 as T12
 from .tables import mpeg
@@ -224,6 +224,7 @@ def _chunk_size(G):
     return CHUNK_BUCKETS[-1]
 
 
+@span("_stitch_flat")
 def _stitch_flat(plan, seg_sides, seg_flats, nch, lane0=0, G=None):
     """Stitch per-segment compacted payloads into one clip-order flat
     buffer + per-granule word offsets for the native assembler.
@@ -264,6 +265,7 @@ class _Layer3Framing:
     """What every Layer III path derives from the config: the frame's
     bit budget, the reservoir limit, and the segment program."""
 
+    @span("_Layer3Framing")
     def __init__(self, cfg, device):
         cfg.finalize()
         if cfg.layer != 3:
@@ -285,6 +287,7 @@ class _Layer3Framing:
         self.enc = Layer3SegmentEncoder(cfg.version, cfg.sampling_frequency,
                                         self.dev)
 
+    @span("frame")
     def frame(self, pcm):
         """Int16 or float PCM (samples x channels, or channels x samples)
         as (nch, nframes*spf) int16 zero-padded to whole frames, and
@@ -314,10 +317,13 @@ class _Layer3Framing:
         carry, may be device tensors.  Returns its outputs on the device;
         nothing waits on the host once the graphs are captured."""
         n_pad = blocks_h4.shape[1] - 4
-        return self.enc(upload(blocks_h4, self.dev), fsm, size, pw,
-                        self.nch, self.cap(n_pad), n_real, self.mean_bits,
-                        self.resv_max, self.mode_gr, delta)
+        with scope("upload"):
+            blocks = upload(blocks_h4, self.dev)
+        return self.enc(blocks, fsm, size, pw, self.nch, self.cap(n_pad),
+                        n_real, self.mean_bits, self.resv_max, self.mode_gr,
+                        delta)
 
+    @span("fetch_async")
     def fetch_async(self, hs, keys=None):
         """Queue one device -> host copy of the results of the segments `hs`
         (a list of segment outputs): by default each one's side table
@@ -354,6 +360,7 @@ class _Layer3Framing:
         them."""
         return self.fetch_async(hs, keys).wait()
 
+    @span("scfsi_frames")
     def scfsi_frames(self, plan, got):
         """(nch, F, 4) scfsi flags of the real frames (zeros for LSF)."""
         if self.mode_gr == 1:
@@ -363,7 +370,8 @@ class _Layer3Framing:
                                for (_, n_real, _), g in zip(plan, got)],
                               axis=1)
 
-    def settle(self, plan, segs, got, pw, nframes, prof, size=None):
+    @span("settle")
+    def settle(self, plan, segs, got, pw, nframes, size=None):
         """The dense encode is the authority on p23: (a) a granule can
         exceed its payload row -> re-bucket wider; (b) the reservoir guard
         can flag an overdraw -> clamp the budgets (cumulatively across
@@ -397,21 +405,25 @@ class _Layer3Framing:
                                axis=1).astype(np.int64)
                 for k in ("target", "demand"))
 
+        @span("run_final")
         def run_final(pw, target, demand):
+            """One re-encode of every segment at budgets min(target,
+            demand): a re-bucket or a guard retry."""
             global retry_fetches
             retry_fetches += 1
             hs = []
             for (pos, n_real, n_pad), s in zip(plan, segs):
-                bh = pinned(nch * n_pad, torch.float32, self.dev)
-                t = target[:, pos: pos + n_real]
-                d = demand[:, pos: pos + n_real]
-                bh.numpy().reshape(nch, n_pad)[:] = 4095.0
-                bh.numpy().reshape(nch, n_pad)[:, :n_real] = \
-                    np.where(t < d, t, 4095)
+                with scope("upload"):
+                    bh = pinned(nch * n_pad, torch.float32, self.dev)
+                    t = target[:, pos: pos + n_real]
+                    d = demand[:, pos: pos + n_real]
+                    bh.numpy().reshape(nch, n_pad)[:] = 4095.0
+                    bh.numpy().reshape(nch, n_pad)[:, :n_real] = \
+                        np.where(t < d, t, 4095)
+                    budget = upload(bh, self.dev)
                 hs.append(self.enc.encode_final(
                     s["xr"], s["ratio_l"], s["ratio_s"], s["block_type"],
-                    upload(bh, self.dev),
-                    payload_words=pw, scfsi=s.get("scfsi"),
+                    budget, payload_words=pw, scfsi=s.get("scfsi"),
                     sf_fix=s.get("sf_fix"), nch=nch, qss_lo=s["qss"],
                     flat_cap=self.cap(n_pad)))
             return assemble(self.fetch(hs, ("side", "payload")))
@@ -424,8 +436,7 @@ class _Layer3Framing:
                 raise RuntimeError("granule exceeds the maximum payload row")
             pw = min(bits.PAYLOAD_WORDS, pw + 32)
             scan = scan or scan_tensors()
-            with prof.stage("final re-bucket (device)"):
-                side, payload = run_final(pw, *scan)
+            side, payload = run_final(pw, *scan)
             p23 = side[:, :, 0].astype(np.int64)
         for retry in range(4):
             res = resv_guard(p23, nframes, nch, self.mean_bits,
@@ -439,8 +450,7 @@ class _Layer3Framing:
             target, demand = scan or scan_tensors()
             scan = (guard_clamp(target, limits, retry, self.mean_bits, nch),
                     demand)
-            with prof.stage("final encode+pack retry (device)"):
-                side, payload = run_final(pw, *scan)
+            side, payload = run_final(pw, *scan)
             p23 = side[:, :, 0].astype(np.int64)
         return side, payload, p23, retry, (res[2] if size is not None
                                            else None)
@@ -488,26 +498,29 @@ def encode_layer3_fast(pcm, cfg: EncoderConfig, device, chunk=None,
     # the device; each segment's download queued behind it, then one wait
     # on the last: the copy stream completes its copies in order
     segs, downloads = [], []
-    fsm = torch.zeros(nch, dtype=torch.int32, device=L3.dev)
     size = 0
-    with prof.stage("segments (device)"):
-        for pos, n_real, n_pad in plan:
+    for pos, n_real, n_pad in plan:
+        with scope("upload"):
+            # the automaton's start state, queued inside the span: the
+            # card's idle time behind it is this fill's
+            if not pos:
+                fsm = torch.zeros(nch, dtype=torch.int32, device=L3.dev)
             host = pinned((nch, 4 + n_pad, 576), torch.int16, L3.dev)
             bl = host.numpy()
             if pos:
                 bl[:, :4] = blocks[:, pos - 4: pos]
             bl[:, 4:4 + n_real] = blocks[:, pos: pos + n_real]
-            h = L3.segment(host, fsm, size, pw, n_real, delta)
-            fsm, size = h["fsm_state"], h["size"]
-            segs.append(h)
-            downloads.append(L3.fetch_async([h]))
-        got = downloads[-1].wait(earlier=downloads[:-1])
+        h = L3.segment(host, fsm, size, pw, n_real, delta)
+        fsm, size = h["fsm_state"], h["size"]
+        segs.append(h)
+        downloads.append(L3.fetch_async([h]))
+    got = downloads[-1].wait(earlier=downloads[:-1])
 
-    side, payload, p23, retries, _ = L3.settle(plan, segs, got, pw, nframes,
-                                               prof)
-    with prof.stage("native assembly"):
+    side, payload, p23, retries, _ = L3.settle(plan, segs, got, pw, nframes)
+    with scope("NativeAssembler"):
         asm = NativeAssembler(cfg, L3.sfb_s)
-        L3.weave(asm, nframes, side, payload, L3.scfsi_frames(plan, got))
+    L3.weave(asm, nframes, side, payload, L3.scfsi_frames(plan, got))
+    with scope("NativeAssembler.finish"):
         out = asm.finish()
     # per-encode metrics, the keys of the JAX package's encode
     secs = total / L3.enc.sfreq_hz
@@ -531,19 +544,19 @@ class StreamEncoder:
     ``checkpoint()`` gives a small dict of numpy and Python values, from
     which ``resume()`` continues the identical stream on any device."""
 
-    def __init__(self, cfg: EncoderConfig, device, window=None, prof=None):
+    def __init__(self, cfg: EncoderConfig, device, window=None):
         self.L3 = _Layer3Framing(cfg, device)
         # default: the one-shot plan's top bucket, so that remainder
         # windows decompose like the one-shot remainder
         self.window = window or SUPER_BUCKETS[-1]
-        self.prof = prof if prof is not None else profiling.from_env()
         self.cfg = cfg
         self.nch = cfg.nchannels
         self.spf = cfg.samples_per_frame
         self.rem_buckets = (SUPER_BUCKETS
                             if self.window == SUPER_BUCKETS[-1]
                             else (self.window,))
-        self.asm = NativeAssembler(cfg, self.L3.sfb_s)
+        with scope("NativeAssembler"):
+            self.asm = NativeAssembler(cfg, self.L3.sfb_s)
         self.fsm = torch.zeros(self.nch, dtype=torch.int32,
                                device=self.L3.dev)
         self.halo4 = np.zeros((self.nch, 4, 576), np.int16)
@@ -574,7 +587,8 @@ class StreamEncoder:
         """Encode the remaining samples (decomposed like the one-shot
         remainder) and close the stream on the CBR grid."""
         if not self.buf.shape[1]:
-            return self.asm.finish()
+            with scope("NativeAssembler.finish"):
+                return self.asm.finish()
         total = -(-self.buf.shape[1] // self.spf) * self.spf
         pcm_r = np.pad(self.buf, ((0, 0), (0, total - self.buf.shape[1])))
         self.buf = np.zeros((self.nch, 0), np.int16)
@@ -594,8 +608,8 @@ class StreamEncoder:
                     asm=self.asm.checkpoint())
 
     @classmethod
-    def resume(cls, cfg, ckpt, device, window=None, prof=None):
-        enc = cls(cfg, device, window=window, prof=prof)
+    def resume(cls, cfg, ckpt, device, window=None):
+        enc = cls(cfg, device, window=window)
         enc.fsm = torch.as_tensor(np.asarray(ckpt["fsm"]), dtype=torch.int32,
                                   device=enc.L3.dev)
         enc.halo4 = np.asarray(ckpt["halo4"], np.int16).copy()
@@ -606,40 +620,38 @@ class StreamEncoder:
         return enc
 
     def _encode_window(self, pcm_w, is_last):
-        L3, nch, prof = self.L3, self.nch, self.prof
+        L3, nch = self.L3, self.nch
         G = pcm_w.shape[1] // 576
         n_pad = (G if G == self.window
                  else _plan_segments(G, self.rem_buckets)[0][2])
         blocks = pcm_w.reshape(nch, G, 576)
-        host = pinned((nch, 4 + n_pad, 576), torch.int16, L3.dev)
-        bl = host.numpy()
-        bl[:, :4] = self.halo4
-        bl[:, 4:4 + G] = blocks
+        with scope("upload"):
+            host = pinned((nch, 4 + n_pad, 576), torch.int16, L3.dev)
+            bl = host.numpy()
+            bl[:, :4] = self.halo4
+            bl[:, 4:4 + G] = blocks
         # the same segment program as the one-shot path, so stream and
         # one-shot bytes agree by construction; the window's one wait
-        with prof.stage("stream segment (device)"):
-            h = L3.segment(host, self.fsm, self.scan_size, PAYLOAD_WORDS, G,
-                           RELAX_DELTA)
-            got, = L3.fetch([h])
+        h = L3.segment(host, self.fsm, self.scan_size, PAYLOAD_WORDS, G,
+                       RELAX_DELTA)
+        got, = L3.fetch([h])
         self.fsm, self.scan_size = h["fsm_state"], h["size"]
         self.halo4 = blocks[:, -4:] if G >= 4 else np.concatenate(
             [self.halo4[:, G - 4:], blocks], axis=1)
         plan = [(0, G, n_pad)]
         nframes = G // L3.mode_gr
         side, payload, _, _, self.real_size = L3.settle(
-            plan, [h], [got], PAYLOAD_WORDS, nframes, prof,
-            size=self.real_size)
-        with prof.stage("stream assembly"):
-            L3.weave(self.asm, nframes, side, payload,
-                     L3.scfsi_frames(plan, [got]))
+            plan, [h], [got], PAYLOAD_WORDS, nframes, size=self.real_size)
+        L3.weave(self.asm, nframes, side, payload,
+                 L3.scfsi_frames(plan, [got]))
+        with scope("NativeAssembler.finish"):
             return self.asm.finish() if is_last else self.asm.drain()
 
 
-def encode_layer3_stream(pcm_iter, cfg: EncoderConfig, device, window=None,
-                         prof=None):
+def encode_layer3_stream(pcm_iter, cfg: EncoderConfig, device, window=None):
     """Generator form of StreamEncoder: consume an iterator of PCM
     pieces, yield MP3 byte chunks as frames complete."""
-    enc = StreamEncoder(cfg, device, window=window, prof=prof)
+    enc = StreamEncoder(cfg, device, window=window)
     for piece in pcm_iter:
         chunk = enc.feed(piece)
         if chunk:
@@ -680,6 +692,7 @@ class _Layer12Plan:
             float(sfreq_khz))
 
 
+@span("_layer12_frame")
 def _layer12_frame(pcm, cfg):
     """(plan, PCM as (nch, F * spf) padded to whole frames): int16 PCM
     stays int16 (one transposing copy); any other dtype becomes float32,
@@ -702,6 +715,7 @@ def _layer12_frame(pcm, cfg):
     return P, framed
 
 
+@span("upload")
 def _to_device(arr, dtype, dev):
     """A numpy array on `dev` through a pinned buffer (not zeroed: the
     array fills it): its upload is queued and the host does not wait."""
@@ -718,6 +732,7 @@ def _layer12_analysis(pcm, P, dev):
     return L12.analyze_frames(pcm_d, P.layer, P.sblimit, P.nch, P.sfreq_hz)
 
 
+@span("_layer12_quantize")
 def _layer12_quantize(ana, P, jsbound, ba):
     """The quantizers of every frame on the analysis' device: codes (nch,
     F, G, 12, 32) of the subband samples at bit allocation `ba` (F, 2, 32);
@@ -739,7 +754,7 @@ def _layer12_quantize(ana, P, jsbound, ba):
         [quant(sb[1], sc[1], ba[:, 1])] if P.nch == 2 else []))
 
 
-def _layer12_back(ana, cfg, P, pcm, prof=profiling.NULL):
+def _layer12_back(ana, cfg, P, pcm):
     """The back half of a Layer I/II encode on the analysis' device: the
     SMR in float64, K5 (the joint decision and the greedy allocation), the
     quantizers with the joint samples above jsbound, ``marshal_frames`` and
@@ -749,36 +764,32 @@ def _layer12_back(ana, cfg, P, pcm, prof=profiling.NULL):
     (``numpy_ref.tonal.psycho_one_frames``) and uploaded: one more wait."""
     dev = ana["sb"].device
     layer, nch = P.layer, P.nch
-    if cfg.psy_model == 1:
-        from .numpy_ref.tonal import psycho_one_frames
-        snr = _to_device(psycho_one_frames(
-            pcm.astype(np.float64), layer, cfg, ana["sb"].cpu().numpy()),
-            torch.float64, dev)
-    else:
-        snr = ana["snr"].to(torch.float64)                # (nch, F, 32)
-    smr = torch.stack([snr[0], snr[nch - 1]], dim=1)     # (F, 2, 32)
-    scfsi = ana["scfsi"] if layer == 2 else None
-    scfsi_fc = (torch.stack([scfsi[0], scfsi[nch - 1]], dim=1)
-                .to(torch.int32) if layer == 2 else None)
+    with scope("_layer12_back.smr"):
+        if cfg.psy_model == 1:
+            from .numpy_ref.tonal import psycho_one_frames
+            snr = _to_device(psycho_one_frames(
+                pcm.astype(np.float64), layer, cfg,
+                ana["sb"].cpu().numpy()), torch.float64, dev)
+        else:
+            snr = ana["snr"].to(torch.float64)            # (nch, F, 32)
+        smr = torch.stack([snr[0], snr[nch - 1]], dim=1)  # (F, 2, 32)
+        scfsi = ana["scfsi"] if layer == 2 else None
+        scfsi_fc = (torch.stack([scfsi[0], scfsi[nch - 1]], dim=1)
+                    .to(torch.int32) if layer == 2 else None)
 
-    with prof.stage("greedy_allocation"):
-        alloc = A12.allocate(smr.contiguous(), scfsi_fc, layer, P.table,
-                             nch, P.sblimit, P.adb, cfg.error_protection,
-                             P.joint, cfg.mode)
+    alloc = A12.allocate(smr.contiguous(), scfsi_fc, layer, P.table, nch,
+                         P.sblimit, P.adb, cfg.error_protection, P.joint,
+                         cfg.mode)
     jsbound = alloc["jsbound"]
-
-    with prof.stage(f"quantize_l{layer}"):
-        codes = _layer12_quantize(ana, P, jsbound, alloc["ba"])
-
-    with prof.stage("_marshal_layer12"):
-        values, lengths, crc = L12.marshal_frames(
-            cfg, layer, P.table, P.sblimit, nch, alloc["mode"],
-            alloc["mode_ext"], jsbound, alloc["ba"], scfsi, ana["scalar"],
-            codes, alloc["adb_left"], P.adb)
-    with prof.stage("pack_elements"):
-        return P12.pack_frames(values, lengths, P.frame_bytes, crc)
+    codes = _layer12_quantize(ana, P, jsbound, alloc["ba"])
+    values, lengths, crc = L12.marshal_frames(
+        cfg, layer, P.table, P.sblimit, nch, alloc["mode"],
+        alloc["mode_ext"], jsbound, alloc["ba"], scfsi, ana["scalar"],
+        codes, alloc["adb_left"], P.adb)
+    return P12.pack_frames(values, lengths, P.frame_bytes, crc)
 
 
+@span("_fetch_frames")
 def _fetch_frames(buf):
     """The host's one wait of a Layer I/II encode: K6's buffer downloaded
     (``queue_download``, ``Download.wait``); raises if its status words
@@ -790,7 +801,7 @@ def _fetch_frames(buf):
     return frames.numpy().tobytes()
 
 
-def encode_layer12_fast(pcm, cfg: EncoderConfig, device, prof=None):
+def encode_layer12_fast(pcm, cfg: EncoderConfig, device):
     """Layer I/II encode of int16 PCM on `device`, as one chain queued on
     the device: the PCM uploaded once (int16 PCM as int16, any other as
     float32), the analysis (filterbank, psy model 2, scale factors, scfsi:
@@ -810,14 +821,9 @@ def encode_layer12_fast(pcm, cfg: EncoderConfig, device, prof=None):
     float32 split-radix can move allocation ties; streams stay valid and
     decoded quality equal."""
     dev = resolve_device(device)
-    prof = prof if prof is not None else profiling.from_env()
-    with prof.stage("framing"):
-        P, pcm = _layer12_frame(pcm, cfg)
-    with prof.stage("analyze_frames"):
-        ana = _layer12_analysis(pcm, P, dev)
-    buf = _layer12_back(ana, cfg, P, pcm, prof)
-    with prof.stage("fetch"):
-        return _fetch_frames(buf) + b"\x00"
+    P, pcm = _layer12_frame(pcm, cfg)
+    ana = _layer12_analysis(pcm, P, dev)
+    return _fetch_frames(_layer12_back(ana, cfg, P, pcm)) + b"\x00"
 
 
 def encode_layer12_stream(pcm_iter, cfg: EncoderConfig, device,

@@ -35,7 +35,7 @@ from .. import encoder
 from ..encoder import RELAX_DELTA, Download, _chunk_size, _Layer3Framing
 from ..models.layer3 import _scfsi_flags
 from ..ops import bits, graphs, loop, psy
-from ..runtime import profiling
+from ..runtime.profiling import scope
 from ..runtime.bitstream import (NativeAssembler, guard_clamp, resv_guard,
                                  resv_scan)
 from ..tables import mpeg
@@ -196,8 +196,7 @@ def _analyze(L3, blocks, halo4, mesh):
     return res
 
 
-def encode_layer3_sharded(pcm, cfg, device, mesh=None, chunk=None,
-                          prof=None):
+def encode_layer3_sharded(pcm, cfg, device, mesh=None, chunk=None):
     """Encode int16 PCM to Layer III bytes over the ranks of `mesh`
     (default: the whole default process group, on `device`'s type), each
     rank computing its chunks on `device`.  Every rank passes the same PCM
@@ -207,7 +206,6 @@ def encode_layer3_sharded(pcm, cfg, device, mesh=None, chunk=None,
     reservoir scan and assembler); the chunk grid (C = `chunk`, default
     the bucket covering a rank's share) is padded so that every rank
     carries the same number of chunks."""
-    prof = prof if prof is not None else profiling.from_env()
     L3 = _Layer3Framing(cfg, device)
     dev, nch, mode_gr = L3.dev, L3.nch, L3.mode_gr
     if mesh is None:
@@ -249,7 +247,7 @@ def encode_layer3_sharded(pcm, cfg, device, mesh=None, chunk=None,
                 out[k] = out[k].view(np.float32)
         return out
 
-    with prof.stage("sharded analysis + demand"):
+    with scope("sharded analyze+demand"):
         ana = _analyze(L3, mine(grid, torch.int16), mine(halo4, torch.int16),
                        mesh)
         got = fetch(dict(pe=ana["pe"], p23=ana["p23"], **(
@@ -273,10 +271,10 @@ def encode_layer3_sharded(pcm, cfg, device, mesh=None, chunk=None,
         mode_gr, delta=RELAX_DELTA))
 
     def run_final(target, label):
-        budget = np.full((nch, Gp), 4095.0, np.float32)
-        budget[:, :G] = np.where(target < demand, target, 4095)
-        budget = budget.reshape(nch, K, C).transpose(1, 0, 2)
-        with prof.stage(label):
+        with scope(label):
+            budget = np.full((nch, Gp), 4095.0, np.float32)
+            budget[:, :G] = np.where(target < demand, target, 4095)
+            budget = budget.reshape(nch, K, C).transpose(1, 0, 2)
             h = L3.enc.encode_final(
                 ana["xr"], ana["ratio_l"], ana["ratio_s"], ana["block_type"],
                 mine(budget, torch.float32).reshape(-1),
@@ -285,7 +283,7 @@ def encode_layer3_sharded(pcm, cfg, device, mesh=None, chunk=None,
                 nch=Kl * nch, qss_lo=ana["qss"])
             got = fetch(dict(side=h["side"].reshape(Kl, nch, C, 19),
                              payload=h["payload"].reshape(Kl, nch, C, -1)))
-        return to_grid(got["side"]), to_grid(got["payload"])
+            return to_grid(got["side"]), to_grid(got["payload"])
 
     side, payload = run_final(target, "sharded final encode")
     for retry in range(4):
@@ -300,11 +298,12 @@ def encode_layer3_sharded(pcm, cfg, device, mesh=None, chunk=None,
         encoder.retry_fetches += 1
         side, payload = run_final(target, "sharded final retry")
 
-    with prof.stage("native assembly"):
+    with scope("NativeAssembler"):
         asm = NativeAssembler(cfg, L3.sfb_s)
-        rows = payload.reshape(nch * G, -1)
-        L3.weave(asm, nframes, side,
-                 (np.ascontiguousarray(rows).reshape(-1),
-                  np.arange(nch * G, dtype=np.int64) * rows.shape[1]),
-                 scfsi_frames)
+    rows = payload.reshape(nch * G, -1)
+    L3.weave(asm, nframes, side,
+             (np.ascontiguousarray(rows).reshape(-1),
+              np.arange(nch * G, dtype=np.int64) * rows.shape[1]),
+             scfsi_frames)
+    with scope("NativeAssembler.finish"):
         return asm.finish()

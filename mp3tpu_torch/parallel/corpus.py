@@ -34,8 +34,8 @@ from ..config import EncoderConfig
 from ..encoder import (PAYLOAD_WORDS, RELAX_DELTA, _Layer3Framing,
                        _plan_segments, encode_layer3_fast, pinned, upload)
 from ..ops import bits, resv
-from ..runtime import profiling
 from ..runtime.bitstream import NativeAssembler
+from ..runtime.profiling import scope, span
 
 
 def init_distributed(coordinator_address, num_processes, process_id,
@@ -71,6 +71,7 @@ def local_share(n_items, process_id=None, num_processes=None):
     return start, min(start + per, n_items)
 
 
+@span("_plan_budgets_corpus")
 def _plan_budgets_corpus(pes, p23s, plan, B, nch, mode_gr, mean_bits,
                          resv_max, delta):
     """Corpus-wide budget assignment: every clip's reservoir scan in one
@@ -106,6 +107,7 @@ def _plan_budgets_corpus(pes, p23s, plan, B, nch, mode_gr, mean_bits,
     return tuple(rows), target, demand
 
 
+@span("_clip_records")
 def _clip_records(b, G, nch, plan, segs, got, target, demand):
     """Clip b's lanes of a group as the one-shot path's per-segment
     records (plan, segment tensors, fetched results), trimmed to the
@@ -137,7 +139,7 @@ def _clip_records(b, G, nch, plan, segs, got, target, demand):
     return cplan, csegs, cgot
 
 
-def dispatch_group(L3, framed, delta, pw, prof):
+def dispatch_group(L3, framed, delta, pw):
     """Queue one group of B clips through the segment program as B*nch
     lanes: the block uploads, the analyses, the batched scan, the final
     encodes, then the group's one download.  Nothing waits on the host.
@@ -156,45 +158,46 @@ def dispatch_group(L3, framed, delta, pw, prof):
     L = B * nch
     G_max = max(nf for _, nf in framed) * mode_gr
     plan = _plan_segments(G_max)
-    blocks = np.zeros((L, G_max, 576), np.int16)
-    for b, (pcm, nf) in enumerate(framed):
-        blocks[b * nch:(b + 1) * nch, :nf * mode_gr] = \
-            pcm.reshape(nch, nf * mode_gr, 576)
+    with scope("dispatch_group.blocks"):
+        blocks = np.zeros((L, G_max, 576), np.int16)
+        for b, (pcm, nf) in enumerate(framed):
+            blocks[b * nch:(b + 1) * nch, :nf * mode_gr] = \
+                pcm.reshape(nch, nf * mode_gr, 576)
 
     segs = []
-    fsm = torch.zeros(L, dtype=torch.int32, device=dev)
-    with prof.stage("corpus analysis + demand (device)"):
-        for pos, n_real, n_pad in plan:
+    for pos, n_real, n_pad in plan:
+        with scope("upload"):
+            # the automaton's start state, queued inside the span: the
+            # card's idle time behind it is this fill's
+            if not pos:
+                fsm = torch.zeros(L, dtype=torch.int32, device=dev)
             host = pinned((L, 4 + n_pad, 576), torch.int16, dev)
             bl = host.numpy()
             if pos:
                 bl[:, :4] = blocks[:, pos - 4: pos]
             bl[:, 4:4 + n_real] = blocks[:, pos: pos + n_real]
-            a = L3.enc.analyze_demand_fused(upload(host, dev), fsm)
-            fsm = a["fsm_state"]
-            segs.append(a)
-    with prof.stage("corpus reservoir scans"):
-        rows, target, demand = _plan_budgets_corpus(
-            [a["pe"] for a in segs], [a["p23"] for a in segs], plan, B, nch,
-            mode_gr, L3.mean_bits, L3.resv_max, delta)
+            x = upload(host, dev)
+        a = L3.enc.analyze_demand_fused(x, fsm)
+        fsm = a["fsm_state"]
+        segs.append(a)
+    rows, target, demand = _plan_budgets_corpus(
+        [a["pe"] for a in segs], [a["p23"] for a in segs], plan, B, nch,
+        mode_gr, L3.mean_bits, L3.resv_max, delta)
     hs = []
-    with prof.stage("corpus final encode + pack (device)"):
-        for (pos, n_real, n_pad), a, row in zip(plan, segs, rows):
-            cap = bits.payload_cap_words(
-                B * n_pad // mode_gr, L3.bits_per_frame, L3.sideinfo_len,
-                B * L3.resv_max, L * n_pad)
-            h = L3.enc.encode_final(
-                a["xr"], a["ratio_l"], a["ratio_s"], a["block_type"], row,
-                payload_words=pw, scfsi=a.get("scfsi"),
-                sf_fix=a.get("sf_fix"), nch=L, qss_lo=a["qss"],
-                flat_cap=cap)
-            h.update((k, a[k]) for k in ("scfsi", "n_nonfinite") if k in a)
-            hs.append(h)
-        download = L3.fetch_async(hs)
-    return framed, plan, segs, target, demand, download
+    for (pos, n_real, n_pad), a, row in zip(plan, segs, rows):
+        cap = bits.payload_cap_words(
+            B * n_pad // mode_gr, L3.bits_per_frame, L3.sideinfo_len,
+            B * L3.resv_max, L * n_pad)
+        h = L3.enc.encode_final(
+            a["xr"], a["ratio_l"], a["ratio_s"], a["block_type"], row,
+            payload_words=pw, scfsi=a.get("scfsi"), sf_fix=a.get("sf_fix"),
+            nch=L, qss_lo=a["qss"], flat_cap=cap)
+        h.update((k, a[k]) for k in ("scfsi", "n_nonfinite") if k in a)
+        hs.append(h)
+    return framed, plan, segs, target, demand, L3.fetch_async(hs)
 
 
-def collect_group(L3, cfg, group, pw, prof):
+def collect_group(L3, cfg, group, pw):
     """The host's side of a group that ``dispatch_group`` queued: the one
     wait for its download, then for each clip the guard and its rare
     retries (``settle``: a retry's final encodes and fetch queue behind
@@ -206,15 +209,16 @@ def collect_group(L3, cfg, group, pw, prof):
     for b, (_, nf) in enumerate(framed):
         cplan, csegs, cgot = _clip_records(b, nf * L3.mode_gr, L3.nch, plan,
                                            segs, got, target, demand)
-        side, payload, _, _, _ = L3.settle(cplan, csegs, cgot, pw, nf, prof)
-        with prof.stage("native assembly"):
+        side, payload, _, _, _ = L3.settle(cplan, csegs, cgot, pw, nf)
+        with scope("NativeAssembler"):
             asm = NativeAssembler(cfg, L3.sfb_s)
-            L3.weave(asm, nf, side, payload, L3.scfsi_frames(cplan, cgot))
+        L3.weave(asm, nf, side, payload, L3.scfsi_frames(cplan, cgot))
+        with scope("NativeAssembler.finish"):
             outs.append(asm.finish())
     return outs
 
 
-def encode_corpus_batched(clips, cfg_kwargs, device, batch=8, prof=None,
+def encode_corpus_batched(clips, cfg_kwargs, device, batch=8,
                           delta=RELAX_DELTA, pw=PAYLOAD_WORDS, lookahead=3):
     """Encode many independent same-rate Layer III clips on `device` by
     stacking `batch` clips at a time as extra channel lanes of one
@@ -236,7 +240,6 @@ def encode_corpus_batched(clips, cfg_kwargs, device, batch=8, prof=None,
             not isinstance(lookahead, numbers.Integral) or lookahead < 0:
         raise ValueError(f"lookahead must be an integer >= 0, not "
                          f"{lookahead!r}")
-    prof = prof if prof is not None else profiling.from_env()
     t0 = time.perf_counter()
     rate = clips[0][1]
     if any(r != rate for _, r in clips):
@@ -250,11 +253,11 @@ def encode_corpus_batched(clips, cfg_kwargs, device, batch=8, prof=None,
         for pcm, _ in clips[g0:g0 + batch]:
             audio_s += max(np.atleast_2d(pcm).shape) / rate
             framed.append(L3.frame(pcm))
-        pending.append(dispatch_group(L3, framed, delta, pw, prof))
+        pending.append(dispatch_group(L3, framed, delta, pw))
         if len(pending) > lookahead:
-            outputs += collect_group(L3, cfg, pending.popleft(), pw, prof)
+            outputs += collect_group(L3, cfg, pending.popleft(), pw)
     while pending:
-        outputs += collect_group(L3, cfg, pending.popleft(), pw, prof)
+        outputs += collect_group(L3, cfg, pending.popleft(), pw)
     wall = time.perf_counter() - t0
     return outputs, dict(clips=len(clips), audio_s=audio_s, wall_s=wall,
                          x_realtime=audio_s / wall if wall else 0.0)

@@ -1,19 +1,24 @@
-"""Lightweight per-stage wall-clock profiling for the encode pipelines.
+"""Profiling of the encode pipelines: named spans on torch.profiler's
+clock, and the per-encode metrics sink.
 
 The reference has no profiling at all (SURVEY.md section 5.1 -- only a
-compile-time PERFORM frame logger, loop.c:34-47).  Here every fast-path
-encode can record a stage breakdown; `from_env()` is controlled by the
-MP3TPU_PROFILE env var, or a Profiler is passed explicitly.  For deep
-dives, `trace()` wraps torch.profiler for a device trace viewable in
-Perfetto or chrome://tracing.
+compile-time PERFORM frame logger, loop.c:34-47).  In a jax.profiler
+trace each jitted program carries its name; the port's encode is
+thousands of unnamed launches and CUDA graph replays instead.  `scope`
+and `span` name them: while a torch.profiler runs, a record_function
+scope, so that the span lands in the same trace as the kernels and
+copies it launches, on the same clock; otherwise nothing.  ``SPANS``,
+``SPANS_CORPUS``, ``SPANS_SHARDED`` and ``SPANS_L12`` list every name:
+the programs in the JAX names, once a stage call (never a bit
+evaluation), and the host work around them, once a segment or a clip
+at most (never a granule, frame or lane).  `trace()` wraps
+torch.profiler for such a trace, viewable in Perfetto or
+chrome://tracing.
 
-In a jax.profiler trace each jitted program carries its name; the
-port's encode is thousands of unnamed launches and CUDA graph replays
-instead.  `span` gives the
-port's counterparts of those programs the JAX names (``SPANS``) as
-torch.profiler record_function scopes, one per stage call (never per
-bit evaluation), so that a trace groups every launch under the program
-it belongs to.
+`Profiler`, `_Null`, `NULL` and `from_env` are copies of the JAX
+package's stage sink (MP3TPU_PROFILE); the port's encodes fill only its
+`meta` (frames, bytes, bitrate, recovery counters) and time their
+stages with spans instead.
 """
 import contextlib
 import functools
@@ -23,19 +28,65 @@ import time
 
 import torch
 
-#: the named program spans of a Layer III encode, in the JAX package's
-#: program names; "native assembly" is the host frame loop
+#: the named spans of a Layer III encode: the programs, in the JAX
+#: package's program names ("native assembly" is the host frame loop),
+#: then the host work around them, named after the port's functions (an
+#: inline block ``<function>.<what>``):
+#:
+#: - ``_Layer3Framing``: the config, bit budget and segment encoder made
+#:   for each encode;
+#: - ``frame``: the PCM to int16 (nch, frames * spf) -- the float32 round
+#:   trip, ``nan_to_num``, the clip and the pad; once a clip;
+#: - ``upload``: a host copy into a pinned buffer and its queued upload
+#:   (a segment's blocks are filled in one span and uploaded in
+#:   ``_Layer3Framing.segment``'s; ``run_final``'s budget rows);
+#: - ``fetch_async``: the flatten, cast and queued download of results;
+#: - ``settle``: the payload and reservoir guards on the downloaded p23,
+#:   with everything below: ``_stitch_flat`` (the payloads stitched for
+#:   the assembler) and ``run_final``, each one re-encode (a re-bucket or
+#:   a guard retry, ``ON_RETRY``) with its fetch;
+#: - ``scfsi_frames``: the frames' scfsi flags for the assembler;
+#: - ``NativeAssembler``, ``NativeAssembler.finish``: the assembler's
+#:   construction and its flush (a stream window's ``drain`` too), beside
+#:   ``native assembly``.
 SPANS = ("encode_segment_fused", "analyze_demand_fused", "encode_final",
          "pack_state", "outer_loop", "scan_budgets", "granule_payload",
-         "compact_payload", "fetch", "native assembly")
-#: the named program spans of a Layer I/II encode, in the JAX package's
-#: function names (``mp3tpu/encoder.py:729``): on the card chain the joint
-#: decision runs inside K5's launch, under ``greedy_allocation``, and
-#: ``joint_mode`` shows on the host route (``chip_smoke.l12_host_route``)
-#: only
+         "compact_payload", "fetch", "native assembly", "_Layer3Framing",
+         "frame", "upload", "fetch_async", "settle", "_stitch_flat",
+         "run_final", "scfsi_frames", "NativeAssembler",
+         "NativeAssembler.finish")
+#: the spans of ``SPANS`` that open only when ``settle`` re-encodes: none
+#: in an encode whose first final encode passes both guards
+ON_RETRY = ("run_final",)
+#: the corpus's own host work (``parallel/corpus.py``), around the spans
+#: of ``SPANS``: ``dispatch_group.blocks``, a group's clips stacked as
+#: lanes of one block array; ``_plan_budgets_corpus``, a group's budget
+#: rows around its batched scan; ``_clip_records``, a clip's lanes cut
+#: out of its group's results, once a clip
+SPANS_CORPUS = ("dispatch_group.blocks", "_plan_budgets_corpus",
+                "_clip_records")
+#: the multi-rank clip's stages (``parallel/clip.py``), in the JAX
+#: package's stage labels (``mp3tpu/parallel/clip.py:231-282``): the
+#: analysis with its gather and download, the final encode with its own,
+#: and each guard retry's
+SPANS_SHARDED = ("sharded analyze+demand", "sharded final encode",
+                 "sharded final retry")
+#: the named spans of a Layer I/II encode: the programs in the JAX
+#: package's function names (``mp3tpu/encoder.py:729``) -- on the card
+#: chain the joint decision runs inside K5's launch, under
+#: ``greedy_allocation``, and ``joint_mode`` shows on the host route
+#: (``chip_smoke.l12_host_route``) only -- then the host work around
+#: them: ``_layer12_frame`` (the PCM to (nch, F * spf), int16 kept),
+#: ``upload`` (the framed PCM through a pinned buffer; psy model 1's SMR
+#: too), ``_layer12_back.smr`` (the SMR and scfsi stacked for K5),
+#: ``_layer12_quantize`` (the joint samples chosen above jsbound and the
+#: channels' codes stacked, around ``quantize_l1`` / ``quantize_l2``) and
+#: ``_fetch_frames`` (the download's wait in ``fetch``, K6's status
+#: checked and the frames' bytes)
 SPANS_L12 = ("analyze_frames", "joint_mode", "greedy_allocation",
              "quantize_l1", "quantize_l2", "_marshal_layer12",
-             "pack_elements", "fetch")
+             "pack_elements", "fetch", "_layer12_frame", "upload",
+             "_layer12_back.smr", "_layer12_quantize", "_fetch_frames")
 #: on a CUDA device the segment program replays one graph inside the span
 #: encode_segment_fused, and in its staged form the emission and packing
 #: replay one graph inside the span granule_payload (``ops/graphs.py``):
@@ -104,7 +155,8 @@ def from_env():
 @contextlib.contextmanager
 def scope(name):
     """While a torch.profiler runs, a ``record_function`` scope `name`
-    (one of ``SPANS``) around the block; otherwise nothing, so that an
+    (one of ``SPANS``, ``SPANS_CORPUS``, ``SPANS_SHARDED`` or
+    ``SPANS_L12``) around the block; otherwise nothing, so that an
     encode outside a trace touches no profiler machinery."""
     if not torch.autograd._profiler_enabled():
         yield

@@ -110,12 +110,17 @@ def profile_once(fn):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = device_events(prof)
+    return events, busy_s(events), wall
+
+
+def busy_s(events):
+    """Seconds of the union of `events`' intervals (``device_events``)."""
     busy_us, end = 0.0, -math.inf
     for _, s, e in sorted(events, key=lambda e: e[1:]):
         if e > end:
             busy_us += e - max(s, end)
             end = e
-    return events, busy_us / 1e6, wall
+    return busy_us / 1e6
 
 
 @contextlib.contextmanager

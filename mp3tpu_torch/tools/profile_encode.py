@@ -2,10 +2,11 @@
 (counterpart of ``tools/profile_encode.py``).
 
 Encodes the bench configuration (the bench signal, stereo 44.1 kHz
-128 kbps) once to warm up, then once measured with a
-``runtime.profiling.Profiler`` (stage seconds) under torch.profiler's
-CUDA activity (device kernels and copies, busy and idle share of the
-measured wall), then once more under
+128 kbps) once to warm up, then once measured under
+``runtime.profiling.trace`` (host seconds by named span, the spans of
+``SPANS`` on torch.profiler's clock; on the card also the device kernels
+and copies, busy and idle share of the measured wall), then once more
+under
 ``torch.utils.flop_counter.FlopCounterMode``, which counts the matmul
 FLOPs (psy DFT, filterbank, MDCT, the rate loop's contractions) in
 place of the JAX tool's XLA cost analysis; that encode runs the segment
@@ -21,7 +22,9 @@ given.
 """
 import argparse
 import json
+import os
 import sys
+import tempfile
 import time
 
 import torch
@@ -30,11 +33,12 @@ from torch.utils.flop_counter import FlopCounterMode
 from ..config import EncoderConfig
 from ..encoder import encode_layer3_fast
 from ..ops import graphs
-from ..runtime.profiling import Profiler
+from ..runtime.profiling import Profiler, trace
 from ..tables import mpeg
-from . import (FP32_OPS_PER_S, describe, device_or_exit, profile_once, sync,
-               yardstick_form)
+from . import (FP32_OPS_PER_S, busy_s, describe, device_events,
+               device_or_exit, sync, yardstick_form)
 from .signals import make_signal
+from .trace_stages import span_breakdown
 
 
 def run(seconds, device):
@@ -63,11 +67,14 @@ def run(seconds, device):
 
     events = busy = None
     graphs.reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp, dev) as tp:
+            measured()
+        spans = span_breakdown(os.path.join(tmp, "trace.json"))["spans"]
+    stages = {n: r["host_s"] for n, r in spans.items() if r["count"]}
     if dev.type == "cuda":
-        events, busy, _ = profile_once(measured)
-        events = len(events)
-    else:
-        measured()
+        events = device_events(tp)
+        busy, events = busy_s(events), len(events)
     wall = got["wall"]
     by_stage = graphs.by_stage()
 
@@ -87,7 +94,7 @@ def run(seconds, device):
         "wall_s": wall,
         "x_realtime": seconds / wall,
         "bytes": len(got["out"]),
-        "stages_s": prof.stages,
+        "stages_s": stages,
         "meta": prof.meta,
         "flop_counter_flops": flops,
         "mfu_vs_fp32_peak": (flops / wall / FP32_OPS_PER_S
@@ -105,7 +112,7 @@ def run(seconds, device):
         "device_events": events,
         "device_busy_s": busy,
         "idle_share": 1.0 - busy / wall if on_card else None,
-        "note": ("the measured run is profiled (torch.profiler CUDA "
+        "note": ("the measured run is traced (torch.profiler CPU and CUDA "
                  "activity): its wall includes the profiler's cost"
                  if on_card else "a CPU run: no device metric"),
     }

@@ -227,9 +227,12 @@ def test_the_layer12_spans_in_a_trace(tmp_path):
     from mp3tpu_torch.tools.trace_stages import span_breakdown
     pcm, cfg = case_input(*FIXTURES[1])
     want = {"card": ("analyze_frames", "greedy_allocation", "quantize_l2",
-                     "_marshal_layer12", "pack_elements", "fetch"),
+                     "_marshal_layer12", "pack_elements", "fetch",
+                     "_layer12_frame", "upload", "_layer12_back.smr",
+                     "_layer12_quantize", "_fetch_frames"),
             "host": ("analyze_frames", "joint_mode", "greedy_allocation",
-                     "quantize_l2", "_marshal_layer12", "pack_elements")}
+                     "quantize_l2", "_marshal_layer12", "pack_elements",
+                     "_layer12_frame", "upload", "_layer12_quantize")}
     for route, fn in (("card", E.encode_layer12_fast),
                       ("host", l12_host_route)):
         with trace(str(tmp_path / route), "cpu"):
@@ -239,3 +242,5 @@ def test_the_layer12_spans_in_a_trace(tmp_path):
         got = {n for n in SPANS_L12 if spans[n]["count"]}
         assert got == set(want[route]), (route, got)
         assert spans["quantize_l2"]["count"] == 2
+        assert all(spans[n]["count"] == 1 for n in want[route]
+                   if n != "quantize_l2"), route

@@ -140,14 +140,9 @@ def test_uploads_on_the_cpu_are_the_buffers():
         assert np.asarray(host)[0, 0, 0] == 7
 
 
-def test_settle_reads_the_scan_once_and_fetches_each_reencode(monkeypatch):
-    """A guard retry forced on one segment of a 1 s encode: after the
-    segments' own downloads (one queued a segment), ``settle`` reads
-    every segment's target and demand in one fetch and each re-encode's
-    results in one more, both counted in ``retry_fetches``; the bytes
-    stay a valid stream of the same length."""
-    pcm, cfg = make_signal(1.0, 44100), _cfg()
-    want = encoder.encode_layer3_fast(pcm, cfg, "cpu", chunk=64)
+def _force_one_retry(monkeypatch):
+    """``settle``'s reservoir guard flags an overdraw once, with no
+    limits cut: one guard retry."""
     real, calls = encoder.resv_guard, []
 
     def guard(p23, nframes, nch, mean_bits, resv_max, mode_gr, size=None):
@@ -159,6 +154,17 @@ def test_settle_reads_the_scan_once_and_fetches_each_reencode(monkeypatch):
         return res
 
     monkeypatch.setattr(encoder, "resv_guard", guard)
+
+
+def test_settle_reads_the_scan_once_and_fetches_each_reencode(monkeypatch):
+    """A guard retry forced on one segment of a 1 s encode: after the
+    segments' own downloads (one queued a segment), ``settle`` reads
+    every segment's target and demand in one fetch and each re-encode's
+    results in one more, both counted in ``retry_fetches``; the bytes
+    stay a valid stream of the same length."""
+    pcm, cfg = make_signal(1.0, 44100), _cfg()
+    want = encoder.encode_layer3_fast(pcm, cfg, "cpu", chunk=64)
+    _force_one_retry(monkeypatch)
     seen = []
     real_fetch = encoder._Layer3Framing.fetch_async
     monkeypatch.setattr(encoder._Layer3Framing, "fetch_async",
@@ -173,3 +179,35 @@ def test_settle_reads_the_scan_once_and_fetches_each_reencode(monkeypatch):
                                       (n, ("side", "payload"))]
     assert (encoder.fetches - f0, encoder.retry_fetches - r0) == (3, 2)
     assert len(out) == len(want)
+
+
+def test_a_forced_retry_is_one_run_final_span(monkeypatch, tmp_path):
+    """The same forced guard retry, traced: one ``run_final`` span inside
+    the one ``settle`` span, holding one ``upload`` span a segment (its
+    budget rows) and its fetch; the bytes are the untraced retry's."""
+    import json
+
+    pcm, cfg = make_signal(1.0, 44100), _cfg()
+    _force_one_retry(monkeypatch)
+    prof = profiling.Profiler()
+    want = encoder.encode_layer3_fast(pcm, cfg, "cpu", chunk=64, prof=prof)
+    n = prof.meta["segments"]
+    _force_one_retry(monkeypatch)          # a fresh stub: one retry again
+    with profiling.trace(str(tmp_path), "cpu"):
+        out = encoder.encode_layer3_fast(pcm, cfg, "cpu", chunk=64)
+    assert out == want
+    with open(tmp_path / "trace.json") as f:
+        spans = [(e["name"], e["ts"], e["ts"] + e["dur"])
+                 for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "user_annotation"]
+
+    def named(name):
+        return [(s, e) for m, s, e in spans if m == name]
+
+    (s0, e0), = named("settle")
+    (s1, e1), = named("run_final")
+    assert s0 <= s1 and e1 <= e0
+    inside = [m for m, s, e in spans if s1 <= s and e <= e1]
+    assert inside.count("upload") == n and inside.count("fetch") == 1
+    # each segment's blocks filled and uploaded, and the retry's rows
+    assert len(named("upload")) == 3 * n

@@ -1,0 +1,111 @@
+"""The named spans of the port's entry points (``runtime.profiling``) on
+the CPU: a traced encode of ``encode_layer3_fast``,
+``encode_corpus_batched`` and ``encode_layer12_fast`` holds each span of
+its path as many times as its segments, clips and groups ask, and gives
+the untraced encode's bytes; with no profiler running a span touches no
+profiler machinery, so the encodes run with ``record_function`` made to
+raise."""
+import collections
+import json
+
+import pytest
+import torch
+
+from mp3tpu_torch.config import EncoderConfig
+from mp3tpu_torch.encoder import encode_layer3_fast, encode_layer12_fast
+from mp3tpu_torch.parallel.corpus import encode_corpus_batched
+from mp3tpu_torch.runtime import profiling
+from mp3tpu_torch.tables import mpeg
+from mp3tpu_torch.tools.signals import make_signal
+
+torch.set_num_threads(1)
+
+L3_KW = dict(layer=3, mode=mpeg.MODE_STEREO, bitrate_kbps=128)
+
+
+def _one_shot():
+    """A 1 s stereo clip: one segment."""
+    return [encode_layer3_fast(make_signal(1.0, 44100),
+                               EncoderConfig(sample_rate_hz=44100, **L3_KW),
+                               "cpu")]
+
+
+def _corpus():
+    """Three clips at lane batch 2: two groups of one segment each, the
+    second clip shorter than its group."""
+    pcm = make_signal(1.0, 44100)
+    outs, _ = encode_corpus_batched(
+        [(pcm, 44100), (pcm[:30000], 44100), (pcm, 44100)], L3_KW, "cpu",
+        batch=2)
+    return outs
+
+
+def _layer12():
+    """A 1 s Layer II joint-stereo item with the CRC."""
+    cfg = EncoderConfig(layer=2, mode=mpeg.MODE_JOINT, bitrate_kbps=192,
+                        sample_rate_hz=48000, error_protection=True)
+    return [encode_layer12_fast(make_signal(1.0, 48000), cfg, "cpu")]
+
+
+#: each entry point's spans in its traced encode, by name
+WANT = {
+    "encode_layer3_fast": (_one_shot, profiling.SPANS, dict(
+        dict.fromkeys(profiling.SPANS, 1), outer_loop=2, upload=2,
+        run_final=0)),
+    "encode_corpus_batched": (_corpus, profiling.SPANS
+                              + profiling.SPANS_CORPUS, dict(
+        # once a call
+        _Layer3Framing=1,
+        # once a clip
+        frame=3, _clip_records=3, settle=3, _stitch_flat=3, scfsi_frames=3,
+        NativeAssembler=3, **{"native assembly": 3,
+                              "NativeAssembler.finish": 3},
+        # once a group (of one segment)
+        **{"dispatch_group.blocks": 2}, upload=2, analyze_demand_fused=2,
+        outer_loop=4, _plan_budgets_corpus=2, encode_final=2,
+        granule_payload=2, compact_payload=2, pack_state=2, fetch_async=2,
+        fetch=2,
+        # the one segment program and the one-shot scan span: not here
+        encode_segment_fused=0, scan_budgets=0, run_final=0)),
+    "encode_layer12_fast": (_layer12, profiling.SPANS_L12, dict(
+        dict.fromkeys(profiling.SPANS_L12, 1), joint_mode=0, quantize_l1=0,
+        quantize_l2=2)),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(WANT))
+def test_a_traced_encode_holds_each_span(entry, tmp_path):
+    fn, names, want = WANT[entry]
+    plain = fn()
+    with profiling.trace(str(tmp_path), "cpu"):
+        out = fn()
+    assert out == plain
+    with open(tmp_path / "trace.json") as f:
+        got = collections.Counter(
+            e["name"] for e in json.load(f)["traceEvents"]
+            if e.get("cat") == "user_annotation")
+    assert {n: got[n] for n in names} == want
+    # no span but the listed ones
+    assert set(got) <= set(names)
+
+
+@pytest.mark.parametrize("entry", sorted(WANT))
+def test_spans_are_inert_without_a_profiler(entry, monkeypatch):
+    fn = WANT[entry][0]
+    plain = fn()
+
+    def refuse(name, *a, **k):
+        raise AssertionError(f"record_function({name!r}) outside a trace")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    assert fn() == plain
+
+
+def test_every_span_name_is_listed_once():
+    """Each list names a span once; the Layer III lists do not overlap."""
+    for names in (profiling.SPANS, profiling.SPANS_CORPUS,
+                  profiling.SPANS_SHARDED, profiling.SPANS_L12):
+        assert len(set(names)) == len(names)
+    l3 = profiling.SPANS + profiling.SPANS_CORPUS + profiling.SPANS_SHARDED
+    assert len(set(l3)) == len(l3)
+    assert set(profiling.ON_RETRY) <= set(profiling.SPANS)
