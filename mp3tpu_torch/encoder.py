@@ -25,7 +25,10 @@ picklable dict.
 ``fetches`` counts the host's waits for results (``Download.wait``), of which
 ``retry_fetches`` came from ``settle``'s rare retries; the rate loop's
 exit syncs are ``ops/loop.any_on_host.syncs`` and the host scans'
-downloads ``ops/resv.host_scans``.
+downloads ``ops/resv.host_scans``.  ``float_frames`` counts the clips
+framed through the float sanitizing path; an int16 clip is copied once,
+from the caller's array into the segments' pinned buffers
+(``fill_granules``).
 
 Layers I/II (``encode_layer12_fast``, ``encode_layer12_stream``): one
 chain queued on the device -- the analysis (one CUDA graph a frame
@@ -78,6 +81,11 @@ fetches = 0
 #: or a guard clamp): one of the scan's targets and demands, and one for
 #: each re-encode
 retry_fetches = 0
+#: Layer III clips that ``_Layer3Framing.frame`` took through the float
+#: sanitizing path (any input that is not int16); counted under
+#: ``_FLOAT_FRAMES_LOCK``, since ``encode_corpus`` frames from threads
+float_frames = 0
+_FLOAT_FRAMES_LOCK = threading.Lock()
 
 
 def pinned(shape, dtype, dev):
@@ -93,6 +101,28 @@ def upload(host, dev):
     """`host` (from ``pinned``) on `dev`, its copy queued on the current
     stream; on the CPU, `host` itself."""
     return host.to(dev, non_blocking=True)
+
+
+def fill_granules(dst, pcm, g0):
+    """Copy granules [g0, g0 + n) of `pcm`, a clip as
+    ``_Layer3Framing.frame`` gives it ((nch, samples) int16), into `dst`,
+    an (nch, n, 576) int16 array (a segment's halo and blocks in a
+    ``pinned`` buffer), with zeros where the range leaves the clip:
+    before its first sample (g0 < 0, the first segment's halo) and past
+    its last."""
+    nch, n, _ = dst.shape
+    lo = min(max(-g0, 0), n)
+    a = (g0 + lo) * 576
+    m = min(max(pcm.shape[1] - a, 0), (n - lo) * 576)
+    k, r = divmod(m, 576)
+    dst[:, :lo] = 0
+    dst[:, lo:lo + k] = pcm[:, a:a + k * 576].reshape(nch, k, 576)
+    hi = lo + k
+    if r:
+        dst[:, hi, :r] = pcm[:, a + k * 576:a + m]
+        dst[:, hi, r:] = 0
+        hi += 1
+    dst[:, hi:] = 0
 
 
 #: each CUDA device's copy stream (``copy_stream``)
@@ -289,21 +319,28 @@ class _Layer3Framing:
 
     @span("frame")
     def frame(self, pcm):
-        """Int16 or float PCM (samples x channels, or channels x samples)
-        as (nch, nframes*spf) int16 zero-padded to whole frames, and
-        nframes.  Float input is sanitized: NaN -> 0, +/-Inf -> full
-        scale, clipped to the int16 range."""
-        pcm = np.atleast_2d(np.asarray(pcm, np.float32))
+        """PCM (samples x channels, channels x samples, or 1-d mono) as
+        (nch, n) int16 and nframes, the whole frames that cover its n
+        samples; ``fill_granules`` copies it into a segment's blocks, zeros
+        past its last sample.  Int16 input is returned as a view of the
+        caller's samples, neither copied nor padded.  Any other input is
+        sanitized into a new array (counted in ``float_frames``): NaN -> 0,
+        +/-Inf -> full scale, clipped to the int16 range."""
+        global float_frames
+        pcm = np.atleast_2d(np.asarray(pcm))
         if pcm.shape[0] > pcm.shape[1]:
             pcm = pcm.T
         if pcm.shape[0] != self.nch:
             raise ValueError(
                 f"pcm has {pcm.shape[0]} channels, config {self.nch}")
         nframes = -(-pcm.shape[1] // self.spf)
-        pcm = np.pad(pcm, ((0, 0), (0, nframes * self.spf - pcm.shape[1])))
-        pcm = np.clip(np.nan_to_num(pcm, nan=0.0, posinf=32767.0,
-                                    neginf=-32768.0), -32768, 32767)
-        return pcm.astype(np.int16), nframes
+        if pcm.dtype != np.int16:
+            with _FLOAT_FRAMES_LOCK:
+                float_frames += 1
+            pcm = np.clip(np.nan_to_num(pcm.astype(np.float32), nan=0.0,
+                                        posinf=32767.0, neginf=-32768.0),
+                          -32768, 32767).astype(np.int16)
+        return pcm, nframes
 
     def cap(self, n_pad):
         """Flat payload buffer size of an n_pad-granule segment."""
@@ -491,7 +528,6 @@ def encode_layer3_fast(pcm, cfg: EncoderConfig, device, chunk=None,
     pcm, nframes = L3.frame(pcm)
     total = nframes * L3.spf
     G = nframes * mode_gr
-    blocks = pcm.reshape(nch, G, 576)
     plan = _plan_segments(G, (chunk,) if chunk else SUPER_BUCKETS)
 
     # ---- one segment program per plan entry, state carried across on
@@ -506,10 +542,7 @@ def encode_layer3_fast(pcm, cfg: EncoderConfig, device, chunk=None,
             if not pos:
                 fsm = torch.zeros(nch, dtype=torch.int32, device=L3.dev)
             host = pinned((nch, 4 + n_pad, 576), torch.int16, L3.dev)
-            bl = host.numpy()
-            if pos:
-                bl[:, :4] = blocks[:, pos - 4: pos]
-            bl[:, 4:4 + n_real] = blocks[:, pos: pos + n_real]
+            fill_granules(host.numpy()[:, :4 + n_real], pcm, pos - 4)
         h = L3.segment(host, fsm, size, pw, n_real, delta)
         fsm, size = h["fsm_state"], h["size"]
         segs.append(h)

@@ -217,8 +217,8 @@ def encode_layer3_sharded(pcm, cfg, device, mesh=None, chunk=None):
     C = chunk or _chunk_size(-(-G // D))
     K = -(-(-(-G // C)) // D) * D          # a whole number of chunks a rank
     Kl, Gp = K // D, K * C
-    flat = np.zeros((nch, Gp, 576), np.int16)
-    flat[:, :G] = pcm.reshape(nch, G, 576)
+    flat = np.empty((nch, Gp, 576), np.int16)
+    encoder.fill_granules(flat, pcm, 0)
     grid = flat.reshape(nch, K, C, 576).transpose(1, 0, 2, 3)
     halo4 = np.zeros((K, nch, 4, 576), np.int16)
     for k in range(1, K):

@@ -32,7 +32,8 @@ import torch
 
 from ..config import EncoderConfig
 from ..encoder import (PAYLOAD_WORDS, RELAX_DELTA, _Layer3Framing,
-                       _plan_segments, encode_layer3_fast, pinned, upload)
+                       _plan_segments, encode_layer3_fast, fill_granules,
+                       pinned, upload)
 from ..ops import bits, resv
 from ..runtime.bitstream import NativeAssembler
 from ..runtime.profiling import scope, span
@@ -141,8 +142,10 @@ def _clip_records(b, G, nch, plan, segs, got, target, demand):
 
 def dispatch_group(L3, framed, delta, pw):
     """Queue one group of B clips through the segment program as B*nch
-    lanes: the block uploads, the analyses, the batched scan, the final
-    encodes, then the group's one download.  Nothing waits on the host.
+    lanes: the block uploads (each clip's granules copied straight into
+    its lanes of the segment's pinned buffer, ``fill_granules``), the
+    analyses, the batched scan, the final encodes, then the group's one
+    download.  Nothing waits on the host.
     framed: each clip's (pcm, nframes) from ``L3.frame``.  Returns what
     ``collect_group`` needs: (framed, plan, segment tensors, target,
     demand, the queued ``Download``).
@@ -158,12 +161,6 @@ def dispatch_group(L3, framed, delta, pw):
     L = B * nch
     G_max = max(nf for _, nf in framed) * mode_gr
     plan = _plan_segments(G_max)
-    with scope("dispatch_group.blocks"):
-        blocks = np.zeros((L, G_max, 576), np.int16)
-        for b, (pcm, nf) in enumerate(framed):
-            blocks[b * nch:(b + 1) * nch, :nf * mode_gr] = \
-                pcm.reshape(nch, nf * mode_gr, 576)
-
     segs = []
     for pos, n_real, n_pad in plan:
         with scope("upload"):
@@ -173,9 +170,9 @@ def dispatch_group(L3, framed, delta, pw):
                 fsm = torch.zeros(L, dtype=torch.int32, device=dev)
             host = pinned((L, 4 + n_pad, 576), torch.int16, dev)
             bl = host.numpy()
-            if pos:
-                bl[:, :4] = blocks[:, pos - 4: pos]
-            bl[:, 4:4 + n_real] = blocks[:, pos: pos + n_real]
+            for b, (pcm, _) in enumerate(framed):
+                fill_granules(bl[b * nch:(b + 1) * nch, :4 + n_real], pcm,
+                              pos - 4)
             x = upload(host, dev)
         a = L3.enc.analyze_demand_fused(x, fsm)
         fsm = a["fsm_state"]

@@ -35,11 +35,13 @@ import torch
 #:
 #: - ``_Layer3Framing``: the config, bit budget and segment encoder made
 #:   for each encode;
-#: - ``frame``: the PCM to int16 (nch, frames * spf) -- the float32 round
-#:   trip, ``nan_to_num``, the clip and the pad; once a clip;
+#: - ``frame``: the PCM as (nch, n) int16 -- the orientation and the
+#:   checks, and for input that is not int16 the float32 sanitizing
+#:   (``nan_to_num``, the clip); once a clip;
 #: - ``upload``: a host copy into a pinned buffer and its queued upload
-#:   (a segment's blocks are filled in one span and uploaded in
-#:   ``_Layer3Framing.segment``'s; ``run_final``'s budget rows);
+#:   (a segment's blocks are filled from the clips in one span and
+#:   uploaded in ``_Layer3Framing.segment``'s; ``run_final``'s budget
+#:   rows);
 #: - ``fetch_async``: the flatten, cast and queued download of results;
 #: - ``settle``: the payload and reservoir guards on the downloaded p23,
 #:   with everything below: ``_stitch_flat`` (the payloads stitched for
@@ -59,12 +61,10 @@ SPANS = ("encode_segment_fused", "analyze_demand_fused", "encode_final",
 #: in an encode whose first final encode passes both guards
 ON_RETRY = ("run_final",)
 #: the corpus's own host work (``parallel/corpus.py``), around the spans
-#: of ``SPANS``: ``dispatch_group.blocks``, a group's clips stacked as
-#: lanes of one block array; ``_plan_budgets_corpus``, a group's budget
-#: rows around its batched scan; ``_clip_records``, a clip's lanes cut
-#: out of its group's results, once a clip
-SPANS_CORPUS = ("dispatch_group.blocks", "_plan_budgets_corpus",
-                "_clip_records")
+#: of ``SPANS``: ``_plan_budgets_corpus``, a group's budget rows around
+#: its batched scan; ``_clip_records``, a clip's lanes cut out of its
+#: group's results, once a clip
+SPANS_CORPUS = ("_plan_budgets_corpus", "_clip_records")
 #: the multi-rank clip's stages (``parallel/clip.py``), in the JAX
 #: package's stage labels (``mp3tpu/parallel/clip.py:231-282``): the
 #: analysis with its gather and download, the final encode with its own,

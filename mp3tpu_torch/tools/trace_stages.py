@@ -32,7 +32,7 @@ import torch
 
 from ..config import EncoderConfig
 from ..encoder import (PAYLOAD_WORDS, RELAX_DELTA, _Layer3Framing,
-                       _plan_segments, encode_layer3_fast)
+                       _plan_segments, encode_layer3_fast, fill_granules)
 from ..models.layer3 import final_budgets
 from ..ops import graphs, resv
 from ..runtime.profiling import SPANS, trace
@@ -229,7 +229,7 @@ def isolated_stages(L3, pcm, dev):
     plan = _plan_segments(G)
     _, n_real, n_pad = plan[0]
     bl = np.zeros((nch, 4 + n_pad, 576), np.int16)
-    bl[:, 4:4 + n_real] = pcm.reshape(nch, G, 576)[:, :n_real]
+    fill_granules(bl[:, :4 + n_real], pcm, -4)
     fsm0 = torch.zeros(nch, dtype=torch.int32, device=dev)
 
     def demand(i):

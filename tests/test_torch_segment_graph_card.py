@@ -25,7 +25,8 @@ import torch
 
 from mp3tpu_torch.config import EncoderConfig
 from mp3tpu_torch.encoder import (PAYLOAD_WORDS, RELAX_DELTA, _Layer3Framing,
-                                  _plan_segments, encode_layer3_fast)
+                                  _plan_segments, encode_layer3_fast,
+                                  fill_granules)
 from mp3tpu_torch.models import layer3
 from mp3tpu_torch.ops import graphs, loop, resv, search
 from mp3tpu_torch.tables import mpeg
@@ -108,16 +109,13 @@ def test_carried_segments_equal_the_staged_form(fresh, card, version):
     pcm = clicked_signal(60.0 if L3.mode_gr == 2 else 110.0, rate, 3)
     framed, nframes = L3.frame(pcm)
     G = nframes * L3.mode_gr
-    blocks = framed.reshape(L3.nch, G, 576)
     plan = _plan_segments(G)
     assert len(plan) == 4 and plan[1][2] == plan[2][2] == 2048
     carry = {"one": (torch.zeros(2, dtype=torch.int32, device=card), 0),
              "staged": (torch.zeros(2, dtype=torch.int32, device=card), 0)}
     for pos, n_real, n_pad in plan:
         bl = np.zeros((L3.nch, 4 + n_pad, 576), np.int16)
-        if pos:
-            bl[:, :4] = blocks[:, pos - 4:pos]
-        bl[:, 4:4 + n_real] = blocks[:, pos:pos + n_real]
+        fill_granules(bl[:, :4 + n_real], framed, pos - 4)
         bl = torch.as_tensor(bl, device=card)
         args = (PAYLOAD_WORDS, L3.nch, L3.cap(n_pad), n_real, L3.mean_bits,
                 L3.resv_max, L3.mode_gr, RELAX_DELTA)

@@ -61,7 +61,7 @@ WANT = {
         NativeAssembler=3, **{"native assembly": 3,
                               "NativeAssembler.finish": 3},
         # once a group (of one segment)
-        **{"dispatch_group.blocks": 2}, upload=2, analyze_demand_fused=2,
+        upload=2, analyze_demand_fused=2,
         outer_loop=4, _plan_budgets_corpus=2, encode_final=2,
         granule_payload=2, compact_payload=2, pack_state=2, fetch_async=2,
         fetch=2,
