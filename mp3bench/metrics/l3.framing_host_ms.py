@@ -1,6 +1,7 @@
 """Host time inside the ``frame`` spans (``_Layer3Framing.frame``: a
-clip's PCM to int16 frames through float32, ``nan_to_num``, the clip and
-the pad), per minute of audio encoded in the traced window."""
+clip's orientation and channel checks, and for PCM that is not int16 its
+sanitizing into int16; an int16 clip is handed on as a view of the
+caller's samples), per minute of audio encoded in the traced window."""
 
 
 def read(ctx):

@@ -1,4 +1,6 @@
-"""Plain reference for MPEG-1 Layer III streams (ISO/IEC 11172-3).
+"""Plain reference for Layer III streams: MPEG-1 (ISO/IEC 11172-3) and
+MPEG-2 at the lower sampling frequencies, 16, 22.05 and 24 kHz (LSF,
+ISO/IEC 13818-3).
 
 It judges a stream that the program made from PCM that the benchmark
 made, with nothing of the program:
@@ -7,7 +9,8 @@ made, with nothing of the program:
   frame count and sizes, the side info's ranges, the window sequence
   (each granule's window must overlap-add with the next one's), and the
   bit reservoir (each frame's main data begins inside the reservoir,
-  after the previous frame's, and ends inside its own frame);
+  no further back than main_data_begin's width allows, after the
+  previous frame's, and ends inside its own frame);
 - ``decode_frame``: the scale factors and Huffman codes of one frame,
   which must fill each granule's part2_3_length exactly;
 - ``analysis`` and ``requantize``: the polyphase filterbank and the MDCT
@@ -19,6 +22,15 @@ made, with nothing of the program:
 - ``dequantize``: the lines that a decoder reads from the stream,
   |ix|^(4/3) 2^-e with ix's sign, which ``analysis`` of the PCM
   measures the stream's noise against.
+
+The version follows from the sample rate, as the header's ID bit does.
+An LSF frame (13818-3 2.4.1.7, 2.4.2.7, 2.4.3.2) holds one granule of
+576 samples, 72 kbps / rate slots; its side info has an 8-bit
+main_data_begin (a reservoir of at most 255 bytes), no scfsi and a
+9-bit scalefac_compress that gives four scale factor widths, their
+partition of the bands and preflag.  Intensity stereo, which LSF codes
+in scalefac_compress too, is outside the reference: a stream that sets
+mode_extension is refused by its header.
 """
 import numpy as np
 import torch
@@ -56,11 +68,16 @@ def _lut(t):
     return _LUTS[t]
 
 
+def granules(rate_hz):
+    """Granules a frame: 2 in MPEG-1, 1 in LSF (13818-3 2.4.1.7)."""
+    return 1 if rate_hz in T.LSF_SAMPLE_RATE_INDEX else 2
+
+
 def frame_sizes(n_frames, kbps, rate_hz, padded):
-    """Bytes of each frame: 144 kbps / rate slots, plus the padding slot
-    where the true-CBR schedule (2.4.3.1) or nothing (`padded` False)
-    asks for one."""
-    exact = 144000.0 * kbps / rate_hz
+    """Bytes of each frame: 72 kbps / rate slots a granule (144 in
+    MPEG-1, 72 in LSF), plus the padding slot where the true-CBR schedule
+    (2.4.3.1) or nothing (`padded` False) asks for one."""
+    exact = 72000.0 * granules(rate_hz) * kbps / rate_hz
     whole = int(exact)
     if not padded or exact == whole:
         return np.full(n_frames, whole, np.int64)
@@ -77,25 +94,37 @@ def frame_sizes(n_frames, kbps, rate_hz, padded):
 
 
 def _header_word(cfg, padding):
-    kbps_idx = T.BITRATE_KBPS[(1, 3)].index(cfg["bitrate_kbps"])
-    w = (0xFFF << 20) | (1 << 19) | (1 << 17)              # MPEG-1, Layer III
+    rate = cfg["sample_rate_hz"]
+    mpeg1 = granules(rate) == 2
+    kbps_idx = T.BITRATE_KBPS[(int(mpeg1), 3)].index(cfg["bitrate_kbps"])
+    w = (0xFFF << 20) | (int(mpeg1) << 19) | (1 << 17)     # ID, Layer III
     w |= (0 if cfg["crc"] else 1) << 16
-    w |= kbps_idx << 12 | T.SAMPLE_RATE_INDEX[cfg["sample_rate_hz"]] << 10
+    rates = T.SAMPLE_RATE_INDEX if mpeg1 else T.LSF_SAMPLE_RATE_INDEX
+    w |= kbps_idx << 12 | rates[rate] << 10
     w |= padding << 9 | T.MODES[cfg["mode"]] << 6
     return w
 
 
-def side_info(b, nch):
-    """MPEG-1 side info at ``b.pos``."""
-    si = dict(main_data_begin=b.get(9))
-    b.get(3 if nch == 2 else 5)
-    si["scfsi"] = [[b.get(1) for _ in range(4)] for _ in range(nch)]
+def side_info(b, nch, ngr=2):
+    """Side info at ``b.pos``: MPEG-1's (`ngr` 2) or LSF's (`ngr` 1: an
+    8-bit main_data_begin, nch private bits, no scfsi (read as all 0),
+    a 9-bit scalefac_compress and no preflag bit, preflag being
+    scalefac_compress >= 500)."""
+    lsf = ngr == 1
+    si = dict(main_data_begin=b.get(8 if lsf else 9))
+    if lsf:
+        b.get(nch)
+        si["scfsi"] = [[0] * 4 for _ in range(nch)]
+    else:
+        b.get(3 if nch == 2 else 5)
+        si["scfsi"] = [[b.get(1) for _ in range(4)] for _ in range(nch)]
     gr = []
-    for _ in range(2):
+    for _ in range(ngr):
         chs = []
         for _ in range(nch):
             gi = dict(part2_3_length=b.get(12), big_values=b.get(9),
-                      global_gain=b.get(8), scalefac_compress=b.get(4),
+                      global_gain=b.get(8),
+                      scalefac_compress=b.get(9 if lsf else 4),
                       window_switching=b.get(1))
             if gi["window_switching"]:
                 gi.update(block_type=b.get(2), mixed=b.get(1),
@@ -107,7 +136,8 @@ def side_info(b, nch):
                           table_select=[b.get(5), b.get(5), b.get(5)],
                           subblock_gain=[0, 0, 0],
                           region0_count=b.get(4), region1_count=b.get(3))
-            gi.update(preflag=b.get(1), scalefac_scale=b.get(1),
+            gi.update(preflag=int(gi["scalefac_compress"] >= 500) if lsf
+                      else b.get(1), scalefac_scale=b.get(1),
                       count1table_select=b.get(1))
             chs.append(gi)
         gr.append(chs)
@@ -123,7 +153,8 @@ def structure(data, cfg, n_samples, padded=False):
     faults a list of strings, one a fault found."""
     faults = []
     nch = 1 if cfg["mode"] == "mono" else 2
-    n_frames = -(-n_samples // 1152)
+    ngr = granules(cfg["sample_rate_hz"])
+    n_frames = -(-n_samples // (576 * ngr))
     sizes = frame_sizes(n_frames, cfg["bitrate_kbps"], cfg["sample_rate_hz"],
                         padded)
     data = np.frombuffer(bytes(data), np.uint8)
@@ -145,17 +176,18 @@ def structure(data, cfg, n_samples, padded=False):
                       f"{int(want[f]):08x} expected")
     if len(bad):
         return [], faults
-    side_len = 32 if nch == 2 else 17
+    side_len = (32 if nch == 2 else 17) if ngr == 2 else \
+        (17 if nch == 2 else 9)
     hdr = 6 if cfg["crc"] else 4
     frames, md_total, prev_end = [], 0, 0
     last = [None] * nch
     for f in range(n_frames):
         o = int(offs[f])
-        si = side_info(Bits(data[o + hdr: o + hdr + side_len]), nch)
+        si = side_info(Bits(data[o + hdr: o + hdr + side_len]), nch, ngr)
         own = int(sizes[f]) - hdr - side_len
         start = md_total - si["main_data_begin"]
         bits = 0
-        for g in range(2):
+        for g in range(ngr):
             for ch in range(nch):
                 gi = si["gr"][g][ch]
                 bits += gi["part2_3_length"]
@@ -199,6 +231,38 @@ def _main_data(data, frames, f):
     return np.concatenate(out) if out else np.zeros(0, np.uint8)
 
 
+def lsf_slen(scalefac_compress):
+    """(slen1..slen4, table) of an LSF scalefac_compress in a channel
+    without intensity stereo (13818-3 2.4.3.2): tables 0 (below 400),
+    1 (400-499) and 2 (500 and above, which implies preflag)."""
+    sc = scalefac_compress
+    if sc < 400:
+        return [(sc >> 4) // 5, (sc >> 4) % 5, (sc & 15) >> 2, sc & 3], 0
+    if sc < 500:
+        sc -= 400
+        return [(sc >> 2) // 5, (sc >> 2) % 5, sc & 3, 0], 1
+    sc -= 500
+    return [sc // 3, sc % 3, 0, 0], 2
+
+
+def _scalefacs_lsf(b, gi):
+    """An LSF granule's scale factors: partition i holds nr_of_sfb[i]
+    factors of slen_i bits, long bands 0-20 in order, or short bands
+    0-11 a window each (band-major)."""
+    slen, table = lsf_slen(gi["scalefac_compress"])
+    short = gi["block_type"] == SHORT
+    nr = T.NR_OF_SFB[table][1 if short else 0]
+    vals = np.array([b.get(w) for w, n in zip(slen, nr) for _ in range(n)],
+                    np.int64)
+    sf_l = np.zeros(22, np.int64)
+    sf_s = np.zeros((13, 3), np.int64)
+    if short:
+        sf_s[:12] = vals.reshape(12, 3)
+    else:
+        sf_l[:21] = vals
+    return sf_l, sf_s
+
+
 def _scalefacs(b, gi, g, scfsi, prev):
     s1 = T.SLEN1[gi["scalefac_compress"]]
     s2 = T.SLEN2[gi["scalefac_compress"]]
@@ -224,8 +288,12 @@ def _spectrum(b, gi, end, sfb_l, sfb_s):
     past ``end``."""
     ix = np.zeros(576, np.int64)
     if gi["block_type"] == SHORT:
-        r1, r2 = 36, 576
+        # region0_count 8: nine short bands counted a window each, the
+        # first three bands' lines (36 at every MPEG-1 and LSF rate)
+        r1, r2 = 3 * sfb_s[3], 576
     else:
+        # window switched: region0_count 7, region1_count 13 (region 1
+        # from long band 8: line 36 in MPEG-1, 54 in LSF)
         r1 = sfb_l[min(gi["region0_count"] + 1, 22)]
         r2 = sfb_l[min(gi["region0_count"] + gi["region1_count"] + 2, 22)]
     for i in range(0, 2 * gi["big_values"], 2):
@@ -288,16 +356,19 @@ def decode_frame(data, frames, f, rate_hz):
     sfb_l, sfb_s = T.SFB_LONG[rate_hz], T.SFB_SHORT[rate_hz]
     b = Bits(_main_data(data, frames, f))
     si = fr["si"]
-    nch = len(si["scfsi"])
+    nch, ngr = len(si["scfsi"]), len(si["gr"])
     out, prev = [], [None] * nch
-    for g in range(2):
+    for g in range(ngr):
         for ch in range(nch):
             gi = si["gr"][g][ch]
             end = b.pos + gi["part2_3_length"]
-            sf_l, sf_s = _scalefacs(b, gi, g, si["scfsi"][ch], prev[ch])
+            if ngr == 1:
+                sf_l, sf_s = _scalefacs_lsf(b, gi)
+            else:
+                sf_l, sf_s = _scalefacs(b, gi, g, si["scfsi"][ch], prev[ch])
             prev[ch] = sf_l
             ix = _spectrum(b, gi, end, sfb_l, sfb_s)
-            out.append((2 * f + g, ch, gi, sf_l, sf_s, ix))
+            out.append((ngr * f + g, ch, gi, sf_l, sf_s, ix))
     return out
 
 

@@ -1,4 +1,6 @@
-"""Constants of ISO/IEC 11172-3 that the plain reference needs, frozen.
+"""Constants of ISO/IEC 11172-3 and of its extension to the lower
+sampling frequencies, ISO/IEC 13818-3 (MPEG-2 LSF), that the plain
+reference needs, frozen.
 
 ``standard.npz`` holds the tabulated constants of the standard: the
 512-tap analysis window (Table C.1), the Layer III Huffman code tables
@@ -75,6 +77,12 @@ BITRATE_KBPS = {(1, 3): [0, 32, 40, 48, 56, 64, 80, 96, 112, 128, 160, 192,
 SAMPLE_RATE_INDEX = {44100: 0, 48000: 1, 32000: 2}
 MODES = {"stereo": 0, "joint_stereo": 1, "dual_channel": 2, "mono": 3}
 
+# --- MPEG-2 LSF header (ISO/IEC 13818-3 2.4.2.3): the ID bit is 0, and
+# the sampling_frequency and bitrate_index fields name the lower rates
+LSF_SAMPLE_RATE_INDEX = {22050: 0, 24000: 1, 16000: 2}
+BITRATE_KBPS[(0, 3)] = [0, 8, 16, 24, 32, 40, 48, 56, 64, 80, 96, 112, 128,
+                        144, 160]
+
 # --- Layer III (MPEG-1) scalefactor bands (Table B.8)
 SFB_LONG = {44100: [0, 4, 8, 12, 16, 20, 24, 30, 36, 44, 52, 62, 74, 90, 110,
                     134, 162, 196, 238, 288, 342, 418, 576],
@@ -85,6 +93,30 @@ SFB_LONG = {44100: [0, 4, 8, 12, 16, 20, 24, 30, 36, 44, 52, 62, 74, 90, 110,
 SFB_SHORT = {44100: [0, 4, 8, 12, 16, 22, 30, 40, 52, 66, 84, 106, 136, 192],
              48000: [0, 4, 8, 12, 16, 22, 28, 38, 50, 64, 80, 100, 126, 192],
              32000: [0, 4, 8, 12, 16, 22, 30, 42, 58, 78, 104, 138, 180, 192]}
+# --- Layer III (MPEG-2 LSF) scalefactor bands (13818-3 Table B.2).  At
+# 24 kHz the long bands 17 and 18 are 54 and 62 lines wide (edge 332),
+# as the standard's table gives them
+SFB_LONG.update({
+    22050: [0, 6, 12, 18, 24, 30, 36, 44, 54, 66, 80, 96, 116, 140, 168, 200,
+            238, 284, 336, 396, 464, 522, 576],
+    24000: [0, 6, 12, 18, 24, 30, 36, 44, 54, 66, 80, 96, 114, 136, 162, 194,
+            232, 278, 332, 394, 464, 540, 576],
+    16000: [0, 6, 12, 18, 24, 30, 36, 44, 54, 66, 80, 96, 116, 140, 168, 200,
+            238, 284, 336, 396, 464, 522, 576]})
+SFB_SHORT.update({
+    22050: [0, 4, 8, 12, 18, 24, 32, 42, 56, 74, 100, 132, 174, 192],
+    24000: [0, 4, 8, 12, 18, 26, 36, 48, 62, 80, 104, 136, 180, 192],
+    16000: [0, 4, 8, 12, 18, 26, 36, 48, 62, 80, 104, 134, 174, 192]})
+# nr_of_sfb[table][block][partition] (13818-3 2.4.3.2): the scale factors
+# that each of the four slen widths covers; tables 0-2 for channels
+# without intensity stereo, 3-5 for the intensity-coded right channel;
+# blocks: long (block_type != 2), short (counted a window each), mixed
+NR_OF_SFB = [[[6, 5, 5, 5], [9, 9, 9, 9], [6, 9, 9, 9]],
+             [[6, 5, 7, 3], [9, 9, 12, 6], [6, 9, 12, 6]],
+             [[11, 10, 0, 0], [18, 18, 0, 0], [15, 18, 0, 0]],
+             [[7, 7, 7, 0], [12, 12, 12, 0], [6, 15, 12, 0]],
+             [[6, 6, 6, 3], [12, 9, 9, 6], [6, 12, 9, 6]],
+             [[8, 8, 5, 0], [15, 12, 9, 0], [6, 18, 9, 0]]]
 PRETAB = np.array([0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 2, 2, 3, 3, 3,
                    2, 0])
 SLEN1 = [0, 0, 0, 0, 3, 1, 1, 1, 2, 2, 2, 3, 3, 3, 4, 4]

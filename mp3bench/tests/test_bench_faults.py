@@ -14,7 +14,11 @@ decision made wrong (K3's stepsize searches held to nine tenths of
 each granule's budget: coarser gains, the bits left unspent), and an
 answer altered where it is produced (one bit of every frame's data
 flipped as the stream is written).  One chip: no exchange between
-chips to leave out."""
+chips to leave out.  Four of the Layer III faults are planted again in
+the album cell made MPEG-2 LSF (24 kHz, 64 kbps, stereo), with one of
+LSF's own: every granule's 9-bit scalefac_compress set to 511, the top
+of table 2's range, whatever partition its scale factors were written
+with."""
 import pytest
 import torch
 
@@ -42,6 +46,18 @@ def short_segments(traffic, config):
     traffic["args"] = {"chunk": 64}
 
 
+def lsf(traffic, config):
+    """The album cell as MPEG-2 LSF Layer III: 24 kHz, 64 kbps, stereo
+    (frames of one granule, 192 bytes), every frame checked."""
+    every_frame(traffic, config)
+    config.update(sample_rate_hz=24000, bitrate_kbps=64)
+
+
+def lsf_short_segments(traffic, config):
+    lsf(traffic, config)
+    traffic["args"] = {"chunk": 64}
+
+
 def flip_every_frame(data, size, at):
     b = bytearray(data)
     for o in range(0, len(b) - 1 - at, size):
@@ -53,7 +69,12 @@ def test_sound_runs_pass():
     assert run("l3-cd-128k.album", short_segments)["correct"]
 
 
-def test_l3_segment_outputs_left_unchanged(monkeypatch):
+def test_lsf_sound_runs_pass():
+    r = run("l3-cd-128k.album", lsf_short_segments)
+    assert r["correct"] and r["check"]["bad_frames"]["value"] == 0
+
+
+def stale_segment_outputs(monkeypatch):
     from mp3tpu_torch import encoder
     seg = encoder._Layer3Framing.segment
     last = {}
@@ -62,7 +83,16 @@ def test_l3_segment_outputs_left_unchanged(monkeypatch):
         h = seg(self, blocks, *a)
         return last.setdefault(tuple(blocks.shape), h)
     monkeypatch.setattr(encoder._Layer3Framing, "segment", stale)
+
+
+def test_l3_segment_outputs_left_unchanged(monkeypatch):
+    stale_segment_outputs(monkeypatch)
     assert not run("l3-cd-128k.album", short_segments)["correct"]
+
+
+def test_lsf_segment_outputs_left_unchanged(monkeypatch):
+    stale_segment_outputs(monkeypatch)
+    assert not run("l3-cd-128k.album", lsf_short_segments)["correct"]
 
 
 def leave_out_half_the_lanes(monkeypatch):
@@ -103,12 +133,9 @@ def test_l3_half_the_clips_left_out(monkeypatch):
     assert not run("l3-cd-128k.previews")["correct"]
 
 
-@pytest.mark.parametrize("cell", ["l3-cd-128k.previews",
-                                  "l3-cd-128k.album"])
-def test_l3_half_the_pcm_never_read(monkeypatch, cell):
-    """The framing hands on silence for every other clip of a corpus,
-    and for the second half of a track: streams that code silence for
-    music the PCM holds."""
+def half_the_pcm_never_read(monkeypatch, every_other_clip):
+    """The framing hands on silence for every other clip (a corpus) or
+    for the second half of each clip (a track)."""
     import numpy as np
     from mp3tpu_torch import encoder
     frame, calls = encoder._Layer3Framing.frame, []
@@ -116,14 +143,31 @@ def test_l3_half_the_pcm_never_read(monkeypatch, cell):
     def half(self, pcm):
         pcm = np.array(pcm)
         calls.append(None)
-        if cell.endswith("previews"):
+        if every_other_clip:
             if len(calls) % 2 == 0:
                 pcm[:] = 0
         else:
             pcm[:, pcm.shape[1] // 2:] = 0
         return frame(self, pcm)
     monkeypatch.setattr(encoder._Layer3Framing, "frame", half)
+
+
+@pytest.mark.parametrize("cell", ["l3-cd-128k.previews",
+                                  "l3-cd-128k.album"])
+def test_l3_half_the_pcm_never_read(monkeypatch, cell):
+    """The framing hands on silence for every other clip of a corpus,
+    and for the second half of a track: streams that code silence for
+    music the PCM holds."""
+    half_the_pcm_never_read(monkeypatch, cell.endswith("previews"))
     assert not run(cell)["correct"]
+
+
+def test_lsf_half_the_pcm_never_read(monkeypatch):
+    half_the_pcm_never_read(monkeypatch, False)
+    r = run("l3-cd-128k.album", lsf)
+    assert not r["correct"]
+    assert r["check"]["silenced_pct"]["value"] > \
+        r["check"]["silenced_pct"]["limit"]
 
 
 def test_l3_block_switch_carry_left_at_its_start(monkeypatch):
@@ -151,14 +195,71 @@ def test_l3_block_switch_carry_left_at_its_start(monkeypatch):
     assert not run("l3-cd-128k.album", chunk16)["correct"]
 
 
-def test_l3_stepsize_searches_coarser(monkeypatch):
+def stepsize_searches_coarser(monkeypatch):
     from mp3tpu_torch.ops import search
     for fn in ("search_stepsize", "search_walk"):
         real = getattr(search, fn)
         monkeypatch.setattr(
             search, fn, lambda xr, budget, *a, real=real, **k:
             real(xr, budget * 0.9, *a, **k))
+
+
+def test_l3_stepsize_searches_coarser(monkeypatch):
+    stepsize_searches_coarser(monkeypatch)
     assert not run("l3-cd-128k.album")["correct"]
+
+
+def test_lsf_stepsize_searches_coarser(monkeypatch):
+    """At LSF the reservoir holds at most 255 bytes, and sound streams
+    fill it: stuffing that the cap forces is legal.  The bits that K3
+    leaves unspent still read above ``unspent_pct``'s limit."""
+    stepsize_searches_coarser(monkeypatch)
+    r = run("l3-cd-128k.album", lsf)
+    assert not r["correct"]
+    assert r["check"]["unspent_pct"]["value"] > \
+        r["check"]["unspent_pct"]["limit"]
+
+
+def lsf_assembled(monkeypatch, alter):
+    """`alter(bytearray, frame offset)` applied to every 192-byte frame
+    of each LSF stream as the assembler finishes it."""
+    from mp3tpu_torch import encoder
+
+    class Altered(encoder.NativeAssembler):
+        def finish(self):
+            b = bytearray(super().finish())
+            for o in range(0, len(b) - 1, 192):
+                alter(b, o)
+            return bytes(b)
+    monkeypatch.setattr(encoder, "NativeAssembler", Altered)
+
+
+def test_lsf_answer_altered(monkeypatch):
+    def flip(b, o):
+        b[o + 21 + 60] ^= 0x10
+    lsf_assembled(monkeypatch, flip)
+    assert not run("l3-cd-128k.album", lsf)["correct"]
+
+
+def set_bits(b, pos, width, value):
+    for k in range(width):
+        byte, bit = divmod(pos + k, 8)
+        one = (value >> (width - 1 - k)) & 1
+        b[byte] = b[byte] & ~(0x80 >> bit) | (one << (7 - bit))
+
+
+def test_lsf_scalefac_compress_out_of_its_range(monkeypatch):
+    """Every granule's scalefac_compress set to 511 (table 2: widths 3
+    and 2 over 11 and 10 long bands, preflag): a decoder reads other
+    scale factors, and other lines, than the encoder wrote.  Side info
+    after the 4-byte header: main_data_begin 8 bits, 2 private bits,
+    then each channel's 63 bits, scalefac_compress after 29 of them."""
+    def top(b, o):
+        for ch in range(2):
+            set_bits(b, 8 * (o + 4) + 10 + 63 * ch + 29, 9, 511)
+    lsf_assembled(monkeypatch, top)
+    r = run("l3-cd-128k.album", lsf)
+    assert not r["correct"] and r["check"]["bad_frames"]["value"] > 0
 
 
 def test_l2_allocation_left_at_its_start(monkeypatch):
