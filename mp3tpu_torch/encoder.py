@@ -472,8 +472,9 @@ class _Layer3Framing:
             if pw >= bits.PAYLOAD_WORDS:
                 raise RuntimeError("granule exceeds the maximum payload row")
             pw = min(bits.PAYLOAD_WORDS, pw + 32)
-            scan = scan or scan_tensors()
-            side, payload = run_final(pw, *scan)
+            with scope("rebucket"):
+                scan = scan or scan_tensors()
+                side, payload = run_final(pw, *scan)
             p23 = side[:, :, 0].astype(np.int64)
         for retry in range(4):
             res = resv_guard(p23, nframes, nch, self.mean_bits,
@@ -484,10 +485,11 @@ class _Layer3Framing:
             if retry == 3:
                 raise RuntimeError(
                     "reservoir guard failed on a guaranteed-feasible clamp")
-            target, demand = scan or scan_tensors()
-            scan = (guard_clamp(target, limits, retry, self.mean_bits, nch),
-                    demand)
-            side, payload = run_final(pw, *scan)
+            with scope("guard_retry"):
+                target, demand = scan or scan_tensors()
+                scan = (guard_clamp(target, limits, retry, self.mean_bits,
+                                    nch), demand)
+                side, payload = run_final(pw, *scan)
             p23 = side[:, :, 0].astype(np.int64)
         return side, payload, p23, retry, (res[2] if size is not None
                                            else None)

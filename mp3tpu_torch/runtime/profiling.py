@@ -45,8 +45,11 @@ import torch
 #: - ``fetch_async``: the flatten, cast and queued download of results;
 #: - ``settle``: the payload and reservoir guards on the downloaded p23,
 #:   with everything below: ``_stitch_flat`` (the payloads stitched for
-#:   the assembler) and ``run_final``, each one re-encode (a re-bucket or
-#:   a guard retry, ``ON_RETRY``) with its fetch;
+#:   the assembler) and ``run_final``, each one re-encode with its fetch,
+#:   inside a span of its cause (``ON_RETRY``): ``rebucket`` (a granule
+#:   past its payload row) or ``guard_retry`` (an overdraw that the
+#:   reservoir guard found), the first of them also holding the fetch of
+#:   the scan's target and demand;
 #: - ``scfsi_frames``: the frames' scfsi flags for the assembler;
 #: - ``NativeAssembler``, ``NativeAssembler.finish``: the assembler's
 #:   construction and its flush (a stream window's ``drain`` too), beside
@@ -55,11 +58,11 @@ SPANS = ("encode_segment_fused", "analyze_demand_fused", "encode_final",
          "pack_state", "outer_loop", "scan_budgets", "granule_payload",
          "compact_payload", "fetch", "native assembly", "_Layer3Framing",
          "frame", "upload", "fetch_async", "settle", "_stitch_flat",
-         "run_final", "scfsi_frames", "NativeAssembler",
-         "NativeAssembler.finish")
+         "run_final", "rebucket", "guard_retry", "scfsi_frames",
+         "NativeAssembler", "NativeAssembler.finish")
 #: the spans of ``SPANS`` that open only when ``settle`` re-encodes: none
 #: in an encode whose first final encode passes both guards
-ON_RETRY = ("run_final",)
+ON_RETRY = ("run_final", "rebucket", "guard_retry")
 #: the corpus's own host work (``parallel/corpus.py``), around the spans
 #: of ``SPANS``: ``_plan_budgets_corpus``, a group's budget rows around
 #: its batched scan; ``_clip_records``, a clip's lanes cut out of its

@@ -41,8 +41,11 @@ SFBAND = [
     dict(l=[0, 6, 12, 18, 24, 30, 36, 44, 54, 66, 80, 96, 116, 140, 168, 200,
             238, 284, 336, 396, 464, 522, 576],
          s=[0, 4, 8, 12, 18, 24, 32, 42, 56, 74, 100, 132, 174, 192]),  # 22.05
+    # 24 kHz: dist10's loop.c table ends long band 17 at 330; we use
+    # IS 13818-3 Table B.2's 332 (bands 17 and 18 of 54 and 62 lines),
+    # as decoders do: they give lines 330-331 band 17's scale factor.
     dict(l=[0, 6, 12, 18, 24, 30, 36, 44, 54, 66, 80, 96, 114, 136, 162, 194,
-            232, 278, 330, 394, 464, 540, 576],
+            232, 278, 332, 394, 464, 540, 576],
          s=[0, 4, 8, 12, 18, 26, 36, 48, 62, 80, 104, 136, 180, 192]),  # 24
     # 16 kHz: dist10's loop.c:77 has typos (45 for 54, 248 for 284);
     # we use the correct IS 13818-3 Table B.2.a values -- the reference

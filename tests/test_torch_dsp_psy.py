@@ -21,6 +21,7 @@ import jax.numpy as jnp
 from mp3tpu.ops import jaxdsp, jaxpsy
 from mp3tpu.runtime.wav import read_wav
 from mp3tpu_torch.ops import dsp, psy
+from test_torch_lsf_standard import jax_standard_24k  # noqa: F401
 
 # the CPU path is thousands of small ops: intra-op threads only contend
 # with the other test processes
@@ -29,7 +30,7 @@ torch.set_num_threads(1)
 S = 64  # granules per chunk
 
 
-def test_constants_equal_jax():
+def test_constants_equal_jax(jax_standard_24k):
     c = dsp.numpy_constants()
     np.testing.assert_array_equal(c["enwindow_rev"], jaxdsp._ENWINDOW_REV)
     np.testing.assert_array_equal(c["ana_filter_rev"],

@@ -22,6 +22,7 @@ from mp3tpu.ops import jaxbits, jaxdsp, jaxloop, jaxpsy
 from mp3tpu.runtime.wav import read_wav
 from mp3tpu.tables import mpeg
 from mp3tpu_torch.models.layer3 import Layer3SegmentEncoder
+from test_torch_lsf_standard import jax_standard_24k  # noqa: F401
 
 # the CPU path is thousands of small ops: intra-op threads only contend
 # with the other test processes
@@ -47,7 +48,8 @@ def _jax_constants(version, sf):
     (mpeg.MPEG1, 0), (mpeg.MPEG1, 1), (mpeg.MPEG1, 2),
     (mpeg.MPEG2_LSF, 0), (mpeg.MPEG2_LSF, 1), (mpeg.MPEG2_LSF, 2)],
     ids=["0", "1", "2", "lsf0", "lsf1", "lsf2"])
-def test_constants_from_jax_equal_own_buffers(version, sf):
+def test_constants_from_jax_equal_own_buffers(version, sf,
+                                              jax_standard_24k):
     own = Layer3SegmentEncoder(version, sf, "cpu")
     loaded = Layer3SegmentEncoder(version, sf, "cpu") \
         .load_numpy_constants(_jax_constants(version, sf))

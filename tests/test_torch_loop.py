@@ -16,6 +16,7 @@ from mp3tpu.ops import jaxdsp, jaxloop, jaxpsy
 from mp3tpu.tables import mpeg
 from mp3tpu_torch.ops import loop
 from test_torch_hist_c1_card import random_batch
+from test_torch_lsf_standard import jax_standard_24k  # noqa: F401
 
 # the CPU path is thousands of small ops: intra-op threads only contend
 # with the other test processes
@@ -32,7 +33,7 @@ def tables():
         loop.static_tables(mpeg.MPEG1, 0), "cpu")
 
 
-def test_static_tables_equal_jax():
+def test_static_tables_equal_jax(jax_standard_24k):
     for version in (mpeg.MPEG1, mpeg.MPEG2_LSF):
         for sf in (0, 1, 2):
             ref = jaxloop._static(version, sf)

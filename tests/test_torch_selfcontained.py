@@ -57,6 +57,7 @@ from mp3tpu_torch.tables import huffman as t_huffman
 from mp3tpu_torch.tables import layer12 as t_layer12
 from mp3tpu_torch.tables import mpeg as t_mpeg
 from mp3tpu_torch.tables import psy as t_psy
+from test_torch_lsf_standard import jax_standard_24k  # noqa: F401
 
 # the CPU path is thousands of small ops: intra-op threads only contend
 # with the other test processes
@@ -180,7 +181,7 @@ TABLES = [(j_mpeg, t_mpeg), (j_huffman, t_huffman), (j_dsp, t_dsp),
 
 @pytest.mark.parametrize("pair", TABLES,
                          ids=[j.__name__.split(".")[-1] for j, _ in TABLES])
-def test_table_module_values_equal(pair):
+def test_table_module_values_equal(pair, jax_standard_24k):
     jmod, tmod = pair
     jv, tv = _values(jmod), _values(tmod)
     assert jv.keys() == tv.keys()
@@ -199,7 +200,7 @@ def test_huff_fields_equal():
                               t_huffman.HUFF.count1_hlen(which))
 
 
-def test_psy_params_equal():
+def test_psy_params_equal(jax_standard_24k):
     for rate in (16000, 22050, 24000, 32000, 44100, 48000):
         assert _equal(j_psy.psy_params_for_sfreq(rate),
                       t_psy.psy_params_for_sfreq(rate)), rate

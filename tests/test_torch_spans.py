@@ -4,7 +4,9 @@ the CPU: a traced encode of ``encode_layer3_fast``,
 its path as many times as its segments, clips and groups ask, and gives
 the untraced encode's bytes; with no profiler running a span touches no
 profiler machinery, so the encodes run with ``record_function`` made to
-raise."""
+raise.  ``settle``'s re-encodes open a span of their cause around
+their ``run_final``: ``guard_retry`` and ``rebucket``, each forced on a
+1 s clip."""
 import collections
 import json
 
@@ -17,17 +19,18 @@ from mp3tpu_torch.parallel.corpus import encode_corpus_batched
 from mp3tpu_torch.runtime import profiling
 from mp3tpu_torch.tables import mpeg
 from mp3tpu_torch.tools.signals import make_signal
+from test_torch_one_wait import _force_one_retry
 
 torch.set_num_threads(1)
 
 L3_KW = dict(layer=3, mode=mpeg.MODE_STEREO, bitrate_kbps=128)
 
 
-def _one_shot():
+def _one_shot(**kw):
     """A 1 s stereo clip: one segment."""
     return [encode_layer3_fast(make_signal(1.0, 44100),
                                EncoderConfig(sample_rate_hz=44100, **L3_KW),
-                               "cpu")]
+                               "cpu", **kw)]
 
 
 def _corpus():
@@ -51,7 +54,7 @@ def _layer12():
 WANT = {
     "encode_layer3_fast": (_one_shot, profiling.SPANS, dict(
         dict.fromkeys(profiling.SPANS, 1), outer_loop=2, upload=2,
-        run_final=0)),
+        **dict.fromkeys(profiling.ON_RETRY, 0))),
     "encode_corpus_batched": (_corpus, profiling.SPANS
                               + profiling.SPANS_CORPUS, dict(
         # once a call
@@ -66,7 +69,8 @@ WANT = {
         granule_payload=2, compact_payload=2, pack_state=2, fetch_async=2,
         fetch=2,
         # the one segment program and the one-shot scan span: not here
-        encode_segment_fused=0, scan_budgets=0, run_final=0)),
+        encode_segment_fused=0, scan_budgets=0,
+        **dict.fromkeys(profiling.ON_RETRY, 0))),
     "encode_layer12_fast": (_layer12, profiling.SPANS_L12, dict(
         dict.fromkeys(profiling.SPANS_L12, 1), joint_mode=0, quantize_l1=0,
         quantize_l2=2)),
@@ -109,3 +113,61 @@ def test_every_span_name_is_listed_once():
     l3 = profiling.SPANS + profiling.SPANS_CORPUS + profiling.SPANS_SHARDED
     assert len(set(l3)) == len(l3)
     assert set(profiling.ON_RETRY) <= set(profiling.SPANS)
+
+
+def _spans(fn, tmp_path):
+    """(name, start, end) of each span of `fn()` traced, by start."""
+    with profiling.trace(str(tmp_path), "cpu"):
+        out = fn()
+    with open(tmp_path / "trace.json") as f:
+        spans = sorted(((e["name"], e["ts"], e["ts"] + e["dur"])
+                        for e in json.load(f)["traceEvents"]
+                        if e.get("cat") == "user_annotation"),
+                       key=lambda s: s[1])
+    return out, spans
+
+
+def _named(spans, name):
+    return [(s, e) for n, s, e in spans if n == name]
+
+
+def _inside(spans, outer):
+    s0, e0 = outer
+    return [n for n, s, e in spans
+            if s0 <= s and e <= e0 and (s, e) != (s0, e0)]
+
+
+def test_a_guard_retry_is_one_guard_retry_span(monkeypatch, tmp_path):
+    """One overdraw: one ``guard_retry`` inside ``settle``, holding the
+    scan's fetch and the one ``run_final``; no ``rebucket``."""
+    _force_one_retry(monkeypatch)
+    _, spans = _spans(_one_shot, tmp_path)
+    (s0, e0), = _named(spans, "settle")
+    (s1, e1), = _named(spans, "guard_retry")
+    assert s0 <= s1 and e1 <= e0
+    inner = _inside(spans, (s1, e1))
+    assert inner.count("run_final") == 1 and inner.count("fetch") == 2
+    assert len(_named(spans, "run_final")) == 1
+    assert not _named(spans, "rebucket")
+
+
+def test_a_granule_past_its_payload_row_is_a_rebucket_span(tmp_path):
+    """A payload row of 8 words, narrower than the clip's granules: each
+    re-bucket a ``rebucket`` holding one ``run_final``, the first the
+    scan's fetch too; every ``run_final`` inside one; no guard retry."""
+    want = _one_shot(pw=8)
+    out, spans = _spans(lambda: _one_shot(pw=8), tmp_path)
+    assert out == want
+    rebuckets = _named(spans, "rebucket")
+    assert rebuckets and not _named(spans, "guard_retry")
+    assert [_inside(spans, r).count("run_final") for r in rebuckets] == \
+        [1] * len(rebuckets)
+    assert _inside(spans, rebuckets[0]).count("fetch") == 2
+    assert len(_named(spans, "run_final")) == len(rebuckets)
+
+
+def test_a_clean_encode_opens_no_reencode_span(tmp_path):
+    """A 1 s clip that passes both guards at once re-encodes nothing."""
+    _, spans = _spans(_one_shot, tmp_path)
+    assert _named(spans, "settle")
+    assert not any(_named(spans, n) for n in profiling.ON_RETRY)

@@ -56,7 +56,8 @@ def test_trace_on_cpu_holds_every_span(tmp_path):
     # one segment: its program, two rate loops, one assembly; its blocks
     # filled and uploaded (two upload spans); no re-encode
     assert {n: names.count(n) for n in SPANS} == dict(
-        dict.fromkeys(SPANS, 1), outer_loop=2, upload=2, run_final=0)
+        dict.fromkeys(SPANS, 1), outer_loop=2, upload=2,
+        **dict.fromkeys(ON_RETRY, 0))
     bd = trace_stages.span_breakdown(str(tmp_path / "trace.json"))
     assert bd["device_events"] == 0 and bd["unlinked_events"] == 0
     seg = bd["spans"]["encode_segment_fused"]
