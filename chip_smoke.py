@@ -159,7 +159,8 @@ Phases, each printing its own lines; any failure exits non-zero:
      key, torch.cuda.memory_reserved before and after); the six fixtures
      of tests/test_layer12_fast.py at their reference bars and the two
      CRC fixtures decoding, each equal byte for byte to the yardstick
-     form (tools.yardstick_form: the analysis op by op) and to the host
+     form (tools.yardstick_form: the analysis and the back half op by
+     op; the card chain replays both as graphs of one key) and to the host
      route it replaced (l12_host_route: runtime/alloc12,
      _marshal_layer12 with _crc_calc, pack_elements); K5 and its first
      design (allocate_baseline) against their plain version
@@ -186,10 +187,14 @@ Phases, each printing its own lines; any failure exits non-zero:
      card chain's stages are spans, read from its trace), one
      profiled encode of each (device events, idle share), one traced
      encode of each (span_breakdown by runtime.profiling.SPANS_L12; the
-     card chain's analyze_frames span under 20 host dispatches), and
-     the host's waits by torch's count: 1 an encode, one a window of
-     encode_layer12_stream, whose warm windows replay their analysis
-     graphs and capture none; the same bytes as the host route and the
+     card chain's analyze_frames span under 20 host dispatches, its one
+     _layer12_back span holding one K5 and one K6 event under 8 host
+     dispatches of its own; the yardstick's K5 and K6 under
+     greedy_allocation and pack_elements), the key's capture seconds by
+     graph, and the host's waits by torch's count: 1 an encode, one a
+     window of encode_layer12_stream, whose warm windows replay their
+     analysis and back-half graphs and capture none; the same bytes as
+     the host route and the
      yardstick form at joint
      stereo with the CRC on at both layers, at stereo with the CRC, and
      at 24 kHz (LSF); psy model 1 (on the host) with 2 waits; the Layer
@@ -1625,12 +1630,12 @@ def waits_of(counts):
 #: as do settle's retries; the sharded path runs its analysis as two
 #: graphs around the automaton's exchange between ranks
 #: (parallel/clip.py), then the rate loop and the emission; the Layer I/II
-#: encode replays its analysis
+#: encode replays its analysis and, with psy model 2, its back half
 ONE_GRAPH_STAGES = ("segment",)
 SEGMENT_STAGES = ("analysis", "prologue", "iteration", "emission")
 SHARDED_ANALYSIS = ("sharded_psy", "sharded_spectra")
 SHARDED_STAGES = SHARDED_ANALYSIS + ("prologue", "iteration", "emission")
-L12_STAGES = ("l12_analysis",)
+L12_STAGES = ("l12_analysis", "l12_back")
 
 
 def read_counts(ctx, path, stages=ONE_GRAPH_STAGES, k4=True):
@@ -1658,7 +1663,7 @@ def read_counts(ctx, path, stages=ONE_GRAPH_STAGES, k4=True):
             fail(f"the {path} ran graphs of the staged form {staged}: "
                  f"{counts}")
     for kernel in ("bits_at", "baseline", "alloc12", "alloc12_baseline",
-                   "pack12", "l12_analysis_replays"):
+                   "pack12", "l12_analysis_replays", "l12_back_replays"):
         if counts[kernel]:
             fail(f"the {path} launched {kernel} {counts[kernel]} times")
     if k4 and (counts["resv_scan"] <= 0 or counts["syncs"]
@@ -2047,30 +2052,33 @@ def l12_cfg(ctx, layer, mode, kbps, rate=44100, crc=False):
 
 def l12_launches(ctx, path, run):
     """run() with the counts reset before and read after; fails unless it
-    launched K5 and K6 once each, K5's first design and no Layer III
-    kernel, and captured or replayed its analysis graph once and no
-    Layer III graph.  Returns (run()'s result, the counts)."""
+    launched K5 and K6 once each (eagerly or in a replay of the back
+    half's graph), K5's first design and no Layer III kernel, and
+    captured or replayed its analysis graph and its back half's graph
+    once each and no Layer III graph.  Returns (run()'s result, the
+    counts)."""
     reset_counts(ctx)
     out = run()
     counts = launch_counts(ctx)
     if (counts["alloc12"], counts["pack12"]) != (1, 1) or any(
             counts[k] for k in ("alloc12_baseline", "search", "bits_at",
-                                "hist_c1", "baseline", "resv_scan")) or \
-            (counts["l12_analysis_captures"]
-             + counts["l12_analysis_replays"]) != 1 or any(
+                                "hist_c1", "baseline", "resv_scan")) or any(
+                counts[f"{s}_captures"] + counts[f"{s}_replays"] != 1
+                for s in L12_STAGES) or any(
                 counts[f"{s}_{kind}"] for s in ONE_GRAPH_STAGES
                 + SEGMENT_STAGES + SHARDED_ANALYSIS
                 for kind in ("captures", "replays")):
         fail(f"{path}: launches {counts} (expected K5 1, K6 1, K5's first "
-             f"design 0, no Layer III kernel; one analysis graph, no Layer "
-             f"III graph)")
+             f"design 0, no Layer III kernel; one analysis graph and one "
+             f"back-half graph, no Layer III graph)")
     return out, counts
 
 
 def l12_capture(ctx, run):
-    """run() with K5's and K6's wrappers recorded at their entry (the
-    encoder looks them up at each call): ([allocate args], [pack_frames
-    args])."""
+    """run() in ``tools.yardstick_form()`` (the op-by-op chain: a replay
+    calls no wrapper, and a capture's arguments are never computed) with
+    K5's and K6's wrappers recorded at their entry (the encoder looks them
+    up at each call): ([allocate args], [pack_frames args])."""
     A12, P12 = ctx["A12"], ctx["P12"]
     real_a, real_p = A12.allocate, P12.pack_frames
     seen_a, seen_p = [], []
@@ -2085,7 +2093,8 @@ def l12_capture(ctx, run):
 
     A12.allocate, P12.pack_frames = rec_a, rec_p
     try:
-        run()
+        with yardstick_form():
+            run()
     finally:
         A12.allocate, P12.pack_frames = real_a, real_p
     return seen_a, seen_p
@@ -2213,7 +2222,8 @@ class SyncStages:
 
 def l12_yardstick(pcm, cfg, device):
     """``encode_layer12_fast`` in ``tools.yardstick_form()``: the card chain
-    with its analysis op by op (``layer12.analyze_frames_eager``)."""
+    op by op, its analysis (``layer12.analyze_frames_eager``) and its back
+    half (``encoder._layer12_eager``)."""
     from mp3tpu_torch.encoder import encode_layer12_fast
     with yardstick_form():
         return encode_layer12_fast(pcm, cfg, device)
@@ -2221,7 +2231,8 @@ def l12_yardstick(pcm, cfg, device):
 
 def l12_route_fns(ctx):
     """The Layer I/II routes phase 8 compares: the host route, the card
-    chain with its analysis op by op, the card chain."""
+    chain op by op, the card chain (the analysis and the back half
+    replayed)."""
     return {"host": l12_host_route, "yardstick": l12_yardstick,
             "card": ctx["E"].encode_layer12_fast}
 
@@ -2301,13 +2312,40 @@ def l12_routes(ctx, pcm, cfg_of, label):
 #: the copy into the graph's static input, the replay, the outputs' clones
 #: and the streams' waits
 L12_MAX_DISPATCHES = 20
-#: the kernels the card chain's spans must hold: span, a part of the
-#: kernel's name in the trace
-L12_SPAN_KERNELS = (("greedy_allocation", "alloc12_kernel<"),
-                    ("pack_elements", "pack12_kernel("))
-#: the most traced card-chain encodes l12_trace takes to find each of
+#: the most host dispatches the card chain's _layer12_back span may make:
+#: the back half's replay and the copy of K6's buffer (op by op the back
+#: half makes about 280)
+L12_BACK_MAX_DISPATCHES = 8
+#: the kernels each route's spans must hold: span, a part of the kernel's
+#: name in the trace; the op-by-op route ("yardstick") launches K5 and K6
+#: under their own spans, the card chain in the back half's replay, under
+#: _layer12_back
+L12_SPAN_KERNELS = {
+    "yardstick": (("greedy_allocation", "alloc12_kernel<"),
+                  ("pack_elements", "pack12_kernel(")),
+    "card": (("_layer12_back", "alloc12_kernel<"),
+             ("_layer12_back", "pack12_kernel("))}
+#: the most traced encodes l12_trace takes of a route to find each of its
 #: L12_SPAN_KERNELS under its span
 L12_TRACE_TRIES = 3
+
+
+def kernels_under(path, span, word):
+    """The device events in a trace() file of the kernel named by `word`
+    whose launching host call lies inside a span `span` (nested spans
+    included)."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "user_annotation" and e["name"] == span]
+    launch = {e["args"]["correlation"]: e["ts"] for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})}
+    return sum(1 for e in events if e.get("cat") in DEVICE_CATS
+               and word in e["name"] and any(
+                   s <= launch.get(e.get("args", {}).get("correlation"),
+                                   -1) <= t for s, t in spans))
 
 
 def kernel_whereabouts(path, span, word):
@@ -2342,8 +2380,10 @@ def kernel_whereabouts(path, span, word):
 
 def l12_trace_route(fn, pcm, cfg_of, label, route, want):
     """One traced encode of `route`: (span_breakdown by SPANS_L12, host
-    wall s, the names of L12_SPAN_KERNELS' spans with no device event of
-    their own, {span: kernel_whereabouts}); fails on other bytes."""
+    wall s, {(span, kernel): its device events under the span} of the
+    route's L12_SPAN_KERNELS, those with none as [(span, kernel)],
+    {(span, kernel): kernel_whereabouts} of those); fails on other
+    bytes."""
     from mp3tpu_torch.runtime.profiling import SPANS_L12, trace
     from mp3tpu_torch.tools.trace_stages import span_breakdown
     with tempfile.TemporaryDirectory() as tmp:
@@ -2353,10 +2393,10 @@ def l12_trace_route(fn, pcm, cfg_of, label, route, want):
             wall = time.perf_counter() - t0
         path = os.path.join(tmp, "trace.json")
         bd = span_breakdown(path, SPANS_L12)
-        empty = [s for s, _ in L12_SPAN_KERNELS
-                 if bd["spans"][s]["self_device_events"] < 1]
-        where = {s: kernel_whereabouts(path, s, w)
-                 for s, w in L12_SPAN_KERNELS} if empty else {}
+        bd["kernels"] = {sw: kernels_under(path, *sw)
+                         for sw in L12_SPAN_KERNELS.get(route, ())}
+        empty = [sw for sw, n in bd["kernels"].items() if n < 1]
+        where = {sw: kernel_whereabouts(path, *sw) for sw in empty}
     if out != want:
         fail(f"{label}: the traced {route} route gave other bytes")
     return bd, wall, empty, where
@@ -2364,27 +2404,32 @@ def l12_trace_route(fn, pcm, cfg_of, label, route, want):
 
 def l12_trace(ctx, pcm, cfg_of, label, want):
     """One traced encode of each route: span_breakdown by the spans of
-    runtime.profiling.SPANS_L12, and the card chain's K5 and K6 kernel
-    events (one each, under greedy_allocation and pack_elements); fails
-    if the card chain's analyze_frames span makes L12_MAX_DISPATCHES host
-    dispatches or more.  torch.profiler has, on a rare run, given a
-    trace with no device event under greedy_allocation (none in 220
-    traced encodes on an H100 80GB HBM3), so the card chain is traced
-    again, up to L12_TRACE_TRIES encodes in all, while a kernel is
-    missing from its span; each miss is printed with where the trace put
-    that kernel."""
+    runtime.profiling.SPANS_L12, and K5's and K6's kernel events: on the
+    op-by-op route ("yardstick") one each, under greedy_allocation and
+    pack_elements, each of those spans once; on the card chain one each
+    under its one _layer12_back span (the back half's replay), which
+    makes fewer than L12_BACK_MAX_DISPATCHES host dispatches, and no
+    greedy_allocation, _marshal_layer12 or
+    pack_elements span; fails if the card chain's analyze_frames span
+    makes L12_MAX_DISPATCHES host dispatches or more.  torch.profiler
+    has, on a rare run, given a trace with no device event under
+    greedy_allocation (none in 220 traced encodes on an H100 80GB HBM3),
+    so a route is traced again, up to L12_TRACE_TRIES encodes in all,
+    while a kernel is missing from its span; each miss is printed with
+    where the trace put that kernel."""
     from mp3tpu_torch.runtime.profiling import SPANS_L12
     res = {}
     for route, fn in l12_route_fns(ctx).items():
         for attempt in range(1, L12_TRACE_TRIES + 1):
             bd, wall, empty, where = l12_trace_route(fn, pcm, cfg_of, label,
                                                      route, want)
-            if route != "card" or not empty:
+            if not empty:
                 break
-            print(f"{label}, card route traced (encode {attempt} of at "
-                  f"most {L12_TRACE_TRIES}): no device event under "
-                  f"{', '.join(empty)}: " + "; ".join(
-                      f"{s}: {w}" for s, w in where.items()), flush=True)
+            print(f"{label}, {route} route traced (encode {attempt} of at "
+                  f"most {L12_TRACE_TRIES}): no device event of "
+                  f"{', '.join(f'{w} under {s}' for s, w in empty)}: "
+                  + "; ".join(f"{s}: {w}" for (s, _), w in where.items()),
+                  flush=True)
         res[route] = bd
         print(f"{label}, {route} route traced: {wall:.4f} s, "
               f"{bd['device_events']} device events "
@@ -2398,16 +2443,36 @@ def l12_trace(ctx, pcm, cfg_of, label, want):
                       f"), device events {r['device_events']}, device "
                       f"{r['device_s'] * 1e3:.3f} ms, host dispatches "
                       f"{r['host_dispatches']}", flush=True)
+    eager = res["yardstick"]["spans"]
+    for name in ("analyze_frames", "_layer12_back", "greedy_allocation",
+                 "_marshal_layer12", "pack_elements", "fetch"):
+        if eager[name]["count"] != 1:
+            fail(f"{label}: the op-by-op chain's trace holds span {name} "
+                 f"{eager[name]['count']} times")
+    for route in L12_SPAN_KERNELS:
+        for (name, word), n in res[route]["kernels"].items():
+            if n != 1:
+                fail(f"{label}: {n} device events of {word} under {name} "
+                     f"in the {route} route's last of at most "
+                     f"{L12_TRACE_TRIES} traces (expected 1)")
     card = res["card"]["spans"]
-    for name in ("analyze_frames", "greedy_allocation", "_marshal_layer12",
-                 "pack_elements", "fetch"):
-        if card[name]["count"] != 1:
+    for name, n in (("analyze_frames", 1), ("_layer12_back", 1),
+                    ("fetch", 1), ("greedy_allocation", 0),
+                    ("_marshal_layer12", 0), ("pack_elements", 0)):
+        if card[name]["count"] != n:
             fail(f"{label}: the card chain's trace holds span {name} "
-                 f"{card[name]['count']} times")
-    for name, _ in L12_SPAN_KERNELS:
-        if card[name]["self_device_events"] < 1:
-            fail(f"{label}: no device event under {name} in "
-                 f"{L12_TRACE_TRIES} traces")
+                 f"{card[name]['count']} times (expected {n})")
+    back = card["_layer12_back"]["host_dispatches"]
+    print(f"{label}, card route: _layer12_back made {back} host "
+          f"dispatches and launched {card['_layer12_back']['device_events']}"
+          f" device events, analyze_frames "
+          f"{card['analyze_frames']['host_dispatches']} dispatches; the "
+          f"op-by-op back half {eager['_layer12_back']['host_dispatches']} "
+          f"dispatches", flush=True)
+    if back >= L12_BACK_MAX_DISPATCHES:
+        fail(f"{label}: the card chain's _layer12_back span made {back} "
+             f"host dispatches (fewer than {L12_BACK_MAX_DISPATCHES} "
+             f"expected)")
     if card["analyze_frames"]["host_dispatches"] >= L12_MAX_DISPATCHES or \
             card["analyze_frames"]["device_events"] < 1:
         fail(f"{label}: the card chain's analyze_frames span made "
@@ -2439,15 +2504,15 @@ def l12_waits(ctx, pcm, cfg_of, label):
         return b"".join(E.encode_layer12_stream(iter(pieces), cfg_of(),
                                                 "cuda"))
 
-    stream()                    # warm: each window shape's analysis graph
+    stream()                    # warm: each window shape's graphs
     reset_counts(ctx)
     streamed, swhere = torch_waits(ctx, stream)
     counts = launch_counts(ctx)
-    if (counts["l12_analysis_captures"],
-            counts["l12_analysis_replays"]) != (0, windows):
-        fail(f"{label} stream: analysis graphs captured "
-             f"{counts['l12_analysis_captures']}, replayed "
-             f"{counts['l12_analysis_replays']} (expected 0 and {windows})")
+    for s in L12_STAGES:
+        if (counts[f"{s}_captures"], counts[f"{s}_replays"]) != (0, windows):
+            fail(f"{label} stream: {s} graphs captured "
+                 f"{counts[f'{s}_captures']}, replayed "
+                 f"{counts[f'{s}_replays']} (expected 0 and {windows})")
     if streamed != out or sum(swhere.values()) != windows:
         fail(f"{label} stream: equal {streamed == out}, waits "
              f"{sum(swhere.values())} (expected {windows}): {swhere}")
@@ -2458,9 +2523,9 @@ def l12_waits(ctx, pcm, cfg_of, label):
              f"design's {counts['alloc12_baseline']}")
     print(f"{label}: host waits of a warm encode {where}; the stream in 1 s "
           f"pieces at 512 frames a window equals the one-shot with "
-          f"{windows} waits, one a window, its analysis graphs replayed "
-          f"{windows} times; K5 launched {windows} times, its first design "
-          f"none", flush=True)
+          f"{windows} waits, one a window, its analysis and back-half graphs "
+          f"replayed {windows} times each; K5 launched {windows} times, its "
+          f"first design none", flush=True)
     return dict(windows=windows, alloc12=counts["alloc12"],
                 pack12=counts["pack12"],
                 alloc12_baseline=counts["alloc12_baseline"])
@@ -2672,6 +2737,10 @@ def phase_layer12(ctx):
         allocated.append(torch.cuda.memory_allocated())
         out, counts = l12_launches(
             ctx, label, lambda: encode_layer12_fast(pcm, cfg_of(), "cuda"))
+        torch.cuda.synchronize()
+        reserved.append(torch.cuda.memory_reserved())
+        allocated.append(torch.cuda.memory_allocated())
+        chain = next(reversed(L12.GRAPHS.entries.values()))
         took = [k[3] for k in seen["keys"] if k[0] == label]
         print(f"{label} {CLIP_SECONDS:g} s: the analysis graph captured "
               f"{f'in {took[0]:.1f} ms' if took else 'before'}; "
@@ -2681,6 +2750,12 @@ def phase_layer12(ctx):
               f"{allocated[0] / 2**20:.1f} MiB before, "
               f"{allocated[1] / 2**20:.1f} MiB after: the key's static "
               f"tensors); the encode's counts {counts}", flush=True)
+        print(f"{label} {CLIP_SECONDS:g} s: the encode's key captured its "
+              f"graphs in " + ", ".join(
+                  f"{g} {1e3 * t:.1f} ms" for g, t in chain.capture_s.items())
+              + f"; memory_reserved {reserved[2] / 2**20:.1f} MiB after "
+              f"(memory_allocated {allocated[2] / 2**20:.1f} MiB)",
+              flush=True)
         alloc_args, pack_args = l12_capture(
             ctx, lambda: encode_layer12_fast(pcm, cfg_of(), "cuda"))
         steps, total = check5(label, alloc_args[0])

@@ -759,12 +759,18 @@ def _to_device(arr, dtype, dev):
     return upload(host, dev)
 
 
+def _layer12_upload(pcm, dev):
+    """The framed PCM on `dev`, uploaded once in its own dtype (int16:
+    half the bytes of float32)."""
+    return _to_device(pcm, torch.int16 if pcm.dtype == np.int16
+                      else torch.float32, dev)
+
+
 def _layer12_analysis(pcm, P, dev):
-    """The framed PCM uploaded once, in its own dtype (int16: half the
-    bytes of float32), and ``ops/layer12.analyze_frames`` on `dev`."""
-    pcm_d = _to_device(pcm, torch.int16 if pcm.dtype == np.int16
-                       else torch.float32, dev)
-    return L12.analyze_frames(pcm_d, P.layer, P.sblimit, P.nch, P.sfreq_hz)
+    """The framed PCM uploaded once and ``ops/layer12.analyze_frames`` on
+    `dev`."""
+    return L12.analyze_frames(_layer12_upload(pcm, dev), P.layer, P.sblimit,
+                              P.nch, P.sfreq_hz)
 
 
 @span("_layer12_quantize")
@@ -789,39 +795,93 @@ def _layer12_quantize(ana, P, jsbound, ba):
         [quant(sb[1], sc[1], ba[:, 1])] if P.nch == 2 else []))
 
 
-def _layer12_back(ana, cfg, P, pcm):
-    """The back half of a Layer I/II encode on the analysis' device: the
-    SMR in float64, K5 (the joint decision and the greedy allocation), the
-    quantizers with the joint samples above jsbound, ``marshal_frames`` and
-    K6.  Returns K6's buffer (``ops/pack12.split``), still on the device;
-    on a CPU tensor the plain versions run.  With psy model 1 the SMR is
-    computed on the host from the downloaded subband samples
-    (``numpy_ref.tonal.psycho_one_frames``) and uploaded: one more wait."""
-    dev = ana["sb"].device
-    layer, nch = P.layer, P.nch
+def _layer12_k5_inputs(ana, P, snr):
+    """K5's inputs from the analysis outputs: the SMR (F, 2, 32) float64
+    of `snr` (nch, F, 32) and, for Layer II, the scfsi (F, 2, 32) int32;
+    for mono channel 1 is a copy of channel 0."""
+    nch = P.nch
+    smr = torch.stack([snr[0], snr[nch - 1]], dim=1).to(torch.float64)
+    if P.layer == 1:
+        return smr.contiguous(), None
+    scfsi = ana["scfsi"]
+    return smr.contiguous(), torch.stack([scfsi[0], scfsi[nch - 1]],
+                                         dim=1).to(torch.int32)
+
+
+def _layer12_elements(ana, cfg, P, alloc):
+    """The quantizers at K5's allocation `alloc` and ``marshal_frames``:
+    K6's (values, lengths, CRC range)."""
+    jsbound = alloc["jsbound"]
+    codes = _layer12_quantize(ana, P, jsbound, alloc["ba"])
+    return L12.marshal_frames(
+        cfg, P.layer, P.table, P.sblimit, P.nch, alloc["mode"],
+        alloc["mode_ext"], jsbound, alloc["ba"], ana.get("scfsi"),
+        ana["scalar"], codes, alloc["adb_left"], P.adb)
+
+
+def _back_ops(ana, cfg, P, pcm=None):
+    """The back half op by op on the analysis' device: the SMR in
+    float64, K5 (the joint decision and the greedy allocation), the
+    quantizers with the joint samples above jsbound, ``marshal_frames``
+    and K6.  Returns K6's buffer (``ops/pack12.split``), still on the
+    device; on a CPU tensor the plain versions run.  With psy model 1 the
+    SMR is computed on the host from the downloaded subband samples of
+    `pcm`'s analysis (``numpy_ref.tonal.psycho_one_frames``) and
+    uploaded: one more wait."""
     with scope("_layer12_back.smr"):
+        snr = ana["snr"]
         if cfg.psy_model == 1:
             from .numpy_ref.tonal import psycho_one_frames
             snr = _to_device(psycho_one_frames(
-                pcm.astype(np.float64), layer, cfg,
-                ana["sb"].cpu().numpy()), torch.float64, dev)
-        else:
-            snr = ana["snr"].to(torch.float64)            # (nch, F, 32)
-        smr = torch.stack([snr[0], snr[nch - 1]], dim=1)  # (F, 2, 32)
-        scfsi = ana["scfsi"] if layer == 2 else None
-        scfsi_fc = (torch.stack([scfsi[0], scfsi[nch - 1]], dim=1)
-                    .to(torch.int32) if layer == 2 else None)
-
-    alloc = A12.allocate(smr.contiguous(), scfsi_fc, layer, P.table, nch,
-                         P.sblimit, P.adb, cfg.error_protection, P.joint,
-                         cfg.mode)
-    jsbound = alloc["jsbound"]
-    codes = _layer12_quantize(ana, P, jsbound, alloc["ba"])
-    values, lengths, crc = L12.marshal_frames(
-        cfg, layer, P.table, P.sblimit, nch, alloc["mode"],
-        alloc["mode_ext"], jsbound, alloc["ba"], scfsi, ana["scalar"],
-        codes, alloc["adb_left"], P.adb)
+                pcm.astype(np.float64), P.layer, cfg,
+                ana["sb"].cpu().numpy()), torch.float64, ana["sb"].device)
+        smr, scfsi = _layer12_k5_inputs(ana, P, snr)
+    alloc = A12.allocate(smr, scfsi, P.layer, P.table, P.nch, P.sblimit,
+                         P.adb, cfg.error_protection, P.joint, cfg.mode)
+    values, lengths, crc = _layer12_elements(ana, cfg, P, alloc)
     return P12.pack_frames(values, lengths, P.frame_bytes, crc)
+
+
+#: ``_back_ops`` in the span _layer12_back: the back half of the
+#: op-by-op route
+_layer12_back = span("_layer12_back")(_back_ops)
+
+
+#: the configuration's values that the back half bakes into its graph
+#: besides the plan's (``_back_key``): the header's fields, the CRC's
+#: switch and the mode
+BACK_FIELDS = ("version", "bitrate_index", "sampling_frequency",
+               "extension", "copyright", "original", "emphasis",
+               "error_protection", "mode")
+
+
+def _back_key(cfg, P):
+    """Every Python value that the back half bakes into a captured graph:
+    ``BACK_FIELDS`` of `cfg` and the plan's layer, nch, joint, adb,
+    frame_bytes, table and sblimit, so that two configurations that differ
+    in any of them never share a graph."""
+    return (tuple((k, getattr(cfg, k)) for k in BACK_FIELDS),
+            tuple((k, getattr(P, k)) for k in (
+                "layer", "nch", "joint", "adb", "frame_bytes", "table",
+                "sblimit")))
+
+
+def _layer12_eager(pcm, cfg, P, dev):
+    """The op-by-op route: the upload, ``analyze_frames`` (one graph a
+    key on the card, its outputs cloned) and ``_layer12_back``; K6's
+    buffer on `dev`."""
+    return _layer12_back(_layer12_analysis(pcm, P, dev), cfg, P, pcm)
+
+
+def _layer12_replayed(pcm, cfg, P, dev):
+    """The replayed route on a CUDA device with psy model 2: the upload,
+    then the analysis and the back half as two CUDA graphs of one key
+    (``ops/layer12.encode_frames``, the back half's replay and the copy
+    of K6's buffer in the span _layer12_back); K6's buffer on `dev`."""
+    return L12.encode_frames(_layer12_upload(pcm, dev), P.layer, P.sblimit,
+                             P.nch, P.sfreq_hz,
+                             lambda ana: _back_ops(ana, cfg, P),
+                             _back_key(cfg, P))
 
 
 @span("_fetch_frames")
@@ -840,15 +900,17 @@ def encode_layer12_fast(pcm, cfg: EncoderConfig, device):
     """Layer I/II encode of int16 PCM on `device`, as one chain queued on
     the device: the PCM uploaded once (int16 PCM as int16, any other as
     float32), the analysis (filterbank, psy model 2, scale factors, scfsi:
-    ``ops/layer12.py``, one CUDA graph a frame count on the card), K5
-    (the joint decision and the greedy bit allocation,
-    ``ops/alloc12.py``), the quantizers,
-    the element marshalling (``marshal_frames``) and K6 (every frame packed
-    into its fixed byte range with its CRC, ``ops/pack12.py``); then the
-    bytes and K6's status come back in one download.  On a CUDA device the
-    host waits once an encode with psy model 2, twice with psy model 1
-    (which runs on the host: the subband samples come back for it and its
-    SMR goes up).  On the CPU the same chain runs the kernels' plain
+    ``ops/layer12.py``), K5 (the joint decision and the greedy bit
+    allocation, ``ops/alloc12.py``), the quantizers, the element
+    marshalling (``marshal_frames``) and K6 (every frame packed into its
+    fixed byte range with its CRC, ``ops/pack12.py``); then the bytes and
+    K6's status come back in one download.  On a CUDA device with psy
+    model 2 the chain replays two CUDA graphs of one key, the analysis and
+    the back half (``_layer12_replayed``), and the host waits once an
+    encode; with psy model 1, which runs on the host (the subband samples
+    come back for it and its SMR goes up), the analysis replays its graph
+    and the back half runs op by op (``_layer12_eager``), and the host
+    waits twice.  On the CPU the op-by-op route runs the kernels' plain
     versions.  A frame that K6 finds malformed raises after the wait.
     The stream ends in one flush byte, as the JAX package's.
 
@@ -857,8 +919,9 @@ def encode_layer12_fast(pcm, cfg: EncoderConfig, device):
     decoded quality equal."""
     dev = resolve_device(device)
     P, pcm = _layer12_frame(pcm, cfg)
-    ana = _layer12_analysis(pcm, P, dev)
-    return _fetch_frames(_layer12_back(ana, cfg, P, pcm)) + b"\x00"
+    route = (_layer12_replayed if dev.type == "cuda" and cfg.psy_model == 2
+             else _layer12_eager)
+    return _fetch_frames(route(pcm, cfg, P, dev)) + b"\x00"
 
 
 def encode_layer12_stream(pcm_iter, cfg: EncoderConfig, device,

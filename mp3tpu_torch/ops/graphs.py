@@ -9,11 +9,13 @@ staged form (``encode_segment_staged``), which the corpus path and
 ``settle``'s retries run, replays three parts (``SEGMENT_STAGES``): the
 analysis (one graph), the rate loop (``ops/loop.py``: its prologue and
 its iterations, unrolled) and, after the final rate loop, the emission
-and packing (a continuation of the loop's entry).  So do the Layer I/II analysis
-(``ops/layer12.py``, one graph a frame count) and the multi-rank clip's
-analysis (``parallel/clip.py``: psy with the automaton's maps, and the
-spectra, two graphs around the maps' all-gather).  ``graph_counts``
-counts captures and replays by stage (``STAGES``).
+and packing (a continuation of the loop's entry).  So do the Layer I/II
+analysis (``ops/layer12.py``, one graph a frame count; with psy model 2
+a second graph of the same entry, ``run_next``, holds the back half from
+the analysis to K6's buffer) and the multi-rank clip's analysis
+(``parallel/clip.py``: psy with the automaton's maps, and the spectra,
+two graphs around the maps' all-gather).  ``graph_counts`` counts
+captures and replays by stage (``STAGES``).
 
 Every graph of a device is captured into one memory pool and replays on
 one stream, one graph at a time (``LOCK``).  So a tensor that a graph
@@ -39,10 +41,10 @@ import torch
 #: what they count as
 SEGMENT_STAGES = ("analysis", "prologue", "iteration", "emission")
 #: every captured stage: the segment program as one graph, its staged
-#: form's, the Layer I/II analysis and the multi-rank clip's two
-#: analysis graphs
-STAGES = ("segment",) + SEGMENT_STAGES + ("l12_analysis", "sharded_psy",
-                                          "sharded_spectra")
+#: form's, the Layer I/II analysis and back half, and the multi-rank
+#: clip's two analysis graphs
+STAGES = ("segment",) + SEGMENT_STAGES + ("l12_analysis", "l12_back",
+                                          "sharded_psy", "sharded_spectra")
 #: graph captures and replays by stage
 graph_counts = {stage: dict(captures=0, replays=0) for stage in STAGES}
 
@@ -155,17 +157,20 @@ LOCK = threading.Lock()
 
 
 def _launch_counts():
-    """The launch counts of the kernels a graph may hold: K3, bits_at and
-    K4."""
-    from . import bits_at, resv, search   # they import loop, which imports this
-    return search.launches, bits_at.bits_at.launches, resv.launches
+    """The launch counts of the kernels a graph may hold: K3, bits_at, K4,
+    K5 and K6."""
+    from . import alloc12, bits_at, pack12, resv, search  # loop imports this
+    return (search.launches, bits_at.bits_at.launches, resv.launches,
+            alloc12.launches, pack12.launches)
 
 
-def _add_launches(n_search, n_bits_at, n_resv):
-    from . import bits_at, resv, search
+def _add_launches(n_search, n_bits_at, n_resv, n_alloc12, n_pack12):
+    from . import alloc12, bits_at, pack12, resv, search
     search.launches += n_search
     bits_at.bits_at.launches += n_bits_at
     resv.launches += n_resv
+    alloc12.launches += n_alloc12
+    pack12.launches += n_pack12
 
 
 class Captured:
@@ -235,6 +240,22 @@ def run(cache, key, stage, inputs, fn, record, refs=()):
                 t.copy_(inputs[k])
         entry.replay(stage)
     return entry, dropped
+
+
+def run_next(entry, stage, fn, record):
+    """A second program of `entry` (``run``'s), captured whole: fn() reads
+    the entry's static tensors and returns a dict of results.  On the
+    entry's first call of `stage` fn runs eagerly (the warm-up: its
+    results, made outside the pool, become the static outputs) and
+    ``record`` captures it with its results copied into them; otherwise
+    the graph replays.  Returns ``entry.outputs[stage]``, this call's
+    results until the next call of the entry."""
+    if stage in entry.graphs:
+        entry.replay(stage)
+    else:
+        out = entry.outputs[stage] = fn()
+        entry.capture(stage, lambda: assign(out, fn()), record, stage)
+    return entry.outputs[stage]
 
 
 # ---------------------------------------------------------------------------

@@ -14,7 +14,9 @@ and replayed as one CUDA graph a key on the card (``analyze_frames``,
 the JAX package's host marshalling (``encoder._marshal_layer12``), so
 that the whole Layer I/II chain stays on the device: the bit allocation
 between the analysis and the quantizers is K5 (``ops/alloc12.py``), the
-packing after the marshalling K6 (``ops/pack12.py``).
+packing after the marshalling K6 (``ops/pack12.py``).  With psy model 2
+that back half, from the analysis outputs to K6's buffer, is a second
+graph of the analysis' entry (``encode_frames``).
 
 Precision follows the JAX package as its tests run it: filterbank and
 psy in float32 (TF32 is off package-wide), scale factors and
@@ -26,7 +28,7 @@ import numpy as np
 import torch
 
 from ..numpy_ref import psy12 as psy12_ref
-from ..runtime.profiling import span
+from ..runtime.profiling import scope, span
 from ..tables import layer12 as L
 from ..tables import mpeg
 
@@ -215,11 +217,13 @@ analyze_frames_eager = span("analyze_frames")(_analyze_frames)
 
 #: the process's captured analyses (``graphs.GraphCache``), one a key:
 #: the PCM's dtype and frame count, (layer, sblimit, nch, rate) and the
-#: tables.  A key holds its static input and outputs (a 60 s stereo
-#: Layer II clip: 10.6 MB of int16 in, ~39 MB out); the temporaries live
-#: in the device's one graph pool, which every key shares.  A stream at
-#: 512 frames a window makes 3 keys (the first window, the others, the
-#: tail), so 8 hold a stream and a few clip lengths.  A dropped key
+#: tables, and for an analysis with its back half (``encode_frames``) the
+#: Python values the back half bakes in.  A key holds its static input and
+#: outputs (a 60 s stereo Layer II clip: 10.6 MB of int16 in, ~39 MB out,
+#: and K6's 1.4 MB buffer); the temporaries live in the device's one graph
+#: pool, which every key shares.  A stream at 512 frames a window makes 3
+#: keys (the first window, the others, the tail) and the spots' five
+#: lengths 5, so 8 hold a stream and a few clip lengths.  A dropped key
 #: synchronizes the card (``graphs.on_stream``), and its next call runs
 #: eagerly and captures again (capture times and memory: PERF.md §7).
 GRAPHS = graphs.GraphCache(8)
@@ -234,25 +238,28 @@ def _tables(sfreq_hz, device):
             {k: _table(k, device) for k in ("multiple", "scfsi_pattern")})
 
 
-def _key(inputs, layer, sblimit, nch, sfreq_hz):
+def _key(inputs, layer, sblimit, nch, sfreq_hz, back_key=None):
     """A captured analysis is specific to its input's dtype and shape
     (so to the frame count: each count its own graph, as the JAX
     package's jit is, since a product over another batch may round
-    otherwise), to (layer, sblimit, nch, rate) and to its tables."""
-    return graphs.key_of(
+    otherwise), to (layer, sblimit, nch, rate) and to its tables; an
+    analysis with its back half (``encode_frames``) also to `back_key`,
+    every Python value that the back half bakes into its graph."""
+    key = graphs.key_of(
         inputs, dict(layer=layer, sblimit=sblimit, nch=nch,
                      sfreq_hz=float(sfreq_hz)),
         *_tables(sfreq_hz, inputs["pcm"].device))
+    return key if back_key is None else (key, back_key)
 
 
-def _run(inputs, layer, sblimit, nch, sfreq_hz, record):
+def _run(inputs, layer, sblimit, nch, sfreq_hz, record, back_key=None):
     """``analyze_frames``' host side (``graphs.run`` of ``_analyze_frames``,
-    stage "l12_analysis") on the current stream: (entry, the entries the
-    cache dropped)."""
+    stage "l12_analysis") on the current stream, under the key of
+    ``_key``: (entry, the entries the cache dropped)."""
     return graphs.run(
-        GRAPHS, _key(inputs, layer, sblimit, nch, sfreq_hz), "l12_analysis",
-        inputs, lambda i: _analyze_frames(i["pcm"], layer, sblimit, nch,
-                                          sfreq_hz),
+        GRAPHS, _key(inputs, layer, sblimit, nch, sfreq_hz, back_key),
+        "l12_analysis", inputs,
+        lambda i: _analyze_frames(i["pcm"], layer, sblimit, nch, sfreq_hz),
         record, refs=_tables(sfreq_hz, inputs["pcm"].device))
 
 
@@ -271,6 +278,42 @@ def analyze_frames(pcm, layer, sblimit, nch, sfreq_hz):
                           graphs.cuda_graph(dev)),
         lambda entry: {k: v.clone() for k, v in
                        entry.outputs["l12_analysis"].items()})
+
+
+def _run_chain(inputs, layer, sblimit, nch, sfreq_hz, back, back_key,
+               record):
+    """``encode_frames``' host side on the current stream: the analysis
+    (``_run`` under `back_key`, in the span analyze_frames), then, in the
+    span _layer12_back, back(the entry's static analysis outputs) as the
+    entry's second graph (``graphs.run_next``, stage "l12_back") and the
+    copy-out of K6's buffer.  Returns (the copy, the entries the cache
+    dropped); ``entry.outputs["l12_back"]["buf"]`` holds K6's buffer
+    until the next call of the key."""
+    with scope("analyze_frames"):
+        entry, dropped = _run(inputs, layer, sblimit, nch, sfreq_hz, record,
+                              back_key)
+    with scope("_layer12_back"):
+        out = graphs.run_next(
+            entry, "l12_back",
+            lambda: dict(buf=back(entry.outputs["l12_analysis"])), record)
+        return out["buf"].clone(), dropped
+
+
+def encode_frames(pcm, layer, sblimit, nch, sfreq_hz, back, back_key):
+    """The analysis of (nch, F * spf) PCM on a CUDA device and its back
+    half, ``back(analysis outputs)`` -> K6's uint8 buffer, as two CUDA
+    graphs of one key (``GRAPHS``; `back_key`: every Python value that
+    back bakes in), captured on the key's first call and replayed after
+    it.  The back half reads the analysis' static outputs in place: no
+    clone.  The caller gets a copy of K6's buffer, made on the graph
+    stream before any later replay, so that the next call of the key
+    never overwrites bytes whose download is pending.  A capture or
+    replay error raises."""
+    dev = pcm.device
+    return graphs.on_stream(
+        dev, lambda: _run_chain(dict(pcm=pcm), layer, sblimit, nch, sfreq_hz,
+                                back, back_key, graphs.cuda_graph(dev)),
+        lambda buf: buf)
 
 
 @lru_cache(maxsize=None)

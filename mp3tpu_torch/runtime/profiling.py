@@ -81,7 +81,11 @@ SPANS_SHARDED = ("sharded analyze+demand", "sharded final encode",
 #: (``chip_smoke.l12_host_route``) only -- then the host work around
 #: them: ``_layer12_frame`` (the PCM to (nch, F * spf), int16 kept),
 #: ``upload`` (the framed PCM through a pinned buffer; psy model 1's SMR
-#: too), ``_layer12_back.smr`` (the SMR and scfsi stacked for K5),
+#: too), ``_layer12_back`` (the back half, from the analysis outputs to
+#: K6's buffer: op by op, around the spans of the SMR, K5, the quantizers,
+#: the marshalling and K6; on a CUDA device with psy model 2 the back
+#: half's graph replayed and K6's buffer copied out, after the analysis'
+#: span), ``_layer12_back.smr`` (the SMR and scfsi stacked for K5),
 #: ``_layer12_quantize`` (the joint samples chosen above jsbound and the
 #: channels' codes stacked, around ``quantize_l1`` / ``quantize_l2``) and
 #: ``_fetch_frames`` (the download's wait in ``fetch``, K6's status
@@ -89,7 +93,8 @@ SPANS_SHARDED = ("sharded analyze+demand", "sharded final encode",
 SPANS_L12 = ("analyze_frames", "joint_mode", "greedy_allocation",
              "quantize_l1", "quantize_l2", "_marshal_layer12",
              "pack_elements", "fetch", "_layer12_frame", "upload",
-             "_layer12_back.smr", "_layer12_quantize", "_fetch_frames")
+             "_layer12_back", "_layer12_back.smr", "_layer12_quantize",
+             "_fetch_frames")
 #: on a CUDA device the segment program replays one graph inside the span
 #: encode_segment_fused, and in its staged form the emission and packing
 #: replay one graph inside the span granule_payload (``ops/graphs.py``):

@@ -129,13 +129,15 @@ def yardstick_form(rate_loop_eager=False):
     segment program in stages (``Layer3SegmentEncoder.forward`` as
     ``encode_segment_staged``), its analysis lane by lane
     (``analysis_eager``, the multi-rank path's ``clip._per_lane``), the
-    Layer I/II analysis op by op (``layer12.analyze_frames_eager``) and
-    the emission op by op (``encode_final_eager``), the rate loop still as
+    Layer I/II analysis op by op (``layer12.analyze_frames_eager``) with
+    its back half (``encoder._layer12_eager``: psy model 2 on the card too)
+    and the emission op by op (``encode_final_eager``), the rate loop still as
     CUDA graphs on the card (the form before the analysis and emission
     were captured); with `rate_loop_eager` the rate loop op by op too
     (``loop.outer_loop_eager``), so that no graph replays.  For
     measurement only: a replay runs no Python and dispatches no aten op
     that a counter or a swapped function could see."""
+    from .. import encoder
     from ..models.layer3 import Layer3SegmentEncoder as Enc
     from ..ops import layer12, loop
     from ..parallel import clip
@@ -143,7 +145,8 @@ def yardstick_form(rate_loop_eager=False):
              (Enc, "analysis", Enc.analysis_eager),
              (Enc, "encode_final", Enc.encode_final_eager),
              (clip, "_lanes", clip._per_lane),
-             (layer12, "analyze_frames", layer12.analyze_frames_eager)]
+             (layer12, "analyze_frames", layer12.analyze_frames_eager),
+             (encoder, "_layer12_replayed", encoder._layer12_eager)]
     if rate_loop_eager:
         swaps.append((loop, "outer_loop", loop.outer_loop_eager))
     with _swapped(swaps):

@@ -5,8 +5,10 @@ warp a frame), its first design kept as the yardstick
 (``csrc/pack12.cu``, the frame packing with its CRC, one block a frame)
 against their plain versions, the card route of ``encode_layer12_fast``
 against the host route it replaced (``chip_smoke.l12_host_route``), the
-captured analysis against its op-by-op form, one host wait an encode,
-and a malformed frame that raises.
+captured analysis against its op-by-op form, the replayed chain (the
+analysis and the back half as two graphs of one key) against the op-by-op
+chain (``tools.yardstick_form``), K5's and K6's launches counted in each
+replay, one host wait an encode, and a malformed frame that raises.
 
 The module also holds the lane-level model of the first design's walk
 (``model_frame``: the warp's argmin as five xor-shuffle rounds over (value,
@@ -40,6 +42,7 @@ from mp3tpu_torch.ops import pack12 as P12
 from mp3tpu_torch.runtime import alloc12 as host
 from mp3tpu_torch.runtime.wav import read_wav
 from mp3tpu_torch.tables import mpeg
+from mp3tpu_torch.tools import yardstick_form
 
 torch.set_num_threads(1)
 
@@ -462,7 +465,8 @@ def test_k6_equals_plain_on_the_chain_rows(card, monkeypatch):
     monkeypatch.setattr(L12, "marshal_frames", spy)
     for case in (FIXTURES[6], FIXTURES[7], FIXTURES[8]):
         pcm, cfg = fixture(*case)
-        E.encode_layer12_fast(pcm, cfg, "cuda")
+        with yardstick_form():          # the rows of an op-by-op encode
+            E.encode_layer12_fast(pcm, cfg, "cuda")
         values, lengths, crc = rows[-1]
         P = E._Layer12Plan(cfg, values.shape[0])
         got = P12.pack_frames(values, lengths, P.frame_bytes, crc)
@@ -523,8 +527,20 @@ def test_analysis_graph_equals_eager(card, monkeypatch):
     assert graphs.by_stage()["l12_analysis"] == (keys, 2 * keys)
 
 
+@pytest.fixture
+def fresh(monkeypatch):
+    """Layer I/II graphs of their own and zeroed graph counts."""
+    from mp3tpu_torch.ops import graphs
+    monkeypatch.setattr(L12, "GRAPHS", graphs.GraphCache(8))
+    monkeypatch.setattr(graphs, "graph_counts", {
+        s: dict(captures=0, replays=0) for s in graphs.STAGES})
+    return graphs
+
+
 @pytest.mark.cuda
-def test_a_bad_length_raises(card, monkeypatch):
+def test_a_bad_length_raises(card, fresh, monkeypatch):
+    """A key's first encode returns its warm-up's bytes: a malformed frame
+    there raises after the download."""
     real = L12.marshal_frames
 
     def broken(*args):
@@ -537,6 +553,89 @@ def test_a_bad_length_raises(card, monkeypatch):
     pcm, cfg = fixture(*FIXTURES[0])
     with pytest.raises(RuntimeError, match="1 frame"):
         E.encode_layer12_fast(pcm, cfg, "cuda")
+
+
+def dab(**kw):
+    """The DAB configuration (Layer II, 48 kHz joint stereo, 192 kbit/s,
+    the CRC), with `kw` changed."""
+    return EncoderConfig(**dict(dict(
+        layer=2, mode=mpeg.MODE_JOINT, bitrate_kbps=192,
+        sample_rate_hz=48000, error_protection=True), **kw))
+
+
+#: the spots' lengths, s
+SPOTS_S = (10, 15, 20, 30, 60)
+#: the replayed chain's cases: (configuration, seconds)
+REPLAY_CASES = [(dab(), s) for s in SPOTS_S] + [
+    (EncoderConfig(layer=1, mode=mpeg.MODE_JOINT, bitrate_kbps=384,
+                   sample_rate_hz=44100, error_protection=True), 12),
+    (dab(mode=mpeg.MODE_MONO, bitrate_kbps=96, error_protection=False), 12)]
+
+
+def signal(cfg, seconds, offset=0.0):
+    """`seconds` of the bench signal at the configuration's rate, from
+    `offset` seconds in, mono or stereo as `cfg`."""
+    from mp3tpu_torch.tools.signals import make_signal
+    rate = cfg.sample_rate_hz
+    pcm = make_signal(offset + seconds, rate)[int(offset * rate):]
+    return pcm[:, :1] if cfg.mode == mpeg.MODE_MONO else pcm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", REPLAY_CASES,
+                         ids=[f"L{c.layer}_{c.mode}_{c.bitrate_kbps}_{s}s"
+                              for c, s in REPLAY_CASES])
+def test_replayed_chain_equals_the_op_by_op_chain(card, fresh, case):
+    """``encode_layer12_fast`` replaying the analysis and the back half as
+    two graphs of one key == the op-by-op chain (``yardstick_form``:
+    ``analyze_frames_eager``, the back half with K5 and K6 launched one
+    by one), byte for byte: the key's capture, a replay, and a replay on
+    other PCM of the same length."""
+    cfg, seconds = case
+    for offset in (0.0, 0.0, 7.0):
+        pcm = signal(cfg, seconds, offset)
+        got = E.encode_layer12_fast(pcm, cfg, "cuda")
+        with yardstick_form():
+            want = E.encode_layer12_fast(pcm, cfg, "cuda")
+        assert got == want, (seconds, offset)
+    assert fresh.by_stage()["l12_analysis"] == (1, 2)
+    assert fresh.by_stage()["l12_back"] == (1, 2)
+
+
+@pytest.mark.cuda
+def test_k5_and_k6_launch_once_a_replayed_encode(card, fresh):
+    """Each encode adds one launch of K5 and of K6, the capture's (its
+    warm-up's) and each replay's (the launches its graph holds), and none
+    of K5's first design."""
+    cfg = dab()
+    pcm = signal(cfg, 10)
+    for n in range(3):
+        k5, k6, first = A12.launches, P12.launches, A12.baseline_launches
+        E.encode_layer12_fast(pcm, cfg, "cuda")
+        assert (A12.launches - k5, P12.launches - k6,
+                A12.baseline_launches - first) == (1, 1, 0), n
+    assert fresh.by_stage()["l12_back"] == (1, 2)
+
+
+@pytest.mark.cuda
+def test_a_three_window_stream_equals_the_one_shot(card, fresh):
+    """``encode_layer12_stream`` at 512 frames a window over 2.5 windows:
+    three keys (the first window, the next, the tail), its bytes the
+    one-shot encode's; a second pass replays the three."""
+    cfg = dab()
+    pcm = signal(cfg, 2.5 * 512 * 1152 / 48000)
+    one_shot = E.encode_layer12_fast(pcm, cfg, "cuda")
+    pieces = [pcm[s:s + 48000] for s in range(0, len(pcm), 48000)]
+
+    def stream():
+        return b"".join(E.encode_layer12_stream(iter(pieces), cfg, "cuda"))
+
+    assert stream() == one_shot
+    before = fresh.by_stage()["l12_back"]
+    assert stream() == one_shot
+    after = fresh.by_stage()["l12_back"]
+    assert (after[0] - before[0], after[1] - before[1]) == (0, 3)
+    assert len(L12.GRAPHS) == 4
 
 
 @pytest.mark.cuda

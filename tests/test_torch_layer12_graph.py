@@ -14,9 +14,18 @@ data, no op across devices); run the captured host side
 replay's pool; check what changes the key; hold int16 framing to the
 float32 path's outputs and bytes, and a float PCM to float32; and hold
 the int16 analysis to the JAX function fed the same values as float32,
-within tests/test_torch_layer12.py's tolerances.  The graph itself is
-checked on the card (tests/test_torch_layer12_card.py, chip_smoke.py
-phase 8).
+within tests/test_torch_layer12.py's tolerances.
+
+With psy model 2 the back half (the SMR, K5, the quantizers,
+``marshal_frames``, K6) is a second graph of the analysis' entry
+(``layer12.encode_frames``, ``encoder._layer12_replayed``).  Its torch
+part is held capturable the same way (K5's outputs given as inputs);
+the replayed route's host side, with stand-in captures, gives the
+op-by-op route's values, lengths and bytes call after call; the key
+carries every value the back half bakes in; and the copy of K6's buffer
+that a call returns outlives the next call of its key.  The graphs
+themselves are checked on the card (tests/test_torch_layer12_card.py,
+chip_smoke.py phase 8).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +35,7 @@ import torch
 from mp3tpu.ops import jaxlayer12 as J
 from mp3tpu_torch import encoder as E
 from mp3tpu_torch.config import EncoderConfig
+from mp3tpu_torch.ops import alloc12 as A12
 from mp3tpu_torch.ops import graphs
 from mp3tpu_torch.ops import layer12 as L12
 from mp3tpu_torch.tables import mpeg
@@ -239,3 +249,206 @@ def test_int16_analysis_holds_to_jax(case):
             np.testing.assert_array_equal(
                 np.asarray(ref[k]).astype(np.int64), got[k].numpy(),
                 err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# the back half as the analysis' second graph
+# ---------------------------------------------------------------------------
+
+CPU = torch.device("cpu")
+
+
+def dab(**kw):
+    """The DAB configuration (Layer II, 48 kHz joint stereo, 192 kbit/s,
+    the CRC), with `kw` changed."""
+    return EncoderConfig(**dict(dict(
+        layer=2, mode=mpeg.MODE_JOINT, bitrate_kbps=192,
+        sample_rate_hz=48000, error_protection=True), **kw))
+
+
+#: the chain's cases: (configuration, seconds of PCM)
+CHAIN_CASES = {
+    "l2_joint_crc": (dab(), 1.0),
+    "l2_joint": (dab(error_protection=False), 1.0),
+    "l1_joint_crc": (EncoderConfig(layer=1, mode=mpeg.MODE_JOINT,
+                                   bitrate_kbps=384, sample_rate_hz=44100,
+                                   error_protection=True), 0.5),
+    "l1_stereo": (EncoderConfig(layer=1, mode=mpeg.MODE_STEREO,
+                                bitrate_kbps=384, sample_rate_hz=44100), 0.5),
+    "l2_mono_crc": (dab(mode=mpeg.MODE_MONO, bitrate_kbps=96), 1.0),
+    "l2_mono": (dab(mode=mpeg.MODE_MONO, bitrate_kbps=96,
+                    error_protection=False), 1.0),
+}
+#: the spots' lengths (10, 15, 20, 30 and 60 s) at a tenth: five keys at
+#: a size that the CPU's plain K5 and K6 take in seconds
+SPOTS_S = (1.0, 1.5, 2.0, 3.0, 6.0)
+
+
+def framed(cfg, seconds, seed=0):
+    """(plan, framed PCM) of `seconds` of ``pcm_of``'s signal under
+    `cfg`: the clip's end falls inside its last frame."""
+    nch = 1 if cfg.mode == mpeg.MODE_MONO else 2
+    spf = 384 if cfg.layer == 1 else 1152
+    n = int(seconds * cfg.sample_rate_hz)
+    pcm = pcm_of(cfg.layer, nch, -(-n // spf), seed).numpy()[:, :n - 7]
+    return E._layer12_frame(pcm.T, cfg)
+
+
+@pytest.fixture
+def stand_ins(monkeypatch):
+    """Layer I/II graphs of their own (8 keys), zeroed counts, and the
+    replayed route's host side on the CPU: ``graphs.cuda_graph`` a
+    pooled stand-in capture (its replay runs Python; the tensors it
+    makes are logged in the list returned) and ``graphs.on_stream`` the
+    body and the keep on the current stream."""
+    pools = []
+    monkeypatch.setattr(L12, "GRAPHS", graphs.GraphCache(8))
+    monkeypatch.setattr(graphs, "graph_counts", {
+        s: dict(captures=0, replays=0) for s in graphs.STAGES})
+    monkeypatch.setattr(graphs, "cuda_graph",
+                        lambda dev: pooled_stand_in(pools))
+    monkeypatch.setattr(graphs, "on_stream",
+                        lambda dev, body, keep: keep(body()[0]))
+    return pools
+
+
+@pytest.fixture
+def rows(monkeypatch):
+    """Each ``marshal_frames`` call's (values, lengths, CRC range), copied:
+    a call's rows once a route has run (the warm-up's on a key's first
+    call, a stand-in replay's after it)."""
+    seen = []
+    real = L12.marshal_frames
+
+    def spy(*args):
+        values, lengths, crc = real(*args)
+        seen.append((values.clone(), lengths.clone(), crc))
+        return values, lengths, crc
+
+    monkeypatch.setattr(L12, "marshal_frames", spy)
+    return seen
+
+
+def chain_key(x, cfg, P):
+    return L12._key(dict(pcm=torch.as_tensor(x)), P.layer, P.sblimit, P.nch,
+                    P.sfreq_hz, E._back_key(cfg, P))
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+@pytest.mark.parametrize("case", ["l2_joint_crc", "l1_joint_crc",
+                                  "l2_mono"])
+def test_back_half_is_capture_safe(case, device):
+    """The back half's torch part under an aten-op log, its tables made
+    first (as the warm-up makes them) and K5's outputs given: the SMR
+    stack, the quantizers with the joint samples and ``marshal_frames``
+    make no host read of a device value, no tensor from host data, and
+    run every op on the run's device."""
+    cfg, seconds = CHAIN_CASES[case]
+    P, x = framed(cfg, seconds)
+    dev = torch.device(device)
+    ana = L12.analyze_frames_eager(torch.as_tensor(x), P.layer, P.sblimit,
+                                   P.nch, P.sfreq_hz)
+    smr, scfsi = E._layer12_k5_inputs(ana, P, ana["snr"])
+    alloc = A12.allocate_plain(smr, scfsi, P.layer, P.table, P.nch,
+                               P.sblimit, P.adb, cfg.error_protection,
+                               P.joint, cfg.mode)
+    ana = {k: v.to(dev) for k, v in ana.items()}
+    alloc = {k: v.to(dev) for k, v in alloc.items() if v is not None}
+    E._layer12_elements(ana, cfg, P, alloc)          # the tables
+    with OpLog() as log:
+        got = E._layer12_k5_inputs(ana, P, ana["snr"])
+        values, lengths, crc = E._layer12_elements(ana, cfg, P, alloc)
+    names = {op for op, _ in log.ops}
+    assert len(log.ops) > 100
+    assert not names & HOST_READS, names & HOST_READS
+    assert not names & HOST_DATA, names & HOST_DATA
+    elsewhere = [(op, devs) for op, devs in log.ops if devs - {device}]
+    assert not elsewhere, elsewhere[:5]
+    assert all(t.device == dev for t in (*got[:1], values, lengths))
+    assert (got[1] is None) == (P.layer == 1)
+    assert (crc is None) == (not cfg.error_protection)
+
+
+@pytest.mark.parametrize("case", CHAIN_CASES)
+def test_replayed_route_equals_the_op_by_op_route(stand_ins, rows, case):
+    """The replayed route's host side (``_layer12_replayed``: the analysis
+    and the back half as two stand-in graphs of one key) against the
+    op-by-op route (``_layer12_eager``), three calls on one key (the
+    warm-up and captures, then replays, the second on other PCM): each
+    call's K6 buffer and marshalled values and lengths equal the op-by-op
+    route's, and its bytes are in no replay's pool."""
+    cfg, seconds = CHAIN_CASES[case]
+    calls = [framed(cfg, seconds), framed(cfg, seconds, seed=1),
+             framed(cfg, seconds)]
+    bufs = []
+    for P, x in calls:
+        want = E._layer12_eager(x, cfg, P, CPU)
+        got = E._layer12_replayed(x, cfg, P, CPU)
+        (wv, wl, wc), (gv, gl, gc) = rows[-2:]
+        assert torch.equal(gv, wv) and torch.equal(gl, wl) and gc == wc
+        assert got.dtype == torch.uint8 and torch.equal(got, want)
+        assert not any(shares_storage(got, made) for made in stand_ins)
+        bufs.append(got)
+    assert len(rows) == 6
+    assert len(L12.GRAPHS) == 1
+    assert graphs.by_stage()["l12_analysis"] == (1, 2)
+    assert graphs.by_stage()["l12_back"] == (1, 2)
+    assert torch.equal(bufs[0], bufs[2])
+    assert not torch.equal(bufs[0], bufs[1])
+
+
+def test_spots_lengths_replay_a_key_each(stand_ins, rows):
+    """The spots' five lengths (at a tenth) under the DAB configuration,
+    two passes: five keys, each captured on the first pass and replayed on
+    the second, every call the op-by-op route's bytes and rows."""
+    cfg = dab()
+    for seed in (0, 1):
+        for seconds in SPOTS_S:
+            P, x = framed(cfg, seconds, seed)
+            want = E._layer12_eager(x, cfg, P, CPU)
+            assert torch.equal(E._layer12_replayed(x, cfg, P, CPU), want)
+            (wv, wl, _), (gv, gl, _) = rows[-2:]
+            assert torch.equal(gv, wv) and torch.equal(gl, wl)
+    assert len(L12.GRAPHS) == 5
+    assert graphs.by_stage()["l12_analysis"] == (5, 5)
+    assert graphs.by_stage()["l12_back"] == (5, 5)
+
+
+def test_bytes_outlive_the_next_call_of_their_key(stand_ins):
+    """A call's K6 buffer is a copy: the next call of the same key, on
+    other PCM, rewrites the key's static buffer and leaves the first
+    call's bytes as they were."""
+    cfg = dab()
+    (P, x), (_, y) = framed(cfg, 1.0), framed(cfg, 1.0, seed=2)
+    first = E._layer12_replayed(x, cfg, P, CPU)
+    kept = first.clone()
+    second = E._layer12_replayed(y, cfg, P, CPU)
+    entry = L12.GRAPHS.get(chain_key(x, cfg, P))
+    static = entry.outputs["l12_back"]["buf"]
+    assert torch.equal(static, second)
+    assert torch.equal(first, kept) and not torch.equal(first, second)
+    assert first.untyped_storage().data_ptr() != \
+        static.untyped_storage().data_ptr()
+
+
+def test_back_key_holds_every_value_the_back_half_bakes_in():
+    """Configurations that differ only in copyright, original, emphasis,
+    bitrate, the CRC or the mode get other keys, and none is the key of
+    the analysis alone; equal configurations share one."""
+    def key(**kw):
+        cfg = dab(**kw)
+        P, x = framed(cfg, 0.2)
+        return chain_key(x, cfg, P)
+
+    base = key()
+    assert key() == base
+    others = [key(copyright=True), key(original=True), key(emphasis=1),
+              key(bitrate_kbps=256), key(error_protection=False),
+              key(mode=mpeg.MODE_STEREO)]
+    assert all(k != base for k in others)
+    assert len(set(others)) == len(others)
+    cfg = dab()
+    P, x = framed(cfg, 0.2)
+    assert L12._key(dict(pcm=torch.as_tensor(x)), P.layer, P.sblimit, P.nch,
+                    P.sfreq_hz) not in {base, *others}
+    assert set(dict(E._back_key(cfg, P)[0])) == set(E.BACK_FIELDS)

@@ -222,14 +222,16 @@ def test_plain_pack_drops_bits_past_the_frame():
 def test_the_layer12_spans_in_a_trace(tmp_path):
     """A trace of each route holds its stages under the JAX package's
     names (runtime.profiling.SPANS_L12): the card chain's joint decision
-    runs inside K5, under greedy_allocation."""
+    runs inside K5, under greedy_allocation, and its back half under
+    _layer12_back."""
     from mp3tpu_torch.runtime.profiling import SPANS_L12, trace
     from mp3tpu_torch.tools.trace_stages import span_breakdown
     pcm, cfg = case_input(*FIXTURES[1])
     want = {"card": ("analyze_frames", "greedy_allocation", "quantize_l2",
                      "_marshal_layer12", "pack_elements", "fetch",
-                     "_layer12_frame", "upload", "_layer12_back.smr",
-                     "_layer12_quantize", "_fetch_frames"),
+                     "_layer12_frame", "upload", "_layer12_back",
+                     "_layer12_back.smr", "_layer12_quantize",
+                     "_fetch_frames"),
             "host": ("analyze_frames", "joint_mode", "greedy_allocation",
                      "quantize_l2", "_marshal_layer12", "pack_elements",
                      "_layer12_frame", "upload", "_layer12_quantize")}

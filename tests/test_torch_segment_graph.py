@@ -255,7 +255,7 @@ def test_replays_count_k3_and_k4(golden_dir, segment_graphs, monkeypatch):
     L3, blocks, fsm, size, rest = case(golden_dir, "mpeg1", 2, 4, 4)
     entry, _ = _run(L3.enc, blocks, fsm, size, rest, record)
     assert (search.launches, resv.launches) == (14, 1)
-    assert entry.held["segment"] == [14, 0, 1]
+    assert entry.held["segment"] == [14, 0, 1, 0, 0]
     for n in (1, 2):
         _run(L3.enc, blocks, fsm, size, rest, record)
         assert (search.launches, resv.launches) == (14 + 14 * n, 1 + n)
