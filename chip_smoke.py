@@ -8,8 +8,8 @@ Run from the repository root on a machine with one NVIDIA GPU:
 Phases, each printing its own lines; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi); no CUDA -> exit 1;
   2. build the five kernel libraries, K1 (mp3tpu_torch/csrc/hist_c1.cu),
-     bits_at with K3 (csrc/bits_at.cu), K4 (csrc/resv_scan.cu), K5 with
-     its first design (csrc/alloc12.cu) and K6 (csrc/pack12.cu), all but
+     bits_at with K3 (csrc/bits_at.cu), K4 (csrc/resv_scan.cu), K5
+     (csrc/alloc12.cu) and K6 (csrc/pack12.cu), all but
      K1 with -Xptxas -v, whose reports are printed, one nvcc process
      each, started together; timed;
   3. K1 against its plain PyTorch version on the card, bit for bit, on
@@ -28,18 +28,18 @@ Phases, each printing its own lines; any failure exits non-zero:
      device time, K1's device time on the same quantized batch) beside
      the bound;
   3c. K3, the stepsize searches in one launch each, at the width (warps
-     a granule) its launch picks and at widths 1, 2, 3, 4 and 7, and
-     K3's first design kept as the baseline, against the lockstep plain
-     searches on bits_at: torch.equal on qss, bits, every count row and
+     a granule) its launch picks and at widths 1, 2, 3, 4 and 7, against
+     the lockstep plain searches on bits_at: torch.equal on qss, bits,
+     every count row and
      the evaluation counts, status 0: random stepsize and walk batches at
      G = 512, 4096, 4099, 16384 and 65536, LSF batches, a qss_lo batch,
      a walk and a stepsize batch driven into the 40-step cap, and the
      main path's own first 4096- and 512-lane stepsize searches and
-     walks; timed: the baseline and K3 in turns (device time), K3 at
-     each width, both call times, the evaluations the plain schedule
-     counts against those K3 runs, the plain search's device time, call
-     time and bits_at launches, beside the bound (the larger of the
-     bytes' and the operations' time) and each design's share of it;
+     walks; timed: K3's device time at the picked width and at each
+     width, its call time, the evaluations the plain schedule counts
+     against those K3 runs, the plain search's device time, call time
+     and bits_at launches, beside the bound (the larger of the bytes' and
+     the operations' time) and K3's share of it;
   3d. K4, the reservoir scan (the chunk maps, then their composition and
      the re-walk: two kernels a call), against its plain version (the
      native host scan): torch.equal on every budget and carried level,
@@ -64,13 +64,13 @@ Phases, each printing its own lines; any failure exits non-zero:
      swapped (by this script) for the lockstep plain searches and
      loop._bits_at for the plain chain, then for the chain of K1 with
      plain PyTorch around it, then the plain searches on bits_at (the
-     lockstep path), then K3's first design (the baseline), then K3 with
-     the rate loop op by op (its evaluation counts recorded), each of
+     lockstep path), then K3 with the rate loop op by op (its
+     evaluation counts recorded), each of
      these in the segment program's staged form (tools.staged_form) with
      loop.outer_loop_eager (a replayed graph calls no Python), then as the
      package runs it (K3, the segment program as one CUDA graph a
      segment), each with the launch counts reset before and read after
-     (each swap must show in them); the six streams must be equal byte for
+     (each swap must show in them); the five streams must be equal byte for
      byte, the iterations counted equal op by op and in the graph (which
      launches K3 in all 6 unrolled iterations of both rate loops and reads
      no exit on the host; 56 K3 and 4 K4 launches an encode), and K3's
@@ -84,15 +84,14 @@ Phases, each printing its own lines; any failure exits non-zero:
      synchronizations): 0, 0 and 1.
      Then the lockstep path and the package in 5 ABBA turns (10 timed runs
      each), one encode of each under torch.profiler (device kernels,
-     copies and memsets by category, device idle share), and the
-     searches' kernel's device time summed over one encode, K3 and the
-     baseline in turns; the stream must sit on the frame grid and its
+     copies and memsets by category, device idle share), and K3's
+     device time summed over one encode, in two windows; the stream must
+     sit on the frame grid and its
      first 10 s must decode within 1 dB of the CPU path's 10 s encode;
   5b. the rate loop as CUDA graphs (loop.outer_loop on the card: the
      prologue and 6 iterations unrolled, one replay each) against the
-     iteration replayed one at a time with the exit read on the host
-     (loop.outer_loop_stepwise) and op by op (loop.outer_loop_eager) on
-     the main path, the analysis and
+     rate loop op by op (loop.outer_loop_eager) on the main path, the
+     analysis and
      the emission in their yardstick forms in both
      (mp3tpu_torch.tools.yardstick_form): captures from an
      empty cache (capture time per key, torch.cuda.memory_reserved before
@@ -160,31 +159,27 @@ Phases, each printing its own lines; any failure exits non-zero:
      of tests/test_layer12_fast.py at their reference bars and the two
      CRC fixtures decoding, each equal byte for byte to the yardstick
      form (tools.yardstick_form: the analysis and the back half op by
-     op; the card chain replays both as graphs of one key) and to the host
-     route it replaced (l12_host_route: runtime/alloc12,
-     _marshal_layer12 with _crc_calc, pack_elements); K5 and its first
-     design (allocate_baseline) against their plain version
-     (runtime/alloc12's numpy code) on every output and their greedy
-     steps against the lockstep loop's rounds, on the CRC fixtures', the
+     op; the card chain replays both as graphs of one key) and to the
+     host back half (the card's analysis, then K5's, the quantizers' and
+     K6's plain versions and the marshalling on the CPU); K5 against its
+     plain version (runtime/alloc12's numpy code) on every output and
+     its greedy steps against the lockstep loop's rounds, on the CRC
+     fixtures', the
      bench signal's and the forced rows of
      tests/test_torch_layer12_card.py (ties, +-inf, NaN, silent frames,
      every subband to its top, Layer I's limit); K6 against its plain
-     version on every byte; the -Xptxas -v lines of both designs (K5:
-     no stack frame, no spill) and the blocks each holds on an SM with
-     the waves of each cell; then on the 60 s bench signal at Layer II
-     192 kbps and Layer I 384 kbps stereo: K5 and K6 launched once each,
-     the first design and no Layer III kernel no time, the first design
-     and K5 timed in turns (first, K5, K5, first: device time) with their
-     call times, K6 timed (device time, call time), each beside the plain
+     version on every byte; K5's -Xptxas -v lines (no stack frame, no
+     spill) and the blocks it holds on an SM with the waves of each
+     cell; then on the 60 s bench signal at Layer II 192 kbps and Layer
+     I 384 kbps stereo: K5 and K6 launched once each, no Layer III kernel,
+     K5 timed (device time in three windows, call time), K6 timed (device
+     time, call time), each beside the plain
      version's time and its bound (K5: the largest of its bytes, its
      design's dependent path a step times the longest frame's steps, and
      the warp instructions of every frame's steps at the SMs' rates,
-     k5_bound, printed by term; K6: its bytes), the host route, the
-     yardstick form and the card chain in 3 turns of host, yardstick,
-     card, card, yardstick, host (walls, real-time factor), then the
-     same with the host route's every stage synchronized (each stage's
-     wall, median of 6; its _crc_calc inside its _marshal_layer12; the
-     card chain's stages are spans, read from its trace), one
+     k5_bound, printed by term; K6: its bytes), the yardstick form and
+     the card chain in 3 turns of yardstick, card, card, yardstick (walls,
+     real-time factor; the bytes the host back half's), one
      profiled encode of each (device events, idle share), one traced
      encode of each (span_breakdown by runtime.profiling.SPANS_L12; the
      card chain's analyze_frames span under 20 host dispatches, its one
@@ -194,8 +189,7 @@ Phases, each printing its own lines; any failure exits non-zero:
      graph, and the host's waits by torch's count: 1 an encode, one a
      window of encode_layer12_stream, whose warm windows replay their
      analysis and back-half graphs and capture none; the same bytes as
-     the host route and the
-     yardstick form at joint
+     the host back half and the yardstick form at joint
      stereo with the CRC on at both layers, at stereo with the CRC, and
      at 24 kHz (LSF); psy model 1 (on the host) with 2 waits; the Layer
      II stream on the frame grid, its first 10 s within 0.5 dB of the
@@ -216,8 +210,8 @@ Phases, each printing its own lines; any failure exits non-zero:
      the captured analysis against the lane-by-lane one on a group's 32
      lanes as in 5c; the eight stereo 44.1 kHz
      128 kbps quality fixtures as one mixed-length group, each at its bar
-     and within 0.5 dB of its one-shot encode; K3 (each width) and the
-     baseline against the plain search on the first 32,768-lane stepsize
+     and within 0.5 dB of its one-shot encode; K3 (each width) against
+     the plain search on the first 32,768-lane stepsize
      search of a group of 16, timed as in phase 3c, and bits_at against
      its plain chain at its first stepsize, timed; one wait a group;
      the group lookahead (encode_corpus_batched(lookahead=)) at 0 (the
@@ -280,8 +274,8 @@ segment program's CUDA graphs must replay (on the main, LSF and stream
 paths the one graph and no graph of the staged form; on the corpus path
 the analysis, the rate loop and the emission; the sharded path's
 analysis as its two graphs around the exchange between ranks, then the
-rate loop and the emission), and none may launch bits_at, the
-baseline, K5, K5's first design or K6; every path
+rate loop and the emission), and none may launch bits_at, K5 or K6;
+every path
 but the
 sharded one (which keeps its host scan, as the JAX package does) must
 launch K4 and make no loop-exit sync and no scan copy; the launches,
@@ -623,17 +617,16 @@ def path_batch_check(ctx, run, lanes, what):
     """On the first `lanes`-lane stepsize search that run() makes: K3
     against the plain search, and bits_at against bits_at_plain at its
     first stepsize -60, +0 and +8.  Returns (the stepsize search's
-    captured (args, kwargs), bits_at's max abs error, K3's, the
-    baseline's)."""
+    captured (args, kwargs), bits_at's max abs error, K3's)."""
     seen = capture_searches(ctx, run, lanes, what)
-    s_errs, b_errs, errs = [], [], []
+    s_errs, errs = [], []
     search_check(ctx, f"{what} stepsize search", "stepsize",
-                 *seen["stepsize"], s_errs, b_errs)
+                 *seen["stepsize"], s_errs)
     xr75p, qss, short, sblk, ST = first_evaluation(seen["stepsize"])
     for d in (-60.0, 0.0, 8.0):
         bits_at_check(ctx, f"{what} batch at qss{d:+.0f}",
                       (xr75p, qss + d, short, sblk, ST), errs)
-    return seen["stepsize"], max(errs), max(s_errs), max(b_errs)
+    return seen["stepsize"], max(errs), max(s_errs)
 
 
 def capture_main_searches(ctx, pcm, cfg):
@@ -738,13 +731,11 @@ def phase_bits_at(ctx, main_args):
 
 
 def search_fns(kind):
-    """(K3's wrapper, the lockstep plain search, K3's first design kept
-    as the baseline) of a search kind."""
+    """(K3's wrapper, the lockstep plain search) of a search kind."""
     from mp3tpu_torch.ops import loop, search
     if kind == "stepsize":
-        return (search.search_stepsize, loop.search_stepsize_plain,
-                search.baseline_stepsize)
-    return search.search_walk, loop.search_walk_plain, search.baseline_walk
+        return search.search_stepsize, loop.search_stepsize_plain
+    return search.search_walk, loop.search_walk_plain
 
 
 def search_err(got, want):
@@ -757,22 +748,20 @@ def search_err(got, want):
                if a.numel() else 0.0 for a, b in pairs)
 
 
-def search_check(ctx, label, kind, args, kwargs, errs, base_errs):
-    """K3 at the width its launch picks and at each width of WIDTHS, and
-    the baseline, against the lockstep plain search (on bits_at):
-    torch.equal on qss, bits, every count row and the evaluation counts,
-    and status 0 everywhere; appends K3's max abs error (at the picked
-    width) to errs and the baseline's to base_errs; returns K3's result at
-    the picked width."""
+def search_check(ctx, label, kind, args, kwargs, errs):
+    """K3 at the width its launch picks and at each width of WIDTHS
+    against the lockstep plain search (on bits_at): torch.equal on qss,
+    bits, every count row and the evaluation counts, and status 0
+    everywhere; appends K3's max abs error (at the picked width) to errs;
+    returns K3's result at the picked width."""
     import torch
     from mp3tpu_torch.ops import search
     from test_torch_search_card import search_mismatches
-    kernel, plain, baseline = search_fns(kind)
+    kernel, plain = search_fns(kind)
     G = args[0].shape[0]
     got = {"the picked width": kernel(*args, **kwargs)}
     for w in WIDTHS:
         got[f"width {w}"] = kernel(*args, **kwargs, width=w)
-    got["the baseline"] = baseline(*args, **kwargs)
     torch.cuda.synchronize()
     want = plain(*args, **kwargs)
     for how, res in got.items():
@@ -785,14 +774,13 @@ def search_check(ctx, label, kind, args, kwargs, errs, base_errs):
                  f"table")
     res = got["the picked width"]
     errs.append(search_err(res, want))
-    base_errs.append(search_err(got["the baseline"], want))
     evals = res[2]["evals"]
     cap = 42 if kind == "walk" else 53
     runs = {w: int(got[f"width {w}"][2]["runs"].sum()) for w in WIDTHS}
     pick = search.plan(G)["width"] if G else 1
     print(f"K3 {kind} search {label}: equal to the plain search on every "
-          f"output, status 0, at the picked width {pick}, at widths "
-          f"{', '.join(map(str, WIDTHS))} and in the baseline (G={G}: "
+          f"output, status 0, at the picked width {pick} and at widths "
+          f"{', '.join(map(str, WIDTHS))} (G={G}: "
           f"evaluations per granule {int(evals.min())}-{int(evals.max())}, "
           f"{int(evals.sum())} in all, {int((evals == cap).sum())} at the "
           f"40-step cap; {int((res[1] == 1e9).sum())} left past IXMAX); "
@@ -915,29 +903,23 @@ def search_bound(args, kwargs, work):
 
 
 def search_timed(ctx, label, kind, args, kwargs, plain_too=False):
-    """K3's first design (the baseline) and K3 at the width its launch picks,
-    in turns (baseline, K3, K3, baseline; device time per call from
-    torch.profiler, a mean of 20 a turn); K3 at each width of WIDTHS; both
-    call times; the evaluations the plain schedule counts against those
-    K3 runs; the bound and each design's share of it.  With plain_too also
-    the lockstep plain search on bits_at (the lockstep path): its device time,
-    call time and bits_at launches."""
+    """K3 at the width its launch picks, twice, then at each width of
+    WIDTHS (device time per call from torch.profiler, a mean of 20 a
+    turn, in one window); its call time; the evaluations the plain
+    schedule counts against those K3 runs; the bound and K3's share of
+    it.  With plain_too also the lockstep plain search on bits_at (the
+    lockstep path): its device time, call time and bits_at launches."""
     K = ctx["K"]
     from mp3tpu_torch.ops import search
-    kernel, plain, baseline = search_fns(kind)
+    kernel, plain = search_fns(kind)
     G = args[0].shape[0]
     pick = search.plan(G)["width"]
 
     def k3(width=None):
         return lambda: kernel(*args, **kwargs, width=width)
 
-    def base():
-        return baseline(*args, **kwargs)
-
-    k3_name, b_name = "search_kernel(", "search_baseline("
-    fns = [base, k3(), k3(), base] + [k3(w) for w in WIDTHS]
-    ms = kernel_series(fns, [b_name, k3_name, k3_name, b_name]
-                       + [k3_name] * len(WIDTHS))
+    fns = [k3(), k3()] + [k3(w) for w in WIDTHS]
+    ms = kernel_series(fns, ["search_kernel("] * len(fns))
     # the repeated launches left K3's granule counter at zero and gave the
     # checked results
     import torch
@@ -948,19 +930,17 @@ def search_timed(ctx, label, kind, args, kwargs, plain_too=False):
         fail(f"K3 on {label}: a timed launch left other results or a "
              f"granule counter off zero")
     k_call = call_ms(k3())
-    b_call = call_ms(base)
     note = ""
     if ms is None:
         ms = [queued_ms(fn) for fn in fns]
         note = (" (torch.profiler lost events: CUDA events around 20 calls "
                 "queued behind a sleep)")
-        if None in ms[:4]:
-            ms = [b_call, k_call, k_call, b_call] + [None] * len(WIDTHS)
+        if None in ms[:2]:
+            ms = [k_call, k_call] + [None] * len(WIDTHS)
             note = " (no device time: call times)"
-    turns = {"baseline": [ms[0], ms[3]], "k3": [ms[1], ms[2]]}
-    by_width = dict(zip(WIDTHS, ms[4:]))
-    k_dev = statistics.mean(turns["k3"])
-    b_dev = statistics.mean(turns["baseline"])
+    turns = ms[:2]
+    by_width = dict(zip(WIDTHS, ms[2:]))
+    k_dev = statistics.mean(turns)
     evals = kernel(*args, **kwargs)[2]["evals"]
     runs = {w: kernel(*args, **kwargs, width=w) for w in sorted({1, pick})}
     work = serial_work(kind, args, kwargs)
@@ -972,27 +952,22 @@ def search_timed(ctx, label, kind, args, kwargs, plain_too=False):
              f"stepsizes than K3 at width 1")
     runs = {w: r[2]["runs"] for w, r in runs.items()}
     b_ms, b_by, bytes_ms, ops_ms = search_bound(args, kwargs, work)
-    res = dict(ms=k_dev, call_ms=k_call, baseline_ms=b_dev,
-               baseline_call_ms=b_call, turns=turns, by_width=by_width,
+    res = dict(ms=k_dev, call_ms=k_call, turns=turns, by_width=by_width,
                width=pick, evals=int(evals.sum()),
                runs={w: int(r.sum()) for w, r in runs.items()},
                bound_ms=b_ms, bound_by=b_by, bytes_ms=bytes_ms,
                ops_ms=ops_ms, work={k: int(work[k].sum()) for k in
                                     ("runs", "pair_lines", "quads")})
     line = (f"K3 {kind} search {label} timed: G={G}, width {pick} picked; "
-            f"device time per call (torch.profiler, the kernels' own events, "
-            f"mean of 20 a turn; turns baseline, K3, K3, baseline, then K3 by "
-            f"width, in one window){note}: K3 "
-            f"{' / '.join(str(t) for t in turns['k3'])} ms, the baseline "
-            f"{' / '.join(str(t) for t in turns['baseline'])} ms, "
-            f"{b_dev / k_dev:.2f}x; K3 by width (ms): {by_width}; call "
-            f"time (CUDA events, median of 50): K3 {k_call:.4f} ms, baseline "
-            f"{b_call:.4f} ms; evaluations: {res['evals']} as the plain "
+            f"device time per call (torch.profiler, the kernel's own events, "
+            f"mean of 20 a turn; K3 twice, then by width, in one "
+            f"window){note}: K3 {' / '.join(str(t) for t in turns)} ms; by "
+            f"width (ms): {by_width}; call time (CUDA events, median of "
+            f"50): {k_call:.4f} ms; evaluations: {res['evals']} as the plain "
             f"schedule counts them, run {res['runs']} by width; bound "
             f"{b_ms:.6f} ms ({b_by}; bytes {bytes_ms:.6f} ms, operations "
             f"{ops_ms:.6f} ms over the width-1 schedule's {res['work']}): K3 "
-            f"at {b_ms / k_dev:.1%} of it, the baseline "
-            f"at {b_ms / b_dev:.1%}")
+            f"at {b_ms / k_dev:.1%} of it")
     if plain_too:
         p_dev = device_ms(lambda: plain(*args, **kwargs))
         p_call = call_ms(lambda: plain(*args, **kwargs), reps=20)
@@ -1009,12 +984,12 @@ def search_timed(ctx, label, kind, args, kwargs, plain_too=False):
 
 
 def phase_search(ctx, main_searches):
-    """Phase 3c: K3 and the baseline against the lockstep plain searches
-    on the card, and timed in turns; returns the fields measured on the
-    main path's own first 4096-lane stepsize search, and the main path's
-    four captured searches' measurements under "main"."""
+    """Phase 3c: K3 against the lockstep plain searches on the card, and
+    timed; returns the fields measured on the main path's own first
+    4096-lane stepsize search, and the main path's four captured
+    searches' measurements under "main"."""
     from test_torch_search_card import case_args, search_case
-    errs, base_errs = [], []
+    errs = []
     # the main path's searches first: the profiler's windows after the
     # widest batches have lost events
     main = {}
@@ -1022,29 +997,26 @@ def phase_search(ctx, main_searches):
         for kind in ("walk", "stepsize"):
             args, kwargs = main_searches[lanes][kind]
             label = f"main path's first {lanes}-lane {kind} search"
-            search_check(ctx, label, kind, args, kwargs, errs, base_errs)
+            search_check(ctx, label, kind, args, kwargs, errs)
             main[(lanes, kind)] = search_timed(ctx, label, kind, args,
                                                kwargs, plain_too=True)
     for G in (512, 4096, 4099, 16384, 65536):
         for name in ("stepsize", "walk"):
             kind, args, kwargs = case_args(search_case(name, G, 6060 + G),
                                            "cuda")
-            search_check(ctx, f"random G={G}", kind, args, kwargs, errs,
-                         base_errs)
+            search_check(ctx, f"random G={G}", kind, args, kwargs, errs)
             search_timed(ctx, f"random G={G}", kind, args, kwargs,
                          plain_too=name == "stepsize")
     for name in ("stepsize_lsf", "walk_lsf", "stepsize_qss_lo", "walk_cap",
                  "stepsize_cap"):
         kind, args, kwargs = case_args(search_case(name, 4096, 22050),
                                        "cuda")
-        got = search_check(ctx, f"{name} G=4096", kind, args, kwargs, errs,
-                           base_errs)
+        got = search_check(ctx, f"{name} G=4096", kind, args, kwargs, errs)
         cap = {"walk_cap": 42, "stepsize_cap": 53}.get(name)
         if cap and not int((got[2]["evals"] == cap).sum()):
             fail(f"the {name} case put no granule at the 40-step cap")
         search_timed(ctx, f"{name} G=4096", kind, args, kwargs)
-    return dict(main[(4096, "stepsize")], max_abs_err=max(errs),
-                baseline_max_abs_err=max(base_errs), main=main)
+    return dict(main[(4096, "stepsize")], max_abs_err=max(errs), main=main)
 
 
 #: NVIDIA H100 SXM, data sheet: float64 outside the tensor cores
@@ -1547,13 +1519,11 @@ def lsf_grid(out, rate, kbps):
 
 def reset_counts(ctx):
     ctx["S"].launches = 0
-    ctx["S"].baseline_launches = 0
     ctx["K"].bits_at.launches = 0
     ctx["k1"].hist_c1.launches = 0
     ctx["R"].launches = 0
     ctx["R"].host_scans = 0
     ctx["A12"].launches = 0
-    ctx["A12"].baseline_launches = 0
     ctx["P12"].launches = 0
     ctx["E"].fetches = 0
     ctx["E"].retry_fetches = 0
@@ -1591,8 +1561,7 @@ WAITS = {"syncs": "loop exit", "scan_copies": "scan copy",
 
 
 def launch_counts(ctx):
-    """{kernel: launches ("resv_scan": K4, "alloc12": K5,
-    "alloc12_baseline": K5's first design, "pack12": K6),
+    """{kernel: launches ("resv_scan": K4, "alloc12": K5, "pack12": K6),
     "syncs": loop-exit host syncs,
     "scan_copies": host scans of the card's results, "fetches": result
     downloads ("retry_fetches": those of settle's rare retries),
@@ -1604,10 +1573,8 @@ def launch_counts(ctx):
     torch = ctx["torch"]
     return {"search": ctx["S"].launches, "bits_at": ctx["K"].bits_at.launches,
             "hist_c1": ctx["k1"].hist_c1.launches,
-            "baseline": ctx["S"].baseline_launches,
             "resv_scan": ctx["R"].launches,
             "alloc12": ctx["A12"].launches,
-            "alloc12_baseline": ctx["A12"].baseline_launches,
             "pack12": ctx["P12"].launches,
             "syncs": ctx["loop"].any_on_host.syncs,
             "scan_copies": ctx["R"].host_scans,
@@ -1640,8 +1607,8 @@ L12_STAGES = ("l12_analysis", "l12_back")
 
 def read_counts(ctx, path, stages=ONE_GRAPH_STAGES, k4=True):
     """launch_counts; fails unless the path launched K3 and replayed the
-    graphs of each of `stages`, and it launched bits_at, the baseline and
-    the Layer I/II kernels (K5, its first design, K6) no time and
+    graphs of each of `stages`, and it launched bits_at and the Layer
+    I/II kernels (K5, K6) no time and
     replayed no Layer I/II graph; with the one graph (the one-shot, LSF
     and stream paths), unless it captured and replayed no graph of the
     staged form (settle's retries excepted: they re-encode with the
@@ -1662,8 +1629,8 @@ def read_counts(ctx, path, stages=ONE_GRAPH_STAGES, k4=True):
         if staged and (not counts["retry_fetches"] or "analysis" in staged):
             fail(f"the {path} ran graphs of the staged form {staged}: "
                  f"{counts}")
-    for kernel in ("bits_at", "baseline", "alloc12", "alloc12_baseline",
-                   "pack12", "l12_analysis_replays", "l12_back_replays"):
+    for kernel in ("bits_at", "alloc12", "pack12", "l12_analysis_replays",
+                   "l12_back_replays"):
         if counts[kernel]:
             fail(f"the {path} launched {kernel} {counts[kernel]} times")
     if k4 and (counts["resv_scan"] <= 0 or counts["syncs"]
@@ -1856,18 +1823,11 @@ L12_FIXTURES = [
     ("l1_sweep_j_256", 1, "j", 256, 44100),
 ]
 L12_DELAY = {1: 545, 2: 481}
-#: phase 8 times the host route and the card chain in this many turns of
-#: host, card, card, host (6 runs each), walls and stage splits apart
+#: phase 8 times the card chain op by op and replayed in this many turns
+#: of L12_TURN_ORDER (2 runs each)
 L12_TURNS = 3
 #: phase 8's timed cells on the bench signal: (label, layer, kbps); stereo
 L12_CELLS = (("Layer II 192 kbps", 2, 192), ("Layer I 384 kbps", 1, 384))
-#: the host route's stages, as its Profiler stages and spans
-#: (runtime.profiling.SPANS_L12) name them, and the PCM's framing
-#: (encoder._layer12_frame) ahead of them; the card chain times its
-#: stages with spans alone (l12_trace)
-L12_HOST_STAGES = ("framing", "analyze_frames", "download", "joint_mode",
-                   "greedy_allocation", "quantize_l{}", "_marshal_layer12",
-                   "_crc_calc", "pack_elements")
 #: cycles of one dependent redux.sync (__reduce_min_sync) and of one
 #: vote.ballot on an SM: a shuffle's 24 and an integer operation's;
 #: assumed, not measured on the card
@@ -1962,78 +1922,6 @@ def k5_step_sm_cycles(counts):
     return max(sum(counts.values()) / SM_DISPATCH_PER_CLOCK, pipes)
 
 
-@contextlib.contextmanager
-def l12_span(prof, name):
-    """``prof.stage(name)`` inside the trace span `name`."""
-    from mp3tpu_torch.runtime import profiling
-    with prof.stage(name), profiling.scope(name):
-        yield
-
-
-def l12_host_route(pcm, cfg, device, prof=None):
-    """The Layer I/II route that ``encoder.encode_layer12_fast``'s card
-    chain replaced, composed from the port's module functions as the
-    yardstick of phase 8 and of the tests: the framing, the analysis and
-    the quantizers on `device` (``encoder._layer12_frame``,
-    ``_layer12_analysis``, ``_layer12_quantize``); the joint decision and
-    the greedy allocation (``runtime/alloc12``), the marshalling
-    (``encoder._marshal_layer12``, with its per-frame ``_crc_calc``) and
-    the packing (``runtime.bitstream.pack_elements``) on the host, with a
-    download before each host stage.  The same bytes as the card chain."""
-    import numpy as np
-    import torch
-    from mp3tpu_torch import encoder as E
-    from mp3tpu_torch import resolve_device
-    from mp3tpu_torch.runtime import alloc12, profiling
-    from mp3tpu_torch.runtime.bitstream import pack_elements
-    from mp3tpu_torch.tables import mpeg
-    dev = resolve_device(device)
-    prof = prof if prof is not None else profiling.NULL
-    with prof.stage("framing"):
-        P, x = E._layer12_frame(pcm, cfg)
-    layer, nch, F = P.layer, P.nch, P.F
-    with prof.stage("analyze_frames"):
-        ana = E._layer12_analysis(x, P, dev)
-    with prof.stage("download"):
-        scalar = ana["scalar"].cpu().numpy()              # (nch, F, G, 32)
-        scfsi = ana["scfsi"].cpu().numpy() if layer == 2 else None
-        if cfg.psy_model == 1:
-            from mp3tpu_torch.numpy_ref.tonal import psycho_one_frames
-            snr = psycho_one_frames(x.astype(np.float64), layer, cfg,
-                                    ana["sb"].cpu().numpy())
-        else:
-            snr = ana["snr"].cpu().numpy().astype(np.float64)
-    smr = np.stack([snr[0], snr[nch - 1]], axis=1)        # (F, 2, 32)
-    scfsi_fc = (np.stack([scfsi[0], scfsi[nch - 1]], axis=1).astype(np.int64)
-                if layer == 2 else None)
-    with l12_span(prof, "joint_mode"):
-        if P.joint:
-            is_js, mode_ext, jsbound = alloc12.joint_mode(
-                smr, scfsi_fc, P.adb, layer, P.table, nch,
-                cfg.error_protection)
-            mode = np.where(is_js, mpeg.MODE_JOINT, mpeg.MODE_STEREO)
-        else:
-            mode = np.full(F, cfg.mode)
-            mode_ext = np.zeros(F, np.int64)
-            jsbound = np.full(F, P.sblimit if layer == 2 else 32)
-    with l12_span(prof, "greedy_allocation"):
-        ba, adb_left = alloc12.greedy_allocation(
-            smr, scfsi_fc, np.full(F, P.adb), jsbound, layer, P.table, nch,
-            cfg.error_protection)
-    with prof.stage(f"quantize_l{layer}"):
-        codes = E._layer12_quantize(ana, P, torch.as_tensor(jsbound,
-                                                            device=dev),
-                                    torch.as_tensor(ba, device=dev))
-    with prof.stage("download"):
-        codes = codes.cpu().numpy()                       # (nch, F, G, 12, 32)
-    with l12_span(prof, "_marshal_layer12"):
-        values, lengths = E._marshal_layer12(
-            cfg, layer, P.table, P.sblimit, nch, F, mode, mode_ext, jsbound,
-            ba, scfsi, scalar, codes, adb_left)
-    with l12_span(prof, "pack_elements"):
-        return pack_elements(values, lengths) + b"\x00"
-
-
 def l12_snr(np, orig, deco, d):
     n = min(len(orig) - d, len(deco) - d)
     o = orig[:n].astype(np.float64)
@@ -2053,7 +1941,7 @@ def l12_cfg(ctx, layer, mode, kbps, rate=44100, crc=False):
 def l12_launches(ctx, path, run):
     """run() with the counts reset before and read after; fails unless it
     launched K5 and K6 once each (eagerly or in a replay of the back
-    half's graph), K5's first design and no Layer III kernel, and
+    half's graph) and no Layer III kernel, and
     captured or replayed its analysis graph and its back half's graph
     once each and no Layer III graph.  Returns (run()'s result, the
     counts)."""
@@ -2061,16 +1949,16 @@ def l12_launches(ctx, path, run):
     out = run()
     counts = launch_counts(ctx)
     if (counts["alloc12"], counts["pack12"]) != (1, 1) or any(
-            counts[k] for k in ("alloc12_baseline", "search", "bits_at",
-                                "hist_c1", "baseline", "resv_scan")) or any(
+            counts[k] for k in ("search", "bits_at", "hist_c1",
+                                "resv_scan")) or any(
                 counts[f"{s}_captures"] + counts[f"{s}_replays"] != 1
                 for s in L12_STAGES) or any(
                 counts[f"{s}_{kind}"] for s in ONE_GRAPH_STAGES
                 + SEGMENT_STAGES + SHARDED_ANALYSIS
                 for kind in ("captures", "replays")):
-        fail(f"{path}: launches {counts} (expected K5 1, K6 1, K5's first "
-             f"design 0, no Layer III kernel; one analysis graph and one "
-             f"back-half graph, no Layer III graph)")
+        fail(f"{path}: launches {counts} (expected K5 1, K6 1, no Layer "
+             f"III kernel; one analysis graph and one back-half graph, no "
+             f"Layer III graph)")
     return out, counts
 
 
@@ -2101,29 +1989,21 @@ def l12_capture(ctx, run):
 
 
 def k5_check(ctx, label, args):
-    """K5 and its first design (allocate_baseline) against their plain
-    version on `args` (allocate's), torch.equal on every output, each
-    design's greedy steps against the other's and the lockstep code's
-    rounds (the longest frame's steps + 1, counted by a line tracer);
-    returns (K5's max abs error, the first design's, the longest frame's
-    steps, every frame's steps summed)."""
+    """K5 against its plain version on `args` (allocate's), torch.equal
+    on every output, its greedy steps against the lockstep code's rounds
+    (the longest frame's steps + 1, counted by a line tracer); returns
+    (K5's max abs error, the longest frame's steps, every frame's steps
+    summed)."""
     torch, A12 = ctx["torch"], ctx["A12"]
     from test_torch_layer12_card import lockstep_rounds
     got = A12.allocate(*args)
-    first = A12.allocate_baseline(*args)
     torch.cuda.synchronize()
     want = A12.allocate_plain(*args)
-    errs = []
-    for name, out in (("K5", got), ("K5's first design", first)):
-        errs.append(max(int((out[k].cpu().long() - want[k].long()).abs()
-                            .max()) if want[k].numel() else 0
-                        for k in A12.OUTPUTS))
-        bad = [k for k in A12.OUTPUTS
-               if not torch.equal(out[k].cpu(), want[k])]
-        if bad:
-            fail(f"{name} != its plain version on {label} in {bad}")
-    if not torch.equal(got["steps"], first["steps"]):
-        fail(f"K5 and its first design count other steps on {label}")
+    err = max(int((got[k].cpu().long() - want[k].long()).abs().max())
+              if want[k].numel() else 0 for k in A12.OUTPUTS)
+    bad = [k for k in A12.OUTPUTS if not torch.equal(got[k].cpu(), want[k])]
+    if bad:
+        fail(f"K5 != its plain version on {label} in {bad}")
     smr, scf, layer, table, nch, sblimit, adb, ep, joint, mode = args
     steps = int(got["steps"].max()) if smr.shape[0] else 0
     kw = dict(layer=layer, table=table, nch=nch, adb=adb,
@@ -2134,7 +2014,7 @@ def k5_check(ctx, label, args):
     if steps + 1 != rounds:
         fail(f"K5 on {label}: the longest frame's steps {steps} + 1 != the "
              f"lockstep rounds {rounds}")
-    return errs[0], errs[1], steps, int(got["steps"].sum())
+    return err, steps, int(got["steps"].sum())
 
 
 def k5_bound(smr, scf, steps, total_steps, counts):
@@ -2203,23 +2083,6 @@ def kernel_timed(ctx, fn, plain, plain_on_host):
     return k_dev, k_call, p_ms
 
 
-class SyncStages:
-    """A Profiler whose stages synchronize the card before and after, so
-    that each stage's wall holds its device work (measurement only: it
-    adds waits)."""
-
-    def __init__(self, torch, Profiler):
-        self.torch, self.prof = torch, Profiler()
-        self.meta = self.prof.meta
-
-    @contextlib.contextmanager
-    def stage(self, name):
-        self.torch.cuda.synchronize()
-        with self.prof.stage(name):
-            yield
-            self.torch.cuda.synchronize()
-
-
 def l12_yardstick(pcm, cfg, device):
     """``encode_layer12_fast`` in ``tools.yardstick_form()``: the card chain
     op by op, its analysis (``layer12.analyze_frames_eager``) and its back
@@ -2230,61 +2093,38 @@ def l12_yardstick(pcm, cfg, device):
 
 
 def l12_route_fns(ctx):
-    """The Layer I/II routes phase 8 compares: the host route, the card
-    chain op by op, the card chain (the analysis and the back half
-    replayed)."""
-    return {"host": l12_host_route, "yardstick": l12_yardstick,
-            "card": ctx["E"].encode_layer12_fast}
+    """The Layer I/II routes phase 8 compares: the card chain op by op,
+    the card chain (the analysis and the back half replayed)."""
+    return {"yardstick": l12_yardstick, "card": ctx["E"].encode_layer12_fast}
 
 
-def l12_staged(ctx, pcm, cfg):
-    """One encode of the host route under SyncStages: (bytes, synced wall
-    s, {stage: s}), its _crc_calc calls timed by a wrapper of
-    numpy_ref.layer12._crc_calc (they run inside its _marshal_layer12)."""
-    torch = ctx["torch"]
-    from mp3tpu_torch.numpy_ref import layer12 as ref12
-    from mp3tpu_torch.runtime.profiling import Profiler
-    prof = SyncStages(torch, Profiler)
-    real_crc, crc_s = ref12._crc_calc, [0.0]
-
-    def timed_crc(*a):
-        t0 = time.perf_counter()
-        try:
-            return real_crc(*a)
-        finally:
-            crc_s[0] += time.perf_counter() - t0
-
-    ref12._crc_calc = timed_crc
-    try:
-        t0 = time.perf_counter()
-        out = l12_host_route(pcm, cfg, "cuda", prof=prof)
-        wall = time.perf_counter() - t0
-    finally:
-        ref12._crc_calc = real_crc
-    return out, wall, dict(prof.prof.stages, _crc_calc=crc_s[0])
+def l12_host_back(pcm, cfg):
+    """The route the card chain replaced: the card's analysis, then the
+    back half's plain versions on the CPU
+    (tests/test_torch_layer12_card.py ``host_back_half``; the tests hold
+    those to the JAX package's host marshalling and packing)."""
+    from test_torch_layer12_card import host_back_half
+    return host_back_half(pcm, cfg)
 
 
-#: the order of phase 8's turns of the three routes
-L12_TURN_ORDER = ("host", "yardstick", "card", "card", "yardstick", "host")
+#: the order of phase 8's turns of the two routes
+L12_TURN_ORDER = ("yardstick", "card", "card", "yardstick")
 
 
 def l12_routes(ctx, pcm, cfg_of, label):
-    """The host route (l12_host_route), the card chain with its analysis
-    op by op (l12_yardstick) and the card chain (encode_layer12_fast) on
-    `pcm` in L12_TURNS turns of L12_TURN_ORDER: the walls (median of 6,
-    RTF), then the host route's walls by stage (l12_staged, median of 6 a
-    stage), the same bytes every run.  Returns ({route: {"wall": s,
-    "walls": [s]}, with "stages": {stage: s} and "synced_wall": s for the
-    host route}, the bytes)."""
+    """The card chain op by op (l12_yardstick) and replayed
+    (encode_layer12_fast) on `pcm` in L12_TURNS turns of L12_TURN_ORDER:
+    the walls (median of 6, RTF), the same bytes every run and the host
+    back half's (l12_host_back).  Returns ({route: {"wall": s, "walls":
+    [s]}}, the bytes)."""
     torch = ctx["torch"]
     runs = l12_route_fns(ctx)
     want = runs["card"](pcm, cfg_of(), "cuda")
-    for route in ("host", "yardstick"):
-        if runs[route](pcm, cfg_of(), "cuda") != want:
-            fail(f"{label}: the card chain and the {route} route give "
-                 f"other bytes")
+    if runs["yardstick"](pcm, cfg_of(), "cuda") != want or \
+            l12_host_back(pcm, cfg_of()) != want:
+        fail(f"{label}: the card chain, its yardstick form and the host "
+             f"back half give other bytes")
     walls = {r: [] for r in runs}
-    stages, synced = {}, []
     for _ in range(L12_TURNS):
         for route in L12_TURN_ORDER:
             torch.cuda.synchronize()
@@ -2293,19 +2133,8 @@ def l12_routes(ctx, pcm, cfg_of, label):
             walls[route].append(time.perf_counter() - t0)
             if out != want:
                 fail(f"{label}: the {route} route changed its bytes")
-    for _ in range(2 * L12_TURNS):
-        out, wall, got = l12_staged(ctx, pcm, cfg_of())
-        synced.append(wall)
-        if out != want:
-            fail(f"{label}: the host route changed its bytes")
-        for k, v in got.items():
-            stages.setdefault(k, []).append(v)
-    res = {route: dict(wall=statistics.median(walls[route]),
-                       walls=walls[route]) for route in runs}
-    res["host"].update(synced_wall=statistics.median(synced),
-                       stages={k: statistics.median(v)
-                               for k, v in stages.items()})
-    return res, want
+    return {route: dict(wall=statistics.median(walls[route]),
+                        walls=walls[route]) for route in runs}, want
 
 
 #: the most host dispatches the card chain's analyze_frames span may make:
@@ -2485,9 +2314,8 @@ def l12_trace(ctx, pcm, cfg_of, label, want):
 def l12_waits(ctx, pcm, cfg_of, label):
     """The host's waits of a warm card-chain encode (1) and of a stream
     at 512 frames a window (one a window), by torch's count; the stream's
-    launches of K5 and K6 (one a window each) and of K5's first design
-    (none).  Returns {"windows", "alloc12", "pack12",
-    "alloc12_baseline"}."""
+    launches of K5 and K6 (one a window each).  Returns {"windows",
+    "alloc12", "pack12"}."""
     E = ctx["E"]
     E.encode_layer12_fast(pcm, cfg_of(), "cuda")
     out, where = torch_waits(ctx, lambda: E.encode_layer12_fast(
@@ -2516,19 +2344,16 @@ def l12_waits(ctx, pcm, cfg_of, label):
     if streamed != out or sum(swhere.values()) != windows:
         fail(f"{label} stream: equal {streamed == out}, waits "
              f"{sum(swhere.values())} (expected {windows}): {swhere}")
-    if (counts["alloc12"], counts["pack12"],
-            counts["alloc12_baseline"]) != (windows, windows, 0):
+    if (counts["alloc12"], counts["pack12"]) != (windows, windows):
         fail(f"{label} stream: K5 and K6 launches {counts['alloc12']}, "
-             f"{counts['pack12']} (expected {windows} each), K5's first "
-             f"design's {counts['alloc12_baseline']}")
+             f"{counts['pack12']} (expected {windows} each)")
     print(f"{label}: host waits of a warm encode {where}; the stream in 1 s "
           f"pieces at 512 frames a window equals the one-shot with "
           f"{windows} waits, one a window, its analysis and back-half graphs "
-          f"replayed {windows} times each; K5 launched {windows} times, its "
-          f"first design none", flush=True)
+          f"replayed {windows} times each; K5 launched {windows} times",
+          flush=True)
     return dict(windows=windows, alloc12=counts["alloc12"],
-                pack12=counts["pack12"],
-                alloc12_baseline=counts["alloc12_baseline"])
+                pack12=counts["pack12"])
 
 
 def l12_analysis_check(ctx, pcm, cfg, label, seen):
@@ -2561,15 +2386,14 @@ def l12_analysis_check(ctx, pcm, cfg, label, seen):
                              1e3 * entry.capture_s["l12_analysis"]))
 
 
-def k5_designs(ctx):
-    """Print the -Xptxas -v lines of K5 (alloc12_kernel, each layer) and
-    of its first design from phase 2's report, and the blocks each holds
-    on an SM; fails unless K5 has no stack frame and no spill."""
+def k5_registers(ctx):
+    """Print the -Xptxas -v lines of K5 (alloc12_kernel, each layer) from
+    phase 2's report, and the blocks each holds on an SM; fails unless K5
+    has no stack frame and no spill."""
     A12 = ctx["A12"]
     report = A12.kernel_report(ctx["alloc12_ptxas"])
     for name, r in sorted(report.items()):
-        layer = 2 if "<2>" in name else 1
-        per_sm, per_block = A12.occupancy(layer, "baseline" in name)
+        per_sm, per_block = A12.occupancy(2 if "<2>" in name else 1)
         print(f"ptxas {name}: {r['registers']} registers, {r['stack']} "
               f"bytes stack frame, {r['spill_stores']} bytes spill stores, "
               f"{r['spill_loads']} bytes spill loads; {per_sm} blocks of "
@@ -2582,37 +2406,30 @@ def k5_designs(ctx):
                  f"no spill)")
 
 
-#: phase 8 times K5 and its first design in this many windows of turns
-#: (first, K5, K5, first; 20 launches each)
+#: phase 8 times K5 in this many profiler windows (2 series of 20
+#: launches each)
 K5_WINDOWS = 3
 
 
 def k5_timed(ctx, a5, layer, steps, total, counts):
-    """K5 and its first design on `a5` (allocate's arguments): device time
-    in K5_WINDOWS windows of turns (first, K5, K5, first: the median of
-    each design's), call time, blocks an SM and waves; the plain version's
-    host time; the bound by term."""
+    """K5 on `a5` (allocate's arguments): device time in K5_WINDOWS
+    windows (the median), call time, blocks an SM and waves; the plain
+    version's host time; the bound by term."""
     torch, A12 = ctx["torch"], ctx["A12"]
-    fns = dict(k5=lambda: A12.allocate(*a5),
-               first=lambda: A12.allocate_baseline(*a5))
-    names = dict(k5="alloc12_kernel", first="alloc12_baseline_kernel")
-    order = ("first", "k5", "k5", "first")
-    turns = dict(k5=[], first=[])
+
+    def k5():
+        return A12.allocate(*a5)
+
+    turns = []
     for _ in range(K5_WINDOWS):
-        got = kernel_series([fns[k] for k in order],
-                            [names[k] for k in order])
+        got = kernel_series([k5, k5], ["alloc12_kernel"] * 2)
         if got is None:     # the profiler lost events: CUDA events instead
-            got = [queued_ms(fns[k]) for k in order]
-        for k, ms in zip(order, got):
-            turns[k].append(ms)
-    F = a5[0].shape[0]
-    out = {}
-    for key in ("k5", "first"):
-        per_sm, per_block = A12.occupancy(layer, key == "first")
-        out[key] = dict(ms=statistics.median(turns[key]), turns=turns[key],
-                        call_ms=call_ms(fns[key], reps=20), blocks=per_sm,
-                        per_block=per_block,
-                        waves=A12.waves(F, layer, key == "first"))
+            got = [queued_ms(k5) for _ in range(2)]
+        turns += got
+    per_sm, per_block = A12.occupancy(layer)
+    out = dict(ms=statistics.median(turns), turns=turns,
+               call_ms=call_ms(k5, reps=20), blocks=per_sm,
+               per_block=per_block, waves=A12.waves(a5[0].shape[0], layer))
     times = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -2641,13 +2458,15 @@ def phase_layer12(ctx):
 
     def same_bytes(label, pcm, cfg_of, out):
         """The card chain's bytes == the yardstick form's and the host
-        route's."""
-        for route in ("yardstick", "host"):
-            if l12_route_fns(ctx)[route](pcm, cfg_of(), "cuda") != out:
-                fail(f"{label}: the card chain and the {route} route give "
-                     f"other bytes")
-    k5_err = k5b_err = k6_err = 0
-    k5_designs(ctx)
+        back half's."""
+        if l12_yardstick(pcm, cfg_of(), "cuda") != out:
+            fail(f"{label}: the card chain and its yardstick form give "
+                 f"other bytes")
+        if l12_host_back(pcm, cfg_of()) != out:
+            fail(f"{label}: the card chain and the host back half give "
+                 f"other bytes")
+    k5_err = k6_err = 0
+    k5_registers(ctx)
     step_counts = k5_step_instructions(ctx)
     for layer, counts in step_counts.items():
         print(f"K5's greedy step at Layer {'I' * layer}, warp instructions "
@@ -2657,9 +2476,9 @@ def phase_layer12(ctx):
               f"(latencies assumed)", flush=True)
 
     def check5(label, args):
-        nonlocal k5_err, k5b_err
-        e5, e5b, steps, total = k5_check(ctx, label, args)
-        k5_err, k5b_err = max(k5_err, e5), max(k5b_err, e5b)
+        nonlocal k5_err
+        e5, steps, total = k5_check(ctx, label, args)
+        k5_err = max(k5_err, e5)
         return steps, total
 
     for name, layer, mode, kbps, rate in L12_FIXTURES:
@@ -2695,8 +2514,7 @@ def phase_layer12(ctx):
         alloc_args, pack_args = l12_capture(
             ctx, lambda: encode_layer12_fast(pcm, cfg_of(), "cuda"))
         out = encode_layer12_fast(pcm, cfg_of(), "cuda")
-        same_bytes(f"{name} (pack_elements with _crc_calc on the host)",
-                   pcm, cfg_of, out)
+        same_bytes(f"{name} (the CRC)", pcm, cfg_of, out)
         check5(name, alloc_args[0])
         k6_err = max(k6_err, k6_check(ctx, name, pack_args[0]))
         dec, _ = dec12.decode(out)
@@ -2706,7 +2524,8 @@ def phase_layer12(ctx):
     print(f"Layers I/II: 6 fixtures at the reference streams' length and "
           f"header, decoded SNR within 0.5 dB (worst {worst[0]:+.4f} dB, "
           f"{worst[1]} ch{worst[2]}); the CRC fixtures decode; the card "
-          f"chain gives the yardstick form's and the host route's bytes on "
+          f"chain gives the yardstick form's and the host back half's bytes "
+          f"on "
           f"all 8, its captured analysis analyze_frames_eager's outputs",
           flush=True)
 
@@ -2718,7 +2537,7 @@ def phase_layer12(ctx):
                 kw["layer"], kw["table"], kw["nch"], kw["sblimit"],
                 kw["adb"], kw["error_protection"], kw["joint"], kw["mode"])
         check5(label, args)
-    print("K5 and its first design == their plain version on the forced "
+    print("K5 == its plain version on the forced "
           "rows of tests/test_torch_layer12_card.py (ties, +-inf, NaN, "
           "silent frames, every subband to its top, Layer I's limit) of "
           "24 configurations", flush=True)
@@ -2770,22 +2589,19 @@ def phase_layer12(ctx):
         F, Ecols = a6[0].shape
         clip = f"{label} {CLIP_SECONDS:g} s"
         F5 = a5[0].shape[0]
-        for name, key in (("K5", "k5"), ("K5's first design", "first")):
-            d = k5[key]
-            print(f"{clip}: {name} == plain, {F5} frames, longest frame "
-                  f"{steps} greedy steps, {total} in all; {d['blocks']} "
-                  f"blocks of {d['per_block']} warps an SM, "
-                  f"{d['waves']} wave(s); device {d['ms']} ms (median of "
-                  f"{len(d['turns'])} in turns: "
-                  f"{', '.join(f'{t:.6f}' for t in d['turns'])}), call "
-                  f"{d['call_ms']:.4f} ms; bound {k5['bound_ms']:.6f} ms "
-                  f"({k5['term']}), at {k5['bound_ms'] / d['ms']:.1%} of "
-                  f"it", flush=True)
+        print(f"{clip}: K5 == plain, {F5} frames, longest frame "
+              f"{steps} greedy steps, {total} in all; {k5['blocks']} "
+              f"blocks of {k5['per_block']} warps an SM, "
+              f"{k5['waves']} wave(s); device {k5['ms']} ms (median of "
+              f"{len(k5['turns'])}: "
+              f"{', '.join(f'{t:.6f}' for t in k5['turns'])}), call "
+              f"{k5['call_ms']:.4f} ms; bound {k5['bound_ms']:.6f} ms "
+              f"({k5['term']}), at {k5['bound_ms'] / k5['ms']:.1%} of "
+              f"it", flush=True)
         print(f"{clip}: K5's bound by term: " + ", ".join(
             f"{t} {v:.6f} ms" for t, v in k5["terms"].items())
-            + f"; K5 at {k5['k5']['ms'] / k5['first']['ms']:.3f} of its "
-            f"first design's time; plain (numpy on the host with its "
-            f"download) {k5['plain_ms']:.3f} ms", flush=True)
+            + f"; plain (numpy on the host with its download) "
+            f"{k5['plain_ms']:.3f} ms", flush=True)
         print(f"{clip}: K6 == plain, {F} frames x {Ecols} elements of "
               f"{a6[2]} bytes; device {k6_ms} ms, call {k6_call:.4f} ms, "
               f"plain (torch ops on the card) {k6_plain} ms; bound "
@@ -2800,17 +2616,6 @@ def phase_layer12(ctx):
                   f"({CLIP_SECONDS / r['wall']:.2f}x real time; "
                   f"{', '.join(f'{w:.4f}' for w in r['walls'])})",
                   flush=True)
-        r = routes["host"]
-        names = [n.format(layer) for n in L12_HOST_STAGES]
-        # _crc_calc runs inside _marshal_layer12
-        r["outside_s"] = r["synced_wall"] - sum(
-            r["stages"].get(n, 0.0) for n in names if n != "_crc_calc")
-        print(f"{clip}, host route, stages synchronized (median of "
-              f"{2 * L12_TURNS}, the synced wall {r['synced_wall']:.4f} "
-              f"s): " + ", ".join(f"{n} {r['stages'].get(n, 0.0) * 1e3:.3f}"
-                                  f" ms" for n in names)
-              + f"; outside them {r['outside_s'] * 1e3:.3f} ms; the card "
-              f"chain's stages by span below", flush=True)
         events = {}
         for route, fn in l12_route_fns(ctx).items():
             ev, busy, wall = profile_once(lambda fn=fn: fn(pcm, cfg_of(),
@@ -2827,11 +2632,9 @@ def phase_layer12(ctx):
                       bound_by=k5["bound_by"], steps=steps)
         res["cells"][label] = dict(
             launches=counts,
-            k5=dict(bound5, ms=k5["k5"]["ms"], call_ms=k5["k5"]["call_ms"],
+            k5=dict(bound5, ms=k5["ms"], call_ms=k5["call_ms"],
                     total_steps=total, terms=k5["terms"],
                     term=k5["term"]),
-            k5_first=dict(bound5, ms=k5["first"]["ms"],
-                          call_ms=k5["first"]["call_ms"]),
             k6=dict(ms=k6_ms, call_ms=k6_call, plain_ms=k6_plain,
                     bound_ms=b6, bound_by=b6_by), routes=routes,
             events=events, windows=windows)
@@ -2855,17 +2658,9 @@ def phase_layer12(ctx):
         check5(label, alloc_args[0])
         k6_err = max(k6_err, k6_check(ctx, label, pack_args[0]))
         print(f"{label}, {CLIP_SECONDS:g} s: the card chain == the "
-              f"yardstick form == the host route ({len(out)} bytes); K5 and "
+              f"yardstick form == the host back half ({len(out)} bytes); K5 "
+              f"and "
               f"K6 == plain", flush=True)
-        if crc:
-            # one run of the host route by stage: what the CRC costs it
-            got, wall, st = l12_staged(ctx, x, cfg_of())
-            if got != out:
-                fail(f"{label}: the staged host run gave other bytes")
-            print(f"  host route, stages synchronized (one run, "
-                  f"{wall:.4f} s): " + ", ".join(
-                      f"{n} {v * 1e3:.3f} ms" for n, v in st.items()),
-                  flush=True)
     # psy model 1 runs on the host: two waits
     short = pcm[:int(2.0 * 44100)]
 
@@ -2877,11 +2672,10 @@ def phase_layer12(ctx):
     encode_layer12_fast(short, psy1(), "cuda")
     out1, where = torch_waits(ctx, lambda: encode_layer12_fast(
         short, psy1(), "cuda"))
-    if sum(where.values()) != 2 or \
-            out1 != l12_host_route(short, psy1(), "cuda"):
+    if sum(where.values()) != 2 or out1 != l12_host_back(short, psy1()):
         fail(f"psy model 1: waits {where} (expected 2) or other bytes than "
-             f"the host route")
-    print(f"psy model 1 (2 s): the host route's bytes, host waits {where}",
+             f"the host back half")
+    print(f"psy model 1 (2 s): the host back half's bytes, host waits {where}",
           flush=True)
 
     # the Layer II stream's quality against the CPU path, as before
@@ -2926,7 +2720,7 @@ def phase_layer12(ctx):
         fail(f"phase 8 checked the analysis graphs in {seen['captures']} "
              f"capture and {seen['replays']} replay calls")
     res["analysis_graphs"] = seen
-    res["k5_err"], res["k5b_err"], res["k6_err"] = k5_err, k5b_err, k6_err
+    res["k5_err"], res["k6_err"] = k5_err, k6_err
     return res
 
 
@@ -3245,7 +3039,7 @@ def phase_corpus(ctx, line, cfg_of):
     from mp3tpu_torch.encoder import _plan_segments
     lanes = 2 * len(group) * _plan_segments(
         2 * -(-int(CORPUS_SECONDS * rate) // 1152))[0][2]
-    captured, err, s_err, b_err = path_batch_check(
+    captured, err, s_err = path_batch_check(
         ctx, lambda: encode_corpus_batched(group, kw, "cuda",
                                            batch=len(group)),
         lanes, f"corpus group of {len(group)}")
@@ -3255,9 +3049,8 @@ def phase_corpus(ctx, line, cfg_of):
                       plain_too=True)
     return dict(launches=launches, max_abs_err=err, ms=k_dev,
                 plain_ms=p_dev, bound_ms=b_ms, bound_by=b_by,
-                search_max_abs_err=s_err, baseline_max_abs_err=b_err,
-                search=k3, batch2_outs=first_of[2], forms=forms,
-                pipelined=pipelined)
+                search_max_abs_err=s_err, search=k3,
+                batch2_outs=first_of[2], forms=forms, pipelined=pipelined)
 
 
 #: phase 14: the mixed corpus of encode_corpus's worker threads,
@@ -3449,7 +3242,7 @@ def sharded_rank(rank, world, url, out):
         waits = {k: v - c0[k] for k, v in counters().items()}
         with yardstick_form():
             yardstick_same = encode() == data
-        _, err, s_err, b_err = path_batch_check(
+        _, err, s_err = path_batch_check(
             dict(torch=torch, loop=loop), encode,
             sharded_lanes(2 * -(-len(pcm) // 1152), world),
             f"sharded path (world {world}, rank {rank})")
@@ -3459,8 +3252,7 @@ def sharded_rank(rank, world, url, out):
         f.write(data)
     with open(out + ".json", "w") as f:
         json.dump({"wall_s": wall, "max_abs_err": err,
-                   "search_max_abs_err": s_err,
-                   "baseline_max_abs_err": b_err, "graphs": graphs,
+                   "search_max_abs_err": s_err, "graphs": graphs,
                    "yardstick_same": yardstick_same, "waits": waits,
                    "torch_waits": where}, f)
 
@@ -3509,10 +3301,10 @@ def phase_sharded(ctx, cfg_of, line):
                  f"downloads an encode (expected 1)")
         n_sh = len(profile_once(
             lambda: encode_layer3_sharded(pcm, cfg_of(), "cuda"))[0])
-        _, err, s_err, b_err = path_batch_check(
+        _, err, s_err = path_batch_check(
             ctx, lambda: encode_layer3_sharded(pcm, cfg_of(), "cuda"),
             sharded_lanes(G, 1), "sharded path (world 1)")
-        errs, s_errs, b_errs = [err], [s_err], [b_err]
+        errs, s_errs = [err], [s_err]
     finally:
         dist.destroy_process_group()
 
@@ -3564,7 +3356,6 @@ def phase_sharded(ctx, cfg_of, line):
         replays.append(res["graphs"])
         errs.append(res["max_abs_err"])
         s_errs.append(res["search_max_abs_err"])
-        b_errs.append(res["baseline_max_abs_err"])
     if ranks[0] != ranks[1]:
         fail("the two gloo ranks returned different streams")
     streams[2] = ranks[0]
@@ -3617,8 +3408,7 @@ def phase_sharded(ctx, cfg_of, line):
           f"yardstick form gives its bytes; captured graphs by stage, key "
           f"and capture ms: {sharded_captures()}", flush=True)
     return dict(launches=launches, max_abs_err=max(errs),
-                search_max_abs_err=max(s_errs),
-                baseline_max_abs_err=max(b_errs))
+                search_max_abs_err=max(s_errs))
 
 
 def phase_trace(ctx, pcm, cfg_of, main_out):
@@ -3868,7 +3658,7 @@ def phase_bench(main_out, corpus_outs, line):
 def phase_build(k1, K, R, A12, P12):
     """Phase 2: build the five kernel libraries, one nvcc process each,
     started together; prints the -Xptxas -v reports of bits_at.cu (its
-    kernels: bits_at_kernel, K3's search_kernel and search_baseline), of
+    kernels: bits_at_kernel and K3's search_kernel), of
     resv_scan.cu (K4), alloc12.cu (K5) and pack12.cu (K6)."""
     jobs = ((k1, ()), (K, ("-Xptxas", "-v")), (R, ("-Xptxas", "-v")),
             (A12, ("-Xptxas", "-v")), (P12, ("-Xptxas", "-v")))
@@ -3891,10 +3681,11 @@ def phase_build(k1, K, R, A12, P12):
 def phase_main(ctx, pcm, cfg, line):
     """Phase 5: the bench clip five ways: the plain searches with the
     plain chain, the plain searches with the K1 chain, the plain searches
-    on bits_at (the lockstep path), K3's first design, each swapped in by
-    this script into the segment program's staged form (a replayed graph
-    calls no Python), and as the package runs it (K3, the segment program
-    as one CUDA graph); the five streams must be equal, and the launch
+    on bits_at (the lockstep path), K3 with the rate loop op by op, each
+    swapped in by this script into the segment program's staged form (a
+    replayed graph calls no Python), and as the package runs it (K3, the
+    segment program as one CUDA graph); the five streams must be equal,
+    and the launch
     counts must show that each swap took effect.  The lockstep path and
     K3 are timed in turns and profiled once each.  Returns the package
     run's counts and measurements."""
@@ -3908,8 +3699,6 @@ def phase_main(ctx, pcm, cfg, line):
     eager = dict(outer_loop=loop.outer_loop_eager)
     plain_searches = dict(eager, search_stepsize=loop.search_stepsize_plain,
                           search_walk=loop.search_walk_plain)
-    baseline = dict(eager, search_stepsize=ctx["S"].baseline_stepsize,
-                    search_walk=ctx["S"].baseline_walk)
 
     def plain_chain(xr75p, qss, is_short, is_short_block, ST):
         c = K.bits_at_plain(xr75p, qss, is_short, is_short_block, ST)
@@ -3937,21 +3726,16 @@ def phase_main(ctx, pcm, cfg, line):
     staged = tuple(f"{s}_{kind}" for s in SEGMENT_STAGES
                    for kind in ("captures", "replays"))
     ways = {"plain": (dict(plain_searches, _bits_at=plain_chain),
-                      ("search", "bits_at", "hist_c1", "baseline")
-                      + op_by_op, ()),
+                      ("search", "bits_at", "hist_c1") + op_by_op, ()),
             "k1": (dict(plain_searches, _bits_at=k1_chain),
-                   ("search", "bits_at", "baseline") + op_by_op,
-                   ("hist_c1",)),
-            "pr5": (plain_searches, ("search", "hist_c1", "baseline")
-                    + op_by_op, ("bits_at",)),
-            "baseline": (baseline, ("search", "bits_at", "hist_c1")
-                         + op_by_op, ("baseline",)),
-            "k3_eager": (eager, ("bits_at", "hist_c1", "baseline")
-                         + op_by_op, ("search",)),
-            "k3": ({}, ("bits_at", "hist_c1", "baseline") + staged,
+                   ("search", "bits_at") + op_by_op, ("hist_c1",)),
+            "pr5": (plain_searches, ("search", "hist_c1") + op_by_op,
+                    ("bits_at",)),
+            "k3_eager": (eager, ("bits_at", "hist_c1") + op_by_op,
+                         ("search",)),
+            "k3": ({}, ("bits_at", "hist_c1") + staged,
                    ("search", "segment_replays"))}
     label = {"plain": "plain", "k1": "K1 chain", "pr5": "the lockstep path",
-             "baseline": "K3's first design",
              "k3_eager": "K3, the rate loop op by op",
              "k3": "K3, the segment program as one CUDA graph"}
 
@@ -3980,7 +3764,7 @@ def phase_main(ctx, pcm, cfg, line):
         return out, counts, wall
 
     outs, counts = {}, {}
-    for way in ("plain", "k1", "pr5", "baseline"):
+    for way in ("plain", "k1", "pr5"):
         outs[way], counts[way], _ = counted(way)
     # K3's counted run also records each search's evaluation counts and
     # the evaluations K3 ran
@@ -4016,10 +3800,10 @@ def phase_main(ctx, pcm, cfg, line):
     from mp3tpu_torch.encoder import _plan_segments
     plan = _plan_segments(nframes * 2)
     print(f"main path: the plain searches with the plain chain, with the K1 "
-          f"chain, on bits_at (the lockstep path), K3's first design, K3 "
-          f"with the rate loop op by op and K3 in the segment program as "
-          f"one CUDA graph: the same {len(out)} bytes", flush=True)
-    for way in ("plain", "k1", "pr5", "baseline", "k3_eager"):
+          f"chain, on bits_at (the lockstep path), K3 with the rate loop op "
+          f"by op and K3 in the segment program as one CUDA graph: the same "
+          f"{len(out)} bytes", flush=True)
+    for way in ("plain", "k1", "pr5", "k3_eager"):
         print(f"main path ({label[way]}): launches and waits per encode "
               f"{counts[way]}", flush=True)
     # the graph runs all 6 iterations of each of the 2 rate loops a
@@ -4095,31 +3879,23 @@ def phase_main(ctx, pcm, cfg, line):
               f"{1.0 - busy / pwall:.3f} (against the unprofiled median "
               f"{median:.3f} s: {1.0 - busy / median:.3f})", flush=True)
 
-    # K3's device time summed over one encode, and its first design's with
-    # the baseline swapped in, in turns
-    k3_ms = {"k3": [], "baseline": []}
-    # the baseline way runs the rate loop op by op (49 launches), K3 as
-    # graphs (all 6 iterations of each call: 56)
-    n_launches = {"k3": launches["search"],
-                  "baseline": counts["baseline"]["baseline"]}
-    for way in ("baseline", "k3", "k3", "baseline"):
-        name = "search_kernel(" if way == "k3" else "search_baseline("
+    # K3's device time summed over one encode (all 6 iterations of each
+    # rate loop as graphs: 56 launches), in two windows
+    k3_ms = []
+    name = "search_kernel("
+    for _ in range(2):
         for _ in range(3):      # until the window holds every launch
-            count, ms = kernel_events(lambda: run(way), (name,))[name]
-            if count == n_launches[way]:
+            count, ms = kernel_events(lambda: run("k3"), (name,))[name]
+            if count == launches["search"]:
                 break
         else:
-            print(f"  (main path, {label[way]}: the profiler recorded "
-                  f"{count} of {n_launches[way]} {name} events)",
-                  flush=True)
+            print(f"  (main path: the profiler recorded {count} of "
+                  f"{launches['search']} {name} events)", flush=True)
             ms = None
-        k3_ms[way].append(ms)
+        k3_ms.append(ms)
     print(f"main path, the searches' kernel summed over one encode "
-          f"(torch.profiler, {n_launches['k3']} launches as graphs, "
-          f"{n_launches['baseline']} op by op; turns baseline, "
-          f"K3, K3, baseline): K3 {' / '.join(map(str, k3_ms['k3']))} ms, "
-          f"K3's first design {' / '.join(map(str, k3_ms['baseline']))} ms",
-          flush=True)
+          f"(torch.profiler, {launches['search']} launches as graphs, two "
+          f"windows): K3 {' / '.join(map(str, k3_ms))} ms", flush=True)
 
     snr_gpu = first_seconds_snr(np, out, pcm, fsize, 10.0, decode_mp3,
                                 snr_db)
@@ -4174,11 +3950,8 @@ def phase_graphs(ctx, pcm, cfg, line, main_out):
     from mp3tpu_torch.tools.trace_stages import span_breakdown
     from test_torch_graph_card import loop_batch
     graphed, eager = loop.outer_loop, loop.outer_loop_eager
-    forms = {"graphs": graphed, "stepwise": loop.outer_loop_stepwise,
-             "eager": eager}
-    name = {"graphs": "as CUDA graphs",
-            "stepwise": "as CUDA graphs an iteration at a time",
-            "eager": "op by op"}
+    forms = {"graphs": graphed, "eager": eager}
+    name = {"graphs": "as CUDA graphs", "eager": "op by op"}
     calls, batches = {form: [] for form in forms}, {}
     acc = loop.iterations_on(torch.device("cuda"))
 
@@ -4234,30 +4007,25 @@ def phase_graphs(ctx, pcm, cfg, line, main_out):
         if out != main_out:
             fail(f"main path with the rate loop {name[form]}: other bytes "
                  f"than phase 5's")
-    g, w, e = counts["graphs"], counts["stepwise"], counts["eager"]
-    # every form: the same lanes, kinds and live iterations call by call;
-    # the graphs launch K3 in all 6 iterations and never sync, the
-    # stepwise form and op by op once a live iteration and as often
+    g, e = counts["graphs"], counts["eager"]
+    # both forms: the same lanes, kinds and live iterations call by call;
+    # the graphs launch K3 in all 6 iterations and never sync, op by op
+    # once a live iteration
     if len({tuple(c[:3] for c in calls[f]) for f in forms}) != 1 or \
             any(c[3:] != (7, 0) for c in calls["graphs"]) or \
-            any(c[3] != 1 + c[2] for f in ("stepwise", "eager")
-                for c in calls[f]) or \
-            [c[4] for c in calls["stepwise"]] != \
-            [c[4] for c in calls["eager"]]:
-        fail(f"the rate loop's calls: as CUDA graphs {calls['graphs']}; an "
-             f"iteration at a time {calls['stepwise']}; op by op "
-             f"{calls['eager']}")
+            any(c[3] != 1 + c[2] for c in calls["eager"]):
+        fail(f"the rate loop's calls: as CUDA graphs {calls['graphs']}; op "
+             f"by op {calls['eager']}")
     # from an empty cache: a key's first call captures, the others replay
     replays = len(calls["graphs"]) - len(keys)
-    if g["captures"] != 2 * len(keys) or w["captures"] != 2 * len(keys) or \
+    if g["captures"] != 2 * len(keys) or \
             (g["prologue_replays"], g["iteration_replays"]) != (replays,
                                                                replays) or \
             e["captures"] or e["replays"]:
-        fail(f"graph counts: as CUDA graphs {g}, an iteration at a time "
-             f"{w}, op by op {e}, {len(keys)} keys")
-    print(f"rate loop as CUDA graphs: the same {len(main_out)} bytes as an "
-          f"iteration at a time and op by op; counts {g} (an iteration at a "
-          f"time {w}; op by op {e}); {len(keys)} keys captured: "
+        fail(f"graph counts: as CUDA graphs {g}, op by op {e}, {len(keys)} "
+             f"keys")
+    print(f"rate loop as CUDA graphs: the same {len(main_out)} bytes as op "
+          f"by op; counts {g} (op by op {e}); {len(keys)} keys captured: "
           f"{', '.join(f'{G} lanes {kind} {s * 1e3:.1f} ms' for G, kind, s in keys)}"
           f" (two captures each); torch.cuda.memory_reserved "
           f"{reserved0 / 2**20:.1f} MiB before the captures, "
@@ -4271,8 +4039,7 @@ def phase_graphs(ctx, pcm, cfg, line, main_out):
               flush=True)
 
     times = {form: [] for form in forms}
-    for form in ("eager", "stepwise", "graphs", "graphs", "stepwise",
-                 "eager") * GRAPH_TURNS:
+    for form in ("eager", "graphs", "graphs", "eager") * GRAPH_TURNS:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = run(form)
@@ -4322,18 +4089,16 @@ def phase_graphs(ctx, pcm, cfg, line, main_out):
               f"{bd['search_kernel_events']} = search.launches "
               f"{launches['search']}, {bd['unlinked_events']} unlinked; on "
               f"{line}", flush=True)
-    g, w = res["graphs"], res["stepwise"]
-    print(f"rate loop unrolled against an iteration at a time: wall "
-          f"{g['wall'] / w['wall']:.3f} of it, outer_loop spans' host "
-          f"dispatches {g['dispatches']} against {w['dispatches']}, their "
-          f"device events {g['span_events']} against {w['span_events']} "
-          f"({g['span_events'] / w['span_events'] - 1:+.1%}), device busy "
-          f"{g['busy']:.4f} s against {w['busy']:.4f} s "
-          f"({g['busy'] / w['busy'] - 1:+.1%}) on {line}", flush=True)
-    for other in ("stepwise", "eager"):
-        if g["dispatches"] >= res[other]["dispatches"]:
-            fail(f"the rate loop as CUDA graphs made {g['dispatches']} host "
-                 f"dispatches, {name[other]} {res[other]['dispatches']}")
+    g, e = res["graphs"], res["eager"]
+    print(f"rate loop as CUDA graphs against op by op: wall "
+          f"{g['wall'] / e['wall']:.3f} of it, outer_loop spans' host "
+          f"dispatches {g['dispatches']} against {e['dispatches']}, their "
+          f"device events {g['span_events']} against {e['span_events']}, "
+          f"device busy {g['busy']:.4f} s against {e['busy']:.4f} s on "
+          f"{line}", flush=True)
+    if g["dispatches"] >= e["dispatches"]:
+        fail(f"the rate loop as CUDA graphs made {g['dispatches']} host "
+             f"dispatches, op by op {e['dispatches']}")
 
     for (G, kind), (args, kwargs) in sorted(batches.items()):
         loop_equal(ctx, f"the main path's first {G}-lane {kind} batch", args,
@@ -4967,8 +4732,8 @@ def main():
           flush=True)
     k3 = corpus["search"]
     print(f"K3 on the corpus path's 32,768-lane stepsize search: max_abs_err "
-          f"{corpus['search_max_abs_err']}, {k3['ms']} ms (K3's first design "
-          f"{k3['baseline_ms']} ms) against the plain search's "
+          f"{corpus['search_max_abs_err']}, {k3['ms']} ms against the plain "
+          f"search's "
           f"{k3['plain_ms']} ms ({k3['plain_launches']} bits_at launches) "
           f"and a bound of {k3['bound_ms']:.6f} ms ({k3['bound_by']}); on the "
           f"sharded path's: max_abs_err {sharded['search_max_abs_err']}",
@@ -4983,8 +4748,7 @@ def main():
         return {path: (c["warm"] if warm and path != "main" else c)[kernel]
                 for path, c in runs.items()}
 
-    kernels = ("search", "baseline", "bits_at", "resv_scan", "alloc12",
-               "alloc12_baseline", "pack12")
+    kernels = ("search", "bits_at", "resv_scan", "alloc12", "pack12")
     for kernel in kernels + ("iterations", "captures", "replays") + tuple(
             f"{s}_{kind}" for s in ONE_GRAPH_STAGES + SEGMENT_STAGES
             + SHARDED_ANALYSIS for kind in ("captures", "replays")):
@@ -5051,7 +4815,7 @@ def main():
          "bound_ms": sres["bound_ms"], "bound_by": sres["bound_by"],
          "library_ms": None, "launches_by_path": by_path("search"),
          "width": sres["width"], "runs": sres["runs"], "evals": sres["evals"],
-         "encode_ms": main_res["k3_encode_ms"]["k3"]},
+         "encode_ms": main_res["k3_encode_ms"]},
         {"name": "resv_scan", "route": "cuda",
          "source": "mp3tpu_torch/csrc/resv_scan.cu",
          "replaces": "mp3tpu/ops/jaxresv.py:29-72",
@@ -5067,24 +4831,8 @@ def main():
                          for k, v in rres["by_width"].items()},
          "parent_ms_by_width": {str(k): v.get("parent_ms")
                                 for k, v in rres["by_width"].items()}},
-        {"name": "search_baseline", "route": "cuda",
-         "source": "mp3tpu_torch/csrc/bits_at.cu",
-         "replaces": "mp3tpu/ops/jaxloop.py:528-613",
-         "launches": launches["baseline"],
-         "max_abs_err": max(sres["baseline_max_abs_err"],
-                            corpus["baseline_max_abs_err"],
-                            sharded["baseline_max_abs_err"]),
-         "ms": sres["baseline_ms"], "plain_ms": sres["plain_ms"],
-         "bound_ms": sres["bound_ms"], "bound_by": sres["bound_by"],
-         "library_ms": None, "launches_by_path": dict(
-             by_path("baseline"),
-             main_swapped_in=main_res["by_way"]["baseline"]["baseline"]),
-         "encode_ms": main_res["k3_encode_ms"]["baseline"]},
         l12_row("alloc12", "k5", "mp3tpu_torch/csrc/alloc12.cu",
                 "mp3tpu/runtime/alloc12.py:148", l12["k5_err"]),
-        l12_row("alloc12_baseline", "k5_first",
-                "mp3tpu_torch/csrc/alloc12.cu",
-                "mp3tpu/runtime/alloc12.py:148", l12["k5b_err"]),
         l12_row("pack12", "k6", "mp3tpu_torch/csrc/pack12.cu",
                 "mp3tpu/runtime/bitstream.py:181", l12["k6_err"])]}),
           flush=True)

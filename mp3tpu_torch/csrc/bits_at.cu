@@ -1,6 +1,5 @@
 // The Layer III rate loop's bit evaluation (bits_at) and its stepsize
-// searches (K3, search_kernel; its first design as search_baseline), for
-// Hopper.
+// searches (K3, search_kernel), for Hopper.
 //
 // bits_at replaces, on the rate loop's path, the Pallas TPU kernel
 // mp3tpu/ops/pallas_bits.py:_kernel (K1; its first port is csrc/hist_c1.cu)
@@ -114,9 +113,6 @@
 //    factor is the plain path's by construction.  A stepsize that is not an
 //    integer in [-512, 511] sets the granule's status row to 1 and takes
 //    exp2f (the wrapper returns the row; the tests hold it to 0).
-//  - search_baseline is K3's first design, kept as the yardstick of the
-//    measurements: one warp a granule to its own exit, every evaluation of
-//    the plain schedule in turn, the spectrum in registers.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -fmad=false -shared -Xcompiler -fPIC -o libbits_at.so bits_at.cu
@@ -525,125 +521,6 @@ __device__ __forceinline__ float bisect_mid(float lo, float hi) {
   return floorf(__fmul_rn(__fadd_rn(lo, hi), 0.5f));
 }
 
-// The baseline's phases: bisection, the first evaluation of the walk up,
-// the walk up, the downward steps, and the final evaluation at the result.
-enum Phase { kBisect, kWalkStart, kWalkUp, kWalkDown, kFinal };
-
-// K3's first design, kept as the baseline of phase 3c: one warp a granule,
-// every evaluation of the plain schedule run in turn.  walk = 0: search_stepsize
-// from qanf (start) and the optional warm bound qss_lo; walk = 1:
-// search_walk from start.  out is (kOut + 3, n): no runs row.
-__global__ void __launch_bounds__(kThreads, 1)
-search_baseline(const float4* __restrict__ xr75p,
-              const float* __restrict__ budget,
-              const float* __restrict__ start,
-              const float* __restrict__ qss_lo,
-              const uint8_t* __restrict__ is_short,
-              const uint8_t* __restrict__ is_short_block,
-              const int* __restrict__ rate,
-              const int8_t* __restrict__ pair_bits,
-              const int* __restrict__ c1_hlen,
-              const float* __restrict__ istep_tab, int r0_pairs_short,
-              int walk, int n_bisect, int max_steps, int n,
-              int* __restrict__ out) {
-  __shared__ Tables t;
-  __shared__ float istep[kStepCount];
-  stage_tables(t, rate, pair_bits, c1_hlen);
-  for (int i = threadIdx.x; i < kStepCount; i += kThreads)
-    istep[i] = __ldg(istep_tab + i);
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31;
-  for (int g = blockIdx.x * kWarps + (threadIdx.x >> 5); g < n;
-       g += gridDim.x * kWarps) {
-    float4 v[kRounds];
-    load_granule(xr75p + static_cast<size_t>(g) * kVecs, lane, v);
-    const float b = __ldg(budget + g);
-    const bool shrt = is_short[g] != 0;
-    const bool sblk = is_short_block[g] != 0;
-
-    float qss = __ldg(start + g);             // the accepted stepsize
-    float bits = 0.0f;                        // its bits
-    float floor_q = kQMin;
-    float lo = kQMin;
-    float hi = kQMax;
-    Phase phase = kWalkStart;
-    if (!walk) {
-      floor_q = nan_max(qss, kQMin);
-      lo = qss_lo != nullptr ? nan_max(floor_q, __ldg(qss_lo + g)) : floor_q;
-      qss = hi;
-      if (n_bisect > 0) phase = kBisect;
-    }
-    float q = phase == kBisect ? bisect_mid(lo, hi) : qss;
-    int step = 0;                             // steps taken in this phase
-    int evals = 0;
-    int status = 0;
-    for (;;) {
-      float factor;
-      if (q == floorf(q) && q >= static_cast<float>(kStepLo) &&
-          q < static_cast<float>(kStepLo + kStepCount)) {
-        factor = istep[static_cast<int>(q) - kStepLo];
-      } else {
-        status = 1;
-        factor = exp2f(__fmul_rn(-0.1875f, q));
-      }
-      const Eval e =
-          evaluate(v, factor, shrt, sblk, t, rate, r0_pairs_short, lane);
-      ++evals;
-      if (phase == kFinal) {
-        store_rows(e, lane, n, g, out);
-        break;
-      }
-      if (phase == kBisect) {                 // ok: hi = mid, else lo = mid
-        if (e.bits <= b)
-          hi = q;
-        else
-          lo = q;
-        if (++step < n_bisect) {
-          q = bisect_mid(lo, hi);
-        } else {
-          phase = kWalkStart;
-          q = hi;
-        }
-        continue;
-      }
-      if (phase == kWalkDown) {               // keep a finer stepsize that fits
-        if (e.bits <= b && q >= floor_q) {
-          qss = q;
-          bits = e.bits;
-        }
-        ++step;
-      } else {                                // kWalkStart, kWalkUp
-        step = phase == kWalkStart ? 0 : step + 1;
-        phase = kWalkUp;
-        qss = q;
-        bits = e.bits;
-        if (step < max_steps && bits > b) {
-          q = __fadd_rn(qss, 1.0f);
-          continue;
-        }
-        if (!walk) {
-          phase = kWalkDown;
-          step = 0;
-        }
-      }
-      if (phase == kWalkDown && step < kDownSteps) {
-        q = __fsub_rn(qss, 1.0f);
-        continue;
-      }
-      phase = kFinal;
-      q = qss;
-    }
-    const size_t at = static_cast<size_t>(lane) * n + g;
-    if (lane == kOut)
-      out[at] = __float_as_int(qss);
-    else if (lane == kOut + 1)
-      out[at] = evals;
-    else if (lane == kOut + 2)
-      out[at] = status;
-  }
-}
-
 // K3's passes: bisection rounds, walk-up rungs, down rungs, and the end.
 enum class Pass { kBisect, kWalk, kDown, kDone };
 
@@ -1042,35 +919,6 @@ extern "C" int mp3_search(const void* xr75p, const void* budget,
         static_cast<const float*>(istep_tab), r0_pairs_short, walk, n_bisect,
         max_steps, p.width, p.groups, n_granules, static_cast<int*>(out),
         static_cast<int*>(counter));
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// K3's first design (search_baseline) on `stream`, with mp3_search's arguments
-// less width; returns cudaGetLastError().  out is (15, n) int32: mp3_search's
-// rows less runs.
-extern "C" int mp3_search_baseline(
-    const void* xr75p, const void* budget, const void* start,
-    const void* qss_lo, const void* is_short, const void* is_short_block,
-    const void* rate, const void* pair_bits, const void* c1_hlen,
-    const void* istep_tab, int r0_pairs_short, int walk, int n_bisect,
-    int max_steps, int n_granules, void* out, void* stream) {
-  if (n_granules > 0) {
-    int per_sm = 0;
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, search_baseline,
-                                                  kThreads, 0);
-    const int blocks = min((n_granules + kWarps - 1) / kWarps,
-                           max(per_sm, 1) * device_sms());
-    search_baseline<<<blocks, kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float4*>(xr75p), static_cast<const float*>(budget),
-        static_cast<const float*>(start), static_cast<const float*>(qss_lo),
-        static_cast<const uint8_t*>(is_short),
-        static_cast<const uint8_t*>(is_short_block),
-        static_cast<const int*>(rate), static_cast<const int8_t*>(pair_bits),
-        static_cast<const int*>(c1_hlen),
-        static_cast<const float*>(istep_tab), r0_pairs_short, walk, n_bisect,
-        max_steps, n_granules, static_cast<int*>(out));
   }
   return static_cast<int>(cudaGetLastError());
 }

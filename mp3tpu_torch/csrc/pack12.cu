@@ -2,7 +2,8 @@
 //
 // Replaces the host end of the JAX package's Layer I/II path,
 // mp3tpu/encoder.py:837-840: the flat (value, length) element stream of
-// _marshal_layer12 packed MSB-first by native/mp3bits.cpp mp3bits_pack
+// its marshalling (mp3tpu/encoder.py:904) packed MSB-first by
+// native/mp3bits.cpp mp3bits_pack
 // (runtime/bitstream.py pack_elements), with each frame's CRC-16 computed
 // beforehand in a Python loop over frames by numpy_ref/layer12.py _crc_calc
 // (common.c:1251-1308).  Its plain version is pack_frames_plain in

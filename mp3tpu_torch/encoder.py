@@ -36,8 +36,7 @@ count on the card) and the quantizers (``ops/layer12.py``), the bit
 allocation (K5, ``ops/alloc12.py``), the
 element marshalling (``marshal_frames``) and the frame packing with the
 CRC (K6, ``ops/pack12.py``) -- and one download an encode (a stream
-window).  ``_marshal_layer12``, the host marshalling it replaced, stays
-as the tests' reference.
+window).
 
 Every entry point takes an explicit ``device``.
 """
@@ -975,138 +974,3 @@ def encode_layer12_stream(pcm_iter, cfg: EncoderConfig, device,
         yield step(np.pad(buf, ((0, 0), (0, nf * spf - buf.shape[1]))))
     yield b"\x00"                          # the one-shot flush byte
 
-
-def _marshal_layer12(cfg, layer, table, sblimit, nch, F, mode, mode_ext,
-                     jsbound, ba, scfsi, scalar, codes, adb_left):
-    """The flat (value, length) element stream of all frames, vectorized.
-    Element layout per frame (musicin.c:621-705): header [crc] bit_alloc
-    [scfsi] scalefactors samples ancillary.  Equal to the JAX package's
-    ``encoder._marshal_layer12``."""
-    js = np.arange(32)[None, :] >= jsbound[:, None]           # (F, 32)
-    active = np.arange(32)[None, :] < sblimit                 # (1, 32)
-
-    # --- header word (encode.c:419-438)
-    hdr = (0xFFF << 20) | (cfg.version << 19) | ((4 - layer) << 17) \
-        | ((0 if cfg.error_protection else 1) << 16) \
-        | (cfg.bitrate_index << 12) | (cfg.sampling_frequency << 10) \
-        | (cfg.extension << 8) \
-        | (int(cfg.copyright) << 3) | (int(cfg.original) << 2) \
-        | cfg.emphasis
-    header = (hdr | (mode.astype(np.int64) << 6)
-              | (mode_ext.astype(np.int64) << 4))             # (F,)
-    per_frame = [(header[:, None], np.full((F, 1), 32))]
-    alloc = T12.ALLOC[table] if layer == 2 else None
-
-    # --- CRC (common.c:1251-1308); a per-frame loop, only if on
-    if cfg.error_protection:
-        from .numpy_ref.layer12 import _crc_calc
-        crc = np.zeros(F, np.int64)
-        ba2 = ba if nch == 2 else np.repeat(ba[:, :1], 2, axis=1)
-        for f in range(F):
-            crc[f] = _crc_calc(
-                cfg, 0, int(mode[f]), int(mode_ext[f]), ba2[f],
-                None if scfsi is None else
-                np.stack([scfsi[0][f], scfsi[nch - 1][f]]),
-                nch, sblimit, int(jsbound[f]), alloc, layer)
-        per_frame.append((crc[:, None], np.full((F, 1), 16)))
-
-    # --- bit allocation: sb outer, ch inner
-    nbal = np.full(32, 4) if layer == 1 else np.asarray(alloc["nbal"])
-    bav = np.zeros((F, 32, nch), np.int64)
-    bal = np.zeros((F, 32, nch), np.int64)
-    for ch in range(nch):
-        bav[:, :, ch] = ba[:, ch]
-        bal[:, :, ch] = nbal[None, :] * active
-    if nch == 2:
-        bal[:, :, 1] = np.where(js, 0, bal[:, :, 1])
-    per_frame.append((bav.reshape(F, -1), bal.reshape(F, -1)))
-
-    if layer == 2:
-        # --- scfsi: sb outer ch inner where ba != 0
-        sv = np.zeros((F, 32, nch), np.int64)
-        sl = np.zeros((F, 32, nch), np.int64)
-        for ch in range(nch):
-            sv[:, :, ch] = scfsi[ch]
-            sl[:, :, ch] = np.where(ba[:, ch] != 0, 2, 0)
-        per_frame.append((sv.reshape(F, -1), sl.reshape(F, -1)))
-        # --- scale factors: 3 slots per (sb, ch)
-        fv = np.zeros((F, 32, nch, 3), np.int64)
-        fl = np.zeros((F, 32, nch, 3), np.int64)
-        for ch in range(nch):
-            s = scalar[ch]                         # (F, 3, 32)
-            sc = scfsi[ch]
-            has = ba[:, ch] != 0
-            fv[:, :, ch, 0] = s[:, 0]
-            fv[:, :, ch, 1] = np.where(sc == 0, s[:, 1], s[:, 2])
-            fv[:, :, ch, 2] = s[:, 2]
-            fl[:, :, ch, 0] = np.where(has, 6, 0)
-            fl[:, :, ch, 1] = np.where(has & (sc != 2), 6, 0)
-            fl[:, :, ch, 2] = np.where(has & (sc == 0), 6, 0)
-        per_frame.append((fv.reshape(F, -1), fl.reshape(F, -1)))
-        # --- samples: t(3) x triple(4) x sb x ch, 3 slots each
-        grp = alloc["group"][np.arange(32)[None, :], ba]
-        nbits = alloc["bits"][np.arange(32)[None, :], ba]
-        steps = alloc["steps"][np.arange(32)[None, :], ba]
-        c3 = codes.transpose(1, 2, 3, 4, 0).reshape(F, 3, 4, 3, 32, nch)
-        sval = np.zeros((F, 3, 4, 32, nch, 3), np.int64)
-        slen = np.zeros((F, 3, 4, 32, nch, 3), np.int64)
-        for ch in range(nch):
-            g = grp[:, ch]                         # (F, 32)
-            b = nbits[:, ch]
-            y = steps[:, ch]
-            has = ba[:, ch] != 0
-            grouped = (g == 1) & has
-            ungrouped = (g == 3) & has
-            s0 = c3[:, :, :, 0, :, ch]
-            s1 = c3[:, :, :, 1, :, ch]
-            s2 = c3[:, :, :, 2, :, ch]
-            gval = (s0 + s1 * y[:, None, None, :]
-                    + s2 * (y * y)[:, None, None, :])
-            sval[:, :, :, :, ch, 0] = np.where(grouped[:, None, None, :],
-                                               gval, s0)
-            sval[:, :, :, :, ch, 1] = s1
-            sval[:, :, :, :, ch, 2] = s2
-            slen[:, :, :, :, ch, 0] = np.where(has, b, 0)[:, None, None, :]
-            slen[:, :, :, :, ch, 1] = \
-                np.where(ungrouped, b, 0)[:, None, None, :]
-            slen[:, :, :, :, ch, 2] = \
-                np.where(ungrouped, b, 0)[:, None, None, :]
-        if nch == 2:
-            # above jsbound only channel 0's lane is sent
-            slen[:, :, :, :, 1, :] = np.where(
-                js[:, None, None, :, None], 0, slen[:, :, :, :, 1, :])
-        per_frame.append((sval.reshape(F, -1), slen.reshape(F, -1)))
-    else:
-        # --- layer 1 scale factors: 1 slot per (sb, ch)
-        fv = np.zeros((F, 32, nch), np.int64)
-        fl = np.zeros((F, 32, nch), np.int64)
-        for ch in range(nch):
-            fv[:, :, ch] = scalar[ch][:, 0]
-            fl[:, :, ch] = np.where(ba[:, ch] != 0, 6, 0)
-        per_frame.append((fv.reshape(F, -1), fl.reshape(F, -1)))
-        # --- samples: j(12) x sb x ch, ba+1 bits
-        c = codes.transpose(1, 2, 3, 4, 0)[:, 0]   # (F, 12, 32, nch)
-        sval = np.zeros((F, 12, 32, nch), np.int64)
-        slen = np.zeros((F, 12, 32, nch), np.int64)
-        for ch in range(nch):
-            sval[:, :, :, ch] = c[:, :, :, ch]
-            has = ba[:, ch] != 0
-            slen[:, :, :, ch] = np.where(has, ba[:, ch] + 1, 0)[:, None, :]
-        if nch == 2:
-            slen[:, :, :, 1] = np.where(js[:, None, :], 0, slen[:, :, :, 1])
-        per_frame.append((sval.reshape(F, -1), slen.reshape(F, -1)))
-
-    # --- ancillary zero fill, 32-bit chunks
-    max_anc = int(adb_left.max()) if F else 0
-    nslots = (max_anc + 31) // 32
-    if nslots:
-        rem = adb_left[:, None] - 32 * np.arange(nslots)[None, :]
-        per_frame.append((np.zeros((F, nslots), np.int64),
-                          np.clip(rem, 0, 32)))
-
-    values = np.concatenate([v for v, _ in per_frame], axis=1)
-    lengths = np.concatenate([n for _, n in per_frame], axis=1)
-    # pack masks each value to its length (codes may carry junk where
-    # ba == 0, but their lengths are 0 there)
-    return (values.reshape(-1).astype(np.uint32),
-            lengths.reshape(-1).astype(np.int32))

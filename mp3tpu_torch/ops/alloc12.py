@@ -7,17 +7,14 @@ device quantizers (``mp3tpu/encoder.py:803-813``, with
 (``csrc/alloc12.cu``, built with ``nvcc`` on first use into
 ``mp3tpu_torch/build/``): one warp a frame, each greedy step's argmin as
 ordered uint64 keys reduced with ``redux.sync``, the frame's state in
-registers, the fit in integers.  ``allocate_baseline`` launches the first
-design of the same file (``alloc12_baseline_kernel``: the argmin by float64
-shuffles), kept as the yardstick of K5's time; no encode path calls it.
-On a CPU tensor either runs its plain version, the JAX package's numpy
+registers, the fit in integers.  On a CPU tensor it runs its plain
+version, the JAX package's numpy
 functions themselves (the port's copy ``runtime/alloc12.py``:
 ``joint_mode``, then ``greedy_allocation``, all frames in lockstep).
 There is no fallback between the two: a CUDA tensor never reaches the
 numpy code, and a build or launch error raises.
 
-``launches`` counts K5's launches, ``baseline_launches`` the first
-design's.
+``launches`` counts K5's launches.
 """
 import ctypes
 import os
@@ -42,8 +39,6 @@ OUTPUTS = ("ba", "adb_left", "mode", "mode_ext", "jsbound")
 
 #: K5's launches
 launches = 0
-#: the first design's launches
-baseline_launches = 0
 
 
 def build(force=False, extra_flags=()):
@@ -58,11 +53,10 @@ def _library():
     build()
     lib = ctypes.CDLL(LIBRARY)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.mp3_alloc12, lib.mp3_alloc12_baseline):
-        fn.restype = i32
-        fn.argtypes = [ptr] * 4 + [i32] * 10 + [ptr] * 7
+    lib.mp3_alloc12.restype = i32
+    lib.mp3_alloc12.argtypes = [ptr] * 4 + [i32] * 10 + [ptr] * 7
     lib.mp3_alloc12_occupancy.restype = i32
-    lib.mp3_alloc12_occupancy.argtypes = [i32, i32, ptr]
+    lib.mp3_alloc12_occupancy.argtypes = [i32, ptr]
     return lib
 
 
@@ -140,36 +134,33 @@ def _check(smr, scfsi, layer):
         raise ValueError("alloc12: Layer I takes no scfsi")
 
 
-def occupancy(layer, baseline=False):
+def occupancy(layer):
     """(blocks an SM holds at once (cudaOccupancyMaxActiveBlocksPer-
-    Multiprocessor), warps (frames) a block) of K5 at `layer`, or of the
-    first design."""
+    Multiprocessor), warps (frames) a block) of K5 at `layer`."""
     per_block = ctypes.c_int(0)
-    n = _library().mp3_alloc12_occupancy(int(layer), int(bool(baseline)),
+    n = _library().mp3_alloc12_occupancy(int(layer),
                                          ctypes.byref(per_block))
     if n <= 0:
         raise RuntimeError(f"alloc12: occupancy query failed ({n})")
     return n, per_block.value
 
 
-def waves(F, layer, baseline=False, device=None):
+def waves(F, layer, device=None):
     """The waves in which one launch runs F frames on `device`'s SMs."""
     sms = torch.cuda.get_device_properties(
         device or torch.cuda.current_device()).multi_processor_count
-    per_sm, per_block = occupancy(layer, baseline)
+    per_sm, per_block = occupancy(layer)
     return -(-(-(-F // per_block)) // (per_sm * sms))
 
 
 def kernel_report(log):
-    """{"alloc12_kernel<1>", "alloc12_kernel<2>", "alloc12_baseline_kernel":
-    {"registers", "stack", "spill_stores", "spill_loads"}} from nvcc's
-    ``-Xptxas -v`` output for csrc/alloc12.cu."""
+    """{"alloc12_kernel<1>", "alloc12_kernel<2>": {"registers", "stack",
+    "spill_stores", "spill_loads"}} from nvcc's ``-Xptxas -v`` output for
+    csrc/alloc12.cu."""
     out = {}
     for part in log.split("Compiling entry function '")[1:]:
         name = part.split("'", 1)[0]
-        if "alloc12_baseline_kernel" in name:
-            key = "alloc12_baseline_kernel"
-        elif "alloc12_kernelILi1E" in name:
+        if "alloc12_kernelILi1E" in name:
             key = "alloc12_kernel<1>"
         elif "alloc12_kernelILi2E" in name:
             key = "alloc12_kernel<2>"
@@ -189,11 +180,11 @@ def kernel_report(log):
 
 
 def _launch(smr, scfsi, layer, table, nch, sblimit, adb, error_protection,
-            joint, mode, baseline=False):
-    """K5 (or, with `baseline`, the first design) on the current stream;
-    returns ``allocate``'s dict of int32 tensors on smr's device, with
-    "steps" (F,): each frame's greedy steps."""
-    global launches, baseline_launches
+            joint, mode):
+    """K5 on the current stream; returns ``allocate``'s dict of int32
+    tensors on smr's device, with "steps" (F,): each frame's greedy
+    steps."""
+    global launches
     _check(smr, scfsi, layer)
     F = smr.shape[0]
     dev = smr.device
@@ -202,11 +193,9 @@ def _launch(smr, scfsi, layer, table, nch, sblimit, adb, error_protection,
            for k in OUTPUTS + ("steps",)}
     if F:
         dtab, itab = _device_tables(layer, table, dev)
-        lib = _library()
-        fn = lib.mp3_alloc12_baseline if baseline else lib.mp3_alloc12
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            err = fn(
+            err = _library().mp3_alloc12(
                 smr.data_ptr(), None if scfsi is None else scfsi.data_ptr(),
                 dtab.data_ptr(), itab.data_ptr(), F, layer, nch, sblimit,
                 int(adb), int(bool(error_protection)), int(bool(joint)),
@@ -215,10 +204,7 @@ def _launch(smr, scfsi, layer, table, nch, sblimit, adb, error_protection,
         if err != 0:
             raise RuntimeError(f"alloc12: kernel launch failed, CUDA error "
                                f"{err}")
-        if baseline:
-            baseline_launches += 1
-        else:
-            launches += 1
+        launches += 1
     return out
 
 
@@ -264,24 +250,10 @@ def allocate(smr, scfsi, layer, table, nch, sblimit, adb, error_protection,
     "jsbound": (F,)} int32 on smr's device and "steps" (K5's greedy steps
     a frame; None on the CPU): one K5 launch on a CUDA tensor, no wait on
     the host; the numpy code on a CPU tensor."""
-    return _dispatch((smr, scfsi, layer, table, nch, sblimit, adb,
-                      error_protection, joint, mode), False)
-
-
-def allocate_baseline(smr, scfsi, layer, table, nch, sblimit, adb,
-                      error_protection, joint, mode):
-    """``allocate`` by the first design (``alloc12_baseline_kernel``): the
-    same arguments and result; one launch on a CUDA tensor, the plain
-    version on a CPU tensor.  The yardstick of K5's time: no encode path
-    calls it."""
-    return _dispatch((smr, scfsi, layer, table, nch, sblimit, adb,
-                      error_protection, joint, mode), True)
-
-
-def _dispatch(args, baseline):
-    device = args[0].device
-    if device.type == "cuda":
-        return _launch(*args, baseline=baseline)
-    if device.type != "cpu":
-        raise ValueError(f"alloc12: unsupported device {device}")
+    args = (smr, scfsi, layer, table, nch, sblimit, adb, error_protection,
+            joint, mode)
+    if smr.device.type == "cuda":
+        return _launch(*args)
+    if smr.device.type != "cpu":
+        raise ValueError(f"alloc12: unsupported device {smr.device}")
     return allocate_plain(*args)

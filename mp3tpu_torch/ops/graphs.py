@@ -7,15 +7,18 @@ captured once per key (stage "segment", ``models/layer3.py``), as the
 JAX package compiles ``encode_segment_fused`` as one program.  Its
 staged form (``encode_segment_staged``), which the corpus path and
 ``settle``'s retries run, replays three parts (``SEGMENT_STAGES``): the
-analysis (one graph), the rate loop (``ops/loop.py``: its prologue and
-its iterations, unrolled) and, after the final rate loop, the emission
-and packing (a continuation of the loop's entry).  So do the Layer I/II
+analysis (one graph), the rate loop (``ops/loop.py``: its prologue, then
+its iterations, unrolled, as a second graph of the entry) and, after the
+final rate loop, the emission and packing (a third graph of the loop's
+entry, one for each continuation).  So do the Layer I/II
 analysis (``ops/layer12.py``, one graph a frame count; with psy model 2
 a second graph of the same entry, ``run_next``, holds the back half from
 the analysis to K6's buffer) and the multi-rank clip's analysis
 (``parallel/clip.py``: psy with the automaton's maps, and the spectra,
-two graphs around the maps' all-gather).  ``graph_counts`` counts
-captures and replays by stage (``STAGES``).
+two graphs around the maps' all-gather).  Each is ``run`` (a key's
+first program) and ``run_next`` (the entry's later programs, reading its
+static tensors).  ``graph_counts`` counts captures and replays by stage
+(``STAGES``).
 
 Every graph of a device is captured into one memory pool and replays on
 one stream, one graph at a time (``LOCK``).  So a tensor that a graph
@@ -36,6 +39,8 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+
+from ..runtime.profiling import scope
 
 #: the captured parts of the Layer III segment program's staged form, by
 #: what they count as
@@ -176,14 +181,13 @@ def _add_launches(n_search, n_bits_at, n_resv, n_alloc12, n_pack12):
 class Captured:
     """One key's captured program: its static inputs (made by the eager
     warm-up, outside the graphs' memory pool), the static tensors its
-    graphs write (`outputs` by graph name; the rate loop's `state` and
-    `best`), its graphs with the kernel launches each holds, its stage
-    and the seconds its capture took, and the other tensors they read
-    (`refs`: tables, K3's buffers and counter, the iterations' sum)."""
+    graphs write (`outputs` by graph name), its graphs with the kernel
+    launches each holds, their stages and the seconds each capture took,
+    and the other objects they read (`refs`: tables, K3's buffers and
+    counter, the rate loop's continuations)."""
 
-    def __init__(self, inputs, refs, state=None, best=None):
+    def __init__(self, inputs, refs):
         self.inputs, self.refs = inputs, refs
-        self.state, self.best = state, best
         self.outputs = {}
         self.graphs, self.held, self.stage = {}, {}, {}
         self.capture_s = {}
@@ -210,9 +214,12 @@ class Captured:
 
 def assign(dst, src):
     """Copy each tensor of `src` into the tensor of `dst` by the same
-    name (a captured program's results into its static tensors)."""
+    name, into nested dicts alike (a captured program's results into its
+    static tensors)."""
     for k, v in src.items():
-        if v is not None and v is not dst[k]:
+        if isinstance(v, dict):
+            assign(dst[k], v)
+        elif v is not None and v is not dst[k]:
             dst[k].copy_(v)
 
 
@@ -242,20 +249,29 @@ def run(cache, key, stage, inputs, fn, record, refs=()):
     return entry, dropped
 
 
-def run_next(entry, stage, fn, record):
-    """A second program of `entry` (``run``'s), captured whole: fn() reads
-    the entry's static tensors and returns a dict of results.  On the
-    entry's first call of `stage` fn runs eagerly (the warm-up: its
-    results, made outside the pool, become the static outputs) and
-    ``record`` captures it with its results copied into them; otherwise
-    the graph replays.  Returns ``entry.outputs[stage]``, this call's
-    results until the next call of the entry."""
-    if stage in entry.graphs:
-        entry.replay(stage)
+def run_next(entry, stage, fn, record, name=None, refs=(), span=None):
+    """A later program of `entry` (``run``'s), captured whole as its
+    graph `name` (default: `stage`) of `stage`: fn() reads the entry's
+    static tensors (and may write them in place) and returns a dict of
+    results.  On the entry's first call of `name` fn runs eagerly (the
+    warm-up: its results, made outside the pool, become the static
+    outputs) and ``record`` captures it with its results copied into
+    them, and `refs` join what the entry keeps alive; otherwise the graph
+    replays, inside the profiler span `span` if one is given (fn opens
+    its own spans where it runs).  Returns ``entry.outputs[name]``, this
+    call's results until the next call of the entry."""
+    name = stage if name is None else name
+    if name in entry.graphs:
+        if span is None:
+            entry.replay(name)
+        else:
+            with scope(span):
+                entry.replay(name)
     else:
-        out = entry.outputs[stage] = fn()
-        entry.capture(stage, lambda: assign(out, fn()), record, stage)
-    return entry.outputs[stage]
+        entry.refs += tuple(refs)
+        out = entry.outputs[name] = fn()
+        entry.capture(name, lambda: assign(out, fn()), record, stage)
+    return entry.outputs[name]
 
 
 # ---------------------------------------------------------------------------
@@ -279,7 +295,7 @@ def pool(device):
 
 
 def cuda_graph(device):
-    """``record`` for ``run`` and the rate loop on `device`: fn()
+    """``record`` for ``run`` and ``run_next`` on `device`: fn()
     captured into a CUDA graph on the graph stream, in the shared pool."""
     def record(fn):
         graph = torch.cuda.CUDAGraph()

@@ -11,7 +11,7 @@ and jits the analysis with the frame count static
 (``_analyze_frames``), run op by op on the CPU (``analyze_frames_eager``)
 and replayed as one CUDA graph a key on the card (``analyze_frames``,
 ``GRAPHS``).  ``marshal_frames`` is the torch form of
-the JAX package's host marshalling (``encoder._marshal_layer12``), so
+the JAX package's host marshalling (``mp3tpu/encoder.py:904``), so
 that the whole Layer I/II chain stays on the device: the bit allocation
 between the analysis and the quantizers is K5 (``ops/alloc12.py``), the
 packing after the marshalling K6 (``ops/pack12.py``).  With psy model 2
@@ -446,7 +446,8 @@ def _u32(v):
 def marshal_frames(cfg, layer, table, sblimit, nch, mode, mode_ext, jsbound,
                    ba, scfsi, scalar, codes, adb_left, adb):
     """The (value, length) elements of every frame, frame-major: the torch
-    counterpart of ``encoder._marshal_layer12`` (musicin.c:621-705),
+    counterpart of the JAX package's host marshalling
+    (``mp3tpu/encoder.py:904``; musicin.c:621-705),
     vectorized over frames as it is.  Per frame: header, [CRC (16 zero
     bits, for K6 to fill)], bit allocation (sb outer, ch inner), [scfsi,]
     scale factors, samples, then ``anc_slots`` ancillary slots of zeros

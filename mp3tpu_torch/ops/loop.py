@@ -29,11 +29,12 @@ tensor the prologue and ``max_iter`` iterations unrolled
 (``_iterations``) are each captured once per key as a CUDA graph and
 replayed, one replay each a call with no exit read on the host (the
 port's counterpart of the JAX package's compiled ``while_loop``;
-``GRAPHS``, counted in ``graph_counts``, machinery in
-``ops/graphs.py``), and so is a continuation (``Then``: the final
-encode's emission and packing) that reads the loop's static tensors
-after the last iteration; ``outer_loop_eager`` dispatches the same
-functions op by op with the host exit, and is what the CPU runs.
+``GRAPHS``, counted in ``graph_counts``), and so is a continuation
+(``Then``: the final encode's emission and packing) that reads the
+loop's static tensors after the last iteration: three programs of one
+entry, captured and replayed by ``graphs.run`` and ``graphs.run_next``
+(``_run_loop``); ``outer_loop_eager`` dispatches the same functions op
+by op with the host exit, and is what the CPU runs.
 Inside the segment program's one graph the rate loop is ``unrolled``:
 the same three parts in one function of tensors.
 
@@ -57,7 +58,7 @@ import numpy as np
 import torch
 
 from ..tables import mpeg
-from ..runtime.profiling import scope, span
+from ..runtime.profiling import span
 from ..tables.huffman import ESC_TABLE_A, ESC_TABLE_B, FIRST_TABLE_FOR_MAX
 
 from . import bits_at, graphs, search
@@ -845,120 +846,75 @@ def reset_iterations():
         acc.zero_()
 
 
-def _graph_key(inputs, ST):
-    """What a captured loop is specific to: each input's dtype, shape and
-    device (G among them) or its absence, and the rate's tables (their
-    Python values and the identity of their tensors, which the entry
-    keeps alive)."""
-    return graphs.key_of(inputs, ST)
+def _prologue_outputs(inputs, ST):
+    """``_prologue`` as a captured program's results: dict(state, best)."""
+    state, best = _prologue(ST=ST, **inputs)
+    return dict(state=state, best=best)
 
 
-def _static_outputs(entry):
+def _loop_outputs(entry):
     """The epilogue's outputs over an entry's static state and inputs."""
-    inp = entry.inputs
-    return _epilogue(inp["xr"], entry.best, entry.state["qss0"],
+    inp, pro = entry.inputs, entry.outputs["prologue"]
+    return _epilogue(inp["xr"], pro["best"], pro["state"]["qss0"],
                      inp["block_type"], inp["is_short_block"])
 
 
-def _continue(entry, then, record):
-    """``then.fn`` of the loop's outputs as the entry's graph of stage
-    "emission" for ``then.key``: on first sight run eagerly (its results,
-    made outside the pool, are this call's and become the graph's static
-    outputs) and captured, else replayed inside the span ``then.span``.
-    Returns the static outputs."""
-    name = ("emission", then.key)
-    if name not in entry.graphs:
-        entry.refs += (then,)       # what its graph reads
-        out = entry.outputs[name] = then.fn(_static_outputs(entry),
-                                            entry.inputs)
-        entry.capture(name, lambda: graphs.assign(out, then.fn(
-            _static_outputs(entry), entry.inputs)), record, "emission")
-    else:
-        with scope(then.span):
-            entry.replay(name)
-    return entry.outputs[name]
+def _run_loop(inputs, ST, max_iter, record, refs=(), then=None):
+    """The captured loop's host side, on the current stream, as three
+    programs of one ``GRAPHS`` entry: ``graphs.run`` of the prologue
+    (stage "prologue"; its results, the static state and best, are the
+    entry's ``outputs["prologue"]``), then ``graphs.run_next`` of
+    ``max_iter`` iterations (``_iterations``, stage "iteration"), which
+    update that state and best in place, and, given `then`, of its
+    continuation (stage "emission", a graph for each ``then.key``,
+    replayed inside the span ``then.span``).  On first sight of a key or
+    continuation each runs eagerly before its capture (the warm-up: its
+    results are this call's); otherwise each replays once.  No exit is
+    read on the host.  The call's live iterations are added to
+    ``iterations_on`` before the continuation.  Returns (entry, the
+    entries the cache dropped, then's static outputs or None); the
+    entry's outputs hold this call's results until the next call of its
+    key."""
+    entry, dropped = graphs.run(
+        GRAPHS, (graphs.key_of(inputs, ST), max_iter), "prologue", inputs,
+        lambda static: _prologue_outputs(static, ST), record,
+        (dict(ST),) + tuple(refs))
+    pro = entry.outputs["prologue"]
 
+    def iterate():
+        _iterations(pro["state"], pro["best"], ST, max_iter)
+        return {}
 
-def _run_captured(inputs, ST, max_iter, record, refs=(), then=None,
-                  stepwise=False):
-    """The captured loop's host side, on the current stream.  On first
-    sight of a key the prologue and ``max_iter`` iterations
-    (``_iterations``) run eagerly (the warm-up: their results are this
-    call's) on static copies of the inputs, then ``record`` captures each
-    of the two (CUDA: ``graphs.cuda_graph``); otherwise the inputs are
-    copied into the key's static inputs and the prologue and the
-    iterations replay, once each.  No exit is read on the host.  Then the
-    call's live iterations are added to ``iterations_on``, and ``then``
-    (``_continue``) runs, if given.  Returns (entry, the entries the
-    cache dropped, then's static outputs or None); the entry's best and
-    state hold this call's results until the next call of its key.
-
-    `stepwise` captures one iteration instead and replays it while
-    ``jaxloop``'s exit condition, read on the host after each replay (one
-    sync each), holds: the form before the exit moved to the card, kept
-    as the yardstick of ``outer_loop_stepwise``."""
-    key = (_graph_key(inputs, ST), "stepwise" if stepwise else max_iter)
-    entry = GRAPHS.get(key)
-    dropped = []
-    it = 0
-    if entry is None:
-        static = {k: None if v is None else v.clone()
-                  for k, v in inputs.items()}
-        state, best = _prologue(ST=ST, **static)
-        if not stepwise:
-            _iterations(state, best, ST, max_iter)
-        elif it < max_iter and any_on_host(~state["done"]):
-            _iteration(state, best, ST)
-            it += 1
-        entry = graphs.Captured(static, (dict(ST),) + tuple(refs), state,
-                                best)
-        entry.capture("prologue", lambda: _assign(
-            state, best, *_prologue(ST=ST, **static)), record, "prologue")
-        n = 1 if stepwise else max_iter
-        entry.capture("iteration", lambda: _iterations(state, best, ST, n),
-                      record, "iteration")
-        dropped = GRAPHS.put(key, entry)
-    else:
-        for k, t in entry.inputs.items():
-            if t is not None:
-                t.copy_(inputs[k])
-        entry.replay("prologue")
-        if not stepwise:
-            entry.replay("iteration")
-    while stepwise and it < max_iter and any_on_host(~entry.state["done"]):
-        entry.replay("iteration")
-        it += 1
-    iterations_on(inputs["xr"].device).add_(entry.state["iters"])
-    out = None if then is None else _continue(entry, then, record)
+    graphs.run_next(entry, "iteration", iterate, record)
+    iterations_on(inputs["xr"].device).add_(pro["state"]["iters"])
+    if then is None:
+        return entry, dropped, None
+    out = graphs.run_next(
+        entry, "emission", lambda: then.fn(_loop_outputs(entry),
+                                           entry.inputs),
+        record, name=("emission", then.key), refs=(then,), span=then.span)
     return entry, dropped, out
 
 
-def _assign(state, best, new_state, new_best):
-    """Copy a prologue's results into the static state and best (the
-    inputs that it passed through are there already)."""
-    graphs.assign(state, new_state)
-    graphs.assign(best, new_best)
-
-
-def _graphed(inputs, ST, max_iter, then=None, stepwise=False):
-    """``outer_loop`` on a CUDA device: ``_run_captured`` on the graph
-    stream (which first waits for the caller's), then on the caller's
-    stream the epilogue on clones of best, or clones of then's
-    outputs."""
+def _graphed(inputs, ST, max_iter, then=None):
+    """``outer_loop`` on a CUDA device: ``_run_loop`` on the graph stream
+    (which first waits for the caller's), then on the caller's stream the
+    epilogue on clones of best, or clones of then's outputs."""
     dev = inputs["xr"].device
 
     def body():
-        entry, dropped, out = _run_captured(
+        entry, dropped, out = _run_loop(
             inputs, ST, max_iter, graphs.cuda_graph(dev),
-            search.device_buffers(dev), then, stepwise)
+            search.device_buffers(dev), then)
         return (entry, out), dropped
 
     def keep(res):
         entry, out = res
         if out is not None:
             return {k: v.clone() for k, v in out.items()}
-        best = {k: v.clone() for k, v in entry.best.items()}
-        return _epilogue(inputs["xr"], best, entry.state["qss0"].clone(),
+        pro = entry.outputs["prologue"]
+        best = {k: v.clone() for k, v in pro["best"].items()}
+        return _epilogue(inputs["xr"], best, pro["state"]["qss0"].clone(),
                          inputs["block_type"], inputs["is_short_block"])
 
     return graphs.on_stream(dev, body, keep)
@@ -997,25 +953,6 @@ def outer_loop(xr, budget, ratio_l, ratio_s, is_short_block, block_type,
                      qss_lo)
     if xr.device.type == "cuda":
         return _graphed(inputs, ST, max_iter, then)
-    return _eager(inputs, ST, max_iter, then)
-
-
-@span("outer_loop")
-def outer_loop_stepwise(xr, budget, ratio_l, ratio_s, is_short_block,
-                        block_type, ST, max_iter=6, sf_fix_mask=None,
-                        sf_fix_val=None, sf_skip_mask=None, qss_lo=None,
-                        then=None):
-    """``outer_loop`` with its graphs replayed an iteration at a time and
-    the exit read on the host after each replay (one sync each, counted
-    in ``any_on_host.syncs``): the form before the exit moved to the
-    card, whose outputs the unrolled form equals.  For comparison only
-    (tests/test_torch_graph_card.py, chip_smoke.py's phase 5b); on any
-    device but CUDA it is ``outer_loop_eager``."""
-    inputs = _inputs(xr, budget, ratio_l, ratio_s, is_short_block,
-                     block_type, sf_fix_mask, sf_fix_val, sf_skip_mask,
-                     qss_lo)
-    if xr.device.type == "cuda":
-        return _graphed(inputs, ST, max_iter, then, stepwise=True)
     return _eager(inputs, ST, max_iter, then)
 
 

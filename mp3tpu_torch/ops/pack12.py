@@ -1,7 +1,7 @@
 """Layer I/II frame packing with the CRC on the device (K6).
 
-The JAX package packs the flat (value, length) element stream of
-``encoder._marshal_layer12`` on the host with the native packer
+The JAX package packs the flat (value, length) element stream of its
+host marshalling (``mp3tpu/encoder.py:904``) with the native packer
 (``runtime/bitstream.pack_elements``, MSB-first), each frame's CRC-16
 computed before in a Python loop over frames
 (``numpy_ref/layer12._crc_calc``, ``mp3tpu/encoder.py:904``).  Frames on

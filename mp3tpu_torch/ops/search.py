@@ -34,12 +34,6 @@ views of one (16, G) buffer.
 graph (``loop.outer_loop``, the segment program's graph) is counted at
 each replay of the graph, not at its capture.
 
-``baseline_stepsize`` and ``baseline_walk`` launch K3's first design
-(``search_baseline``: one warp a granule, every evaluation of the
-plain schedule in turn; no ``runs`` row), which no path calls: it is the
-yardstick of ``chip_smoke.py`` phases 3c and 5, counted apart in
-``baseline_launches``.
-
 What bounds the kernel on an H100, and its design: see the note at the
 top of ``csrc/bits_at.cu``.
 """
@@ -50,7 +44,7 @@ import torch
 
 from . import bits_at, cuda_build, loop
 
-#: the kernel's rows after bits_at's ROWS (the baseline's: all but runs)
+#: the kernel's rows after bits_at's ROWS
 EXTRA_ROWS = ("qss", "evals", "status", "runs")
 #: the stepsizes whose factor 2^(-0.1875 q) the kernel reads from a table
 STEP_LO, STEP_HI = -512, 511
@@ -58,8 +52,6 @@ STEP_LO, STEP_HI = -512, 511
 MAX_WIDTH = 7
 #: K3's launches (``search_stepsize`` and ``search_walk`` together)
 launches = 0
-#: the baseline's launches (``baseline_stepsize`` and ``baseline_walk``)
-baseline_launches = 0
 
 
 def build(force=False, extra_flags=()):
@@ -73,8 +65,6 @@ def _library():
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.mp3_search.restype = i32
     lib.mp3_search.argtypes = [ptr] * 10 + [i32] * 6 + [ptr] * 3
-    lib.mp3_search_baseline.restype = i32
-    lib.mp3_search_baseline.argtypes = [ptr] * 10 + [i32] * 5 + [ptr] * 2
     lib.mp3_search_plan.restype = i32
     lib.mp3_search_plan.argtypes = [i32, i32, ptr]
     return lib
@@ -139,9 +129,9 @@ def _check_inputs(xr75p, budget, start, qss_lo, is_short, is_short_block,
     return dev
 
 
-def _launch(baseline, walk, xr75p, budget, start, qss_lo, is_short,
-            is_short_block, ST, n_bisect, max_steps, width):
-    global launches, baseline_launches
+def _launch(walk, xr75p, budget, start, qss_lo, is_short, is_short_block,
+            ST, n_bisect, max_steps, width):
+    global launches
     dev, G = xr75p.device, xr75p.shape[0]
     if dev.type != "cuda":
         raise ValueError(f"search: unsupported device {dev}")
@@ -150,33 +140,25 @@ def _launch(baseline, walk, xr75p, budget, start, qss_lo, is_short,
                      (bits_at.RATE_INTS,), dev)
     if xr75p.data_ptr() % 16:
         raise ValueError("search: xr75p must be 16-byte aligned")
-    rows = bits_at.ROWS + EXTRA_ROWS[:3 if baseline else 4]
+    rows = bits_at.ROWS + EXTRA_ROWS
     out = torch.empty((len(rows), G), dtype=torch.int32, device=dev)
     if G:
         lut, hlen, istep, counter = device_buffers(dev)
         lib = _library()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            args = [xr75p.data_ptr(), budget.data_ptr(), start.data_ptr(),
-                    None if qss_lo is None else qss_lo.data_ptr(),
-                    is_short.data_ptr(), is_short_block.data_ptr(),
-                    tab.data_ptr(), lut.data_ptr(), hlen.data_ptr(),
-                    istep.data_ptr(), int(ST["r0_pairs_short"]), int(walk),
-                    int(n_bisect), int(max_steps)]
-            if baseline:
-                err = lib.mp3_search_baseline(*args, G, out.data_ptr(),
-                                              stream)
-            else:
-                err = lib.mp3_search(*args, int(width or 0), G,
-                                     out.data_ptr(), counter.data_ptr(),
-                                     stream)
+            err = lib.mp3_search(
+                xr75p.data_ptr(), budget.data_ptr(), start.data_ptr(),
+                None if qss_lo is None else qss_lo.data_ptr(),
+                is_short.data_ptr(), is_short_block.data_ptr(),
+                tab.data_ptr(), lut.data_ptr(), hlen.data_ptr(),
+                istep.data_ptr(), int(ST["r0_pairs_short"]), int(walk),
+                int(n_bisect), int(max_steps), int(width or 0), G,
+                out.data_ptr(), counter.data_ptr(), stream)
         if err != 0:
             raise RuntimeError(f"search: kernel launch failed, CUDA error "
                                f"{err}")
-        if baseline:
-            baseline_launches += 1
-        else:
-            launches += 1
+        launches += 1
     c = {k: out[i] for i, k in enumerate(rows) if k != "table_select"}
     c["bits"] = out[0].view(torch.float32)
     c["table_select"] = out[7:10].t()
@@ -201,7 +183,7 @@ def search_stepsize(xr75p, budget, qanf, is_short, is_short_block, ST,
         return loop.search_stepsize_plain(xr75p, budget, qanf, is_short,
                                           is_short_block, ST,
                                           n_bisect=n_bisect, qss_lo=qss_lo)
-    return _launch(False, False, xr75p, budget, qanf, qss_lo, is_short,
+    return _launch(False, xr75p, budget, qanf, qss_lo, is_short,
                    is_short_block, ST, n_bisect, 40, width)
 
 
@@ -215,32 +197,6 @@ def search_walk(xr75p, budget, start_qss, is_short, is_short_block, ST,
         return loop.search_walk_plain(xr75p, budget, start_qss, is_short,
                                       is_short_block, ST,
                                       max_steps=max_steps)
-    return _launch(False, True, xr75p, budget, start_qss, None, is_short,
+    return _launch(True, xr75p, budget, start_qss, None, is_short,
                    is_short_block, ST, 0, max_steps, width)
 
-
-def baseline_stepsize(xr75p, budget, qanf, is_short, is_short_block, ST,
-                      n_bisect=8, qss_lo=None):
-    """``search_stepsize`` on K3's first design (``search_baseline``),
-    counted in ``baseline_launches``; the plain search on the CPU."""
-    dev = _check_inputs(xr75p, budget, qanf, qss_lo, is_short,
-                        is_short_block)
-    if dev.type == "cpu":
-        return loop.search_stepsize_plain(xr75p, budget, qanf, is_short,
-                                          is_short_block, ST,
-                                          n_bisect=n_bisect, qss_lo=qss_lo)
-    return _launch(True, False, xr75p, budget, qanf, qss_lo, is_short,
-                   is_short_block, ST, n_bisect, 40, None)
-
-
-def baseline_walk(xr75p, budget, start_qss, is_short, is_short_block, ST,
-                  max_steps=40):
-    """``search_walk`` on K3's first design, as ``baseline_stepsize``."""
-    dev = _check_inputs(xr75p, budget, start_qss, None, is_short,
-                        is_short_block)
-    if dev.type == "cpu":
-        return loop.search_walk_plain(xr75p, budget, start_qss, is_short,
-                                      is_short_block, ST,
-                                      max_steps=max_steps)
-    return _launch(True, True, xr75p, budget, start_qss, None, is_short,
-                   is_short_block, ST, 0, max_steps, None)

@@ -75,10 +75,9 @@ SPANS_CORPUS = ("_plan_budgets_corpus", "_clip_records")
 SPANS_SHARDED = ("sharded analyze+demand", "sharded final encode",
                  "sharded final retry")
 #: the named spans of a Layer I/II encode: the programs in the JAX
-#: package's function names (``mp3tpu/encoder.py:729``) -- on the card
-#: chain the joint decision runs inside K5's launch, under
-#: ``greedy_allocation``, and ``joint_mode`` shows on the host route
-#: (``chip_smoke.l12_host_route``) only -- then the host work around
+#: package's function names (``mp3tpu/encoder.py:729``) -- the joint
+#: decision runs inside K5 (or its plain version), under
+#: ``greedy_allocation`` -- then the host work around
 #: them: ``_layer12_frame`` (the PCM to (nch, F * spf), int16 kept),
 #: ``upload`` (the framed PCM through a pinned buffer; psy model 1's SMR
 #: too), ``_layer12_back`` (the back half, from the analysis outputs to
@@ -90,11 +89,10 @@ SPANS_SHARDED = ("sharded analyze+demand", "sharded final encode",
 #: channels' codes stacked, around ``quantize_l1`` / ``quantize_l2``) and
 #: ``_fetch_frames`` (the download's wait in ``fetch``, K6's status
 #: checked and the frames' bytes)
-SPANS_L12 = ("analyze_frames", "joint_mode", "greedy_allocation",
-             "quantize_l1", "quantize_l2", "_marshal_layer12",
-             "pack_elements", "fetch", "_layer12_frame", "upload",
-             "_layer12_back", "_layer12_back.smr", "_layer12_quantize",
-             "_fetch_frames")
+SPANS_L12 = ("analyze_frames", "greedy_allocation", "quantize_l1",
+             "quantize_l2", "_marshal_layer12", "pack_elements", "fetch",
+             "_layer12_frame", "upload", "_layer12_back",
+             "_layer12_back.smr", "_layer12_quantize", "_fetch_frames")
 #: on a CUDA device the segment program replays one graph inside the span
 #: encode_segment_fused, and in its staged form the emission and packing
 #: replay one graph inside the span granule_payload (``ops/graphs.py``):

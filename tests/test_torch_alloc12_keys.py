@@ -392,22 +392,21 @@ def test_layer_one_limit_tracked_from_the_broadcasts(jsbound):
 
 
 def test_both_wrappers_run_the_plain_version_on_the_cpu():
-    """On a CPU tensor ``allocate`` and ``allocate_baseline`` run the
-    numpy code and launch nothing; another device is refused."""
+    """On a CPU tensor ``allocate`` runs the numpy code and launches
+    nothing; another device is refused."""
     label, smr, scf, kw = CASES[4]
     args = (torch.as_tensor(smr), None if scf is None else
             torch.as_tensor(scf))
     want = A12.allocate_plain(*args, **kw)
-    before = (A12.launches, A12.baseline_launches)
-    for fn in (A12.allocate, A12.allocate_baseline):
-        got = fn(*args, **kw)
-        for k in A12.OUTPUTS:
-            assert torch.equal(got[k], want[k]), (fn.__name__, k)
-        assert got["steps"] is None
-        with pytest.raises(ValueError, match="unsupported device"):
-            fn(args[0].to("meta"), None if scf is None else
-               args[1].to("meta"), **kw)
-    assert (A12.launches, A12.baseline_launches) == before
+    before = A12.launches
+    got = A12.allocate(*args, **kw)
+    for k in A12.OUTPUTS:
+        assert torch.equal(got[k], want[k]), k
+    assert got["steps"] is None
+    with pytest.raises(ValueError, match="unsupported device"):
+        A12.allocate(args[0].to("meta"), None if scf is None else
+                     args[1].to("meta"), **kw)
+    assert A12.launches == before
 
 
 # ---------------------------------------------------------------------------
@@ -476,10 +475,6 @@ ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114alloc12_kernelILi1E
 ptxas info    : Function properties for _ZN12_GLOBAL__N_114alloc12_kernelILi1EEEvPKdPKiS2_S4_NS_6ParamsEPiS7_S7_S7_S7_S7_
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 32 registers, 12704 bytes smem, 416 bytes cmem[0]
-ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_123alloc12_baseline_kernelEPKdPKiS1_S3_NS_6ParamsEPiS6_S6_S6_S6_S6_' for 'sm_90a'
-ptxas info    : Function properties for _ZN12_GLOBAL__N_123alloc12_baseline_kernelEPKdPKiS1_S3_NS_6ParamsEPiS6_S6_S6_S6_S6_
-    64 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
-ptxas info    : Used 40 registers, 12720 bytes smem, 416 bytes cmem[0]
 """
 
 
@@ -489,9 +484,7 @@ def test_kernel_report_reads_each_design():
         "alloc12_kernel<2>": dict(registers=30, stack=0, spill_stores=0,
                                   spill_loads=0),
         "alloc12_kernel<1>": dict(registers=32, stack=0, spill_stores=0,
-                                  spill_loads=0),
-        "alloc12_baseline_kernel": dict(registers=40, stack=64,
-                                        spill_stores=0, spill_loads=0)}
+                                  spill_loads=0)}
     assert A12.kernel_report("ptxas info    : 0 bytes gmem\n") == {}
     with pytest.raises(ValueError):
         A12.kernel_report(PTXAS.replace("Used 30 registers", "Used"))

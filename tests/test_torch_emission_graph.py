@@ -8,7 +8,8 @@ On a CUDA tensor ``Layer3SegmentEncoder.encode_final`` hands
 replayed after the loop's last iteration, reading the loop's static
 tensors.  These tests check that ``_emission`` can be captured (an
 aten-op log on "cpu" and "meta"); run the captured loop's host side
-(``loop._run_captured`` with the continuation) with a stand-in capture
+(``loop._run_loop``: the continuation a third graph of the loop's entry,
+``graphs.run_next``) with a stand-in capture
 against ``encode_final_eager`` (the emission op by op after the loop:
 what the CPU runs) call after call on one key, MPEG-1 with its scfsi
 masks and LSF, rows and the compacted buffer, its results written into
@@ -118,7 +119,7 @@ def test_captured_emission_equals_eager(final_case, loop_graphs, flat):
     kept = []
     for call in _calls(args):
         n = len(pools)
-        _, dropped, out = loop._run_captured(
+        _, dropped, out = loop._run_loop(
             enc._final_args(**call), enc.tables("st"), 6, record,
             then=enc._then(96, cap))
         _assert_equal(out, enc.encode_final_eager(
@@ -140,7 +141,7 @@ def test_wider_rows_are_another_emission_graph(final_case, loop_graphs):
     new emission graph of the same loop entry, equal to the eager form."""
     version, enc, args = final_case
     for pw in (96, 128, 96):
-        _, _, out = loop._run_captured(
+        _, _, out = loop._run_loop(
             enc._final_args(**args), enc.tables("st"), 6,
             pooled_stand_in([]), then=enc._then(pw, None))
         _assert_equal(out, enc.encode_final_eager(payload_words=pw, **args))

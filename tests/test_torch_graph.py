@@ -7,7 +7,8 @@ capture needs of the Python: the prologue and one iteration read no
 device value on the host, build no tensor from host data and copy
 nothing between devices (an aten-op log, on the CPU and on the meta
 device); the iteration updates every state tensor in place; the host
-side of the captured loop (``_run_captured``) with a stand-in for the
+side of the captured loop (``_run_loop``: ``graphs.run`` of the
+prologue, ``graphs.run_next`` of the iterations) with a stand-in for the
 capture gives ``outer_loop_eager``'s outputs exactly, call after call on
 one key, and those hold to ``jaxloop.outer_loop`` as
 tests/test_torch_loop.py does; the cache keeps at most its size and
@@ -208,11 +209,12 @@ def graphs(monkeypatch):
 
 
 def _run(inputs, ST):
-    """``_run_captured`` with the stand-in capture, to outer_loop's
+    """``_run_loop`` with the stand-in capture, to outer_loop's
     outputs."""
-    entry, _, _ = loop._run_captured(inputs, ST, 6, _stand_in)
-    best = {k: v.clone() for k, v in entry.best.items()}
-    return loop._epilogue(inputs["xr"], best, entry.state["qss0"].clone(),
+    entry, _, _ = loop._run_loop(inputs, ST, 6, _stand_in)
+    pro = entry.outputs["prologue"]
+    best = {k: v.clone() for k, v in pro["best"].items()}
+    return loop._epilogue(inputs["xr"], best, pro["state"]["qss0"].clone(),
                           inputs["block_type"], inputs["is_short_block"])
 
 
@@ -235,7 +237,8 @@ def test_captured_loop_equals_eager_and_jax(graphs, name, example, version,
 
     def any_on_host(mask):
         # the loop's own exit reads (the plain searches' walks aside)
-        if _caller() in ("_eager", "_run_captured", "_iterations"):
+        if _caller() in ("_eager", "_run_loop", "iterate", "_iterations",
+                         "run", "run_next"):
             exits.append(_caller())
         return real_any(mask)
 
@@ -318,16 +321,16 @@ def test_cache_holds_what_its_graphs_read(monkeypatch, graphs):
     # tables of their own (device_tables would share the process's)
     ST = loop._device_tables(loop.static_tables(mpeg.MPEG1, 1), "cpu")
     table = weakref.ref(ST["oh_l"])
-    entry, _, _ = loop._run_captured(_inputs(_small_batch(8, 0)), ST, 6,
-                                     _stand_in)
-    state = weakref.ref(entry.state["xr75p"])
+    entry, _, _ = loop._run_loop(_inputs(_small_batch(8, 0)), ST, 6,
+                                 _stand_in)
+    state = weakref.ref(entry.outputs["prologue"]["state"]["xr75p"])
     assert entry.refs[0]["oh_l"] is ST["oh_l"]
     del ST, entry
     gc.collect()
     assert table() is not None and state() is not None
     ST2 = _tables(mpeg.MPEG1)
     for n in (12, 16):
-        loop._run_captured(_inputs(_small_batch(n, 1)), ST2, 6, _stand_in)
+        loop._run_loop(_inputs(_small_batch(n, 1)), ST2, 6, _stand_in)
     gc.collect()
     assert len(loop.GRAPHS) == 2
     assert table() is None and state() is None
@@ -337,16 +340,16 @@ def test_key_is_the_tables_tensors_and_the_inputs_layout():
     d = _scfsi_example()
     inputs = _inputs(d)
     ST = _tables(mpeg.MPEG1)
-    key = loop._graph_key(inputs, ST)
+    key = G.key_of(inputs, ST)
     # another dict of the same tensors (Layer3SegmentEncoder.tables makes
     # one a call), and equal tables made again, are the same key
-    assert loop._graph_key(inputs, dict(ST)) == key
-    assert loop._graph_key(inputs, _tables(mpeg.MPEG1)) == key
-    assert loop._graph_key(_inputs(_perturbed(d)), ST) == key
+    assert G.key_of(inputs, dict(ST)) == key
+    assert G.key_of(inputs, _tables(mpeg.MPEG1)) == key
+    assert G.key_of(_inputs(_perturbed(d)), ST) == key
     other = loop._device_tables(loop.static_tables(mpeg.MPEG1, 0), "cpu")
-    assert loop._graph_key(inputs, other) != key
-    assert loop._graph_key(dict(inputs, qss_lo=None), ST) != key
-    assert loop._graph_key(_inputs(_small_batch(8, 0)), ST) != key
+    assert G.key_of(inputs, other) != key
+    assert G.key_of(dict(inputs, qss_lo=None), ST) != key
+    assert G.key_of(_inputs(_small_batch(8, 0)), ST) != key
 
 
 def test_equal_tables_are_one_set_of_tensors():

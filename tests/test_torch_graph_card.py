@@ -133,23 +133,27 @@ def test_graphs_equal_eager_and_count_alike(graphs, card, G, version, final):
 @pytest.mark.parametrize("version", [mpeg.MPEG1, mpeg.MPEG2_LSF],
                          ids=["mpeg1", "lsf"])
 @pytest.mark.parametrize("G", [512, 4096])
-def test_unrolled_equals_the_stepwise_replay(graphs, card, G, version,
-                                             final):
-    """The unrolled graphs (one replay of the 6 iterations, no exit read)
-    against the iteration replayed one at a time with the exit read on
-    the host after each (``outer_loop_stepwise``), over a capture call
-    and a replay call: equal on every output and on the live iterations;
-    the stepwise form syncs at least once an iteration and launches K3
-    once a live iteration, the unrolled form never syncs and launches it
-    in all 6."""
-    args, kwargs = loop_batch(card, G, version, G + final + 3, final)
-    for _ in range(2):
-        ref, (k3, syncs, _, _, iterations) = _counted(
-            loop.outer_loop_stepwise, *args, **kwargs)
+def test_replay_after_another_keys_capture_equals_eager(graphs, card, G,
+                                                        version, final):
+    """Two keys in the shared pool, demand and final interleaved: this
+    key's capture, the other kind's capture, then a replay of each on new
+    batches.  Every call == outer_loop_eager on every output and on the
+    live iterations, with 7 K3 launches and no loop-exit sync; the other
+    key's capture and replay leave this key's static tensors and graphs
+    as they were."""
+    mine = [loop_batch(card, G, version, G + final + 3 + 10 * i, final)
+            for i in range(2)]
+    theirs = [loop_batch(card, G, version, G + final + 4 + 10 * i,
+                         not final) for i in range(2)]
+    for (args, kwargs), kind in ((mine[0], "capture"),
+                                 (theirs[0], "capture"),
+                                 (mine[1], "replay"), (theirs[1], "replay")):
+        ref, (_, _, _, _, iterations) = _counted(loop.outer_loop_eager,
+                                                 *args, **kwargs)
         got, counts = _counted(loop.outer_loop, *args, **kwargs)
         _assert_equal(got, ref)
-        assert k3 == 1 + iterations and syncs >= iterations > 0
-        assert (counts[0], counts[1], counts[4]) == (7, 0, iterations)
+        assert counts == [7, 0] + ([2, 0] if kind == "capture" else [0, 2]) \
+            + [iterations]
     assert len(graphs) == 2
 
 

@@ -20,7 +20,6 @@ import torch
 
 import jax.numpy as jnp
 
-from mp3tpu import encoder as jencoder
 from mp3tpu.decoder import layer12 as dec12
 from mp3tpu.ops import jaxlayer12 as J
 from mp3tpu.runtime.wav import read_wav
@@ -202,29 +201,17 @@ def test_port_crc_stream_decodes(golden_dir):
     ("l2_sweep_mono_96", 2, mpeg.MODE_MONO, 96, True)])
 def test_marshal_layer12_equals_jax(golden_dir, monkeypatch, name, layer,
                                     mode, kbps, crc):
-    """The port's element marshalling equals the JAX package's on the
-    arguments the host route (``chip_smoke.l12_host_route``, the
-    yardstick of the card chain) gives it (joint stereo, CRC, mono)."""
-    from chip_smoke import l12_host_route
-    captured = []
-    real = tencoder._marshal_layer12
-
-    def capture(*args):
-        captured.append(args)
-        return real(*args)
-
-    monkeypatch.setattr(tencoder, "_marshal_layer12", capture)
+    """The port's element marshalling (``ops/layer12.marshal_frames``)
+    equals the JAX package's (``encoder._marshal_layer12``) on the
+    arguments that the port's chain gives it (joint stereo, CRC, mono),
+    but the CRC field and the padded ancillary slots
+    (tests/test_torch_marshal12.py ``check_rows``)."""
+    from test_torch_marshal12 import chain_args, check_rows
     pcm, rate = read_wav(os.path.join(golden_dir, f"{name}.wav"))
     cfg = EncoderConfig(layer=layer, mode=mode, bitrate_kbps=kbps,
                         sample_rate_hz=rate, error_protection=crc)
-    l12_host_route(pcm if mode != mpeg.MODE_MONO else pcm[:, :1], cfg,
-                   "cpu")
-    args = captured[0]
-    vr, lr = jencoder._marshal_layer12(*args)
-    vg, lg = real(*args)
-    assert vr.dtype == vg.dtype and lr.dtype == lg.dtype
-    np.testing.assert_array_equal(lr, lg)
-    np.testing.assert_array_equal(vr, vg)
+    check_rows(chain_args(pcm if mode != mpeg.MODE_MONO else pcm[:, :1],
+                          cfg, monkeypatch)[0])
 
 
 @pytest.mark.parametrize("layer,kbps", [(2, 192), (1, 384)])

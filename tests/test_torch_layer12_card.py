@@ -1,19 +1,20 @@
 """The Layer I/II chain on the card: K5 (``csrc/alloc12.cu``
 ``alloc12_kernel``, the joint decision and the greedy bit allocation, one
-warp a frame), its first design kept as the yardstick
-(``alloc12_baseline_kernel``, ``allocate_baseline``) and K6
-(``csrc/pack12.cu``, the frame packing with its CRC, one block a frame)
-against their plain versions, the card route of ``encode_layer12_fast``
-against the host route it replaced (``chip_smoke.l12_host_route``), the
-captured analysis against its op-by-op form, the replayed chain (the
-analysis and the back half as two graphs of one key) against the op-by-op
-chain (``tools.yardstick_form``), K5's and K6's launches counted in each
-replay, one host wait an encode, and a malformed frame that raises.
+warp a frame), eagerly and replayed as the back half of a graph entry,
+and K6 (``csrc/pack12.cu``, the frame packing with its CRC, one block a
+frame) against their plain versions, the card route of
+``encode_layer12_fast`` against the host route it replaced
+(``host_back_half``: the card's analysis, the back half's plain versions
+on the CPU), the captured analysis against its op-by-op form, the replayed
+chain (the analysis and the back half as two graphs of one key) against
+the op-by-op chain (``tools.yardstick_form``), K5's and K6's launches
+counted in each replay, one host wait an encode, and a malformed frame
+that raises.
 
-The module also holds the lane-level model of the first design's walk
+The module also holds a lane-level model of the lockstep walk
 (``model_frame``: the warp's argmin as five xor-shuffle rounds over (value,
-index) pairs, the winner lane's update, the broadcast) and the cases both
-designs run on (``alloc_cases``); tests/test_torch_alloc12_model.py holds
+index) pairs, the winner lane's update, the broadcast) and the cases K5
+runs on (``alloc_cases``); tests/test_torch_alloc12_model.py holds
 that model, and tests/test_torch_alloc12_keys.py the model of K5's walk
 (ordered keys, the two-half ``redux.sync`` argmin, the packed broadcast),
 to ``runtime/alloc12`` and the sequential oracles of ``numpy_ref/layer12``
@@ -383,6 +384,19 @@ def fixture(name, layer, mode, kbps, crc):
                               sample_rate_hz=rate, error_protection=crc)
 
 
+def host_back_half(pcm, cfg, device="cuda"):
+    """The route the card chain replaced: the analysis on `device`, then
+    the back half on the host -- ``encoder._layer12_back`` on the
+    analysis outputs moved to the CPU, so K5's, the quantizers' and K6's
+    plain versions and ``marshal_frames`` there.  The card chain must
+    give its bytes.  The whole chain on the CPU may not: its analysis
+    rounds as the CPU's FFT does, which can move an allocation tie."""
+    P, x = E._layer12_frame(pcm, cfg)
+    ana = E._layer12_analysis(x, P, torch.device(device))
+    ana = {k: v.cpu() for k, v in ana.items()}
+    return E._fetch_frames(E._layer12_back(ana, cfg, P, x)) + b"\x00"
+
+
 def design_equals_plain_and_model(allocate, card, model):
     """`allocate` (a design's wrapper) on the card == the plain version on
     every output and == `model`'s steps, on every ``alloc_cases()`` case
@@ -404,30 +418,82 @@ def design_equals_plain_and_model(allocate, card, model):
 @pytest.mark.cuda
 def test_k5_equals_plain_and_model(card):
     from test_torch_alloc12_keys import model_alloc as keys_model
-    before = A12.baseline_launches
+    before = A12.launches
     design_equals_plain_and_model(A12.allocate, card, keys_model)
-    assert A12.baseline_launches == before
+    assert A12.launches == before + len(alloc_cases())
+
+
+def k5_replayed(cache, card, smr, scf, kw):
+    """``A12.allocate`` as the back half of a graph entry, as
+    ``layer12.encode_frames`` holds K5: ``graphs.run`` of the inputs'
+    copies (stage "l12_analysis"), then ``graphs.run_next`` of K5 on the
+    entry's static copies (stage "l12_back"), on the graph stream; K5's
+    outputs cloned."""
+    from mp3tpu_torch.ops import graphs
+    dev = torch.device(card)
+    record = graphs.cuda_graph(dev)
+    inputs = dict(smr=torch.as_tensor(smr, device=dev),
+                  scfsi=None if scf is None else torch.as_tensor(scf,
+                                                                 device=dev))
+
+    def body():
+        entry, dropped = graphs.run(
+            cache, graphs.key_of(inputs, kw), "l12_analysis", inputs,
+            lambda s: {k: None if v is None else v.clone()
+                       for k, v in s.items()}, record)
+        ana = entry.outputs["l12_analysis"]
+        return graphs.run_next(
+            entry, "l12_back",
+            lambda: A12.allocate(ana["smr"], ana["scfsi"], **kw),
+            record), dropped
+
+    return graphs.on_stream(dev, body, lambda out: {
+        k: None if v is None else v.clone() for k, v in out.items()})
 
 
 @pytest.mark.cuda
-def test_k5_baseline_equals_plain_and_model(card):
-    before = A12.launches
-    design_equals_plain_and_model(A12.allocate_baseline, card, model_alloc)
-    assert A12.launches == before
+def test_k5_replayed_in_the_back_half_equals_plain_and_model(card,
+                                                             monkeypatch):
+    """K5 captured in the back half of a graph entry and replayed on new
+    inputs of the key (the frames in reverse) == the plain version on
+    every output and == the model's steps, on every ``alloc_cases()``
+    case; one K5 launch a call, the capture's warm-up's or the one its
+    graph holds."""
+    from mp3tpu_torch.ops import graphs
+    from test_torch_alloc12_keys import model_alloc as keys_model
+    monkeypatch.setattr(graphs, "graph_counts", {
+        s: dict(captures=0, replays=0) for s in graphs.STAGES})
+    cache = graphs.GraphCache(4)
+    n = 0
+    for label, smr, scf, kw in alloc_cases():
+        for order in (slice(None), slice(None, None, -1)):
+            s = np.ascontiguousarray(smr[order])
+            c = None if scf is None else np.ascontiguousarray(scf[order])
+            before = A12.launches
+            got = k5_replayed(cache, card, s, c, kw)
+            assert A12.launches == before + 1, label
+            want = plain_of(s, c, kw)
+            for k in A12.OUTPUTS:
+                np.testing.assert_array_equal(got[k].cpu().numpy(), want[k],
+                                              err_msg=f"{label}: {k}")
+            np.testing.assert_array_equal(got["steps"].cpu().numpy(),
+                                          keys_model(s, c, **kw)["steps"],
+                                          err_msg=label)
+        n += 1
+    assert graphs.by_stage()["l12_back"] == (n, n)
 
 
 @pytest.mark.cuda
 def test_k5_keeps_its_state_in_registers_and_runs_in_one_wave(card,
                                                               tmp_path):
     """nvcc -Xptxas -v: alloc12_kernel (both layers) with no stack frame
-    and no spill, at most 32 registers; the first design beside it; the
-    60 s Layer I clip's 6,891 frames in one wave."""
+    and no spill, at most 32 registers; the 60 s Layer I clip's 6,891
+    frames in one wave."""
     from mp3tpu_torch.ops import cuda_build
     log = cuda_build.build(A12.SOURCE, str(tmp_path / "liballoc12.so"),
                            A12.NVCC_FLAGS + ["-Xptxas", "-v"], force=True)
     report = A12.kernel_report(log)
-    assert set(report) == {"alloc12_kernel<1>", "alloc12_kernel<2>",
-                           "alloc12_baseline_kernel"}, log
+    assert set(report) == {"alloc12_kernel<1>", "alloc12_kernel<2>"}, log
     for name in ("alloc12_kernel<1>", "alloc12_kernel<2>"):
         r = report[name]
         assert (r["stack"], r["spill_stores"], r["spill_loads"]) == \
@@ -442,18 +508,19 @@ def test_k5_keeps_its_state_in_registers_and_runs_in_one_wave(card,
 @pytest.mark.parametrize("case", FIXTURES, ids=[c[0] + ("_crc" * c[4])
                                                 for c in FIXTURES])
 def test_card_route_equals_host_route(card, case):
+    """The card's bytes == the host route's (``host_back_half``: the
+    card's analysis, the back half's plain versions on the CPU, which
+    tests/test_torch_marshal12.py holds to the JAX package's host
+    marshalling and packing)."""
     pcm, cfg = fixture(*case)
-    from chip_smoke import l12_host_route
     out = E.encode_layer12_fast(pcm, cfg, "cuda")
-    assert out == l12_host_route(pcm, cfg, "cuda")
+    assert out == host_back_half(pcm, cfg)
 
 
 @pytest.mark.cuda
 def test_k6_equals_plain_on_the_chain_rows(card, monkeypatch):
     """K6 on the card == its plain version on the rows an encode makes (the
-    CRC fixture and a joint one), and the bytes == the host route's
-    (pack_elements with _crc_calc)."""
-    from chip_smoke import l12_host_route
+    CRC fixture and a joint one), and the bytes == the host route's."""
     rows = []
     real = L12.marshal_frames
 
@@ -475,7 +542,7 @@ def test_k6_equals_plain_on_the_chain_rows(card, monkeypatch):
         status, frames = P12.split(got.cpu())
         assert status.tolist() == [0, 0]
         assert frames.numpy().tobytes() + b"\x00" == \
-            l12_host_route(pcm, cfg, "cuda")
+            host_back_half(pcm, cfg)
 
 
 @pytest.mark.cuda
@@ -483,10 +550,10 @@ def test_one_wait_an_encode_and_a_window(card):
     from mp3tpu_torch.tools import host_waits
     pcm, cfg = fixture(*FIXTURES[1])
     E.encode_layer12_fast(pcm, cfg, "cuda")                 # warm
-    k5, first = A12.launches, A12.baseline_launches
+    k5 = A12.launches
     out, waits = host_waits(lambda: E.encode_layer12_fast(pcm, cfg, "cuda"))
     assert sum(waits.values()) == 1, waits
-    assert (A12.launches - k5, A12.baseline_launches - first) == (1, 0)
+    assert A12.launches - k5 == 1
     pieces = [pcm[s:s + 20000] for s in range(0, len(pcm), 20000)]
     nwin = -(-(-(-len(pcm) // 1152)) // 8)
 
@@ -605,15 +672,13 @@ def test_replayed_chain_equals_the_op_by_op_chain(card, fresh, case):
 @pytest.mark.cuda
 def test_k5_and_k6_launch_once_a_replayed_encode(card, fresh):
     """Each encode adds one launch of K5 and of K6, the capture's (its
-    warm-up's) and each replay's (the launches its graph holds), and none
-    of K5's first design."""
+    warm-up's) and each replay's (the launches its graph holds)."""
     cfg = dab()
     pcm = signal(cfg, 10)
     for n in range(3):
-        k5, k6, first = A12.launches, P12.launches, A12.baseline_launches
+        k5, k6 = A12.launches, P12.launches
         E.encode_layer12_fast(pcm, cfg, "cuda")
-        assert (A12.launches - k5, P12.launches - k6,
-                A12.baseline_launches - first) == (1, 1, 0), n
+        assert (A12.launches - k5, P12.launches - k6) == (1, 1), n
     assert fresh.by_stage()["l12_back"] == (1, 2)
 
 

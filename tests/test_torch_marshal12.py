@@ -9,9 +9,10 @@ byte on every frame; and, given the JAX package's own analysis outputs,
 the port's back half (K5's plain version, the quantizers,
 ``marshal_frames``, K6's plain version) gives the JAX package's
 ``encode_layer12_fast`` bytes exactly -- the six fixtures, the CRC
-fixtures and MPEG-2 LSF.  The card chain (``encode_layer12_fast``)
-equals the host route it replaced (``chip_smoke.l12_host_route``) on
-the CPU, and a malformed frame raises after the one download.
+fixtures and MPEG-2 LSF.  The chain (``encode_layer12_fast``) on the
+CPU equals the JAX package's host route on the arguments that the chain
+gives ``marshal_frames`` (``_marshal_layer12`` and the native packer
+``pack_elements``), and a malformed frame raises after the one download.
 """
 import numpy as np
 import pytest
@@ -26,7 +27,6 @@ from mp3tpu_torch.ops import layer12 as L12
 from mp3tpu_torch.ops import pack12 as P12
 from mp3tpu_torch.runtime.bitstream import pack_elements
 from mp3tpu_torch.tables import mpeg
-from chip_smoke import l12_host_route
 from test_torch_layer12_card import FIXTURES, fixture
 
 torch.set_num_threads(1)
@@ -59,18 +59,27 @@ def case_input(name, layer, mode, kbps, crc):
     return fixture(name, layer, mode, kbps, crc)
 
 
-def host_args(pcm, cfg, monkeypatch):
-    """The arguments ``l12_host_route`` gives ``_marshal_layer12``."""
-    captured = []
-    real = E._marshal_layer12
+def chain_args(pcm, cfg, monkeypatch):
+    """(the arguments that the port's chain, ``encode_layer12_fast`` on
+    the CPU, gives ``marshal_frames``, as the JAX package's
+    ``_marshal_layer12`` takes them: numpy, the frame count F after nch;
+    the chain's bytes)."""
+    seen = []
+    real = L12.marshal_frames
 
     def capture(*args):
-        captured.append(args)
+        seen.append(args)
         return real(*args)
 
-    monkeypatch.setattr(E, "_marshal_layer12", capture)
-    l12_host_route(pcm, cfg, "cpu")
-    return captured[0]
+    with monkeypatch.context() as m:
+        m.setattr(L12, "marshal_frames", capture)
+        out = E.encode_layer12_fast(pcm, cfg, "cpu")
+    (cfg, layer, table, sblimit, nch, mode, mode_ext, jsbound, ba, scfsi,
+     scalar, codes, adb_left, _) = seen[0]
+    return (cfg, layer, table, sblimit, nch, mode.shape[0], mode.numpy(),
+            mode_ext.numpy(), jsbound.numpy(), ba.numpy(),
+            None if scfsi is None else scfsi.numpy(), scalar.numpy(),
+            codes.numpy(), adb_left.numpy()), out
 
 
 def rows_of(args):
@@ -85,9 +94,11 @@ def rows_of(args):
         t(codes), t(adb_left), P.adb)
 
 
-@pytest.mark.parametrize("case", CASES, ids=IDS)
-def test_marshal_frames_equals_jax_marshal(case, monkeypatch):
-    args = host_args(*case_input(*case), monkeypatch)
+def check_rows(args):
+    """``marshal_frames`` on `args` (``chain_args``) against the JAX
+    package's ``_marshal_layer12``: element for element, but the CRC
+    field (16 zero bits, for K6 to fill) and the ancillary slots padded
+    to ``anc_slots`` with slots of length 0."""
     vr, lr = jencoder._marshal_layer12(*args)
     P, (values, lengths, crc) = rows_of(args)
     F = P.F
@@ -117,13 +128,18 @@ def test_marshal_frames_equals_jax_marshal(case, monkeypatch):
         assert crc is None
 
 
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_marshal_frames_equals_jax_marshal(case, monkeypatch):
+    check_rows(chain_args(*case_input(*case), monkeypatch)[0])
+
+
 @pytest.mark.parametrize("case", [c for c in CASES if c[4]],
                          ids=[i for c, i in zip(CASES, IDS) if c[4]])
 def test_pack_plain_equals_native_pack_and_crc_calc(case, monkeypatch):
     """Every frame's bytes, CRC words included: K6's plain version on
     ``marshal_frames``' rows against ``pack_elements`` of the JAX
     marshalling, and each frame's bits 32-47 against ``_crc_calc``."""
-    args = host_args(*case_input(*case), monkeypatch)
+    args = chain_args(*case_input(*case), monkeypatch)[0]
     P, (values, lengths, crc) = rows_of(args)
     buf = P12.pack_frames(values, lengths, P.frame_bytes, crc)
     status, frames = P12.split(buf)
@@ -180,10 +196,13 @@ def test_back_half_on_jax_analysis_gives_jax_bytes(case, monkeypatch):
 
 
 @pytest.mark.parametrize("case", CASES, ids=IDS)
-def test_chain_equals_host_route_on_the_cpu(case):
+def test_chain_equals_host_route_on_the_cpu(case, monkeypatch):
+    """The chain's bytes == the JAX package's host route (its marshalling
+    and the native packer, the CRC by ``_crc_calc`` a frame) on the
+    arguments that the chain gives ``marshal_frames``."""
     pcm, cfg = case_input(*case)
-    out = E.encode_layer12_fast(pcm, cfg, "cpu")
-    assert out == l12_host_route(pcm, cfg, "cpu")
+    args, out = chain_args(pcm, cfg, monkeypatch)
+    assert out == pack_elements(*jencoder._marshal_layer12(*args)) + b"\x00"
     assert len(out) == -(-len(pcm) // E._frame_bytes(cfg)[0]) \
         * (E._Layer12Plan(cfg, 1).frame_bytes) + 1
 
@@ -220,29 +239,21 @@ def test_plain_pack_drops_bits_past_the_frame():
 
 
 def test_the_layer12_spans_in_a_trace(tmp_path):
-    """A trace of each route holds its stages under the JAX package's
-    names (runtime.profiling.SPANS_L12): the card chain's joint decision
-    runs inside K5, under greedy_allocation, and its back half under
+    """A trace of the chain holds its stages under the JAX package's
+    names (runtime.profiling.SPANS_L12): the joint decision runs inside
+    K5's plain version, under greedy_allocation, and the back half under
     _layer12_back."""
     from mp3tpu_torch.runtime.profiling import SPANS_L12, trace
     from mp3tpu_torch.tools.trace_stages import span_breakdown
     pcm, cfg = case_input(*FIXTURES[1])
-    want = {"card": ("analyze_frames", "greedy_allocation", "quantize_l2",
-                     "_marshal_layer12", "pack_elements", "fetch",
-                     "_layer12_frame", "upload", "_layer12_back",
-                     "_layer12_back.smr", "_layer12_quantize",
-                     "_fetch_frames"),
-            "host": ("analyze_frames", "joint_mode", "greedy_allocation",
-                     "quantize_l2", "_marshal_layer12", "pack_elements",
-                     "_layer12_frame", "upload", "_layer12_quantize")}
-    for route, fn in (("card", E.encode_layer12_fast),
-                      ("host", l12_host_route)):
-        with trace(str(tmp_path / route), "cpu"):
-            fn(pcm, cfg, "cpu")
-        spans = span_breakdown(str(tmp_path / route / "trace.json"),
-                               SPANS_L12)["spans"]
-        got = {n for n in SPANS_L12 if spans[n]["count"]}
-        assert got == set(want[route]), (route, got)
-        assert spans["quantize_l2"]["count"] == 2
-        assert all(spans[n]["count"] == 1 for n in want[route]
-                   if n != "quantize_l2"), route
+    want = ("analyze_frames", "greedy_allocation", "quantize_l2",
+            "_marshal_layer12", "pack_elements", "fetch", "_layer12_frame",
+            "upload", "_layer12_back", "_layer12_back.smr",
+            "_layer12_quantize", "_fetch_frames")
+    with trace(str(tmp_path), "cpu"):
+        E.encode_layer12_fast(pcm, cfg, "cpu")
+    spans = span_breakdown(str(tmp_path / "trace.json"), SPANS_L12)["spans"]
+    got = {n for n in SPANS_L12 if spans[n]["count"]}
+    assert got == set(want), got
+    assert spans["quantize_l2"]["count"] == 2
+    assert all(spans[n]["count"] == 1 for n in want if n != "quantize_l2")

@@ -165,7 +165,7 @@ def test_constants_match_the_cuda_source():
     assert float(const["kQMin"].rstrip("f")) == loop.QMIN
     assert float(const["kQMax"].rstrip("f")) == loop.QMAX
     assert int(const["kDownSteps"]) == 3
-    for entry in ("mp3_search", "mp3_search_baseline", "mp3_search_plan"):
+    for entry in ("mp3_search", "mp3_search_plan"):
         assert f"extern \"C\" int {entry}(" in src
     assert search.EXTRA_ROWS == ("qss", "evals", "status", "runs")
 

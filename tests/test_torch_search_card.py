@@ -381,23 +381,63 @@ def test_search_past_the_grid_shares_granules_out(card, width):
         assert not bool(search._counter(args[0].device).any())
 
 
+def k3_replayed(cache, kind, args, kwargs):
+    """K3 as a captured program through ``graphs.run`` (the rate loop's
+    mechanism: the key's first call runs eagerly and is captured, later
+    calls copy their inputs in and replay), on the graph stream; its
+    (qss, bits, counts) cloned."""
+    from mp3tpu_torch.ops import graphs
+    xr75p, budget, start, is_short, is_short_block, ST = args
+    dev = xr75p.device
+    inputs = dict(xr75p=xr75p, budget=budget, start=start,
+                  is_short=is_short, is_short_block=is_short_block,
+                  qss_lo=kwargs.get("qss_lo"))
+
+    def fn(s):
+        qss, _, c = run_search(kind, (
+            s["xr75p"], s["budget"], s["start"], s["is_short"],
+            s["is_short_block"], ST), {} if s["qss_lo"] is None
+            else {"qss_lo": s["qss_lo"]})
+        return dict(c, qss=qss)
+
+    def body():
+        entry, dropped = graphs.run(
+            cache, (kind, graphs.key_of(inputs, ST)), "iteration", inputs,
+            fn, graphs.cuda_graph(dev), search.device_buffers(dev))
+        return entry.outputs["iteration"], dropped
+
+    c = graphs.on_stream(dev, body,
+                         lambda out: {k: v.clone() for k, v in out.items()})
+    return c.pop("qss"), c["bits"], c
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", [c[0] for c in CASES])
-def test_baseline_matches_plain_on_card(card, name):
-    """K3's first design, kept as the baseline: the plain search's results,
-    counted apart from K3."""
-    kind, args, kwargs = case_args(search_case(name, 256, 41), card)
-    fn = search.baseline_stepsize if kind == "stepsize" \
-        else search.baseline_walk
-    before = (search.launches, search.baseline_launches)
-    got = fn(*args, **kwargs)
-    torch.cuda.synchronize()
-    assert (search.launches, search.baseline_launches) == (before[0],
-                                                           before[1] + 1)
-    assert "runs" not in got[2]
-    assert not search_mismatches(got, run_search(kind, args, kwargs,
-                                                 plain=True))
-    assert not bool(got[2]["status"].any())
+def test_k3_replayed_in_a_graph_matches_plain_on_card(card, name,
+                                                      monkeypatch):
+    """K3 captured in a graph and replayed on new inputs of its key (three
+    batches past the grid, so that the granule groups draw from the
+    counter): each call == the plain search on every output, status 0;
+    one K3 launch a call (the warm-up's, then the one the graph holds);
+    the counter back at zero after each replay."""
+    from mp3tpu_torch.ops import graphs
+    monkeypatch.setattr(graphs, "graph_counts", {
+        s: dict(captures=0, replays=0) for s in graphs.STAGES})
+    cache = graphs.GraphCache(2)
+    G = 9000
+    for seed in (41, 42, 43):
+        kind, args, kwargs = case_args(search_case(name, G, seed), card)
+        assert G > search.plan(G)["blocks"] * search.plan(G)["groups"]
+        before = search.launches
+        got = k3_replayed(cache, kind, args, kwargs)
+        torch.cuda.synchronize()
+        assert search.launches == before + 1
+        assert not bool(search._counter(card).any())
+        assert not search_mismatches(got, run_search(kind, args, kwargs,
+                                                     plain=True))
+        assert not bool(got[2]["status"].any())
+    assert len(cache) == 1
+    assert graphs.by_stage()["iteration"] == (1, 2)
 
 
 @pytest.mark.cuda
@@ -417,11 +457,11 @@ def test_plan_fills_the_card_at_512_lanes(card):
 @pytest.mark.cuda
 def test_loop_searches_launch_k3_not_bits_at(card):
     kind, args, kwargs = case_args(search_case("stepsize", 64, 5), card)
-    before = (search.launches, K.bits_at.launches, search.baseline_launches)
+    before = (search.launches, K.bits_at.launches)
     qss, bits, c = loop.search_stepsize(*args)
     loop.search_walk(args[0], args[1], qss, *args[3:])
-    assert (search.launches, K.bits_at.launches, search.baseline_launches) \
-        == (before[0] + 2, before[1], before[2])
+    assert (search.launches, K.bits_at.launches) == (before[0] + 2,
+                                                     before[1])
     assert bits is c["bits"]
 
 

@@ -72,7 +72,7 @@ WANT = {
         encode_segment_fused=0, scan_budgets=0,
         **dict.fromkeys(profiling.ON_RETRY, 0))),
     "encode_layer12_fast": (_layer12, profiling.SPANS_L12, dict(
-        dict.fromkeys(profiling.SPANS_L12, 1), joint_mode=0, quantize_l1=0,
+        dict.fromkeys(profiling.SPANS_L12, 1), quantize_l1=0,
         quantize_l2=2)),
 }
 
