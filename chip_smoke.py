@@ -2365,12 +2365,13 @@ def l12_analysis_check(ctx, pcm, cfg, label, seen):
     dtype, capture ms)]}; fails if an output differs."""
     torch, E, np = ctx["torch"], ctx["E"], ctx["np"]
     from mp3tpu_torch.ops import layer12 as L12
-    P, x = E._layer12_frame(pcm, cfg)
+    dev = torch.device("cuda")
+    P, x = E._layer12_frame(pcm, cfg, dev)
     dtype = torch.int16 if x.dtype == np.int16 else torch.float32
     args = (P.layer, P.sblimit, P.nch, P.sfreq_hz)
     before = ctx["graphs"].by_stage()["l12_analysis"]
     for call in range(2):
-        t = E._to_device(x, dtype, torch.device("cuda"))
+        t = E._layer12_upload(x, dev)
         got = L12.analyze_frames(t, *args)
         want = L12.analyze_frames_eager(t, *args)
         bad = [k for k in want if not torch.equal(got[k], want[k])]

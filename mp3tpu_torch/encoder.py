@@ -28,7 +28,9 @@ exit syncs are ``ops/loop.any_on_host.syncs`` and the host scans'
 downloads ``ops/resv.host_scans``.  ``float_frames`` counts the clips
 framed through the float sanitizing path; an int16 clip is copied once,
 from the caller's array into the segments' pinned buffers
-(``fill_granules``).
+(``fill_granules``).  A Layer I/II item is copied once too, into the
+pinned buffer that is uploaded (``_layer12_frame``; float input counted
+in ``float_frames_l12``).
 
 Layers I/II (``encode_layer12_fast``, ``encode_layer12_stream``): one
 chain queued on the device -- the analysis (one CUDA graph a frame
@@ -84,6 +86,9 @@ retry_fetches = 0
 #: sanitizing path (any input that is not int16); counted under
 #: ``_FLOAT_FRAMES_LOCK``, since ``encode_corpus`` frames from threads
 float_frames = 0
+#: Layer I/II items that ``_layer12_frame`` framed as float32 (any input
+#: that is not int16), under the same lock
+float_frames_l12 = 0
 _FLOAT_FRAMES_LOCK = threading.Lock()
 
 
@@ -727,25 +732,38 @@ class _Layer12Plan:
 
 
 @span("_layer12_frame")
-def _layer12_frame(pcm, cfg):
-    """(plan, PCM as (nch, F * spf) padded to whole frames): int16 PCM
-    stays int16 (one transposing copy); any other dtype becomes float32,
-    as the JAX package frames it (a float PCM is never cast to int16)."""
+def _layer12_frame(pcm, cfg, dev=None):
+    """(plan, PCM as (nch, F * spf) padded to whole frames): a numpy view
+    of the host tensor that ``_layer12_upload`` uploads, pinned for a
+    CUDA `dev` (the view keeps the tensor alive).  The clip crosses host
+    memory once, from the caller's array into the buffer (for (samples,
+    channels) input a transposing copy), and only the tail past its last
+    sample is zeroed.  int16 PCM stays int16; any other dtype becomes
+    float32 in that same copy (counted in ``float_frames_l12``), as the
+    JAX package frames it (a float PCM is never cast to int16)."""
+    global float_frames_l12
     cfg.finalize()
     if cfg.layer not in (1, 2):
         raise ValueError("Layer I/II encodes take layer 1 or 2")
     pcm = np.atleast_2d(np.asarray(pcm))
-    if pcm.dtype != np.int16:
-        pcm = pcm.astype(np.float32)
     if pcm.shape[0] > pcm.shape[1]:
         pcm = pcm.T
     if pcm.shape[0] != cfg.nchannels:
         raise ValueError(f"pcm has {pcm.shape[0]} channels, config "
                          f"{cfg.nchannels}")
+    n = pcm.shape[1]
     spf = _frame_bytes(cfg)[0]
-    P = _Layer12Plan(cfg, int(np.ceil(pcm.shape[1] / spf)))
-    framed = np.zeros((P.nch, P.F * spf), pcm.dtype)
-    framed[:, :pcm.shape[1]] = pcm
+    P = _Layer12Plan(cfg, -(-n // spf))
+    dtype = torch.int16
+    if pcm.dtype != np.int16:
+        dtype = torch.float32
+        with _FLOAT_FRAMES_LOCK:
+            float_frames_l12 += 1
+    host = torch.empty((P.nch, P.F * spf), dtype=dtype,
+                       pin_memory=dev is not None and dev.type == "cuda")
+    framed = host.numpy()
+    framed[:, :n] = pcm
+    framed[:, n:] = 0
     return P, framed
 
 
@@ -758,11 +776,12 @@ def _to_device(arr, dtype, dev):
     return upload(host, dev)
 
 
+@span("upload")
 def _layer12_upload(pcm, dev):
-    """The framed PCM on `dev`, uploaded once in its own dtype (int16:
-    half the bytes of float32)."""
-    return _to_device(pcm, torch.int16 if pcm.dtype == np.int16
-                      else torch.float32, dev)
+    """The framed PCM on `dev` in its own dtype (int16: half the bytes of
+    float32), uploaded from the array itself: from ``_layer12_frame``'s
+    pinned buffer the copy is queued and the host does not wait."""
+    return upload(torch.from_numpy(pcm), dev)
 
 
 def _layer12_analysis(pcm, P, dev):
@@ -897,13 +916,14 @@ def _fetch_frames(buf):
 
 def encode_layer12_fast(pcm, cfg: EncoderConfig, device):
     """Layer I/II encode of int16 PCM on `device`, as one chain queued on
-    the device: the PCM uploaded once (int16 PCM as int16, any other as
-    float32), the analysis (filterbank, psy model 2, scale factors, scfsi:
-    ``ops/layer12.py``), K5 (the joint decision and the greedy bit
-    allocation, ``ops/alloc12.py``), the quantizers, the element
-    marshalling (``marshal_frames``) and K6 (every frame packed into its
-    fixed byte range with its CRC, ``ops/pack12.py``); then the bytes and
-    K6's status come back in one download.  On a CUDA device with psy
+    the device: the PCM copied once into a pinned buffer and uploaded
+    from it (int16 PCM as int16, any other as float32), the analysis
+    (filterbank, psy model 2, scale factors, scfsi: ``ops/layer12.py``),
+    K5 (the joint decision and the greedy bit allocation,
+    ``ops/alloc12.py``), the quantizers, the element marshalling
+    (``marshal_frames``) and K6 (every frame packed into its fixed byte
+    range with its CRC, ``ops/pack12.py``); then the bytes and K6's
+    status come back in one download.  On a CUDA device with psy
     model 2 the chain replays two CUDA graphs of one key, the analysis and
     the back half (``_layer12_replayed``), and the host waits once an
     encode; with psy model 1, which runs on the host (the subband samples
@@ -917,7 +937,7 @@ def encode_layer12_fast(pcm, cfg: EncoderConfig, device):
     float32 split-radix can move allocation ties; streams stay valid and
     decoded quality equal."""
     dev = resolve_device(device)
-    P, pcm = _layer12_frame(pcm, cfg)
+    P, pcm = _layer12_frame(pcm, cfg, dev)
     route = (_layer12_replayed if dev.type == "cuda" and cfg.psy_model == 2
              else _layer12_eager)
     return _fetch_frames(route(pcm, cfg, P, dev)) + b"\x00"

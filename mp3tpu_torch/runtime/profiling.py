@@ -78,9 +78,10 @@ SPANS_SHARDED = ("sharded analyze+demand", "sharded final encode",
 #: package's function names (``mp3tpu/encoder.py:729``) -- the joint
 #: decision runs inside K5 (or its plain version), under
 #: ``greedy_allocation`` -- then the host work around
-#: them: ``_layer12_frame`` (the PCM to (nch, F * spf), int16 kept),
-#: ``upload`` (the framed PCM through a pinned buffer; psy model 1's SMR
-#: too), ``_layer12_back`` (the back half, from the analysis outputs to
+#: them: ``_layer12_frame`` (the PCM copied once into the pinned buffer
+#: of (nch, F * spf) that is uploaded, int16 kept), ``upload`` (that
+#: buffer's queued upload; psy model 1's SMR through a pinned buffer of
+#: its own), ``_layer12_back`` (the back half, from the analysis outputs to
 #: K6's buffer: op by op, around the spans of the SMR, K5, the quantizers,
 #: the marshalling and K6; on a CUDA device with psy model 2 the back
 #: half's graph replayed and K6's buffer copied out, after the analysis'

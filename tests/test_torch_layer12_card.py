@@ -8,8 +8,10 @@ frame) against their plain versions, the card route of
 on the CPU), the captured analysis against its op-by-op form, the replayed
 chain (the analysis and the back half as two graphs of one key) against
 the op-by-op chain (``tools.yardstick_form``), K5's and K6's launches
-counted in each replay, one host wait an encode, and a malformed frame
-that raises.
+counted in each replay, one host wait an encode, a malformed frame
+that raises, items of 60, 10 and 60 s framed into pinned blocks full of
+garbage (each its fresh process's bytes), and a pinned upload buffer
+kept from the next item until its queued copy has run.
 
 The module also holds a lane-level model of the lockstep walk
 (``model_frame``: the warp's argmin as five xor-shuffle rounds over (value,
@@ -667,6 +669,98 @@ def test_replayed_chain_equals_the_op_by_op_chain(card, fresh, case):
         assert got == want, (seconds, offset)
     assert fresh.by_stage()["l12_analysis"] == (1, 2)
     assert fresh.by_stage()["l12_back"] == (1, 2)
+
+
+#: a fresh process's encode of one item: argv the .npy of its PCM and the
+#: file for its bytes
+FRESH_ENCODE = (
+    "import sys, numpy as np\n"
+    "from mp3tpu_torch import encoder as E\n"
+    "from mp3tpu_torch.config import EncoderConfig\n"
+    "from mp3tpu_torch.tables import mpeg\n"
+    "cfg = EncoderConfig(layer=2, mode=mpeg.MODE_JOINT, bitrate_kbps=192,"
+    " sample_rate_hz=48000, error_protection=True)\n"
+    "out = E.encode_layer12_fast(np.load(sys.argv[1]), cfg, 'cuda')\n"
+    "open(sys.argv[2], 'wb').write(out)\n")
+
+
+class DirtyPinned:
+    """``torch`` for the encoder module, but every pinned int16 buffer
+    that it hands out comes back full of garbage, as a block that held
+    another item's PCM would; notes each one's shape and whether it is
+    pinned."""
+
+    def __init__(self):
+        self.seen = []
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+    def empty(self, *args, **kw):
+        t = torch.empty(*args, **kw)
+        if kw.get("pin_memory") and t.dtype == torch.int16:
+            t.fill_(0x5A5A)
+            self.seen.append((tuple(t.shape), t.is_pinned()))
+        return t
+
+
+@pytest.mark.cuda
+def test_items_in_a_reused_pinned_block_give_their_own_bytes(card, fresh,
+                                                             tmp_path,
+                                                             monkeypatch):
+    """Items of 60, 10 and 60 s in turn on the replayed route, each a
+    row-strided (nch, n) view of a master as a spots item is, framed
+    straight into a pinned buffer that holds garbage (the second 60 s
+    item, shorter than the first in as many frames, may get the first's
+    block): every item's bytes are a fresh process's bytes for it and
+    ``host_back_half``'s."""
+    import subprocess
+    cfg = dab()
+    rate = cfg.sample_rate_hz
+    master = np.ascontiguousarray(signal(cfg, 90).T)
+    items = [master[:, int(o * rate):int((o + s) * rate) + k]
+             for o, s, k in ((0.0, 60, 1000), (3.0, 10, 7), (21.0, 60, 7))]
+    dirty = DirtyPinned()
+    monkeypatch.setattr(E, "torch", dirty)
+    got = [E.encode_layer12_fast(pcm, cfg, "cuda") for pcm in items]
+    monkeypatch.setattr(E, "torch", torch)
+    assert dirty.seen == [((2, -(-pcm.shape[1] // 1152) * 1152), True)
+                          for pcm in items]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root, OMP_NUM_THREADS="1")
+    for k, pcm in enumerate(items):
+        np.save(tmp_path / f"{k}.npy", pcm)
+        res = subprocess.run([sys.executable, "-c", FRESH_ENCODE,
+                              str(tmp_path / f"{k}.npy"),
+                              str(tmp_path / f"{k}.mp3")],
+                             cwd=root, env=env, capture_output=True,
+                             text=True, timeout=600)
+        assert res.returncode == 0, res.stderr[-2000:]
+        assert got[k] == (tmp_path / f"{k}.mp3").read_bytes(), k
+        assert got[k] == host_back_half(pcm, cfg), k
+
+
+@pytest.mark.cuda
+def test_a_pinned_buffer_waits_for_its_queued_upload(card):
+    """``_layer12_frame``'s buffer for the card is pinned and
+    ``_layer12_upload`` queues its copy without a wait.  Dropped while the
+    stream is held, the buffer's block is not handed to the next item
+    (the caching host allocator's event), and the copy, once it runs,
+    reads the first item's PCM, not the next one's."""
+    cfg = dab()
+    a, b = signal(cfg, 10), signal(cfg, 10, offset=5.0)
+    P, x = E._layer12_frame(a, cfg, card)
+    first, want = x.ctypes.data, torch.from_numpy(x.copy())
+    assert torch.from_numpy(x).is_pinned()
+    torch.cuda._sleep(1_000_000_000)
+    up = E._layer12_upload(x, card)
+    del x
+    assert not torch.cuda.current_stream().query()
+    _, y = E._layer12_frame(b, cfg, card)
+    assert y.ctypes.data != first
+    torch.cuda.synchronize()
+    assert torch.equal(up.cpu(), want)
+    assert not torch.equal(want, torch.from_numpy(y))
 
 
 @pytest.mark.cuda

@@ -12,9 +12,11 @@ data, no op across devices); run the captured host side
 (``graphs.run``) with a stand-in capture against the op-by-op form
 (``analyze_frames_eager``) call after call, its outputs never in a
 replay's pool; check what changes the key; hold int16 framing to the
-float32 path's outputs and bytes, and a float PCM to float32; and hold
-the int16 analysis to the JAX function fed the same values as float32,
-within tests/test_torch_layer12.py's tolerances.
+float32 path's outputs and bytes, and a float PCM to float32; hold the
+one copy into the upload buffer to the zeroed array it replaced, with
+garbage left in the buffer before framing never reaching the bytes;
+and hold the int16 analysis to the JAX function fed the same values as
+float32, within tests/test_torch_layer12.py's tolerances.
 
 With psy model 2 the back half (the SMR, K5, the quantizers,
 ``marshal_frames``, K6) is a second graph of the analysis' entry
@@ -220,6 +222,104 @@ def test_int16_and_float32_pcm_give_the_same_bytes(layer, mode, kbps):
         assert L12.analyze_frames is L12.analyze_frames_eager
         assert encode(pcm) == out
     assert L12.analyze_frames is not L12.analyze_frames_eager
+
+
+def frame_as_before(pcm, spf):
+    """The framing that ``_layer12_frame`` replaced, restated: float input
+    cast to float32, transposed to (nch, n), then a zeroed array of whole
+    frames with the clip copied in.  (frames, framed array)."""
+    pcm = np.atleast_2d(np.asarray(pcm))
+    if pcm.dtype != np.int16:
+        pcm = pcm.astype(np.float32)
+    if pcm.shape[0] > pcm.shape[1]:
+        pcm = pcm.T
+    F = int(np.ceil(pcm.shape[1] / spf))
+    framed = np.zeros((pcm.shape[0], F * spf), pcm.dtype)
+    framed[:, :pcm.shape[1]] = pcm
+    return F, framed
+
+
+class GarbageTorch:
+    """``torch`` for the encoder module, but every int16 or float32
+    ``empty`` comes back filled with non-zero garbage (NaN for float32):
+    a framing that leaves any sample of its buffer unwritten shows."""
+
+    def __init__(self):
+        self.filled = []
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+    def empty(self, *args, **kw):
+        t = torch.empty(*args, **kw)
+        if t.dtype in (torch.int16, torch.float32):
+            t.fill_(float("nan") if t.is_floating_point() else 0x5A5A)
+            self.filled.append(tuple(t.shape))
+        return t
+
+
+#: (layer, mode, the clip (nch, n) from a signal and n) of the framing
+#: cases: int16 channels first, samples first, a row-strided view of a
+#: longer master (as a spots item arrives), float64, mono 1-d, Layer I
+L12_FRAMINGS = {
+    "int16_channels_first": (2, mpeg.MODE_STEREO, lambda s, n: s[:, :n]),
+    "int16_samples_first": (2, mpeg.MODE_JOINT, lambda s, n: s[:, :n].T),
+    "int16_view_of_master": (2, mpeg.MODE_JOINT,
+                             lambda s, n: s[:, 517:517 + n]),
+    "float64": (2, mpeg.MODE_STEREO,
+                lambda s, n: s[:, :n].T.astype(np.float64) + 0.25),
+    "mono_1d": (2, mpeg.MODE_MONO, lambda s, n: s[0, :n]),
+    "layer1_int16": (1, mpeg.MODE_JOINT, lambda s, n: s[:, :n].T),
+}
+
+
+@pytest.mark.parametrize("off", [0, 1, -1], ids=["whole", "plus1", "minus1"])
+@pytest.mark.parametrize("case", L12_FRAMINGS)
+def test_framing_copies_once_into_the_upload_buffer(case, off, monkeypatch):
+    """``_layer12_frame`` into a buffer full of garbage gives the array,
+    dtype and shape of the framing it replaced (zeros to whole frames),
+    on clips that end on a frame boundary, one sample past one and one
+    sample short of one; float input counts in ``float_frames_l12`` and
+    int16 input does not; the buffer's upload has the framed dtype."""
+    layer, mode, clip = L12_FRAMINGS[case]
+    spf = 384 if layer == 1 else 1152
+    master = pcm_of(layer, 2, 8).numpy()
+    pcm = clip(master, 3 * spf + off)
+    cfg = EncoderConfig(layer=layer, mode=mode, bitrate_kbps=192,
+                        sample_rate_hz=48000)
+    garbage = GarbageTorch()
+    monkeypatch.setattr(E, "torch", garbage)
+    f0 = E.float_frames_l12
+    P, x = E._layer12_frame(pcm, cfg)
+    F, want = frame_as_before(pcm, spf)
+    assert garbage.filled == [want.shape]
+    assert P.F == F and x.dtype == want.dtype and x.shape == want.shape
+    np.testing.assert_array_equal(x, want)
+    assert E.float_frames_l12 - f0 == (pcm.dtype != np.int16)
+    up = E._layer12_upload(x, torch.device("cpu"))
+    assert up.dtype == torch.from_numpy(want).dtype
+    assert torch.equal(up, torch.from_numpy(want))
+
+
+@pytest.mark.parametrize("case", ["int16_samples_first",
+                                  "int16_view_of_master", "float64",
+                                  "mono_1d", "layer1_int16"])
+def test_framing_into_garbage_gives_the_same_bytes(case, monkeypatch):
+    """``encode_layer12_fast`` with every int16 and float32 buffer that
+    the encoder allocates pre-filled with garbage gives the bytes of an
+    encode into fresh buffers: only the tail past the clip's last sample
+    needs zeroing, and it is zeroed."""
+    layer, mode, clip = L12_FRAMINGS[case]
+    spf = 384 if layer == 1 else 1152
+    pcm = clip(pcm_of(layer, 2, 8, seed=3).numpy(), 4 * spf + 5)
+    cfg = EncoderConfig(layer=layer, mode=mode,
+                        bitrate_kbps=64 if mode == mpeg.MODE_MONO else 192,
+                        sample_rate_hz=48000)
+    want = E.encode_layer12_fast(pcm, cfg, "cpu")
+    garbage = GarbageTorch()
+    monkeypatch.setattr(E, "torch", garbage)
+    assert E.encode_layer12_fast(pcm, cfg, "cpu") == want
+    assert (1 if mode == mpeg.MODE_MONO else 2, 5 * spf) in garbage.filled
 
 
 @pytest.mark.parametrize("case", CASES)
